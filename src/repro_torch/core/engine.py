@@ -1,0 +1,669 @@
+"""Generic distributed-round engine: ClientLoop × SyncStrategy × ServerUpdate
+(counterpart of ``repro/core/engine.py``).
+
+Every method is one configuration of three layers:
+
+  * **ClientLoop**   — H local steps on each of M clients. Where the
+    reference runs ``vmap`` over M inside a ``lax.scan`` over H, this runs a
+    Python loop over H with a loop over clients inside; the clients never
+    exchange data within the round. The update is plain SGD, heavy-ball, or
+    locally scaled via ``preconditioner.py``. With ``use_fused_kernel`` the
+    client state rides as per-client flat fp32 buffers ``(M, n)`` and each
+    local step is one launch of the fused kernel
+    (``kernels.ops.fused_local_step``) for every D̂ rule.
+  * **SyncStrategy** — the weighted mean of the clients, optionally through a
+    low-precision ``sync_dtype``.
+  * **ServerUpdate** — identity averaging (Algorithm 1) or an adaptive m/v
+    server step (FedAdaGrad / FedAdam / FedYogi, Algorithm 2 of [42]).
+
+State: ``{"params": (M, ...), "mom": (M, ...), "precond": {...}, "round":
+int32[, "server": {"m", "v"}]}``; global D and the server's m/v carry no M
+dim. After a sync every client holds the same value, so ``params`` leaves
+are ``expand``-ed views of one replica (no M-fold copy); nothing writes into
+state tensors in place.
+
+Not ported yet, and raising ``NotImplementedError`` when ``build_round_step``
+is called: compression, async buffers, per-client H_m (``local_steps``), the
+controller, non-identity objectives, personalization, ``participation < 1``,
+server m/v compression and the Hutchinson kinds (oasis, adahessian). The
+last two need an rng interface that replays the reference's draws.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.core import preconditioner as PC
+from repro_torch.core.preconditioner import PrecondConfig
+from repro_torch.utils.flatten import FlatLayout, all_float32
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
+
+
+def _torch_dtype(name: str):
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"sync_dtype {name!r} is not a dtype")
+    return dt
+
+
+# --------------------------------------------------------------------------- #
+# Specs — one frozen dataclass per layer
+# --------------------------------------------------------------------------- #
+
+
+@dataclasses.dataclass(frozen=True)
+class ClientLoopSpec:
+    """H local steps per client: x ← x − lr·D̂⁻¹m,  m ← momentum·m + g."""
+    lr: float = 0.1                # local step size (γ of Alg. 1, η_l of [42])
+    momentum: float = 0.0          # heavy-ball β₁ on the client
+    scaling: str = "global"        # "global" (D̂ updated at sync) | "local"
+    # D-stat at sync for global scaling: "avg_grad" (from the client-averaged
+    # sync gradient) | "avg_local" (average of per-client stats)
+    stat_source: str = "avg_grad"
+    weight_decay: float = 0.0
+    grad_clip: float = 0.0         # global-norm clip per local step (0 = off)
+    use_fused_kernel: bool = False # one fused kernel launch per local step
+    reset_momentum: bool = False   # zero m at round start (FedOpt clients)
+    local_steps: Optional[tuple] = None  # per-client H_m (not ported)
+
+    def __post_init__(self):
+        if self.scaling not in ("global", "local"):
+            raise ValueError(self.scaling)
+        if self.local_steps is not None:
+            hs = tuple(int(h) for h in self.local_steps)
+            if not hs or any(h < 1 for h in hs):
+                raise ValueError(f"local_steps must be a non-empty tuple of "
+                                 f"ints >= 1, got {self.local_steps!r}")
+            object.__setattr__(self, "local_steps", hs)
+
+
+COMPRESSION_OPS = ("none", "topk", "randk", "int8-stochastic")
+
+
+@dataclasses.dataclass(frozen=True)
+class CompressionSpec:
+    """Compression of the client→server round delta (not ported yet; only
+    the identity spec builds)."""
+    op: str = "none"
+    k: float = 1.0                 # kept fraction per leaf (topk / randk)
+    error_feedback: bool = False   # EF residual buffer
+    use_fused_kernel: bool = False # K3 quantize_update (int8-stochastic)
+
+    def __post_init__(self):
+        if self.op not in COMPRESSION_OPS:
+            raise ValueError(
+                f"compression op {self.op!r}; expected one of {COMPRESSION_OPS}")
+        if not 0.0 < self.k <= 1.0:
+            raise ValueError(f"compression k={self.k}; expected 0 < k <= 1")
+
+    def is_identity(self) -> bool:
+        return self.op == "none" or (self.op in ("topk", "randk")
+                                     and self.k >= 1.0)
+
+
+STALENESS_WEIGHTINGS = ("constant", "polynomial")
+
+
+@dataclasses.dataclass(frozen=True)
+class AsyncSpec:
+    """FedBuff-style server staleness buffer (not ported yet; only
+    ``buffer_rounds = 0`` builds)."""
+    buffer_rounds: int = 0
+    weighting: str = "constant"
+    poly_a: float = 0.5
+
+    def __post_init__(self):
+        if int(self.buffer_rounds) != self.buffer_rounds \
+                or self.buffer_rounds < 0:
+            raise ValueError(f"buffer_rounds={self.buffer_rounds}; expected "
+                             f"an int >= 0")
+        object.__setattr__(self, "buffer_rounds", int(self.buffer_rounds))
+        if self.weighting not in STALENESS_WEIGHTINGS:
+            raise ValueError(f"staleness weighting {self.weighting!r}; "
+                             f"expected one of {STALENESS_WEIGHTINGS}")
+        if self.poly_a <= 0.0:
+            raise ValueError(f"poly_a={self.poly_a}; expected > 0")
+
+    def is_identity(self) -> bool:
+        return self.buffer_rounds == 0
+
+
+@dataclasses.dataclass(frozen=True)
+class SyncSpec:
+    """The weighted, optionally quantized sync average."""
+    participation: float = 1.0     # fraction of clients entering the average
+    sync_dtype: str = ""           # all-reduce dtype ("" = full precision)
+    average_momentum: bool = True  # also average momentum buffers at sync
+    compression: CompressionSpec = CompressionSpec()
+    asynchrony: AsyncSpec = AsyncSpec()
+    personal: tuple = ()           # client-resident leaf path patterns
+
+    def __post_init__(self):
+        if not 0.0 < self.participation <= 1.0:
+            raise ValueError(f"participation={self.participation}; "
+                             f"expected 0 < p <= 1")
+        if isinstance(self.personal, str):
+            raise ValueError(f"personal={self.personal!r}; expected a tuple "
+                             f"of path-substring patterns, not a bare string")
+        pats = tuple(self.personal) if self.personal else ()
+        if not all(isinstance(p, str) and p for p in pats):
+            raise ValueError(f"personal={self.personal!r}; expected a tuple "
+                             f"of non-empty path-substring patterns")
+        object.__setattr__(self, "personal", pats)
+        if self.sync_dtype:
+            _torch_dtype(self.sync_dtype)
+        if not isinstance(self.compression, CompressionSpec):
+            raise ValueError(f"compression must be a CompressionSpec, got "
+                             f"{type(self.compression).__name__}")
+        if not isinstance(self.asynchrony, AsyncSpec):
+            raise ValueError(f"asynchrony must be an AsyncSpec, got "
+                             f"{type(self.asynchrony).__name__}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ServerSpec:
+    """What the server does with the sync average."""
+    kind: str = "average"          # "average" (Alg. 1) | "adaptive" ([42])
+    opt: str = "adam"              # adagrad | adam | yogi   (adaptive only)
+    eta: float = 0.1               # server lr η
+    beta1: float = 0.9
+    beta2: float = 0.999
+    tau: float = 1e-3              # adaptivity floor τ
+    v_init: Optional[float] = None # v_{-1}; default τ² (the §5.2 pain point)
+    sync_dtype: str = ""           # m/v sync dtype (not ported)
+    sync_k: float = 1.0            # kept fraction of m/v (not ported)
+
+    def __post_init__(self):
+        if self.kind not in ("average", "adaptive"):
+            raise ValueError(self.kind)
+        if self.kind == "adaptive" and self.opt not in ("adagrad", "adam",
+                                                        "yogi"):
+            raise ValueError(self.opt)
+        if not 0.0 < self.sync_k <= 1.0:
+            raise ValueError(f"sync_k={self.sync_k}; expected 0 < k <= 1")
+        if self.sync_dtype:
+            _torch_dtype(self.sync_dtype)
+        if self.kind == "average" and not self.sync_identity():
+            raise ValueError("server sync_dtype/sync_k compress the adaptive "
+                             "m/v state; an averaging server has none")
+
+    def sync_identity(self) -> bool:
+        return not self.sync_dtype and self.sync_k >= 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineSpec:
+    client: ClientLoopSpec = ClientLoopSpec()
+    sync: SyncSpec = SyncSpec()
+    server: ServerSpec = ServerSpec()
+    precond: PrecondConfig = PrecondConfig(kind="identity")
+    controller: object = None      # the controller is not ported yet
+
+
+# --------------------------------------------------------------------------- #
+# Method presets
+# --------------------------------------------------------------------------- #
+
+METHODS = ("savic", "fedavg", "fedadagrad", "fedadam", "fedyogi", "local-adam")
+
+
+def method_spec(method: str, *, pc_kind: str = "adam", alpha: float = 1e-2,
+                gamma: float = 3e-4, beta1: float = 0.9, scaling: str = "global",
+                eta: float = 0.1, eta_l: float = 0.05, tau: float = 1e-3,
+                server_beta1: float = 0.9, server_beta2: float = 0.999,
+                v_init: Optional[float] = None,
+                participation: float = 1.0, sync_dtype: str = "",
+                compression="none", compression_k: float = 1.0,
+                error_feedback: bool = False,
+                local_steps: Optional[tuple] = None,
+                asynchrony=None, async_buffer: int = 0,
+                staleness_weight: str = "constant",
+                server_sync_dtype: str = "", server_sync_k: float = 1.0,
+                controller=None, personal: tuple = (),
+                use_fused_kernel: bool = False) -> EngineSpec:
+    """Canonical EngineSpec for each named method (same presets and defaults
+    as the reference's ``method_spec``).
+
+    savic       Algorithm 1: locally-scaled heavy-ball clients, plain average.
+    fedavg      plain Local SGD clients (no momentum), plain average.
+    fedadagrad / fedadam / fedyogi
+                Algorithm 2 of [42]: plain SGD clients (momentum reset each
+                round), adaptive server on the pseudo-gradient Δ.
+    local-adam  locally-scaled clients (per-client D updated every step) AND
+                an adaptive Adam server.
+    """
+    comp = compression if isinstance(compression, CompressionSpec) \
+        else CompressionSpec(op=compression, k=compression_k,
+                             error_feedback=error_feedback,
+                             use_fused_kernel=use_fused_kernel)
+    asy = asynchrony if isinstance(asynchrony, AsyncSpec) \
+        else AsyncSpec(buffer_rounds=async_buffer, weighting=staleness_weight)
+    sync = SyncSpec(participation=participation, sync_dtype=sync_dtype,
+                    compression=comp, asynchrony=asy)
+    if method == "savic":
+        # one source of truth for the SAVIC composition (lazy: savic
+        # imports this module)
+        from repro_torch.core.savic import SavicConfig, engine_spec
+        spec = engine_spec(
+            PrecondConfig(kind=pc_kind, alpha=alpha),
+            SavicConfig(gamma=gamma, beta1=beta1, scaling=scaling,
+                        use_fused_kernel=use_fused_kernel,
+                        participation=participation, sync_dtype=sync_dtype,
+                        compression=comp, local_steps=local_steps,
+                        asynchrony=asy))
+    elif method == "fedavg":
+        spec = EngineSpec(
+            client=ClientLoopSpec(lr=eta_l, momentum=0.0,
+                                  use_fused_kernel=use_fused_kernel,
+                                  local_steps=local_steps),
+            sync=dataclasses.replace(sync, average_momentum=False),
+            server=ServerSpec(kind="average"),
+            precond=PrecondConfig(kind="identity"))
+    elif method in ("fedadagrad", "fedadam", "fedyogi"):
+        spec = EngineSpec(
+            client=ClientLoopSpec(lr=eta_l, momentum=0.0, reset_momentum=True,
+                                  use_fused_kernel=use_fused_kernel,
+                                  local_steps=local_steps),
+            sync=dataclasses.replace(sync, average_momentum=False),
+            server=ServerSpec(kind="adaptive", opt=method[3:], eta=eta,
+                              beta1=server_beta1, beta2=server_beta2, tau=tau,
+                              v_init=v_init, sync_dtype=server_sync_dtype,
+                              sync_k=server_sync_k),
+            precond=PrecondConfig(kind="identity"))
+    elif method == "local-adam":
+        spec = EngineSpec(
+            client=ClientLoopSpec(lr=eta_l, momentum=beta1, scaling="local",
+                                  use_fused_kernel=use_fused_kernel,
+                                  local_steps=local_steps),
+            sync=dataclasses.replace(sync, average_momentum=False),
+            server=ServerSpec(kind="adaptive", opt="adam", eta=eta,
+                              beta1=server_beta1, beta2=server_beta2, tau=tau,
+                              v_init=v_init, sync_dtype=server_sync_dtype,
+                              sync_k=server_sync_k),
+            precond=PrecondConfig(kind=pc_kind, alpha=alpha))
+    else:
+        raise ValueError(f"method {method}; expected one of {METHODS}")
+    if spec.server.kind == "average" and (server_sync_dtype
+                                          or server_sync_k < 1.0):
+        raise ValueError(f"{method} has an averaging server: no adaptive "
+                         f"m/v state to compress")
+    if controller is not None:
+        spec = dataclasses.replace(spec, controller=controller)
+    if personal:
+        spec = dataclasses.replace(
+            spec, sync=dataclasses.replace(spec.sync,
+                                           personal=tuple(personal)))
+    return spec
+
+
+def _unported(spec: EngineSpec, objective) -> list:
+    """The parts of ``spec`` this slice of the port cannot run."""
+    cl, sy, sv, pc = spec.client, spec.sync, spec.server, spec.precond
+    out = []
+    if not sy.compression.is_identity():
+        out.append(f"compression {sy.compression.op!r}")
+    if not sy.asynchrony.is_identity():
+        out.append("async staleness buffer")
+    if cl.local_steps is not None:
+        out.append("per-client local_steps (H_m masking)")
+    if spec.controller is not None:
+        out.append("controller")
+    if objective is not None:
+        out.append("client objectives")
+    if sy.personal:
+        out.append("personalization")
+    if sy.participation < 1.0:
+        out.append("participation < 1 (needs the rng interface)")
+    if not sv.sync_identity():
+        out.append("server m/v sync compression")
+    if pc.uses_hutchinson:
+        out.append(f"Hutchinson kind {pc.kind!r} (needs the rng interface)")
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# State
+# --------------------------------------------------------------------------- #
+
+
+def _replicate(p, n_clients):
+    """(M, ...) view of one replica: every client reads the same storage."""
+    return p.unsqueeze(0).expand((n_clients,) + tuple(p.shape))
+
+
+def init_state(generator, init_params_fn, spec: EngineSpec, n_clients: int):
+    """x_0^m = x_0 (identical start). Server m/v shaped like one replica.
+    ``init_params_fn(generator)`` makes the params on the generator's
+    device."""
+    params = init_params_fn(generator)
+    params_m = tree_map(lambda p: _replicate(p, n_clients), params)
+    mom = tree_map(lambda p: torch.zeros(p.shape, dtype=p.dtype,
+                                         device=p.device), params_m)
+    if spec.client.scaling == "local":
+        pstate = PC.init_state(spec.precond, params_m)  # per-client D (M dim)
+        if "d" in pstate:
+            pstate["t"] = torch.zeros((n_clients,), dtype=torch.int32,
+                                      device=pstate["t"].device)
+    else:
+        pstate = PC.init_state(spec.precond, params)    # global D (no M dim)
+    dev = tree_leaves(params)[0].device
+    state = {"params": params_m, "mom": mom, "precond": pstate,
+             "round": torch.zeros((), dtype=torch.int32, device=dev)}
+    if spec.server.kind == "adaptive":
+        v0 = spec.server.v_init if spec.server.v_init is not None \
+            else spec.server.tau ** 2
+        state["server"] = {"m": tree_map(torch.zeros_like, params),
+                           "v": tree_map(lambda p: torch.full_like(p, v0),
+                                         params)}
+    return state
+
+
+def average_params(state):
+    """The server/averaged point x̂ (clients are identical post-sync)."""
+    return tree_map(lambda p: p[0], state["params"])
+
+
+def client_drift(params_m):
+    """(1/M)Σ‖x^m − x̂‖², the V_t of the analysis (0 right after sync)."""
+    def per_leaf(p):
+        return torch.sum((p - p.mean(dim=0, keepdim=True)) ** 2)
+    return sum(per_leaf(p) for p in tree_leaves(params_m))
+
+
+# --------------------------------------------------------------------------- #
+# ClientLoop
+# --------------------------------------------------------------------------- #
+
+
+def _sqnorm(leaves):
+    return sum(torch.dot(g.reshape(-1), g.reshape(-1)) for g in leaves)
+
+
+def _clip(grads, max_norm):
+    if not max_norm:
+        return grads
+    nrm = torch.sqrt(_sqnorm(tree_leaves(grads)) + 1e-12)
+    scale = torch.clamp_max(max_norm / nrm, 1.0)
+    return tree_map(lambda g: g * scale, grads)
+
+
+def _apply_update(params, mom, grads, pstate, spec: EngineSpec):
+    """x ← x − lr·D̂⁻¹m,  m ← momentum·m + g   (heavy-ball, scaled)."""
+    cl, pc = spec.client, spec.precond
+    g = grads
+    if cl.weight_decay:
+        g = tree_map(lambda gi, p: gi + cl.weight_decay * p, g, params)
+    mom = tree_map(lambda m, gi: cl.momentum * m + gi, mom, g)
+    direction = PC.precondition(pc, pstate, mom)
+    params = tree_map(lambda p, d: p - cl.lr * d, params, direction)
+    return params, mom
+
+
+def value_and_grad(loss_fn):
+    """``(params, micro) -> (loss, grads)`` with torch autograd; the params'
+    tensors are used as they are (detached views, no copies)."""
+    def vg(params, micro):
+        leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
+        with torch.enable_grad():
+            loss = loss_fn(tree_unflatten(params, leaves), micro)
+        grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), tree_unflatten(params, list(grads))
+    return vg
+
+
+def _micro(batch, i, h):
+    """Client i's h-th microbatch of a (M, H, ...) round batch."""
+    return tree_map(lambda x: x[i, h], batch)
+
+
+def _local_stat(pc: PrecondConfig, grads):
+    if pc.rule == "linear":
+        return tree_map(torch.abs, grads)
+    return PC.grad_stat(grads)
+
+
+def _client_loop(grad_fn, spec: EngineSpec):
+    """H local steps on M clients.
+
+    Returns ``run(params_m, mom_m, pstate, batch) -> (params_m, mom_m, pstate,
+    last_grads, losses)`` with batch leaves (M, H, ...) and losses (H, M).
+    """
+    cl, pc = spec.client, spec.precond
+    if cl.use_fused_kernel:
+        return _fused_run(grad_fn, spec)
+    local = cl.scaling == "local" and pc.kind != "identity"
+
+    def run(params_m, mom_m, pstate, batch):
+        M = tree_leaves(params_m)[0].shape[0]
+        H = tree_leaves(batch)[0].shape[1]
+        ps = [tree_map(lambda x: x[i], params_m) for i in range(M)]
+        ms = [tree_map(lambda x: x[i], mom_m) for i in range(M)]
+        if local:
+            cps = [{"d": tree_map(lambda x: x[i], pstate["d"]),
+                    "t": pstate["t"][i]} for i in range(M)]
+        grads_last = [None] * M
+        losses = []
+        for h in range(H):
+            row = []
+            for i in range(M):
+                loss, grads = grad_fn(ps[i], _micro(batch, i, h))
+                grads = _clip(grads, cl.grad_clip)
+                if local:
+                    cps[i] = PC.update(pc, cps[i], _local_stat(pc, grads))
+                ps[i], ms[i] = _apply_update(ps[i], ms[i], grads,
+                                             cps[i] if local else pstate,
+                                             spec)
+                grads_last[i] = grads
+                row.append(loss)
+            losses.append(torch.stack(row))
+        stack = lambda trees: tree_map(lambda *xs: torch.stack(xs), *trees)
+        if local:
+            pstate = {"d": stack([c["d"] for c in cps]),
+                      "t": torch.stack([c["t"] for c in cps])}
+        return stack(ps), stack(ms), pstate, stack(grads_last), \
+            torch.stack(losses)
+
+    return run
+
+
+def _fused_run(grad_fn, spec: EngineSpec):
+    """The flat-buffer fused client loop.
+
+    Same contract as the tree ``run``, but the client state rides as
+    per-client flat fp32 buffers ``(M, n_total)``, flattened at round start
+    and viewed back as trees at the sync barrier, and each local step is ONE
+    ``kernels.ops.fused_local_step`` launch covering all M clients and every
+    ``PrecondConfig`` kind. The kernel updates the buffers in place. The
+    reference quietly falls back to the tree path for non-fp32 state; this
+    port raises instead.
+    """
+    cl, pc = spec.client, spec.precond
+    from repro_torch.kernels import ops as kops
+    has_d = pc.kind != "identity"
+    # "local" here = D advances inside the loop (global D updates at sync)
+    local = cl.scaling == "local" and has_d
+
+    def run(params_m, mom_m, pstate, batch):
+        if not (all_float32(params_m) and all_float32(mom_m)
+                and (not has_d or all_float32(pstate["d"]))):
+            raise NotImplementedError("the fused client loop takes fp32 "
+                                      "client state only")
+        M = tree_leaves(params_m)[0].shape[0]
+        H = tree_leaves(batch)[0].shape[1]
+        layout = FlatLayout.for_tree(params_m, batch_dims=1)
+        P = layout.flatten(params_m, batch_dims=1)
+        Mo = layout.flatten(mom_m, batch_dims=1)
+        G = torch.zeros_like(P)                 # carried sync-step grads
+        D = layout.flatten(pstate["d"], batch_dims=1 if local else 0) \
+            if has_d else None
+        T = pstate["t"] if local else None      # per-client (M,) int32
+        losses = []
+        for h in range(H):
+            row = []
+            for i in range(M):
+                loss, grads = grad_fn(layout.unflatten(P[i]),
+                                      _micro(batch, i, h))
+                # tree-level clip, exactly as the tree path: the CLIPPED
+                # grads are what the sync-time D stat reads
+                grads = _clip(grads, cl.grad_clip)
+                torch.cat([g.reshape(-1) for g in tree_leaves(grads)],
+                          out=G[i])
+                row.append(loss)
+            losses.append(torch.stack(row))
+            kops.fused_local_step(
+                P, Mo, G, D, None, T, None, gamma=cl.lr, beta1=cl.momentum,
+                weight_decay=cl.weight_decay, alpha=pc.alpha, beta2=pc.beta2,
+                kind=pc.kind, clip=pc.clip, schedule=pc.schedule,
+                update_d=local)
+            if local:
+                T = T + 1
+        params_m = layout.unflatten(P, batch_dims=1)
+        mom_m = layout.unflatten(Mo, batch_dims=1)
+        last_grads = layout.unflatten(G, batch_dims=1)
+        if local:
+            pstate = {"d": layout.unflatten(D, batch_dims=1), "t": T}
+        return params_m, mom_m, pstate, last_grads, torch.stack(losses)
+
+    return run
+
+
+# --------------------------------------------------------------------------- #
+# SyncStrategy
+# --------------------------------------------------------------------------- #
+
+
+def participation_weights(spec: SyncSpec, n_clients: int, device):
+    """Per-client sync weights, summing to 1. Only full participation is
+    ported: sampling a subset needs the rng interface."""
+    M = n_clients
+    n_part = max(1, int(math.floor(spec.participation * M + 0.5)))
+    if n_part < M:
+        raise NotImplementedError("participation < 1 needs the rng "
+                                  "interface, which is not built yet")
+    return torch.full((M,), 1.0 / M, dtype=torch.float32, device=device)
+
+
+def make_sync(spec: SyncSpec, n_clients: int, device):
+    """The sync average: (M, ...) leaf -> (...) weighted mean, optionally
+    reduced in ``sync_dtype`` (quantized averaging; the result stays in that
+    dtype and is cast back to the master dtype at broadcast)."""
+    M = n_clients
+    w_part = participation_weights(spec, M, device)
+
+    def _wmean(p):
+        wb = w_part.reshape((M,) + (1,) * (p.dim() - 1)).to(p.dtype)
+        return (p * wb).sum(dim=0)
+
+    if spec.sync_dtype:
+        sd = _torch_dtype(spec.sync_dtype)
+        return lambda p: _wmean(p.to(sd))
+    return _wmean
+
+
+def _broadcast_back(params_m, avg):
+    """Every client takes the averaged value, cast to its master dtype (an
+    ``expand``-ed view: no M-fold copy)."""
+    return tree_map(lambda a, p: _replicate(a.to(p.dtype), p.shape[0]),
+                    avg, params_m)
+
+
+# --------------------------------------------------------------------------- #
+# ServerUpdate
+# --------------------------------------------------------------------------- #
+
+
+def _adaptive_server_update(spec: ServerSpec, server, x_prev, delta):
+    """m/v/x update of Algorithm 2 [42] on the pseudo-gradient Δ."""
+    m = tree_map(lambda m_, d: spec.beta1 * m_ + (1 - spec.beta1) * d,
+                 server["m"], delta)
+    if spec.opt == "adagrad":
+        v = tree_map(lambda v_, d: v_ + d * d, server["v"], delta)
+    elif spec.opt == "adam":
+        v = tree_map(lambda v_, d: spec.beta2 * v_ + (1 - spec.beta2) * d * d,
+                     server["v"], delta)
+    else:  # yogi
+        v = tree_map(lambda v_, d: v_ - (1 - spec.beta2) * d * d
+                     * torch.sign(v_ - d * d), server["v"], delta)
+    x = tree_map(lambda x_, m_, v_: x_ + spec.eta * m_ / (torch.sqrt(v_)
+                                                         + spec.tau),
+                 x_prev, m, v)
+    return x, {"m": m, "v": v}
+
+
+# --------------------------------------------------------------------------- #
+# The round
+# --------------------------------------------------------------------------- #
+
+
+def build_round_step(loss_fn: Callable, spec: EngineSpec, objective=None):
+    """loss_fn(params, microbatch) -> scalar tensor.
+
+    Returns ``round_step(state, batch) -> (state, metrics)`` where each batch
+    leaf is (M, H, ...): H microbatches per client per round, on the state's
+    device. Metrics (tensors): loss, loss_per_client, client_drift (+
+    step_norm for adaptive servers). The slice draws no random numbers, so
+    the round takes no key. Parts of ``spec`` the port has not reached raise
+    ``NotImplementedError`` here, at build time.
+    """
+    missing = _unported(spec, objective)
+    if missing:
+        raise NotImplementedError("not ported to repro_torch yet: "
+                                  + ", ".join(missing))
+    grad_fn = value_and_grad(loss_fn)
+    cl, sy, sv, pc = spec.client, spec.sync, spec.server, spec.precond
+    client_run = _client_loop(grad_fn, spec)
+
+    def round_step(state, batch):
+        M = tree_leaves(state["params"])[0].shape[0]
+        dev = state["round"].device
+
+        # ---- ClientLoop: H local steps on every client ----------------------
+        mom0 = tree_map(torch.zeros_like, state["mom"]) \
+            if cl.reset_momentum else state["mom"]
+        params_m, mom_m, pstate, last_grads, losses = client_run(
+            state["params"], mom0, state["precond"], batch)
+        drift_pre_sync = client_drift(params_m)
+
+        # ---- SyncStrategy ----------------------------------------------------
+        avg = make_sync(sy, M, dev)
+        params_avg = tree_map(avg, params_m)
+        if sv.kind == "average":
+            params_m = _broadcast_back(params_m, params_avg)
+            params_avg = tree_map(lambda x: x[0], params_m)
+            if sy.average_momentum:
+                mom_m = _broadcast_back(mom_m, tree_map(avg, mom_m))
+
+        # ---- D update at sync (global scaling; Algorithm 1 line 4) ---------
+        if cl.scaling == "global" and pc.kind != "identity":
+            if cl.stat_source == "avg_grad":
+                # participation weights and sync dtype apply to the stat too
+                stat = _local_stat(pc, tree_map(avg, last_grads))
+            else:  # avg_local
+                stat = tree_map(lambda s: s.mean(dim=0),
+                                _local_stat(pc, last_grads))
+            pstate = PC.update(pc, pstate, stat)
+
+        metrics = {"loss": losses.mean(), "loss_per_client": losses[-1],
+                   "client_drift": drift_pre_sync}
+
+        # ---- ServerUpdate ----------------------------------------------------
+        new_state = {"round": state["round"] + 1, "precond": pstate}
+        if sv.kind == "adaptive":
+            x_prev = tree_map(lambda p: p[0], state["params"])
+            delta = tree_map(lambda a, x: a.to(x.dtype) - x, params_avg,
+                             x_prev)
+            x_new, server = _adaptive_server_update(sv, state["server"],
+                                                    x_prev, delta)
+            params_m = _broadcast_back(params_m, x_new)
+            new_state["server"] = server
+            metrics["step_norm"] = torch.sqrt(_sqnorm(
+                [a - b for a, b in zip(tree_leaves(x_new),
+                                       tree_leaves(x_prev))]))
+        new_state["params"] = params_m
+        new_state["mom"] = mom_m
+        return new_state, metrics
+
+    return round_step

@@ -1,0 +1,43 @@
+"""Public wrappers around the port's kernels (counterpart of
+``repro/kernels/ops.py``).
+
+A wrapper routes by the device of the tensors it is given: a CUDA tensor goes
+to the hand-written kernel (or raises), a CPU tensor to the kernel's plain
+PyTorch version in ``kernels/ref.py``. There is no fallback from one to the
+other.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import ref
+from repro_torch.kernels import scaled_update as _su
+
+
+def fused_local_step(p, m, g, d=None, h=None, t=None, s=None, *, gamma, beta1,
+                     weight_decay=0.0, alpha, beta2=0.999, kind, clip="max",
+                     schedule="const", update_d=False):
+    """One fused generic-scaling local step on (M, n) flat client buffers.
+
+    The engine's ``use_fused_kernel`` fast path: the D̂ update, weight decay,
+    momentum and scaled parameter step of all M clients in one launch. ``d``
+    is (M, n) for local scaling, (n,) for global, None for identity; ``h`` is
+    an external stat; ``t``/``s`` are per-client step counters / grad-clip
+    scales. Updates ``p``, ``m`` (and ``d`` with ``update_d``) in place on
+    both devices and returns ``(p, m, d | None)``.
+    """
+    kw = dict(gamma=float(gamma), beta1=float(beta1),
+              weight_decay=float(weight_decay), alpha=float(alpha),
+              beta2=float(beta2), kind=kind, clip=clip, schedule=schedule,
+              update_d=update_d)
+    if p.device.type == "cuda":
+        return _su.fused_step_flat(p, m, g, d, h, t, s, **kw)
+    if p.device.type != "cpu":
+        raise ValueError(f"no fused_local_step for device {p.device}")
+    _su.check_args(p, m, g, d, h, t, s, kind=kind, schedule=schedule,
+                   update_d=update_d)
+    p_new, m_new, d_new = ref.fused_step_ref(p, m, g, d, h, t, s, **kw)
+    p.copy_(p_new)
+    m.copy_(m_new)
+    if update_d:
+        d.copy_(d_new)
+        return p, m, d
+    return p, m, None

@@ -1,0 +1,240 @@
+"""Transformer layers, dense subset (counterpart of ``repro/models/layers.py``).
+
+Parameters are plain dicts of tensors with the reference's tree paths and
+layouts (head-major QKV weights (d, H, hd), output (H, hd, d)); they are
+stored in fp32 and cast to the compute ``dtype`` at use. Attention is written
+out in plain torch, as the reference's training path evaluates it
+(``_sdpa_dense`` with ``use_flash_kernel=False``).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs import ModelConfig
+
+# --------------------------------------------------------------------------- #
+# initializers / basics
+# --------------------------------------------------------------------------- #
+
+
+def _normal(gen, shape, scale, dtype=torch.float32):
+    return torch.randn(shape, generator=gen, dtype=dtype,
+                       device=gen.device) * scale
+
+
+def _dense_init(gen, d_in, d_out, bias=False, scale=None):
+    scale = scale if scale is not None else d_in ** -0.5
+    p = {"w": _normal(gen, (d_in, d_out), scale)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), device=gen.device)
+    return p
+
+
+def linear(p, x, dtype):
+    y = x.to(dtype) @ p["w"].to(dtype)
+    if "b" in p:
+        y = y + p["b"].to(dtype)
+    return y
+
+
+def init_rmsnorm(d, device):
+    return {"scale": torch.ones((d,), device=device)}
+
+
+def rmsnorm(p, x, eps=1e-6):
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * p["scale"].float()).to(dt)
+
+
+# --------------------------------------------------------------------------- #
+# RoPE
+# --------------------------------------------------------------------------- #
+
+
+def rope_cos_sin(positions, head_dim, theta):
+    """positions (...,) int -> cos/sin of shape (..., head_dim//2), fp32."""
+    half = head_dim // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=positions.device) / half)
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x (..., S, H, D); cos/sin (..., S, D//2) broadcast over heads."""
+    x = x.float()
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    c = cos[..., None, :]
+    s = sin[..., None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+# --------------------------------------------------------------------------- #
+# Attention
+# --------------------------------------------------------------------------- #
+
+
+def init_attention(gen, cfg: ModelConfig):
+    """QKV/O projections stored head-major 3D: (d, H, hd) / (H, hd, d)."""
+    d, h, hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def proj(nheads):
+        p = {"w": _normal(gen, (d, nheads, hd), d ** -0.5)}
+        if cfg.qkv_bias:
+            p["b"] = torch.zeros((nheads, hd), device=gen.device)
+        return p
+
+    p = {"wq": proj(h), "wk": proj(hk), "wv": proj(hk),
+         "wo": {"w": _normal(gen, (h, hd, d), (h * hd) ** -0.5)}}
+    if cfg.qk_norm:
+        p["q_norm"] = init_rmsnorm(hd, gen.device)
+        p["k_norm"] = init_rmsnorm(hd, gen.device)
+    return p
+
+
+def _proj_heads(p, x, dtype):
+    """x (B,S,d) @ (d,H,hd) -> (B,S,H,hd)."""
+    y = torch.einsum("bsd,dhk->bshk", x.to(dtype), p["w"].to(dtype))
+    if "b" in p:
+        y = y + p["b"].to(dtype)[None, None]
+    return y
+
+
+def _proj_out(p, x, dtype):
+    """x (B,S,H,hd) @ (H,hd,d) -> (B,S,d)."""
+    return torch.einsum("bshk,hkd->bsd", x.to(dtype), p["w"].to(dtype))
+
+
+def _softcap(x, cap):
+    return cap * torch.tanh(x / cap) if cap else x
+
+
+def _mask_bias(q_pos, k_pos, window):
+    """Additive fp32 mask bias (Sq, Sk): causal + optional sliding window."""
+    ok = k_pos[None, :] <= q_pos[:, None]
+    if window:
+        ok &= (q_pos[:, None] - k_pos[None, :]) < window
+    zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
+    return torch.where(ok, zero, torch.full_like(zero, -1e30))
+
+
+def _sdpa_dense(q, k, v, q_pos, k_pos, window, softcap):
+    """q (B,Sq,H,D), k/v (B,Sk,Hk,D) -> (B,Sq,H,D). fp32 softmax."""
+    B, Sq, H, D = q.shape
+    Hk = k.shape[2]
+    rep = H // Hk
+    qf = (q.float() * (D ** -0.5)).reshape(B, Sq, Hk, rep, D)
+    kf = k.float()
+    vf = v.float()
+    logits = torch.einsum("bqhrd,bkhd->bhrqk", qf, kf)
+    logits = _softcap(logits, softcap)
+    logits = logits + _mask_bias(q_pos, k_pos, window)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhrqk,bkhd->bqhrd", w, vf)
+    return out.reshape(B, Sq, H, v.shape[-1])
+
+
+@dataclasses.dataclass
+class AttnCall:
+    """Runtime knobs for an attention call (not parameters)."""
+    window: int = 0
+    softcap: float = 0.0
+    chunk: int = 0                  # 0 = dense; KV-chunked is not ported
+    use_flash_kernel: bool = False  # K4 (flash attention) is not ported
+
+
+def attention(p, cfg: ModelConfig, x, positions, call: AttnCall, dtype):
+    """Full causal self-attention over x (B,S,d) at integer positions (S,).
+    KV heads are repeated to the full head count first, as in the
+    reference."""
+    if call.use_flash_kernel:
+        raise NotImplementedError("the flash-attention kernel (K4) is not "
+                                  "ported yet")
+    if call.chunk and x.shape[1] > call.chunk:
+        raise NotImplementedError("KV-chunked attention (S > dense_attn_max) "
+                                  "is not ported yet")
+    h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = _proj_heads(p["wq"], x, dtype)
+    k = _proj_heads(p["wk"], x, dtype)
+    v = _proj_heads(p["wv"], x, dtype)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
+    q = apply_rope(q, cos, sin).to(dtype)
+    k = apply_rope(k, cos, sin).to(dtype)
+    rep = h // hk
+    if rep > 1:
+        k = torch.repeat_interleave(k, rep, dim=2)
+        v = torch.repeat_interleave(v, rep, dim=2)
+    out = _sdpa_dense(q, k, v, positions, positions, call.window,
+                      call.softcap)
+    return _proj_out(p["wo"], out.to(dtype), dtype)
+
+
+# --------------------------------------------------------------------------- #
+# Gated MLP (SwiGLU / GeGLU)
+# --------------------------------------------------------------------------- #
+
+
+def init_mlp(gen, d, f):
+    return {"wg": _dense_init(gen, d, f), "wu": _dense_init(gen, d, f),
+            "wd": _dense_init(gen, f, d)}
+
+
+def mlp(p, x, act, dtype):
+    g = linear(p["wg"], x, dtype)
+    u = linear(p["wu"], x, dtype)
+    # jax.nn.gelu defaults to the tanh approximation
+    a = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
+    return linear(p["wd"], a * u, dtype)
+
+
+# --------------------------------------------------------------------------- #
+# Embedding / head
+# --------------------------------------------------------------------------- #
+
+
+def padded_vocab(v, multiple=2048):
+    return ((v + multiple - 1) // multiple) * multiple
+
+
+def init_embed(gen, cfg: ModelConfig):
+    V = padded_vocab(cfg.vocab_size)
+    p = {"table": _normal(gen, (V, cfg.d_model), 0.02)}
+    if not cfg.tie_embeddings:
+        p["head"] = _normal(gen, (cfg.d_model, V), cfg.d_model ** -0.5)
+    return p
+
+
+def embed(p, tokens, dtype):
+    return p["table"].to(dtype)[tokens]
+
+
+def unembed(p, x, cfg: ModelConfig, dtype):
+    if cfg.tie_embeddings:
+        logits = x.to(dtype) @ p["table"].to(dtype).T
+        return logits * (cfg.d_model ** -0.5)  # gemma-style tied-head scaling
+    return x.to(dtype) @ p["head"].to(dtype)
+
+
+def cross_entropy(logits, labels, vocab_size):
+    """Mean CE over positions; labels < 0 are masked out; padded vocab
+    masked."""
+    V = logits.shape[-1]
+    logits = logits.float()
+    if V > vocab_size:
+        pad = torch.arange(V, device=logits.device) >= vocab_size
+        logits = logits.masked_fill(pad, -1e30)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.clamp_min(0).long()[..., None])[..., 0]
+    nll = logz - gold
+    mask = (labels >= 0).float()
+    return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
