@@ -62,13 +62,20 @@ def smi_line():
         check=True).stdout.strip().splitlines()[0]
 
 
-def ulp_diff(a, b):
-    """Largest distance in fp32 ulps between two tensors (monotone int
-    mapping of the bit patterns)."""
+def max_diff(a, b, chunk=1 << 26):
+    """(max abs, max fp32 ulp) difference of two same-shape fp32 tensors,
+    over flat chunks so that the int64 temporaries stay small at full width.
+    Ulps come from a monotone int mapping of the bit patterns."""
     def key(x):
-        i = x.contiguous().view(torch.int32).to(torch.int64)
+        i = x.view(torch.int32).to(torch.int64)
         return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
-    return int((key(a) - key(b)).abs().max())
+    a, b = a.reshape(-1), b.reshape(-1)
+    err, ulps = 0.0, 0
+    for lo in range(0, a.numel(), chunk):
+        x, y = a[lo:lo + chunk], b[lo:lo + chunk]
+        err = max(err, float((x - y).abs().max()))
+        ulps = max(ulps, int((key(x) - key(y)).abs().max()))
+    return err, ulps
 
 
 def cuda_ms(fn, iters):
@@ -147,10 +154,9 @@ def compare_case(case, M, n, gen):
     torch.cuda.synchronize()
     err, ulps = 0.0, 0
     for w, g in zip(want, got):
-        if w is None:
-            continue
-        err = max(err, float((w - g).abs().max()))
-        ulps = max(ulps, ulp_diff(w, g))
+        if w is not None:
+            e, u = max_diff(w, g)
+            err, ulps = max(err, e), max(ulps, u)
     return err, ulps
 
 
@@ -175,27 +181,51 @@ def big_case(gen):
         want = ref.fused_step_ref(x["p"], x["m"], x["g"], x["d"], None,
                                   args["t"][rows], args["s"][rows], **kw)
         for w, k in zip(want, ("p", "m", "d")):
-            g = args[k][rows, cols]
-            err = max(err, float((w - g).abs().max()))
-            ulps = max(ulps, ulp_diff(w, g))
+            e, u = max_diff(w, args[k][rows, cols])
+            err, ulps = max(err, e), max(ulps, u)
     del args, saved
     torch.cuda.empty_cache()
     return M, n, err, ulps
 
 
-def time_k1(M, n, case, gen, iters=10, plain=True):
-    """Kernel and plain ms at one shape; returns (ms, plain_ms, bytes). The
-    plain version's temporaries take ~4 more (M, n) buffers, so it is timed
-    only where they fit beside the inputs."""
+def k1_main_shape(case, M, n, gen, plain_timing, iters=10):
+    """K1 at the main path's shape, checked against its plain version and
+    then timed. Returns (max abs, max ulp, ms, plain ms or None, bytes).
+
+    The plain version runs row by row on (1, n) views of fresh inputs: every
+    op is elementwise, so each row's values are those of one (M, n) call,
+    and its temporaries stay one row wide. The kernel then runs once at
+    (M, n), in place, and each of its rows is held against the plain one.
+    The plain version is timed at (M, n) only where its temporaries (~4 more
+    (M, n) buffers) fit beside the inputs (``plain_timing``)."""
+    torch.cuda.empty_cache()
     args, kw = k1_inputs(case, M, n, gen)
+    local_d = args["d"] is not None and args["d"].dim() == 2
+    want = []
+    for i in range(M):
+        row = {k: (None if args[k] is None
+                   else args[k] if k == "d" and not local_d
+                   else args[k][i:i + 1]) for k in ORDER}
+        want.append(ref.fused_step_ref(*(row[k] for k in ORDER), **kw))
+    su.fused_step_flat(*(args[k] for k in ORDER), **kw)
+    torch.cuda.synchronize()
+    err, ulps = 0.0, 0
+    for i, outs in enumerate(want):
+        for w, k in zip(outs, ("p", "m", "d")):
+            if w is not None:
+                e, u = max_diff(w, args[k][i:i + 1])
+                err, ulps = max(err, e), max(ulps, u)
+    del want
+    torch.cuda.empty_cache()
     ms = cuda_ms(lambda: su.fused_step_flat(*(args[k] for k in ORDER), **kw),
                  iters)
     plain_ms = cuda_ms(lambda: ref.fused_step_ref(*(args[k] for k in ORDER),
-                                                  **kw), 3) if plain else None
+                                                  **kw), 3) \
+        if plain_timing else None
     nbytes = k1_bytes(M, n, case[3], case[6], case[4])
     del args
     torch.cuda.empty_cache()
-    return ms, plain_ms, nbytes
+    return err, ulps, ms, plain_ms, nbytes
 
 
 # --------------------------------------------------------------------------- #
@@ -292,23 +322,31 @@ def main():
     del params
     torch.cuda.empty_cache()
     main_case = ("adam", "debias", "max", "global", False, 0.0, False, False)
-    ms, plain_ms, nbytes = time_k1(4, n_main, main_case, gen)
+    err, ulps, ms, plain_ms, nbytes = k1_main_shape(main_case, 4, n_main,
+                                                    gen, plain_timing=True)
+    max_err = max(max_err, err)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     print(f"[chip_smoke] K1 at the main path's shape (M=4, n={n_main}, "
-          f"global D): {ms:.3f} ms/launch, plain {plain_ms:.3f} ms, bound "
-          f"{bound_ms:.3f} ms ({nbytes / 1e9:.2f} GB), achieved "
-          f"{nbytes / ms / 1e6:.1f} GB/s", flush=True)
+          f"global D): max abs {err:.3e}, max ulp {ulps}; {ms:.3f} ms/launch, "
+          f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
+          f"({nbytes / 1e9:.2f} GB), achieved {nbytes / ms / 1e6:.1f} GB/s",
+          flush=True)
+    check(ulps == 0, "K1 differs from its plain version at the main shape")
 
     # ---- 4. local-adam: update_d + debias ---------------------------------
     argv = main_argv("local-adam", 1)
     print("[chip_smoke] train.main " + " ".join(argv), flush=True)
     main_path(argv, H_LOCAL)
     la_case = ("adam", "debias", "max", "local", True, 0.0, False, False)
-    la_ms, la_bytes = time_k1(4, n_main, la_case, gen, plain=False)[::2]
-    print(f"[chip_smoke] K1 local D with update (M=4, n={n_main}): "
-          f"{la_ms:.3f} ms/launch, bound "
+    err, ulps, la_ms, _, la_bytes = k1_main_shape(la_case, 4, n_main, gen,
+                                                  plain_timing=False)
+    max_err = max(max_err, err)
+    print(f"[chip_smoke] K1 local D with update (M=4, n={n_main}): max abs "
+          f"{err:.3e}, max ulp {ulps}; {la_ms:.3f} ms/launch, bound "
           f"{la_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms, achieved "
           f"{la_bytes / la_ms / 1e6:.1f} GB/s", flush=True)
+    check(ulps == 0, "K1 differs from its plain version at the main shape "
+          "with local D")
 
     # ---- 5. fused against tree at full width, 2 layers ---------------------
     lf, lt, worst = fused_vs_tree()

@@ -21,12 +21,12 @@ def _to_torch(x, device):
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def params_from_jax(np_tree, device="cpu"):
+def params_from_jax(np_tree, device):
     """Parameter tree (numpy leaves) -> the same tree of tensors."""
     return tree_map(lambda x: _to_torch(x, device), np_tree)
 
 
-def state_from_jax(np_state, device="cpu"):
+def state_from_jax(np_state, device):
     """Engine state (numpy leaves: params, mom, precond d/t, round, server
     m/v) -> the port's state dict with the same paths."""
     return tree_map(lambda x: _to_torch(x, device), np_state)

@@ -25,6 +25,7 @@ The kernel writes p', m' (and d' with ``update_d``) IN PLACE over ``p``,
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -77,7 +78,9 @@ def check_args(p, m, g, d=None, h=None, t=None, s=None, *, kind,
         raise ValueError(f"kind {kind!r}; expected one of {tuple(_KIND_CODE)}")
 
 
+@functools.cache
 def _lib():
+    """The kernel's C entry point, built, loaded and bound once."""
     from repro_torch.kernels import build
     lib = build.load("fused_step.cu")
     fn = lib.fused_step_f32

@@ -1,13 +1,16 @@
 """Where one training round's time goes on the GPU.
 
 Takes the training CLI's flags (``launch/train.py``), runs ``--rounds``
-warm-up rounds untraced, then one round under ``torch.profiler`` and prints:
-the round's wall time, the device-busy share (summed kernel time over wall
-time), the time of the fused local-step kernel K1, the kernels that took the
-most device time and the host ops that took the most host time (self time,
-so nested ops are not counted twice). CUDA only: a device share has no
-meaning on the CPU. The profiler's own cost inflates the host times; the
-round's untraced wall time is ``launch/train.py``'s.
+rounds untraced (each timed between device synchronizations), then one round
+under ``torch.profiler`` and prints: the untraced rounds' wall times, the
+traced round's wall time, the device-busy time (summed kernel time of the
+traced round) as a share of the traced round and of the median untraced
+round after the first (the first carries the CUDA and cuBLAS set-up), the
+time of the fused local-step kernel K1, the kernels that took the most
+device time and the host ops that took the most host time (self time, so
+nested ops are not counted twice). CUDA only: a device share has no meaning
+on the CPU. The profiler's own cost inflates the host times and the traced
+round's wall time.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_round \
       --arch qwen2-0.5b --method savic --use-fused-kernel --rounds 1 \
@@ -32,10 +35,18 @@ def main(argv=None):
     if device.type != "cuda":
         raise RuntimeError("profile_round measures the GPU; run it with "
                            "--device cuda")
+    untraced_ms = []
     for r in range(args.rounds):
-        state, met = round_step(state, train.round_batch(loader, args, r,
-                                                         device))
+        batch = train.round_batch(loader, args, r, device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = round_step(state, batch)
         float(met["loss"])
+        torch.cuda.synchronize()
+        untraced_ms.append((time.perf_counter() - t0) * 1e3)
+    # round 0 carries the process's CUDA and cuBLAS set-up
+    steady = sorted(untraced_ms[1:])
+    steady_ms = steady[len(steady) // 2] if steady else None
     batch = train.round_batch(loader, args, args.rounds, device)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -58,7 +69,12 @@ def main(argv=None):
     summary = {
         "device": torch.cuda.get_device_name(0), "wall_ms": wall_ms,
         "tokens_per_s": tokens / wall_ms * 1e3, "device_busy_ms": busy_ms,
-        "device_busy_share": busy_ms / wall_ms, "k1_ms": k1_ms,
+        "device_busy_share": busy_ms / wall_ms,
+        "untraced_round_ms": untraced_ms,
+        "untraced_steady_median_ms": steady_ms,
+        "device_busy_share_untraced": (busy_ms / steady_ms if steady_ms
+                                       else None),
+        "k1_ms": k1_ms,
         "k1_launches": k1_calls,
         "top_kernels": [{"name": e.key[:90], "calls": e.count,
                          "ms": e.self_device_time_total / 1e3}

@@ -108,7 +108,7 @@ def _jax_method(name, fused=False, **extra):
 
 def _run_port(spec, init):
     _, _, tm = _models()
-    state = state_from_jax(init)
+    state = state_from_jax(init, "cpu")
     step = engine.build_round_step(tm.loss, spec)
     mets = []
     for nb in _batches():
@@ -236,7 +236,7 @@ def test_fedopt_preset_matches_reference():
     cfg = fedopt.FedOptConfig(server_opt="yogi", eta_l=3e-3,
                               client_momentum=0.5)
     jst = jfedopt.init_state(jax.random.PRNGKey(0), jm.init, jcfg)
-    st = state_from_jax(jax.device_get(jst))
+    st = state_from_jax(jax.device_get(jst), "cpu")
     jstep = jax.jit(jfedopt.build_round_step(jm.loss, jcfg))
     step = fedopt.build_round_step(tm.loss, cfg)
     for r, nb in enumerate(_batches()):
@@ -270,7 +270,7 @@ def test_flat_layout_matches_reference():
     jp = jax.device_get(jeng.init_state(jax.random.PRNGKey(0), jm.init,
                                         jeng.method_spec("savic"),
                                         M)["params"])
-    tp = params_from_jax(jp)
+    tp = params_from_jax(jp, "cpu")
     jl = JFlatLayout.for_tree(jp, batch_dims=1)
     tl = FlatLayout.for_tree(tp, batch_dims=1)
     assert (tl.paths, tl.shapes, tl.offsets, tl.n_total) == \
@@ -340,7 +340,7 @@ def test_fused_path_raises_on_non_fp32_state():
     spec = engine.method_spec("savic", use_fused_kernel=True, **KW)
     init = jax.device_get(jeng.init_state(jax.random.PRNGKey(0), jm.init,
                                           jeng.method_spec("savic"), M))
-    state = state_from_jax(init)
+    state = state_from_jax(init, "cpu")
     state["mom"] = {k: v for k, v in state["mom"].items()}
     state["mom"]["final_norm"] = {"scale": state["mom"]["final_norm"][
         "scale"].to(torch.bfloat16)}
@@ -355,7 +355,7 @@ def test_state_is_not_written_in_place():
     fused kernel writes only into the round's own flat buffers)."""
     _, _, tm = _models()
     init, _, _ = _jax_method("local-adam")
-    state = state_from_jax(init)
+    state = state_from_jax(init, "cpu")
     before = {k: v.clone() for k, v in tree_paths(state)}
     spec = engine.method_spec("local-adam", use_fused_kernel=True, **KW)
     engine.build_round_step(tm.loss, spec)(

@@ -78,7 +78,7 @@ def test_loss_and_grads_match_reference_fp32(setup, remat):
     tm = build(cfg, ModelCallConfig(dtype=torch.float32, remat=remat))
     jb, tb = _batches(toks, labs)
     jl, jg = jax.value_and_grad(jm.loss)(jax.tree.map(jnp.asarray, jp), jb)
-    tl, tg = value_and_grad(tm.loss)(params_from_jax(jp), tb)
+    tl, tg = value_and_grad(tm.loss)(params_from_jax(jp, "cpu"), tb)
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
     jgd = dict(jtree_paths(jax.device_get(jg)))
     tgd = dict(tree_paths(tg))
@@ -95,7 +95,7 @@ def test_logits_match_reference_fp32(setup):
     want = np.asarray(jbuild(jcfg, JCall(dtype=jnp.float32)).logits(
         jax.tree.map(jnp.asarray, jp), jb))
     got = build(cfg, ModelCallConfig(dtype=torch.float32)).logits(
-        params_from_jax(jp), tb)
+        params_from_jax(jp, "cpu"), tb)
     assert got.shape == want.shape == (2, 16, L.padded_vocab(cfg.vocab_size))
     np.testing.assert_allclose(got.detach().numpy(), want, rtol=0,
                                atol=1e-5 * np.abs(want).max())
@@ -105,7 +105,7 @@ def test_loss_matches_reference_bf16(setup):
     jcfg, cfg, jp, toks, labs = setup
     jb, tb = _batches(toks, labs)
     jl = jbuild(jcfg, JCall()).loss(jax.tree.map(jnp.asarray, jp), jb)
-    tl = build(cfg).loss(params_from_jax(jp), tb)
+    tl = build(cfg).loss(params_from_jax(jp, "cpu"), tb)
     assert build(cfg).call.dtype == torch.bfloat16
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-2)
 
