@@ -11,22 +11,28 @@ Every method is one configuration of three layers:
     client state rides as per-client flat fp32 buffers ``(M, n)`` and each
     local step is one launch of the fused kernel
     (``kernels.ops.fused_local_step``) for every D̂ rule.
-  * **SyncStrategy** — the weighted mean of the clients, optionally through a
-    low-precision ``sync_dtype``.
+  * **SyncStrategy** — the weighted mean of the clients over a sampled
+    subset (``participation``), optionally through a low-precision
+    ``sync_dtype``, of the params or of the compressed round deltas
+    (topk / randk / int8-stochastic with an optional error-feedback
+    residual; int8 runs on kernel K3 with ``use_fused_kernel``).
   * **ServerUpdate** — identity averaging (Algorithm 1) or an adaptive m/v
-    server step (FedAdaGrad / FedAdam / FedYogi, Algorithm 2 of [42]).
+    server step (FedAdaGrad / FedAdam / FedYogi, Algorithm 2 of [42]),
+    optionally with its m/v compressed for the replica sync.
 
 State: ``{"params": (M, ...), "mom": (M, ...), "precond": {...}, "round":
-int32[, "server": {"m", "v"}]}``; global D and the server's m/v carry no M
-dim. After a sync every client holds the same value, so ``params`` leaves
-are ``expand``-ed views of one replica (no M-fold copy); nothing writes into
-state tensors in place.
+int32[, "server": {"m", "v"}][, "ef": (M, ...)]}``; global D and the
+server's m/v carry no M dim. After a sync every client holds the same value,
+so ``params`` leaves are ``expand``-ed views of one replica (no M-fold
+copy); nothing writes into state tensors in place.
+
+Randomness (participation, Hutchinson probes, compression) comes from the
+round's rng stream (``repro_torch.utils.rng``), with the reference's fold
+constants, so a test can replay the reference's draws.
 
 Not ported yet, and raising ``NotImplementedError`` when ``build_round_step``
-is called: compression, async buffers, per-client H_m (``local_steps``), the
-controller, non-identity objectives, personalization, ``participation < 1``,
-server m/v compression and the Hutchinson kinds (oasis, adahessian). The
-last two need an rng interface that replays the reference's draws.
+is called: async buffers, per-client H_m (``local_steps``), the controller,
+non-identity objectives and personalization.
 """
 from __future__ import annotations
 
@@ -34,10 +40,12 @@ import dataclasses
 import math
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import preconditioner as PC
 from repro_torch.core.preconditioner import PrecondConfig
+from repro_torch.utils import rng
 from repro_torch.utils.flatten import FlatLayout, all_float32
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -85,8 +93,7 @@ COMPRESSION_OPS = ("none", "topk", "randk", "int8-stochastic")
 
 @dataclasses.dataclass(frozen=True)
 class CompressionSpec:
-    """Compression of the client→server round delta (not ported yet; only
-    the identity spec builds)."""
+    """Compression of the client→server round delta (DESIGN.md §4)."""
     op: str = "none"
     k: float = 1.0                 # kept fraction per leaf (topk / randk)
     error_feedback: bool = False   # EF residual buffer
@@ -173,8 +180,8 @@ class ServerSpec:
     beta2: float = 0.999
     tau: float = 1e-3              # adaptivity floor τ
     v_init: Optional[float] = None # v_{-1}; default τ² (the §5.2 pain point)
-    sync_dtype: str = ""           # m/v sync dtype (not ported)
-    sync_k: float = 1.0            # kept fraction of m/v (not ported)
+    sync_dtype: str = ""           # m/v sync dtype ("" = full)
+    sync_k: float = 1.0            # kept fraction of m/v (shared top-|m|)
 
     def __post_init__(self):
         if self.kind not in ("average", "adaptive"):
@@ -301,10 +308,8 @@ def method_spec(method: str, *, pc_kind: str = "adam", alpha: float = 1e-2,
 
 def _unported(spec: EngineSpec, objective) -> list:
     """The parts of ``spec`` this slice of the port cannot run."""
-    cl, sy, sv, pc = spec.client, spec.sync, spec.server, spec.precond
+    cl, sy = spec.client, spec.sync
     out = []
-    if not sy.compression.is_identity():
-        out.append(f"compression {sy.compression.op!r}")
     if not sy.asynchrony.is_identity():
         out.append("async staleness buffer")
     if cl.local_steps is not None:
@@ -315,12 +320,6 @@ def _unported(spec: EngineSpec, objective) -> list:
         out.append("client objectives")
     if sy.personal:
         out.append("personalization")
-    if sy.participation < 1.0:
-        out.append("participation < 1 (needs the rng interface)")
-    if not sv.sync_identity():
-        out.append("server m/v sync compression")
-    if pc.uses_hutchinson:
-        out.append(f"Hutchinson kind {pc.kind!r} (needs the rng interface)")
     return out
 
 
@@ -358,6 +357,12 @@ def init_state(generator, init_params_fn, spec: EngineSpec, n_clients: int):
         state["server"] = {"m": tree_map(torch.zeros_like, params),
                            "v": tree_map(lambda p: torch.full_like(p, v0),
                                          params)}
+    comp = spec.sync.compression
+    if comp.error_feedback and not comp.is_identity():
+        # EF residual e_m: per-client, shaped like params (DESIGN.md §4)
+        state["ef"] = tree_map(lambda p: torch.zeros(p.shape, dtype=p.dtype,
+                                                     device=p.device),
+                               params_m)
     return state
 
 
@@ -425,18 +430,28 @@ def _local_stat(pc: PrecondConfig, grads):
     return PC.grad_stat(grads)
 
 
-def _client_loop(grad_fn, spec: EngineSpec):
+def _step_stat(loss_fn, pc: PrecondConfig, params, micro, grads, stream):
+    """A client's local-scaling D stat: a Hutchinson probe at the step's
+    params on its own step stream, or the gradient stat."""
+    if pc.uses_hutchinson:
+        return PC.hutchinson_diag(loss_fn, params, micro, stream)
+    return _local_stat(pc, grads)
+
+
+def _client_loop(loss_fn, grad_fn, spec: EngineSpec):
     """H local steps on M clients.
 
-    Returns ``run(params_m, mom_m, pstate, batch) -> (params_m, mom_m, pstate,
-    last_grads, losses)`` with batch leaves (M, H, ...) and losses (H, M).
+    Returns ``run(params_m, mom_m, pstate, batch, steps) -> (params_m, mom_m,
+    pstate, last_grads, losses)`` with batch leaves (M, H, ...), losses
+    (H, M), and ``steps[h][m]`` the per-step rng streams (read only by local
+    Hutchinson probes; None otherwise).
     """
     cl, pc = spec.client, spec.precond
     if cl.use_fused_kernel:
-        return _fused_run(grad_fn, spec)
+        return _fused_run(loss_fn, grad_fn, spec)
     local = cl.scaling == "local" and pc.kind != "identity"
 
-    def run(params_m, mom_m, pstate, batch):
+    def run(params_m, mom_m, pstate, batch, steps):
         M = tree_leaves(params_m)[0].shape[0]
         H = tree_leaves(batch)[0].shape[1]
         ps = [tree_map(lambda x: x[i], params_m) for i in range(M)]
@@ -449,10 +464,13 @@ def _client_loop(grad_fn, spec: EngineSpec):
         for h in range(H):
             row = []
             for i in range(M):
-                loss, grads = grad_fn(ps[i], _micro(batch, i, h))
+                micro = _micro(batch, i, h)
+                loss, grads = grad_fn(ps[i], micro)
                 grads = _clip(grads, cl.grad_clip)
                 if local:
-                    cps[i] = PC.update(pc, cps[i], _local_stat(pc, grads))
+                    cps[i] = PC.update(pc, cps[i], _step_stat(
+                        loss_fn, pc, ps[i], micro, grads,
+                        steps[h][i] if steps else None))
                 ps[i], ms[i] = _apply_update(ps[i], ms[i], grads,
                                              cps[i] if local else pstate,
                                              spec)
@@ -469,24 +487,26 @@ def _client_loop(grad_fn, spec: EngineSpec):
     return run
 
 
-def _fused_run(grad_fn, spec: EngineSpec):
+def _fused_run(loss_fn, grad_fn, spec: EngineSpec):
     """The flat-buffer fused client loop.
 
     Same contract as the tree ``run``, but the client state rides as
     per-client flat fp32 buffers ``(M, n_total)``, flattened at round start
     and viewed back as trees at the sync barrier, and each local step is ONE
     ``kernels.ops.fused_local_step`` launch covering all M clients and every
-    ``PrecondConfig`` kind. The kernel updates the buffers in place. The
-    reference quietly falls back to the tree path for non-fp32 state; this
-    port raises instead.
+    ``PrecondConfig`` kind. The kernel updates the buffers in place. Local
+    Hutchinson stats go to the kernel as its external ``h``, one (M, n)
+    buffer filled client by client. The reference quietly falls back to the
+    tree path for non-fp32 state; this port raises instead.
     """
     cl, pc = spec.client, spec.precond
     from repro_torch.kernels import ops as kops
     has_d = pc.kind != "identity"
     # "local" here = D advances inside the loop (global D updates at sync)
     local = cl.scaling == "local" and has_d
+    hutch = local and pc.uses_hutchinson
 
-    def run(params_m, mom_m, pstate, batch):
+    def run(params_m, mom_m, pstate, batch, steps):
         if not (all_float32(params_m) and all_float32(mom_m)
                 and (not has_d or all_float32(pstate["d"]))):
             raise NotImplementedError("the fused client loop takes fp32 "
@@ -500,21 +520,29 @@ def _fused_run(grad_fn, spec: EngineSpec):
         D = layout.flatten(pstate["d"], batch_dims=1 if local else 0) \
             if has_d else None
         T = pstate["t"] if local else None      # per-client (M,) int32
+        Hs = torch.empty_like(P) if hutch else None   # local Hutchinson stat
         losses = []
         for h in range(H):
             row = []
             for i in range(M):
-                loss, grads = grad_fn(layout.unflatten(P[i]),
-                                      _micro(batch, i, h))
+                params_i, micro = layout.unflatten(P[i]), _micro(batch, i, h)
+                loss, grads = grad_fn(params_i, micro)
                 # tree-level clip, exactly as the tree path: the CLIPPED
                 # grads are what the sync-time D stat reads
                 grads = _clip(grads, cl.grad_clip)
                 torch.cat([g.reshape(-1) for g in tree_leaves(grads)],
                           out=G[i])
+                del grads
+                if hutch:
+                    stat = PC.hutchinson_diag(loss_fn, params_i, micro,
+                                              steps[h][i])
+                    torch.cat([x.reshape(-1) for x in tree_leaves(stat)],
+                              out=Hs[i])
+                    del stat
                 row.append(loss)
             losses.append(torch.stack(row))
             kops.fused_local_step(
-                P, Mo, G, D, None, T, None, gamma=cl.lr, beta1=cl.momentum,
+                P, Mo, G, D, Hs, T, None, gamma=cl.lr, beta1=cl.momentum,
                 weight_decay=cl.weight_decay, alpha=pc.alpha, beta2=pc.beta2,
                 kind=pc.kind, clip=pc.clip, schedule=pc.schedule,
                 update_d=local)
@@ -531,27 +559,186 @@ def _fused_run(grad_fn, spec: EngineSpec):
 
 
 # --------------------------------------------------------------------------- #
+# Compression (DESIGN.md §4)
+# --------------------------------------------------------------------------- #
+
+
+def _k_count(k: float, n: int) -> int:
+    """Static kept-entry count for a leaf of n elements (at least 1), rounded
+    half up."""
+    return max(1, min(n, int(math.floor(k * n + 0.5))))
+
+
+def _top_indices(scores, kc: int):
+    """The indices of the ``kc`` largest scores along the last dim, ranked by
+    a stable descending sort so that ties keep the lower index (the order of
+    the reference's ``lax.top_k``; ``torch.topk`` does not promise it)."""
+    order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
+    return order[..., :kc]
+
+
+def _compress_leaf(spec: CompressionSpec, x, stream):
+    """Apply one compression operator to a (M, ...) leaf of round deltas.
+
+    Per-client semantics throughout: topk/randk keep EXACTLY k·n entries per
+    client row, int8-stochastic uses a per-client absmax/127 scale. Returns
+    the decoded (server-side) fp32 view of what crossed the wire, same shape
+    as x. The static exact-k path only: the controller's traced ``k_frac``
+    is not ported.
+    """
+    M = x.shape[0]
+    flat = x.reshape(M, -1)
+    n = flat.shape[1]
+    if spec.op in ("topk", "randk"):
+        # randk = topk on uniform scores: same selection code, random ranking
+        scores = flat.abs() if spec.op == "topk" \
+            else stream.uniform(flat.shape, flat.device)
+        kc = _k_count(spec.k, n)
+        idx = _top_indices(scores, kc)
+        del scores
+        kept = torch.zeros_like(flat).scatter_(1, idx, flat.gather(1, idx))
+        if spec.op == "randk" and not spec.error_feedback:
+            # unbiased rescale E[C(x)] = x, only without EF
+            kept = kept * (n / kc)
+        return kept.reshape(x.shape)
+    # int8-stochastic: E[floor(v + U[0,1))] = v, an unbiased QDQ
+    scale = flat.abs().amax(dim=1) / 127.0
+    u01 = stream.uniform(flat.shape, flat.device)
+    if spec.use_fused_kernel:
+        from repro_torch.kernels import ops as kops
+        _, dec = kops.quantize_update(flat, u01, scale)
+    else:
+        from repro_torch.kernels import ref as kref
+        _, dec = kref.quantize_update_ref(flat, u01, scale)
+    return dec.reshape(x.shape)
+
+
+def compress_tree(spec: CompressionSpec, deltas, stream):
+    """Compress a tree of (M, ...) round deltas; one stream per leaf from
+    ``stream.fold(17).split(n_leaves)``. The round itself compresses leaf by
+    leaf on the same streams (``_compressed_sync``)."""
+    leaves = tree_leaves(deltas)
+    streams = stream.fold(rng.COMPRESSION_FOLD).split(len(leaves))
+    return tree_unflatten(deltas, [_compress_leaf(spec, x, st)
+                                   for x, st in zip(leaves, streams)])
+
+
+def _leaf_wire_bytes(comp: CompressionSpec, c, elem_bytes: int = 4):
+    """Encoded bytes per client of one compressed (M, ...) leaf, measured
+    from the decoded view: topk/randk count the surviving nonzero entries,
+    each an (fp32 value, int32 index) pair; int8 moves 1 byte per element
+    plus one fp32 scale; identity specs move every element. An int64 (M,)
+    tensor on the leaf's device."""
+    M = c.shape[0]
+    flat = c.reshape(M, -1)
+    n = flat.shape[1]
+    if comp.is_identity():
+        per = n * elem_bytes
+    elif comp.op in ("topk", "randk"):
+        return torch.count_nonzero(flat, dim=1).to(torch.int64) * (4 + 4)
+    else:
+        per = n * 1 + 4
+    return torch.full((M,), per, dtype=torch.int64, device=c.device)
+
+
+def measured_wire_bytes(comp: CompressionSpec, compressed,
+                        elem_bytes: int = 4):
+    """Encoded client→server payload measured from the arrays
+    ``compress_tree`` emitted, as an int64 numpy array of shape (M,); the
+    ground truth ``bytes_on_wire`` is held against. A kept-but-exactly-zero
+    entry is indistinguishable from a dropped one, so topk/randk counts are
+    exact only for continuous deltas."""
+    total = sum(_leaf_wire_bytes(comp, leaf, elem_bytes)
+                for leaf in tree_leaves(compressed))
+    return total.cpu().numpy().astype(np.int64)
+
+
+def _elem_bytes(dtype_name: str) -> int:
+    return torch.empty((), dtype=_torch_dtype(dtype_name)).element_size() \
+        if dtype_name else 4
+
+
+def bytes_on_wire(spec: EngineSpec, params) -> dict:
+    """Analytic client→server sync payload per round for ONE client.
+
+    ``params`` is a single-replica tree (anything with ``.shape``). Same
+    accounting as the reference: topk/randk send (fp32 value, int32 index)
+    pairs; int8-stochastic sends 1 byte/element + one fp32 scale per leaf;
+    uncompressed legs move ``sync_dtype`` bytes (fp32 when unset). Momentum,
+    when averaged under an averaging server, moves uncompressed. Adaptive
+    servers also report the server m/v sync leg, apart from the total.
+    """
+    if spec.sync.personal:
+        raise NotImplementedError("personalization is not ported yet")
+    sy, comp = spec.sync, spec.sync.compression
+    elem = _elem_bytes(sy.sync_dtype)
+    sizes = [math.prod(int(d) for d in leaf.shape)
+             for leaf in tree_leaves(params)]
+    delta = raw = 0
+    for n in sizes:
+        raw += n * 4
+        if comp.is_identity():
+            delta += n * elem
+        elif comp.op in ("topk", "randk"):
+            delta += _k_count(comp.k, n) * (4 + 4)
+        else:  # int8-stochastic
+            delta += n * 1 + 4
+    mom = raw if (spec.server.kind == "average"
+                  and sy.average_momentum) else 0
+    if mom and sy.sync_dtype:
+        mom = mom // 4 * elem
+    out = {"delta_bytes": delta, "momentum_bytes": mom,
+           "total_bytes": delta + mom, "uncompressed_bytes": raw + mom,
+           "compression_x": round((raw + mom) / max(delta + mom, 1), 2)}
+    if spec.server.kind == "adaptive":
+        sv = spec.server
+        elem_s = _elem_bytes(sv.sync_dtype)
+        s_raw = s_comp = 0
+        for n in sizes:
+            s_raw += 2 * n * 4                  # fp32 m + v
+            if sv.sync_k < 1.0:
+                # shared top-|m| index set: (m, v) value pair + one index
+                s_comp += _k_count(sv.sync_k, n) * (2 * elem_s + 4)
+            else:
+                s_comp += 2 * n * elem_s
+        out["server_state_bytes"] = s_comp
+        out["server_state_uncompressed_bytes"] = s_raw
+    return out
+
+
+# --------------------------------------------------------------------------- #
 # SyncStrategy
 # --------------------------------------------------------------------------- #
 
 
-def participation_weights(spec: SyncSpec, n_clients: int, device):
-    """Per-client sync weights, summing to 1. Only full participation is
-    ported: sampling a subset needs the rng interface."""
+def _needs(stream, what: str):
+    if stream is None:
+        raise ValueError(f"{what} draws random numbers: pass the round's rng "
+                         f"stream to round_step")
+    return stream
+
+
+def participation_weights(spec: SyncSpec, stream, n_clients: int, device):
+    """Per-client sync weights: uniform 1/M, or 1/n_part on a subset sampled
+    by ``stream.fold(3).permutation(M)`` (FedAvg-style client sampling);
+    weights always sum to 1. Half-up count."""
     M = n_clients
     n_part = max(1, int(math.floor(spec.participation * M + 0.5)))
     if n_part < M:
-        raise NotImplementedError("participation < 1 needs the rng "
-                                  "interface, which is not built yet")
+        perm = _needs(stream, "participation < 1").fold(
+            rng.PARTICIPATION_FOLD).permutation(M, device)
+        w = torch.zeros((M,), dtype=torch.float32, device=device)
+        w[perm[:n_part]] = 1.0 / n_part
+        return w
     return torch.full((M,), 1.0 / M, dtype=torch.float32, device=device)
 
 
-def make_sync(spec: SyncSpec, n_clients: int, device):
+def make_sync(spec: SyncSpec, stream, n_clients: int, device):
     """The sync average: (M, ...) leaf -> (...) weighted mean, optionally
     reduced in ``sync_dtype`` (quantized averaging; the result stays in that
     dtype and is cast back to the master dtype at broadcast)."""
     M = n_clients
-    w_part = participation_weights(spec, M, device)
+    w_part = participation_weights(spec, stream, M, device)
 
     def _wmean(p):
         wb = w_part.reshape((M,) + (1,) * (p.dim() - 1)).to(p.dtype)
@@ -561,6 +748,44 @@ def make_sync(spec: SyncSpec, n_clients: int, device):
         sd = _torch_dtype(spec.sync_dtype)
         return lambda p: _wmean(p.to(sd))
     return _wmean
+
+
+def _compressed_sync(comp: CompressionSpec, avg, x_ref, params_m, ef, stream,
+                     keep_delta: bool):
+    """The delta form of the sync, leaf by leaf: u = x_{m,H} − x_t (+ EF),
+    c = C(u), EF′ = u − C(u), Δ̄ = avg(c), x̄ = x_t + Δ̄.
+
+    Each leaf is finished (its residual written, its average taken) before
+    the next one starts, so only the largest leaf's temporaries are alive
+    at once. Returns ``(params_avg, delta_avg | None, new_ef | None,
+    compression_err, wire_bytes)`` with the error Σ‖u_m − C(u_m)‖² and the
+    measured per-client payload (M,).
+    """
+    p_leaves, x_leaves = tree_leaves(params_m), tree_leaves(x_ref)
+    ef_leaves = tree_leaves(ef) if comp.error_feedback else None
+    streams = _needs(stream, f"compression {comp.op!r}").fold(
+        rng.COMPRESSION_FOLD).split(len(p_leaves))
+    x_avg, d_avg, new_ef = [], [], []
+    err = wire = 0
+    for i, (p, x) in enumerate(zip(p_leaves, x_leaves)):
+        u = p - x.unsqueeze(0)
+        if ef_leaves is not None:
+            u.add_(ef_leaves[i])
+        c = _compress_leaf(comp, u, streams[i])
+        wire = wire + _leaf_wire_bytes(comp, c)
+        d = avg(c)
+        x_avg.append(x + d.to(x.dtype))
+        if keep_delta:
+            d_avg.append(d)
+        r = u.sub_(c)                       # the residual u − C(u), in place
+        del c, d
+        err = err + torch.dot(r.reshape(-1), r.reshape(-1))
+        if ef_leaves is not None:
+            new_ef.append(r)
+        del r, u
+    unflat = lambda leaves: tree_unflatten(x_ref, leaves)
+    return (unflat(x_avg), unflat(d_avg) if keep_delta else None,
+            unflat(new_ef) if ef_leaves is not None else None, err, wire)
 
 
 def _broadcast_back(params_m, avg):
@@ -575,6 +800,31 @@ def _broadcast_back(params_m, avg):
 # --------------------------------------------------------------------------- #
 
 
+def _compress_server_state(spec: ServerSpec, m, v):
+    """Compress the server m/v trees for the replica-agreement sync leg:
+    ``sync_k`` keeps ONE shared largest-|m| index set per leaf for both trees
+    (stable ranking, ties to the lower index; a dropped coordinate's m is 0
+    and its v falls back to the ``v_init`` floor), and ``sync_dtype``
+    round-trips both trees through that dtype."""
+    if spec.sync_k < 1.0:
+        v0 = spec.v_init if spec.v_init is not None else spec.tau ** 2
+
+        def mask_leaf(mm):
+            fm = mm.reshape(-1)
+            idx = _top_indices(fm.abs(), _k_count(spec.sync_k, fm.numel()))
+            return torch.zeros(fm.shape, dtype=torch.bool, device=fm.device) \
+                .index_fill_(0, idx, True).reshape(mm.shape)
+
+        masks = tree_map(mask_leaf, m)
+        m = tree_map(lambda mm, ma: torch.where(ma, mm, 0.0), m, masks)
+        v = tree_map(lambda vv, ma: torch.where(ma, vv, v0), v, masks)
+    if spec.sync_dtype:
+        sd = _torch_dtype(spec.sync_dtype)
+        m = tree_map(lambda a: a.to(sd).to(a.dtype), m)
+        v = tree_map(lambda a: a.to(sd).to(a.dtype), v)
+    return m, v
+
+
 def _adaptive_server_update(spec: ServerSpec, server, x_prev, delta):
     """m/v/x update of Algorithm 2 [42] on the pseudo-gradient Δ."""
     m = tree_map(lambda m_, d: spec.beta1 * m_ + (1 - spec.beta1) * d,
@@ -587,6 +837,8 @@ def _adaptive_server_update(spec: ServerSpec, server, x_prev, delta):
     else:  # yogi
         v = tree_map(lambda v_, d: v_ - (1 - spec.beta2) * d * d
                      * torch.sign(v_ - d * d), server["v"], delta)
+    if not spec.sync_identity():
+        m, v = _compress_server_state(spec, m, v)
     x = tree_map(lambda x_, m_, v_: x_ + spec.eta * m_ / (torch.sqrt(v_)
                                                          + spec.tau),
                  x_prev, m, v)
@@ -601,12 +853,16 @@ def _adaptive_server_update(spec: ServerSpec, server, x_prev, delta):
 def build_round_step(loss_fn: Callable, spec: EngineSpec, objective=None):
     """loss_fn(params, microbatch) -> scalar tensor.
 
-    Returns ``round_step(state, batch) -> (state, metrics)`` where each batch
-    leaf is (M, H, ...): H microbatches per client per round, on the state's
-    device. Metrics (tensors): loss, loss_per_client, client_drift (+
-    step_norm for adaptive servers). The slice draws no random numbers, so
-    the round takes no key. Parts of ``spec`` the port has not reached raise
-    ``NotImplementedError`` here, at build time.
+    Returns ``round_step(state, batch, stream=None) -> (state, metrics)``
+    where each batch leaf is (M, H, ...): H microbatches per client per
+    round, on the state's device, and ``stream`` is the round's rng stream
+    (``repro_torch.utils.rng``). A spec that draws (participation < 1,
+    Hutchinson kinds, compression) raises without one. Metrics (tensors):
+    loss, loss_per_client, client_drift (+ step_norm for adaptive servers;
+    + compression_err, the Σ‖u_m − C(u_m)‖² of the compressed sync, and
+    wire_bytes, the measured per-client payload, when compressing). Parts of
+    ``spec`` the port has not reached raise ``NotImplementedError`` here, at
+    build time.
     """
     missing = _unported(spec, objective)
     if missing:
@@ -614,22 +870,36 @@ def build_round_step(loss_fn: Callable, spec: EngineSpec, objective=None):
                                   + ", ".join(missing))
     grad_fn = value_and_grad(loss_fn)
     cl, sy, sv, pc = spec.client, spec.sync, spec.server, spec.precond
-    client_run = _client_loop(grad_fn, spec)
+    comp = sy.compression
+    client_run = _client_loop(loss_fn, grad_fn, spec)
+    local_probe = cl.scaling == "local" and pc.uses_hutchinson
 
-    def round_step(state, batch):
+    def round_step(state, batch, stream=None):
         M = tree_leaves(state["params"])[0].shape[0]
+        H = tree_leaves(batch)[0].shape[1]
         dev = state["round"].device
 
         # ---- ClientLoop: H local steps on every client ----------------------
+        steps = rng.step_streams(_needs(stream, "a local Hutchinson probe"),
+                                 H, M) if local_probe else None
         mom0 = tree_map(torch.zeros_like, state["mom"]) \
             if cl.reset_momentum else state["mom"]
         params_m, mom_m, pstate, last_grads, losses = client_run(
-            state["params"], mom0, state["precond"], batch)
+            state["params"], mom0, state["precond"], batch, steps)
         drift_pre_sync = client_drift(params_m)
 
         # ---- SyncStrategy ----------------------------------------------------
-        avg = make_sync(sy, M, dev)
-        params_avg = tree_map(avg, params_m)
+        avg = make_sync(sy, stream, M, dev)
+        new_ef = delta_avg = comp_err = wire = None
+        if comp.is_identity():
+            params_avg = tree_map(avg, params_m)
+        else:
+            # delta form: Δ_m = x_{m,H} − x_t (clients start each round at the
+            # common broadcast point, so x_t = params[0])
+            x_ref = tree_map(lambda p: p[0], state["params"])
+            params_avg, delta_avg, new_ef, comp_err, wire = _compressed_sync(
+                comp, avg, x_ref, params_m, state.get("ef"), stream,
+                keep_delta=sv.kind == "adaptive")
         if sv.kind == "average":
             params_m = _broadcast_back(params_m, params_avg)
             params_avg = tree_map(lambda x: x[0], params_m)
@@ -639,22 +909,51 @@ def build_round_step(loss_fn: Callable, spec: EngineSpec, objective=None):
         # ---- D update at sync (global scaling; Algorithm 1 line 4) ---------
         if cl.scaling == "global" and pc.kind != "identity":
             if cl.stat_source == "avg_grad":
-                # participation weights and sync dtype apply to the stat too
-                stat = _local_stat(pc, tree_map(avg, last_grads))
+                if pc.uses_hutchinson:
+                    # one probe at the averaged point on client 0's last
+                    # microbatch
+                    stat = PC.hutchinson_diag(
+                        loss_fn, params_avg, _micro(batch, 0, H - 1),
+                        _needs(stream, "a Hutchinson probe").fold(
+                            rng.HUTCHINSON_FOLD))
+                else:
+                    # participation weights and sync dtype apply to the stat
+                    stat = _local_stat(pc, tree_map(avg, last_grads))
             else:  # avg_local
-                stat = tree_map(lambda s: s.mean(dim=0),
-                                _local_stat(pc, last_grads))
+                if pc.uses_hutchinson:
+                    hk = _needs(stream, "a Hutchinson probe").fold(
+                        rng.HUTCHINSON_FOLD).split(M)
+                    stats = [PC.hutchinson_diag(
+                        loss_fn, tree_map(lambda x: x[i], params_m),
+                        _micro(batch, i, H - 1), hk[i]) for i in range(M)]
+                    stat = tree_map(lambda *xs: torch.stack(xs).mean(dim=0),
+                                    *stats)
+                    del stats
+                else:
+                    stat = tree_map(lambda s: s.mean(dim=0),
+                                    _local_stat(pc, last_grads))
             pstate = PC.update(pc, pstate, stat)
+            del stat
 
         metrics = {"loss": losses.mean(), "loss_per_client": losses[-1],
                    "client_drift": drift_pre_sync}
+        if comp_err is not None:
+            metrics["compression_err"] = comp_err
+            metrics["wire_bytes"] = wire
 
         # ---- ServerUpdate ----------------------------------------------------
         new_state = {"round": state["round"] + 1, "precond": pstate}
+        if new_ef is not None:
+            new_state["ef"] = new_ef
         if sv.kind == "adaptive":
             x_prev = tree_map(lambda p: p[0], state["params"])
-            delta = tree_map(lambda a, x: a.to(x.dtype) - x, params_avg,
-                             x_prev)
+            if delta_avg is not None:
+                # compressed path: Δ is exactly the averaged compressed delta
+                delta = tree_map(lambda d, x: d.to(x.dtype), delta_avg,
+                                 x_prev)
+            else:
+                delta = tree_map(lambda a, x: a.to(x.dtype) - x, params_avg,
+                                 x_prev)
             x_new, server = _adaptive_server_update(sv, state["server"],
                                                     x_prev, delta)
             params_m = _broadcast_back(params_m, x_new)

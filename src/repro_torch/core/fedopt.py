@@ -35,14 +35,28 @@ class FedOptConfig:
     v_init: float = None           # v_{-1}; default τ²
     client_momentum: float = 0.0
     local_steps: tuple = None      # per-client H_m (not ported)
+    participation: float = 1.0     # fraction of clients in the sync average
+    # sync delta compression; its EF residual needs the engine's per-client
+    # state, which this single-replica layout has no slot for
+    compression: engine.CompressionSpec = engine.CompressionSpec()
+    use_fused_kernel: bool = False # fused client loop and K3
 
 
 def engine_spec(cfg: FedOptConfig) -> engine.EngineSpec:
-    """FedOptConfig -> the engine's three-layer spec."""
+    """FedOptConfig -> the engine's three-layer spec. The fused fast path
+    also runs int8 compression on its kernel (K3), as
+    ``engine.method_spec`` sets it."""
+    comp = cfg.compression
+    if comp.error_feedback and not comp.is_identity():
+        raise ValueError("FedOpt's single-replica state has no EF residual; "
+                         "use engine.method_spec for compression with EF")
+    if cfg.use_fused_kernel and not comp.use_fused_kernel:
+        comp = dataclasses.replace(comp, use_fused_kernel=True)
     spec = engine.method_spec(
         "fed" + cfg.server_opt, eta=cfg.eta, eta_l=cfg.eta_l, tau=cfg.tau,
         server_beta1=cfg.beta1, server_beta2=cfg.beta2, v_init=cfg.v_init,
-        local_steps=cfg.local_steps)
+        local_steps=cfg.local_steps, participation=cfg.participation,
+        compression=comp, use_fused_kernel=cfg.use_fused_kernel)
     if cfg.client_momentum:
         spec = dataclasses.replace(spec, client=dataclasses.replace(
             spec.client, momentum=cfg.client_momentum))
@@ -60,10 +74,11 @@ def init_state(generator, init_params_fn, cfg: FedOptConfig):
 
 
 def build_round_step(loss_fn: Callable, cfg: FedOptConfig):
-    """Returns ``round_step(state, batch)``; batch leaves (M, K, ...)."""
+    """Returns ``round_step(state, batch, stream=None)``; batch leaves
+    (M, K, ...)."""
     eng_step = engine.build_round_step(loss_fn, engine_spec(cfg))
 
-    def round_step(state, batch):
+    def round_step(state, batch, stream=None):
         M = tree_leaves(batch)[0].shape[0]
         params_m = tree_map(lambda p: engine._replicate(p, M),
                             state["params"])
@@ -75,7 +90,7 @@ def build_round_step(loss_fn: Callable, cfg: FedOptConfig):
             "server": {"m": state["m"], "v": state["v"]},
             "round": state["round"],
         }
-        eng_state, met = eng_step(eng_state, batch)
+        eng_state, met = eng_step(eng_state, batch, stream)
         new_state = {"params": engine.average_params(eng_state),
                      "m": eng_state["server"]["m"],
                      "v": eng_state["server"]["v"],

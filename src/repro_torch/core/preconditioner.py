@@ -10,10 +10,9 @@
 ``{"d": tree, "t": int32}`` where ``d`` stores D² (rule 2, AdaGrad) or D
 (rule 3).
 
-The Hutchinson kinds (``oasis``, ``adahessian``) need a probe stream that
-replays the reference's ``jax.random`` draws; until the port has that rng
-interface, ``hutchinson_diag`` raises. Their D̂ arithmetic (rule 3 with an
-external stat) is ported, since the fused kernel takes the stat as input.
+The Hutchinson kinds (``oasis``, ``adahessian``) take their stat from
+``hutchinson_diag``, whose Rademacher probes come from an rng stream
+(``repro_torch.utils.rng``).
 """
 from __future__ import annotations
 
@@ -22,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.utils.tree import tree_leaves, tree_map
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 KINDS = ("identity", "adam", "rmsprop", "adagrad", "oasis", "adahessian")
 
@@ -83,12 +82,29 @@ def grad_stat(grads):
     return tree_map(lambda g: g.float() ** 2, grads)
 
 
-def hutchinson_diag(loss_fn, params, batch, generator):
-    """diag(v ⊙ ∇²f v) with Rademacher v: waits for the rng interface that
-    replays the reference's probe draws."""
-    raise NotImplementedError(
-        "Hutchinson probes (oasis/adahessian) need the port's rng replay "
-        "interface, which is not built yet")
+def hutchinson_diag(loss_fn, params, batch, stream):
+    """diag(v ⊙ ∇²f(x) v) with Rademacher v, one probe leaf per parameter
+    leaf from ``stream.split(n_leaves)`` (the reference's per-leaf keys).
+
+    The reference takes the Hessian-vector product forward-over-reverse
+    (``jax.jvp`` of ``jax.grad``); this takes it reverse-over-reverse: the
+    gradient with ``create_graph=True``, then the gradient of ⟨g, v⟩. The two
+    agree in exact arithmetic, not bitwise. It runs through the model's
+    non-reentrant ``torch.utils.checkpoint``.
+    """
+    leaves = tree_leaves(params)
+    streams = stream.split(len(leaves))
+    v = [s.rademacher(p.shape, p.device).to(p.dtype)
+         for s, p in zip(streams, leaves)]
+    xs = [p.detach().requires_grad_(True) for p in leaves]
+    with torch.enable_grad():
+        loss = loss_fn(tree_unflatten(params, xs), batch)
+        g = torch.autograd.grad(loss, xs, create_graph=True)
+        gv = sum((gi * vi).sum() for gi, vi in zip(g, v))
+    hv = torch.autograd.grad(gv, xs)
+    del g, gv
+    return tree_unflatten(params, [vi.float() * hi.float()
+                                   for vi, hi in zip(v, hv)])
 
 
 def update(cfg: PrecondConfig, state, stat):

@@ -34,7 +34,12 @@ class SavicConfig:
 
 
 def engine_spec(pc_cfg: PrecondConfig, sv_cfg: SavicConfig) -> engine.EngineSpec:
-    """SavicConfig × PrecondConfig -> the engine's three-layer spec."""
+    """SavicConfig × PrecondConfig -> the engine's three-layer spec. The
+    fused fast path also runs int8 compression on its kernel (K3), as
+    ``engine.method_spec`` sets it."""
+    comp = sv_cfg.compression
+    if sv_cfg.use_fused_kernel and not comp.use_fused_kernel:
+        comp = dataclasses.replace(comp, use_fused_kernel=True)
     return engine.EngineSpec(
         client=engine.ClientLoopSpec(
             lr=sv_cfg.gamma, momentum=sv_cfg.beta1, scaling=sv_cfg.scaling,
@@ -45,8 +50,7 @@ def engine_spec(pc_cfg: PrecondConfig, sv_cfg: SavicConfig) -> engine.EngineSpec
         sync=engine.SyncSpec(
             participation=sv_cfg.participation, sync_dtype=sv_cfg.sync_dtype,
             average_momentum=sv_cfg.average_momentum,
-            compression=sv_cfg.compression,
-            asynchrony=sv_cfg.asynchrony),
+            compression=comp, asynchrony=sv_cfg.asynchrony),
         server=engine.ServerSpec(kind="average"),
         precond=pc_cfg)
 
@@ -60,7 +64,8 @@ def init_state(generator, init_params_fn, pc_cfg: PrecondConfig,
 
 def build_round_step(loss_fn: Callable, pc_cfg: PrecondConfig,
                      sv_cfg: SavicConfig):
-    """Returns ``round_step(state, batch)``; batch leaves (M, H, ...)."""
+    """Returns ``round_step(state, batch, stream=None)``; batch leaves
+    (M, H, ...)."""
     return engine.build_round_step(loss_fn, engine_spec(pc_cfg, sv_cfg))
 
 

@@ -8,6 +8,7 @@ other.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import quantize_update as _qu
 from repro_torch.kernels import ref
 from repro_torch.kernels import scaled_update as _su
 
@@ -41,3 +42,15 @@ def fused_local_step(p, m, g, d=None, h=None, t=None, s=None, *, gamma, beta1,
         d.copy_(d_new)
         return p, m, d
     return p, m, None
+
+
+def quantize_update(x, u, scale):
+    """Stochastic int8 encode + fp32 decode of (M, n) per-client rows ``x``
+    with U[0, 1) draws ``u`` (M, n) and per-row scales ``scale`` (M,).
+    Returns ``(q int8, dec fp32)``, both (M, n)."""
+    if x.device.type == "cuda":
+        return _qu.quantize_update_flat(x, u, scale)
+    if x.device.type != "cpu":
+        raise ValueError(f"no quantize_update for device {x.device}")
+    _qu.check_args(x, u, scale)
+    return ref.quantize_update_ref(x, u, scale)

@@ -55,3 +55,18 @@ def fused_step_ref(p, m, g, d=None, h=None, t=None, s=None, *, gamma, beta1,
                            weight_decay=weight_decay, alpha=alpha, beta2=beta2,
                            kind=kind, clip=clip, schedule=schedule,
                            update_d=update_d)
+
+
+def quantize_update_ref(x, u, scale):
+    """Stochastic int8 quantize-dequantize of (M, n) fp32 ``x`` with U[0, 1)
+    draws ``u`` (M, n) and a per-row scale ``scale`` (M,):
+
+        v = x / s (0 where s <= 0);  q = clip(floor(v + u), ±127);  dec = q·s
+
+    in the reference's order of fp32 operations. Returns ``(q int8, dec
+    fp32)``, both (M, n). The plain version of kernel K3."""
+    s = scale.reshape(-1, 1)
+    pos = s > 0
+    v = torch.where(pos, x / torch.where(pos, s, 1.0), 0.0)
+    qf = v.add_(u).floor_().clamp_(-127.0, 127.0)
+    return qf.to(torch.int8), qf * s

@@ -6,9 +6,11 @@ under ``torch.profiler`` and prints: the untraced rounds' wall times, the
 traced round's wall time, the device-busy time (summed kernel time of the
 traced round) as a share of the traced round and of the median untraced
 round after the first (the first carries the CUDA and cuBLAS set-up), the
-time of the fused local-step kernel K1, the kernels that took the most
+time and launches of the port's kernels (K1, the fused local step, and K3,
+the int8 quantize-dequantize of compressed syncs), the kernels that took the most
 device time and the host ops that took the most host time (self time, so
-nested ops are not counted twice). CUDA only: a device share has no meaning
+nested ops are not counted twice), and the peak device memory over the
+whole run. CUDA only: a device share has no meaning
 on the CPU. The profiler's own cost inflates the host times and the traced
 round's wall time.
 
@@ -26,42 +28,49 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.launch import train
 
-K1_NAMES = ("fused_step_vec4", "fused_step_scalar")
+# the port's kernels by the names of their CUDA functions
+KERNELS = {"k1": ("fused_step_vec4", "fused_step_scalar"),
+           "k3": ("quantize_update_vec4", "quantize_update_scalar")}
 TOP = 15
 
 
 def main(argv=None):
-    args, device, round_step, state, loader, _ = train.setup(argv)
+    run = train.setup(argv)
+    args, device, state = run.args, run.device, run.state
+    run.state = None
     if device.type != "cuda":
         raise RuntimeError("profile_round measures the GPU; run it with "
                            "--device cuda")
+    torch.cuda.reset_peak_memory_stats()
     untraced_ms = []
     for r in range(args.rounds):
-        batch = train.round_batch(loader, args, r, device)
+        batch = train.round_batch(run.loader, args, r, device)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, met = round_step(state, batch)
+        state, met = run.round_step(state, batch, run.stream(r))
         float(met["loss"])
         torch.cuda.synchronize()
         untraced_ms.append((time.perf_counter() - t0) * 1e3)
     # round 0 carries the process's CUDA and cuBLAS set-up
     steady = sorted(untraced_ms[1:])
     steady_ms = steady[len(steady) // 2] if steady else None
-    batch = train.round_batch(loader, args, args.rounds, device)
+    batch = train.round_batch(run.loader, args, args.rounds, device)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, met = round_step(state, batch)
+        state, met = run.round_step(state, batch, run.stream(args.rounds))
         float(met["loss"])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type.name == "CUDA"]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    k1 = [e for e in kernels if any(n in e.key for n in K1_NAMES)]
-    k1_ms = sum(e.self_device_time_total for e in k1) / 1e3
-    k1_calls = sum(e.count for e in k1)
+    ours = {}
+    for name, fns in KERNELS.items():
+        evs = [e for e in kernels if any(f in e.key for f in fns)]
+        ours[f"{name}_ms"] = sum(e.self_device_time_total for e in evs) / 1e3
+        ours[f"{name}_launches"] = sum(e.count for e in evs)
     tops = sorted(kernels, key=lambda e: -e.self_device_time_total)[:TOP]
     host = sorted((e for e in events if e.device_type.name == "CPU"),
                   key=lambda e: -e.self_cpu_time_total)[:TOP]
@@ -74,8 +83,8 @@ def main(argv=None):
         "untraced_steady_median_ms": steady_ms,
         "device_busy_share_untraced": (busy_ms / steady_ms if steady_ms
                                        else None),
-        "k1_ms": k1_ms,
-        "k1_launches": k1_calls,
+        **ours,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "top_kernels": [{"name": e.key[:90], "calls": e.count,
                          "ms": e.self_device_time_total / 1e3}
                         for e in tops],

@@ -3,20 +3,31 @@
 
 Same flags and defaults as the reference, plus ``--device {cuda,cpu}``
 (default cuda; without a card it raises). Flags for features the port has
-not reached raise ``NotImplementedError``: meshes, checkpoints, compression,
-heterogeneity, async buffers, the controller, objectives, personalization and
-partial participation.
+not reached raise ``NotImplementedError``: meshes, checkpoints,
+heterogeneity, async buffers, the controller, objectives and
+personalization.
+
+Round r draws from the stream ``TorchStream(seed + 1).fold(r)``
+(``repro_torch.utils.rng``), as the reference keys round r with
+``fold_in(PRNGKey(seed + 1), r)``.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
       --method savic --use-fused-kernel --rounds 2 --h-local 2 --clients 4 \
       --batch 8 --seq 128
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
+      --method savic --compression int8-stochastic --error-feedback \
+      --use-fused-kernel --rounds 2 --h-local 2 --clients 4 --batch 8 --seq 128
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
+      --method savic --preconditioner oasis --participation 0.5 \
+      --use-fused-kernel --rounds 2 --h-local 2 --clients 4 --batch 8 --seq 128
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
       --reduced --device cpu --rounds 2 --clients 2 --batch 2 --seq 32
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -27,6 +38,7 @@ from repro_torch.core import PrecondConfig, SavicConfig, engine, savic
 from repro_torch.data import LMRoundLoader, TokenStream
 from repro_torch.data import federated
 from repro_torch.models import ModelCallConfig, build
+from repro_torch.utils import rng
 from repro_torch.utils.device import resolve_device
 
 
@@ -102,8 +114,6 @@ def _unported_flags(args) -> list:
         out.append("--mesh")
     if args.ckpt:
         out.append("--ckpt")
-    if args.compression != "none" or args.error_feedback:
-        out.append("--compression/--error-feedback")
     if args.het_model != "uniform":
         out.append("--het-model")
     if args.async_buffer:
@@ -114,34 +124,54 @@ def _unported_flags(args) -> list:
         out.append("--objective/--labeled-frac")
     if args.personalize:
         out.append("--personalize")
-    if args.participation < 1.0:
-        out.append("--participation")
     return out
 
 
 def _resolve_spec(args):
+    comp = engine.CompressionSpec(op=args.compression, k=args.compression_k,
+                                  error_feedback=args.error_feedback,
+                                  use_fused_kernel=args.use_fused_kernel)
     if args.method == "savic":
         pc = PrecondConfig(kind=args.preconditioner, alpha=args.alpha)
         sv = SavicConfig(gamma=args.gamma, beta1=args.beta1,
                          scaling=args.scaling,
                          participation=args.participation,
                          sync_dtype=args.sync_dtype,
-                         use_fused_kernel=args.use_fused_kernel)
+                         use_fused_kernel=args.use_fused_kernel,
+                         compression=comp)
         return savic.engine_spec(pc, sv)
     return engine.method_spec(
         args.method, pc_kind=args.preconditioner, alpha=args.alpha,
         beta1=args.beta1, eta=args.server_eta, eta_l=args.gamma,
         tau=args.tau, server_beta1=args.server_beta1,
         participation=args.participation, sync_dtype=args.sync_dtype,
-        use_fused_kernel=args.use_fused_kernel)
+        compression=comp, use_fused_kernel=args.use_fused_kernel)
 
 
-def setup(argv=None, init_params=None):
-    """Parse ``argv`` and build what the rounds need: ``(args, device,
-    round_step, state, loader, sim_t)``.
+@dataclasses.dataclass
+class Run:
+    """What the rounds need, as ``setup`` builds it."""
+    args: argparse.Namespace
+    device: torch.device
+    spec: engine.EngineSpec
+    round_step: object             # (state, batch, stream) -> (state, metrics)
+    state: dict
+    loader: LMRoundLoader
+    sim_t: float                   # simulated time of one round
+    root: object                   # the run's rng stream; round r: fold(r)
+    wire: dict                     # engine.bytes_on_wire for one client
+
+    def stream(self, r: int):
+        return self.root.fold(r)
+
+
+def setup(argv=None, init_params=None, root_stream=None) -> Run:
+    """Parse ``argv`` and build what the rounds need.
 
     ``init_params(generator) -> params`` replaces the model's own random
-    init; tests pass the reference's weights through ``repro_torch.bridge``.
+    init, and ``root_stream`` the run's rng stream
+    (``TorchStream(seed + 1)``); tests pass the reference's weights through
+    ``repro_torch.bridge`` and a stream that replays its draws.
     """
     args = _parser().parse_args(argv)
     device = resolve_device(args.device)
@@ -160,9 +190,15 @@ def setup(argv=None, init_params=None):
     sim_t = federated.simulated_round_time(step_times, [args.h_local] * M)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     state = engine.init_state(gen, init_params or model.init, spec, M)
+    wire = engine.bytes_on_wire(spec, engine.average_params(state))
+    print(f"[train] sync payload/client/round: {wire['total_bytes']/1e6:.3f} "
+          f"MB ({wire['compression_x']}x vs uncompressed)", flush=True)
     loader = LMRoundLoader(TokenStream(cfg.vocab_size, seed=args.seed), M,
                            args.batch)
-    return args, device, round_step, state, loader, sim_t
+    root = root_stream if root_stream is not None \
+        else rng.TorchStream(args.seed + 1)
+    return Run(args, device, spec, round_step, state, loader, sim_t, root,
+               wire)
 
 
 def round_batch(loader, args, r, device):
@@ -173,20 +209,23 @@ def round_batch(loader, args, r, device):
             for k, v in nb.items()}
 
 
-def main(argv=None, init_params=None):
+def main(argv=None, init_params=None, root_stream=None):
     """Run the rounds; returns the per-round log records (loss, drift,
-    [step_norm], sim_time, wall_s, tokens_per_s). See ``setup`` for
-    ``init_params``."""
-    args, device, round_step, state, loader, sim_t = setup(argv, init_params)
+    [step_norm], [compression_err, wire_bytes], delta_bytes, compression_x,
+    sim_time, wall_s, tokens_per_s). See ``setup`` for ``init_params`` and
+    ``root_stream``."""
+    run = setup(argv, init_params, root_stream)
+    args, device, state = run.args, run.device, run.state
+    run.state = None                   # the loop below owns the state
     tokens_round = args.clients * args.h_local * args.batch * args.seq
     log = []
     t0 = time.time()
     for r in range(args.rounds):
-        batch = round_batch(loader, args, r, device)
+        batch = round_batch(run.loader, args, r, device)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         tw = time.perf_counter()
-        state, metrics = round_step(state, batch)
+        state, metrics = run.round_step(state, batch, run.stream(r))
         loss = float(metrics["loss"])          # waits for the round
         wall = time.perf_counter() - tw
         drift = float(metrics["client_drift"])
@@ -195,10 +234,17 @@ def main(argv=None, init_params=None):
         if "step_norm" in metrics:
             rec["step_norm"] = float(metrics["step_norm"])
             extra = f" step {rec['step_norm']:.3e}"
-        rec["sim_time"] = round((r + 1) * sim_t, 4)  # simulated clock
+        if "compression_err" in metrics:
+            rec["compression_err"] = float(metrics["compression_err"])
+            rec["wire_bytes"] = [int(b) for b in metrics["wire_bytes"]]
+            extra += f" comp_err {rec['compression_err']:.3e}"
+        rec["delta_bytes"] = run.wire["delta_bytes"]
+        rec["compression_x"] = run.wire["compression_x"]
+        rec["sim_time"] = round((r + 1) * run.sim_t, 4)  # simulated clock
         rec["wall_s"] = round(wall, 4)
         rec["tokens_per_s"] = round(tokens_round / wall, 1)
         log.append(rec)
+        del batch, metrics
         print(f"[train] round {r:4d} loss {loss:.4f} drift {drift:.3e}"
               f"{extra} ({time.time()-t0:.1f}s)", flush=True)
     if args.log:

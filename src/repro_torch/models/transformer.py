@@ -10,6 +10,13 @@ backward pass.
 from __future__ import annotations
 
 import torch
+# torch.utils.checkpoint runs under torch._disable_dynamo, whose first call
+# imports torch._dynamo. That import runs torch.fx's ``wrap``, which keeps
+# ``inspect.currentframe()`` and so ties the whole calling stack (the first
+# round's forward, with its activations and flat buffers) into a reference
+# cycle that lives until the next cyclic GC. Importing it here, when the
+# package is imported, leaves no round's frame on that stack.
+import torch._dynamo  # noqa: F401
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ModelConfig

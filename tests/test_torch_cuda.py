@@ -5,14 +5,15 @@ The module imports only the port, so it runs on a machine without JAX:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-K1 (``fused_step_flat``) is held bitwise: kernel and plain version run the
-same fp32 operations in the same order, and the kernel is built without FMA
-contraction.
+K1 (``fused_step_flat``) and K3 (``quantize_update_flat``) are held bitwise:
+kernel and plain version run the same fp32 operations in the same order, and
+the kernels are built without FMA contraction (K3's int8 q exactly).
 """
 import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import quantize_update as qu
 from repro_torch.kernels import scaled_update as su
 
 # (kind, schedule, clip, d, update_d, wd, h, s)
@@ -101,3 +102,50 @@ def test_k1_rejects_cpu_and_mixed_devices(dev):
     x["g"] = x["g"].cpu()
     with pytest.raises(ValueError, match="g is on"):
         su.fused_step_flat(*(x[k] for k in ORDER), **kw)
+
+
+def _qdq_inputs(M, n, dev, zero_rows=(), seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((M, n), generator=gen, device=dev) \
+        * torch.rand((M, 1), generator=gen, device=dev) * 10
+    x[list(zero_rows)] = 0.0
+    u = torch.rand((M, n), generator=gen, device=dev)
+    return x, u, x.abs().amax(dim=1) / 127.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,n,zero_rows", [
+    (1, 4096, ()), (4, 4097, (1,)), (4, 4095, (0, 3)), (3, 4096 * 3 + 4, (2,)),
+])
+def test_k3_bitwise_vs_plain(dev, M, n, zero_rows):
+    """Ragged n (float4 path and scalar path with a masked tail), rows with a
+    zero scale: q equal, dec bitwise."""
+    x, u, s = _qdq_inputs(M, n, dev, zero_rows)
+    wq, wdec = ref.quantize_update_ref(x, u, s)
+    before = qu.quantize_update_flat.launches
+    q, dec = ops.quantize_update(x, u, s)
+    torch.cuda.synchronize()
+    assert qu.quantize_update_flat.launches == before + 1
+    assert torch.equal(q, wq)
+    assert torch.equal(dec.view(torch.int32), wdec.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_k3_scalar_path_on_misaligned_views(dev):
+    x, u, s = _qdq_inputs(2, 4096, dev)
+    views = []
+    for t in (x, u):
+        buf = torch.empty(t.numel() + 1, device=dev)
+        buf[1:] = t.reshape(-1)
+        views.append(buf[1:].view(t.shape))
+    wq, wdec = ref.quantize_update_ref(*views, s)
+    q, dec = qu.quantize_update_flat(*views, s)
+    assert torch.equal(q, wq)
+    assert torch.equal(dec.view(torch.int32), wdec.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_k3_rejects_mixed_devices(dev):
+    x, u, s = _qdq_inputs(2, 64, dev)
+    with pytest.raises(ValueError, match="u is on"):
+        qu.quantize_update_flat(x, u.cpu(), s)

@@ -31,30 +31,26 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs import get_config as jget_config
+from _torch_parity import (M, assert_metrics_close, assert_state_close,
+                           batches, models, run_jax, run_port)
+from _torch_rng_replay import JaxStream
 from repro.core import engine as jeng
 from repro.core import fedopt as jfedopt
 from repro.core import savic as jsavic
 from repro.core.preconditioner import PrecondConfig as JPrecond
 from repro.data import LMRoundLoader as JLoader
 from repro.data import TokenStream as JStream
-from repro.models import ModelCallConfig as JCall
-from repro.models import build as jbuild
 from repro.utils.flatten import FlatLayout as JFlatLayout
 from repro.utils.tree import tree_paths as jtree_paths
 from repro_torch.bridge import params_from_jax, state_from_jax
-from repro_torch.configs import get_config
 from repro_torch.core import engine, fedopt, savic
 from repro_torch.core.preconditioner import PrecondConfig
 from repro_torch.data import LMRoundLoader, TokenStream
-from repro_torch.models import ModelCallConfig, build
 from repro_torch.utils.flatten import FlatLayout
 from repro_torch.utils.tree import tree_paths
 
 torch.set_num_threads(1)
 
-ARCH = "qwen2-0.5b"
-M, H, B, S, ROUNDS = 2, 2, 1, 8, 2
 KW = dict(gamma=3e-3, eta_l=3e-3)
 
 # name -> method_spec kwargs (scaling only matters for non-identity D)
@@ -70,95 +66,10 @@ CONFIGS = {
 
 
 @functools.lru_cache(maxsize=None)
-def _models():
-    jcfg, cfg = jget_config(ARCH, reduced=True), get_config(ARCH,
-                                                            reduced=True)
-    # remat off on both sides: it changes nothing numerically (pinned in
-    # test_torch_models.py) and halves the reference's compile time
-    jm = jbuild(jcfg, JCall(dtype=jnp.float32, remat=False))
-    tm = build(cfg, ModelCallConfig(dtype=torch.float32, remat=False))
-    return jcfg, jm, tm
-
-
-def _batches():
-    jcfg, _, _ = _models()
-    loader = JLoader(JStream(jcfg.vocab_size, seed=0), M, B)
-    return [loader.round_batch(r, H, S) for r in range(ROUNDS)]
-
-
-def _run_jax(jspec):
-    _, jm, _ = _models()
-    state = jeng.init_state(jax.random.PRNGKey(0), jm.init, jspec, M)
-    init = jax.device_get(state)
-    step = jax.jit(jeng.build_round_step(jm.loss, jspec))
-    mets = []
-    for r, nb in enumerate(_batches()):
-        state, met = step(state, jax.tree.map(jnp.asarray, nb),
-                          jax.random.PRNGKey(r))
-        mets.append(jax.device_get(met))
-    return init, jax.device_get(state), mets
-
-
-@functools.lru_cache(maxsize=None)
 def _jax_method(name, fused=False, **extra):
     kw = dict(CONFIGS[name])
-    return _run_jax(jeng.method_spec(kw.pop("method"), use_fused_kernel=fused,
-                                     **KW, **kw, **extra))
-
-
-def _run_port(spec, init):
-    _, _, tm = _models()
-    state = state_from_jax(init, "cpu")
-    step = engine.build_round_step(tm.loss, spec)
-    mets = []
-    for nb in _batches():
-        state, met = step(state, {k: torch.from_numpy(v).long()
-                                  for k, v in nb.items()})
-        mets.append(met)
-    return state, mets
-
-
-def _entry(path):
-    """The state entry a leaf belongs to: params, mom, precond/d, server/m,
-    server/v."""
-    head = path.split("/")
-    return "/".join(head[:2]) if head[0] in ("precond", "server") \
-        else head[0]
-
-
-def _assert_state_close(got, want, tol=1e-5):
-    gd, wd = dict(tree_paths(got)), dict(jtree_paths(want))
-    assert gd.keys() == wd.keys()
-    scale = {}
-    for k, w in wd.items():
-        scale[_entry(k)] = max(scale.get(_entry(k), 0.0),
-                               float(np.abs(np.asarray(w)).max()))
-    for k, w in wd.items():
-        w = np.asarray(w)
-        g = gd[k].detach().numpy()
-        assert g.shape == w.shape, k
-        if not np.issubdtype(w.dtype, np.floating):
-            np.testing.assert_array_equal(g, w, err_msg=k)
-            continue
-        sc = scale[_entry(k)]
-        if k.startswith("server/m/"):
-            sc = np.abs(np.asarray(wd["params/" + k[len("server/m/"):]])
-                        ).max()
-        np.testing.assert_allclose(g, w, rtol=0, atol=tol * sc, err_msg=k)
-
-
-def _assert_metrics_close(got, want, tol=1e-5):
-    for g, w in zip(got, want):
-        np.testing.assert_allclose(float(g["loss"]), float(w["loss"]),
-                                   rtol=tol)
-        np.testing.assert_allclose(g["loss_per_client"].numpy(),
-                                   np.asarray(w["loss_per_client"]), rtol=tol)
-        np.testing.assert_allclose(float(g["client_drift"]),
-                                   float(w["client_drift"]), rtol=10 * tol)
-        assert ("step_norm" in g) == ("step_norm" in w)
-        if "step_norm" in w:
-            np.testing.assert_allclose(float(g["step_norm"]),
-                                       float(w["step_norm"]), rtol=100 * tol)
+    return run_jax(jeng.method_spec(kw.pop("method"), use_fused_kernel=fused,
+                                    **KW, **kw, **extra))
 
 
 @pytest.mark.parametrize("fused", [False, True], ids=["tree", "fused"])
@@ -168,9 +79,9 @@ def test_method_matches_reference(name, fused):
     kw = dict(CONFIGS[name])
     spec = engine.method_spec(kw.pop("method"), use_fused_kernel=fused,
                               **KW, **kw)
-    got, gmets = _run_port(spec, init)
-    _assert_state_close(got, want)
-    _assert_metrics_close(gmets, wmets)
+    got, gmets = run_port(spec, init)
+    assert_state_close(got, want)
+    assert_metrics_close(gmets, wmets)
 
 
 @pytest.mark.parametrize("name", ["local-adam"])
@@ -182,9 +93,9 @@ def test_fused_matches_reference_fused_path(name):
     kw = dict(CONFIGS[name])
     spec = engine.method_spec(kw.pop("method"), use_fused_kernel=True,
                               **KW, **kw)
-    got, gmets = _run_port(spec, init)
-    _assert_state_close(got, want)
-    _assert_metrics_close(gmets, wmets)
+    got, gmets = run_port(spec, init)
+    assert_state_close(got, want)
+    assert_metrics_close(gmets, wmets)
 
 
 COMPOSITIONS = {
@@ -208,7 +119,7 @@ COMPOSITIONS = {
 @functools.lru_cache(maxsize=None)
 def _jax_composition(name):
     c = COMPOSITIONS[name]
-    return _run_jax(jsavic.engine_spec(
+    return run_jax(jsavic.engine_spec(
         JPrecond(alpha=1e-2, **c["pc"]),
         jsavic.SavicConfig(gamma=3e-3, **c["savic"])))
 
@@ -222,15 +133,15 @@ def test_composition_matches_reference_tree_path(name, fused):
                              savic.SavicConfig(gamma=3e-3,
                                                use_fused_kernel=fused,
                                                **c["savic"]))
-    got, gmets = _run_port(spec, init)
+    got, gmets = run_port(spec, init)
     tol = c.get("tol", 1e-5)
-    _assert_state_close(got, want, tol=tol)
-    _assert_metrics_close(gmets, wmets, tol=tol)
+    assert_state_close(got, want, tol=tol)
+    assert_metrics_close(gmets, wmets, tol=tol)
 
 
 def test_fedopt_preset_matches_reference():
     """core/fedopt.py's single-replica adapter (FedYogi, client momentum)."""
-    _, jm, tm = _models()
+    _, jm, tm = models()
     jcfg = jfedopt.FedOptConfig(server_opt="yogi", eta_l=3e-3,
                                 client_momentum=0.5)
     cfg = fedopt.FedOptConfig(server_opt="yogi", eta_l=3e-3,
@@ -239,11 +150,12 @@ def test_fedopt_preset_matches_reference():
     st = state_from_jax(jax.device_get(jst), "cpu")
     jstep = jax.jit(jfedopt.build_round_step(jm.loss, jcfg))
     step = fedopt.build_round_step(tm.loss, cfg)
-    for r, nb in enumerate(_batches()):
+    for r, nb in enumerate(batches()):
         jst, jmet = jstep(jst, jax.tree.map(jnp.asarray, nb),
                           jax.random.PRNGKey(r))
         st, met = step(st, {k: torch.from_numpy(v).long()
-                            for k, v in nb.items()})
+                            for k, v in nb.items()},
+                       JaxStream(jax.random.PRNGKey(r)))
         np.testing.assert_allclose(float(met["loss"]), float(jmet["loss"]),
                                    rtol=1e-5)
     want = jax.device_get(jst)
@@ -251,6 +163,29 @@ def test_fedopt_preset_matches_reference():
         np.testing.assert_allclose(dict(tree_paths(st["params"]))[k].numpy(),
                                    np.asarray(w), rtol=0,
                                    atol=1e-5 * np.abs(np.asarray(w)).max())
+
+
+def test_fedopt_preset_passes_compression_and_participation():
+    """core/fedopt.py hands participation and compression to the engine and,
+    on the fused path, runs int8 on K3 (as method_spec sets it); its
+    single-replica state has no EF slot, so EF is refused."""
+    comp = engine.CompressionSpec(op="int8-stochastic")
+    cfg = fedopt.FedOptConfig(eta_l=3e-3, participation=0.5,
+                              compression=comp, use_fused_kernel=True)
+    spec = fedopt.engine_spec(cfg)
+    assert spec == engine.method_spec(
+        "fedadam", eta_l=3e-3, participation=0.5, use_fused_kernel=True,
+        compression=dataclasses.replace(comp, use_fused_kernel=True))
+    _, _, tm = models()
+    st = fedopt.init_state(torch.Generator().manual_seed(0), tm.init, cfg)
+    step = fedopt.build_round_step(tm.loss, cfg)
+    st, met = step(st, {k: torch.from_numpy(v).long()
+                        for k, v in batches()[0].items()},
+                   JaxStream(jax.random.PRNGKey(0)))
+    assert np.isfinite(float(met["loss"])) and float(met["step_norm"]) > 0
+    with pytest.raises(ValueError, match="EF"):
+        fedopt.engine_spec(fedopt.FedOptConfig(compression=dataclasses.replace(
+            comp, error_feedback=True)))
 
 
 def test_round_batches_byte_identical():
@@ -266,7 +201,7 @@ def test_round_batches_byte_identical():
 
 
 def test_flat_layout_matches_reference():
-    _, jm, _ = _models()
+    _, jm, _ = models()
     jp = jax.device_get(jeng.init_state(jax.random.PRNGKey(0), jm.init,
                                         jeng.method_spec("savic"),
                                         M)["params"])
@@ -288,32 +223,26 @@ def test_flat_layout_matches_reference():
 
 
 UNPORTED = {
-    "compression": dict(compression="topk", compression_k=0.5),
     "async": dict(async_buffer=2),
     "local_steps": dict(local_steps=(1, 2)),
     "controller": dict(controller=object()),
     "personal": dict(personal=("final_norm",), scaling="local"),
-    "participation": dict(participation=0.5),
-    "hutchinson": dict(pc_kind="oasis"),
 }
 
 
 @pytest.mark.parametrize("name", list(UNPORTED))
 def test_unported_features_raise_at_build(name):
-    _, _, tm = _models()
+    _, _, tm = models()
     spec = engine.method_spec("savic", **UNPORTED[name])
     with pytest.raises(NotImplementedError, match="not ported"):
         engine.build_round_step(tm.loss, spec)
 
 
-def test_objective_and_server_compression_raise_at_build():
-    _, _, tm = _models()
+def test_objective_raises_at_build():
+    _, _, tm = models()
     with pytest.raises(NotImplementedError, match="objectives"):
         engine.build_round_step(tm.loss, engine.method_spec("savic"),
                                 objective=object())
-    spec = engine.method_spec("fedadam", server_sync_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="server m/v"):
-        engine.build_round_step(tm.loss, spec)
 
 
 @pytest.mark.parametrize("bad", [
@@ -336,7 +265,7 @@ def test_spec_validation_matches_reference(bad):
 
 def test_fused_path_raises_on_non_fp32_state():
     """The reference quietly falls back to its tree path; the port raises."""
-    _, jm, tm = _models()
+    _, jm, tm = models()
     spec = engine.method_spec("savic", use_fused_kernel=True, **KW)
     init = jax.device_get(jeng.init_state(jax.random.PRNGKey(0), jm.init,
                                           jeng.method_spec("savic"), M))
@@ -347,20 +276,20 @@ def test_fused_path_raises_on_non_fp32_state():
     step = engine.build_round_step(tm.loss, spec)
     with pytest.raises(NotImplementedError, match="fp32"):
         step(state, {k: torch.from_numpy(v).long()
-                     for k, v in _batches()[0].items()})
+                     for k, v in batches()[0].items()})
 
 
 def test_state_is_not_written_in_place():
     """Rounds return new state; the caller's state keeps its values (the
     fused kernel writes only into the round's own flat buffers)."""
-    _, _, tm = _models()
+    _, _, tm = models()
     init, _, _ = _jax_method("local-adam")
     state = state_from_jax(init, "cpu")
     before = {k: v.clone() for k, v in tree_paths(state)}
     spec = engine.method_spec("local-adam", use_fused_kernel=True, **KW)
     engine.build_round_step(tm.loss, spec)(
         state, {k: torch.from_numpy(v).long()
-                for k, v in _batches()[0].items()})
+                for k, v in batches()[0].items()})
     for k, v in tree_paths(state):
         assert torch.equal(v, before[k]), k
 
@@ -371,3 +300,79 @@ def test_savic_preset_module_matches_engine():
     assert spec == engine.method_spec("savic", gamma=3e-3)
     assert dataclasses.asdict(spec.client) == dataclasses.asdict(
         engine.ClientLoopSpec(lr=3e-3, momentum=0.9))
+
+
+# --------------------------------------------------------------------------- #
+# The round's random parts: participation and the Hutchinson kinds, on the
+# reference's draws replayed through the port's rng interface
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("n_clients,part", [(2, 0.5), (4, 0.5), (5, 0.5),
+                                            (8, 0.3), (6, 1.0)])
+def test_participation_weights_match_reference(n_clients, part):
+    """The sampled subset and its weights are the reference's, exactly."""
+    jspec, spec = jeng.SyncSpec(participation=part), \
+        engine.SyncSpec(participation=part)
+    for r in range(4):
+        key = jax.random.PRNGKey(r)
+        want = np.asarray(jeng.participation_weights(jspec, key, n_clients))
+        got = engine.participation_weights(spec, JaxStream(key), n_clients,
+                                           "cpu")
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert float(got.sum()) == pytest.approx(1.0)
+
+
+def test_random_parts_need_a_stream():
+    _, _, tm = models()
+    init, _, _ = _jax_method("savic-global")
+    spec = engine.method_spec("savic", participation=0.5, **KW)
+    with pytest.raises(ValueError, match="stream"):
+        engine.build_round_step(tm.loss, spec)(
+            state_from_jax(init, "cpu"),
+            {k: torch.from_numpy(v).long() for k, v in batches()[0].items()})
+
+
+# OASIS (rule 3) and AdaHessian (rule 2, debias) with local D, and with global
+# D from both stat sources; partial participation. Tolerance: the HVP is
+# reverse-over-reverse here and forward-over-reverse in the reference, so
+# the Hutchinson stats agree to fp32 rounding only; 1e-5 of the entry scale
+# as for the other rounds.
+RANDOMIZED = {
+    "oasis-global": dict(savic=dict(), pc=dict(kind="oasis")),
+    "oasis-global-avg-local": dict(savic=dict(stat_source="avg_local"),
+                                   pc=dict(kind="oasis")),
+    "oasis-local": dict(savic=dict(scaling="local"), pc=dict(kind="oasis")),
+    "adahessian-global": dict(savic=dict(), pc=dict(kind="adahessian")),
+    "adahessian-global-avg-local": dict(savic=dict(stat_source="avg_local"),
+                                        pc=dict(kind="adahessian")),
+    "adahessian-local": dict(savic=dict(scaling="local"),
+                             pc=dict(kind="adahessian")),
+    "oasis-participation": dict(savic=dict(participation=0.5),
+                                pc=dict(kind="oasis")),
+    "adam-participation": dict(savic=dict(participation=0.5),
+                               pc=dict(kind="adam")),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_randomized(name):
+    c = RANDOMIZED[name]
+    return run_jax(jsavic.engine_spec(
+        JPrecond(alpha=1e-2, **c["pc"]),
+        jsavic.SavicConfig(gamma=3e-3, **c["savic"])))
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["tree", "fused"])
+@pytest.mark.parametrize("name", list(RANDOMIZED))
+def test_randomized_round_matches_reference(name, fused):
+    c = RANDOMIZED[name]
+    init, want, wmets = _jax_randomized(name)
+    spec = savic.engine_spec(PrecondConfig(alpha=1e-2, **c["pc"]),
+                             savic.SavicConfig(gamma=3e-3,
+                                               use_fused_kernel=fused,
+                                               **c["savic"]))
+    got, gmets = run_port(spec, init)
+    assert_state_close(got, want)
+    assert_metrics_close(gmets, wmets)

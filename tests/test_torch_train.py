@@ -9,12 +9,15 @@ step norm (1e-3 relative: built from Δ = x' − x, which cancels) as
 """
 import ast
 import os
+import subprocess
+import sys
 
 import jax
 import numpy as np
 import pytest
 import torch
 
+from _torch_rng_replay import JaxStream
 from repro.configs import get_config as jget_config
 from repro.launch import train as jtrain
 from repro.models import ModelCallConfig as JCall
@@ -38,17 +41,31 @@ def _reference_init(seed=0):
     return lambda gen: params_from_jax(np_params, gen.device)
 
 
-@pytest.mark.parametrize("method,fused", [
-    ("savic", True), ("local-adam", True), ("fedadam", False),
-], ids=["savic-fused", "local-adam-fused", "fedadam-tree"])
-def test_train_main_matches_reference(method, fused):
+INT8_EF = ["--compression", "int8-stochastic", "--error-feedback"]
+OASIS_PART = ["--preconditioner", "oasis", "--participation", "0.5"]
+TOPK_EF = ["--compression", "topk", "--compression-k", "0.2",
+           "--error-feedback"]
+
+
+@pytest.mark.parametrize("method,flags,fused", [
+    ("savic", [], True), ("local-adam", [], True), ("fedadam", [], False),
+    ("savic", INT8_EF, True), ("savic", OASIS_PART, True),
+    ("local-adam", TOPK_EF, False),
+], ids=["savic-fused", "local-adam-fused", "fedadam-tree",
+        "savic-int8-ef-fused", "savic-oasis-part-fused",
+        "local-adam-topk-ef-tree"])
+def test_train_main_matches_reference(method, flags, fused):
     """The reference runs its tree path (its own tests pin its fused path
-    bitwise to it, and the tree path skips the Pallas interpreter)."""
-    extra = ["--method", method]
+    bitwise to it, and the tree path skips the Pallas interpreter). Its
+    round keys ``fold_in(PRNGKey(seed + 1), r)`` are replayed into the port
+    through ``JaxStream``; ``compression_err`` holds at 1e-3 relative (XLA's
+    CPU ``vdot`` sums in fp32 sequentially)."""
+    extra = ["--method", method] + flags
     want = jtrain.main(BASE + extra)
     got = train.main(BASE + extra + ["--device", "cpu"]
                      + (["--use-fused-kernel"] if fused else []),
-                     init_params=_reference_init())
+                     init_params=_reference_init(),
+                     root_stream=JaxStream(jax.random.PRNGKey(1)))
     assert len(got) == len(want) == 2
     for g, w in zip(got, want):
         assert g["round"] == w["round"]
@@ -58,8 +75,66 @@ def test_train_main_matches_reference(method, fused):
         if "step_norm" in w:
             np.testing.assert_allclose(g["step_norm"], w["step_norm"],
                                        rtol=1e-3)
+        assert ("compression_err" in g) == ("compression_err" in w)
+        if "compression_err" in w:
+            np.testing.assert_allclose(g["compression_err"],
+                                       w["compression_err"], rtol=1e-3)
         assert g["sim_time"] == w["sim_time"]
         assert g["wall_s"] > 0 and g["tokens_per_s"] > 0
+
+
+def test_train_records_the_wire_payload():
+    """Each round records bytes_on_wire's delta_bytes and compression_x;
+    compressed rounds also the measured per-client payload and the
+    compression error, and the two payloads agree."""
+    recs = train.main(BASE + ["--device", "cpu", "--compression",
+                              "int8-stochastic", "--error-feedback",
+                              "--use-fused-kernel"])
+    for rec in recs:
+        assert rec["wire_bytes"] == [rec["delta_bytes"]] * 2
+        assert rec["compression_x"] > 1.0
+        assert np.isfinite(rec["compression_err"])
+        assert rec["compression_err"] > 0.0
+    plain = train.main(BASE + ["--device", "cpu"])
+    assert plain[0]["compression_x"] == 1.0
+    assert "compression_err" not in plain[0]
+
+
+def test_train_rounds_are_addressed_by_seed_and_round():
+    """The production stream derives round r's draws from (seed, r) only:
+    a second run replays the first, and another seed draws otherwise."""
+    argv = BASE + ["--device", "cpu", "--participation", "0.5",
+                   "--compression", "randk", "--compression-k", "0.3"]
+    a, b = train.main(argv), train.main(argv)
+    c = train.main(argv + ["--seed", "1"])
+    key = lambda recs: [(r["loss"], r["compression_err"]) for r in recs]
+    assert key(a) == key(b)
+    assert key(a) != key(c)
+
+
+def test_first_round_leaves_no_tensor_in_a_reference_cycle():
+    """With the cyclic GC off, one reduced round of train.main leaves no
+    tensor that only the cyclic GC could free (the first
+    torch.utils.checkpoint call used to import torch._dynamo under the
+    round's frames and tie them into a cycle)."""
+    code = (
+        "import gc, sys\n"
+        "gc.disable()\n"
+        "import torch\n"
+        "from repro_torch.launch import train\n"
+        "train.main(sys.argv[1:])\n"
+        "gc.set_debug(gc.DEBUG_SAVEALL)\n"
+        "gc.collect()\n"
+        "n = sum(isinstance(o, torch.Tensor) for o in gc.garbage)\n"
+        "print('TENSORS_IN_CYCLES', n)\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code, "--arch", "qwen2-0.5b", "--reduced",
+         "--rounds", "1", "--h-local", "1", "--clients", "1", "--batch", "1",
+         "--seq", "8", "--device", "cpu"],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "TENSORS_IN_CYCLES 0" in out.stdout, out.stdout
 
 
 def test_train_main_own_init_runs_finite(tmp_path):
@@ -71,10 +146,9 @@ def test_train_main_own_init_runs_finite(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--mesh", "debug"], ["--ckpt", "x"], ["--compression", "topk"],
+    ["--mesh", "debug"], ["--ckpt", "x"],
     ["--het-model", "lognormal"], ["--async-buffer", "2"], ["--controller"],
     ["--objective", "consistency"], ["--personalize", "final_norm"],
-    ["--participation", "0.5"],
 ])
 def test_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="not ported"):
