@@ -7,8 +7,12 @@ PyTorch version on the card, drives the port's paths through
 ``repro_torch.launch.train.main`` at the full width of qwen2-0.5b (the SAVIC
 round; local-adam; SAVIC with int8-stochastic compression and error
 feedback; SAVIC with OASIS and half the clients sampled), holds the fused
-client loop against the tree loop, and checks what comes out. Any failed phase raises and
-the script exits non-zero. Without a CUDA device, or without the rest of the
+client loop against the tree loop, then drives the serving path through
+``repro_torch.launch.serve`` at full width (prefill-cache reuse with 63
+decode steps on K5 and K6; continuous batching over a ring of 8 slots),
+holds the kernel decode path against the plain one teacher-forced, and
+checks what comes out. Any failed phase raises and the script exits
+non-zero. Without a CUDA device, or without the rest of the
 repository beside it, it exits non-zero before printing any result.
 
 The second-to-last lines are one JSON object listing the kernels (launches on
@@ -23,7 +27,9 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -35,15 +41,19 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import engine  # noqa: E402
 from repro_torch.data import LMRoundLoader, TokenStream  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.kernels import decode_step as ds  # noqa: E402
 from repro_torch.kernels import quantize_update as qu  # noqa: E402
 from repro_torch.kernels import scaled_update as su  # noqa: E402
+from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
-from repro_torch.models import ModelCallConfig  # noqa: E402
+from repro_torch.models import (ModelCallConfig, sample_batch,  # noqa: E402
+                                sample_ids)
 from repro_torch.models import build as build_model  # noqa: E402
 from repro_torch.utils import rng  # noqa: E402
 from repro_torch.utils.tree import tree_paths, tree_size  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
+FP32_FLOP_PER_S = 67e12            # fp32 outside the tensor cores
 DEV = torch.device("cuda", 0)
 H_LOCAL = 2
 K1_N = 1 << 20                     # row length of the kernel-vs-plain cases
@@ -54,6 +64,12 @@ EMBED = (4, 137_625_600)           # the embed.table leaf at M=4, full width
 N_LEAVES = 14                      # parameter leaves of qwen2-0.5b
 INT8_EF = ["--compression", "int8-stochastic", "--error-feedback"]
 OASIS_HALF = ["--preconditioner", "oasis", "--participation", "0.5"]
+# serving: batch 8, prompt 512, 64 tokens (63 decode steps) at full width
+SERVE = dict(batch=8, prompt_len=512, gen_len=64)
+K5_MAIN = (8, 576, 2, 7, 64)       # B, C, Hk, rep, D of the decode steps
+V_PAD, V_REAL, D_MODEL = 153_600, 151_936, 896
+TRACE = dict(slots=8, n_requests=16, prompt_len=256, gen_len=64,
+             arrival_rate=0.5, seed=0)
 
 
 def main_argv(method, rounds, extra=()):
@@ -323,6 +339,261 @@ def k3_embed(gen, iters=20):
 
 
 # --------------------------------------------------------------------------- #
+# K5 and K6 inputs and the kernel-vs-plain comparisons
+# --------------------------------------------------------------------------- #
+
+
+def k5_inputs(B, C, Hk, rep, D, gen, one_valid=False):
+    """q fp32, k/v bf16 cache, and a causal bias at a random position per
+    row (``one_valid``: every position but that one masked)."""
+    q = torch.randn((B, Hk * rep, D), generator=gen, device=DEV)
+    k = torch.randn((B, C, Hk, D), generator=gen, device=DEV).bfloat16()
+    v = torch.randn((B, C, Hk, D), generator=gen, device=DEV).bfloat16()
+    pos = torch.randint(0, C, (B,), generator=gen, device=DEV)
+    idx = torch.arange(C, device=DEV)
+    ok = idx[None] == pos[:, None] if one_valid else idx[None] <= pos[:, None]
+    return q, k, v, torch.where(ok, 0.0, -1e30).float().contiguous()
+
+
+def k5_case(B, C, Hk, rep, D, cap, gen, one_valid=False):
+    """(max abs error, its bound 1e-5·max|v|) of K5 against its plain
+    version."""
+    q, k, v, bias = k5_inputs(B, C, Hk, rep, D, gen, one_valid)
+    want = ref.decode_attention_ref(q, k, v, bias, softcap=cap)
+    got = ds.decode_attention(q, k, v, bias, softcap=cap)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    bound = 1e-5 * float(v.float().abs().max())
+    del q, k, v, bias, want, got
+    return err, bound
+
+
+def k5_bytes(B, C, Hk, rep, D):
+    """Bytes K5 must move: read q, k, v and bias, write out."""
+    H = Hk * rep
+    return 4 * B * H * D + 2 * 2 * B * C * Hk * D + 4 * B * C + 4 * B * H * D
+
+
+def k6_inputs(B, gen, greedy):
+    y = torch.randn((B, D_MODEL), generator=gen, device=DEV)
+    table = torch.randn((V_PAD, D_MODEL), generator=gen, device=DEV) * 0.02
+    noise = torch.zeros((B, V_PAD), device=DEV) if greedy else \
+        rng.gumbel_from_uniform(torch.rand((B, V_PAD), generator=gen,
+                                           device=DEV))
+    return y, table, noise
+
+
+def k6_case(B, greedy, gen, dup=None, pad=False):
+    """K6 against its plain version under the near-tie rule. ``dup``: two
+    table rows made identical and best for row 0 (the lower index must
+    win); ``pad``: a padded id that would win row 1 if it were not masked.
+    Returns (exceptions, violations, max abs difference of the winning
+    logit)."""
+    y, table, noise = k6_inputs(B, gen, greedy)
+    if dup:
+        table[dup[0]] = table[dup[1]] = y[0] / y[0].norm() * 5.0
+    if pad:
+        table[V_REAL + 9] = y[1] / y[1].norm() * 50.0
+    scale = D_MODEL ** -0.5
+    logits = ref.decode_sample_logits(y, table, noise, scale=scale,
+                                      v_real=V_REAL)
+    want, wbest = ref.decode_sample_ref(y, table, noise, scale=scale,
+                                        v_real=V_REAL, return_best=True)
+    got, best = ds.decode_sample(y, table, noise, scale=scale, v_real=V_REAL,
+                                 return_best=True)
+    torch.cuda.synchronize()
+    ties, bad = ref.near_tie_check(logits, got, want, V_REAL)
+    err = float((best - wbest).abs().max())
+    if dup:
+        check(int(got[0]) == dup[0] == int(want[0]),
+              f"K6 duplicated rows {dup}: got id {int(got[0])}")
+    if pad:
+        check(int(got.max()) < V_REAL, "K6 chose a padded id")
+    del y, table, noise, logits
+    return ties, bad, err
+
+
+def k6_bytes(B):
+    """Bytes K6 must move: the real table rows, the real noise columns and
+    y, and the ids written."""
+    return 4 * (V_REAL * D_MODEL + B * V_REAL + B * D_MODEL + B)
+
+
+def time_decode_kernels(gen):
+    """K5 and K6 at the serve path's shapes: CUDA-event times of the kernel
+    wrappers, their plain versions and one PyTorch library call each
+    (SDPA with the bias as mask over fp32 k/v, GQA; matmul·scale + noise,
+    masked, argmax)."""
+    B, C, Hk, rep, D = K5_MAIN
+    q, k, v, bias = k5_inputs(B, C, Hk, rep, D, gen)
+    k5 = {"ms": cuda_ms(lambda: ds.decode_attention(q, k, v, bias), 200),
+          "plain_ms": cuda_ms(lambda: ref.decode_attention_ref(q, k, v,
+                                                               bias), 100)}
+    q4 = q[:, :, None, :]
+    kf = k.float().transpose(1, 2).contiguous()      # (B, Hk, C, D)
+    vf = v.float().transpose(1, 2).contiguous()
+    mask = bias[:, None, None, :]
+    lib = F.scaled_dot_product_attention(q4, kf, vf, attn_mask=mask,
+                                         enable_gqa=True)[:, :, 0]
+    check(float((lib - ref.decode_attention_ref(q, k, v, bias)).abs().max())
+          <= 1e-4, "SDPA does not compute K5's function")
+    k5["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q4, kf, vf, attn_mask=mask, enable_gqa=True), 200)
+    k5["bytes"] = k5_bytes(B, C, Hk, rep, D)
+    k5["bound_ms"] = k5["bytes"] / HBM_BYTES_PER_S * 1e3
+    del q, k, v, bias, kf, vf, lib
+
+    y, table, noise = k6_inputs(SERVE["batch"], gen, greedy=True)
+    scale = D_MODEL ** -0.5
+    pad = torch.arange(V_PAD, device=DEV) >= V_REAL
+
+    def library():
+        lg = torch.matmul(y, table.T) * scale + noise
+        return lg.masked_fill_(pad, float("-inf")).argmax(dim=1)
+
+    k6 = {"ms": cuda_ms(lambda: ds.decode_sample(y, table, noise,
+                                                 scale=scale,
+                                                 v_real=V_REAL), 50),
+          "plain_ms": cuda_ms(lambda: ref.decode_sample_ref(
+              y, table, noise, scale=scale, v_real=V_REAL), 5),
+          "library_ms": cuda_ms(library, 50),
+          "bytes": k6_bytes(SERVE["batch"])}
+    flops = 2 * SERVE["batch"] * V_REAL * D_MODEL
+    k6["bound_ms"] = max(k6["bytes"] / HBM_BYTES_PER_S,
+                         flops / FP32_FLOP_PER_S) * 1e3
+    del y, table, noise
+    torch.cuda.empty_cache()
+    return k5, k6
+
+
+# --------------------------------------------------------------------------- #
+# serving phases
+# --------------------------------------------------------------------------- #
+
+
+def serve_params():
+    """The weights ``serve`` makes for seed 0 at full width."""
+    cfg = get_config("qwen2-0.5b")
+    return cfg, build_model(cfg).init(
+        torch.Generator(device=DEV).manual_seed(0))
+
+
+def serve_main_path():
+    """``serve`` at full width with K5 and K6, counts set to 0 just before
+    and read just after. Returns (result, K5 launches, K6 launches, peak
+    GiB)."""
+    ds.decode_attention.launches = 0
+    ds.decode_sample.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = serve_mod.serve("qwen2-0.5b", reduced=False, use_decode_kernel=True,
+                          device="cuda", verbose=False, **SERVE)
+    k5, k6 = ds.decode_attention.launches, ds.decode_sample.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = SERVE["gen_len"] - 1
+    t = res.timings
+    print(f"[chip_smoke]   TTFT (prefill, B={SERVE['batch']}, S="
+          f"{SERVE['prompt_len']}) {t['prefill_s'] * 1e3:.3f} ms; decode "
+          f"{steps} steps {t['decode_s']:.4f} s, median step "
+          f"{float(np.median(res.per_token_s)) * 1e3:.3f} ms; "
+          f"{t['tok_per_s']:.1f} tokens/s; peak memory {peak:.2f} GiB; "
+          f"launches K5 {k5}, K6 {k6}", flush=True)
+    check(res.tokens.shape == (SERVE["batch"], SERVE["gen_len"]),
+          f"tokens {res.tokens.shape}")
+    check(0 <= int(res.tokens.min()) and int(res.tokens.max()) < V_REAL,
+          "an id outside the real vocabulary")
+    check(k5 == 24 * steps, f"K5 launched {k5} times, expected {24 * steps}")
+    check(k6 == steps, f"K6 launched {k6} times, expected {steps}")
+    return res, k5, k6, peak
+
+
+def teacher_forced(cfg, params):
+    """Kernel path against plain path at full width on one prompt: each
+    step both paths get the plain path's greedy token; the kernel path's
+    ids are held to the plain logits under the near-tie rule. Returns
+    (exceptions, ids compared)."""
+    B, S, G = SERVE["batch"], SERVE["prompt_len"], SERVE["gen_len"]
+    plain = build_model(cfg, ModelCallConfig(dtype=torch.float32))
+    kern = build_model(cfg, ModelCallConfig(dtype=torch.float32,
+                                            use_decode_kernel=True))
+    with torch.inference_mode():
+        prompt = sample_batch(cfg, rng.TorchStream(1), B, S, DEV)
+        logits, cache_p = plain.prefill_cache(params, prompt, S + G)
+        cache_k = {k: v.clone() for k, v in cache_p.items()}
+        tok = sample_ids(logits, 0.0, cfg.vocab_size)
+        zeros = torch.zeros_like(logits)
+        head = kern.sample_head(params)
+        ties = 0
+        for g in range(G - 1):
+            lg, cache_p = plain.decode(params, cache_p, tok, S + g)
+            ids, cache_k = kern.decode_sample(params, cache_k, tok, S + g,
+                                              zeros, head)
+            want = sample_ids(lg, 0.0, cfg.vocab_size)
+            t, bad = ref.near_tie_check(lg, ids, want, cfg.vocab_size)
+            check(bad == 0, f"teacher-forced step {g}: kernel ids break the "
+                  f"near-tie rule")
+            ties += t
+            tok = want
+    return ties, B * (G - 1)
+
+
+def continuous_path(cfg, params):
+    """``serve_continuous`` at full width with K5 and K6 (counts set to 0
+    just before), then three of its requests held against solo serving,
+    teacher-forced on the ring's tokens under the near-tie rule (a B=1
+    decode runs other cuBLAS kernels than the ring's B=8 one). Returns
+    (result, K5 launches, K6 launches, exceptions, ids compared)."""
+    ds.decode_attention.launches = 0
+    ds.decode_sample.launches = 0
+    res = serve_mod.serve_continuous("qwen2-0.5b", reduced=False,
+                                     use_decode_kernel=True, device="cuda",
+                                     verbose=False, **TRACE)
+    k5, k6 = ds.decode_attention.launches, ds.decode_sample.launches
+    m = res.metrics
+    print(f"[chip_smoke]   {m['n_requests']} requests / {m['slots']} slots: "
+          f"{m['total_tokens']} tokens in {m['makespan_steps']} steps "
+          f"({m['tok_per_step']:.3f} tokens/step), {m['decode_steps']} "
+          f"decode steps, p50 step {m['p50_step_s'] * 1e3:.3f} ms, p99 "
+          f"{m['p99_step_s'] * 1e3:.3f} ms, wall {m['wall_s']:.3f} s "
+          f"({m['wall_tok_per_s']:.1f} tokens/s), prefill "
+          f"{m['prefill_s']:.3f} s, mean queue delay "
+          f"{m['mean_queue_delay_steps']:.3f} steps; launches K5 {k5}, K6 "
+          f"{k6}", flush=True)
+    check(all(rq["finish"] is not None for rq in res.requests.values()),
+          "a request did not finish")
+    _, gens = serve_mod.poisson_trace(TRACE["n_requests"],
+                                      TRACE["arrival_rate"], TRACE["seed"],
+                                      TRACE["gen_len"])
+    check([len(res.tokens[r]) for r in range(TRACE["n_requests"])]
+          == [int(g) for g in gens], "a request got the wrong token count")
+    check(k5 == 24 * m["decode_steps"] and k6 == m["decode_steps"],
+          f"launches K5 {k5}, K6 {k6} for {m['decode_steps']} steps")
+    S, G = TRACE["prompt_len"], TRACE["gen_len"]
+    kern = build_model(cfg, ModelCallConfig(dtype=torch.float32,
+                                            use_decode_kernel=True))
+    ties = compared = 0
+    with torch.inference_mode():
+        for r in (0, 7, 15):
+            ring = torch.from_numpy(res.tokens[r]).to(DEV)
+            prompt = serve_mod.request_prompt(cfg, TRACE["seed"], r, S, DEV)
+            logits, cache = kern.prefill_cache(params, prompt, S + G)
+            first = sample_ids(logits, 0.0, cfg.vocab_size)
+            check(int(first[0]) == int(ring[0]),
+                  f"request {r}: first token differs from solo prefill")
+            for g in range(1, len(ring)):
+                lg, cache = kern.decode(params, cache, ring[g - 1:g],
+                                        S + g - 1)
+                want = sample_ids(lg, 0.0, cfg.vocab_size)
+                t, bad = ref.near_tie_check(lg, ring[g:g + 1], want,
+                                            cfg.vocab_size)
+                check(bad == 0, f"request {r} step {g}: ring token breaks "
+                      f"the near-tie rule against solo serving")
+                ties += t
+                compared += 1
+    return res, k5, k6, ties, compared
+
+
+# --------------------------------------------------------------------------- #
 # phases
 # --------------------------------------------------------------------------- #
 
@@ -418,13 +689,16 @@ def fused_vs_tree(name, rounds=1, flips=False, **method_kw):
 def build_all():
     """One nvcc per kernel source, all started together."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        list(pool.map(lambda f: f(), (su._lib, qu._lib)))
-    for src in ("fused_step.cu", "quantize_update.cu"):
+    libs = (su._lib, qu._lib, ds._attention_lib, ds._sample_lib)
+    with ThreadPoolExecutor(max_workers=len(libs)) as pool:
+        list(pool.map(lambda f: f(), libs))
+    for src in ("fused_step.cu", "quantize_update.cu", "decode_attention.cu",
+                "decode_sample.cu"):
         info = build.BUILD_LOG.get(src, {"seconds": 0.0, "ptxas": "(cached)"})
         print(f"[chip_smoke] {src}: nvcc {info['seconds']:.2f} s\n"
               f"{info['ptxas']}", flush=True)
-    print(f"[chip_smoke] built K1 and K3 in {time.perf_counter() - t0:.2f} s",
+    print(f"[chip_smoke] built K1, K3, K5 and K6 in "
+          f"{time.perf_counter() - t0:.2f} s",
           flush=True)
 
 
@@ -432,7 +706,7 @@ def main():
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     print(f"[chip_smoke] {smi_line()} | torch {torch.__version__} | "
           f"CUDA {torch.version.cuda}", flush=True)
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -564,6 +838,66 @@ def main():
                   compression="int8-stochastic", error_feedback=True)
     fused_vs_tree("savic local OASIS", pc_kind="oasis", scaling="local")
 
+    # ---- 8. K5 and K6 against their plain versions ------------------------
+    k5_err = 0.0
+    B, C, Hk, rep, D = K5_MAIN
+    k5_cases = [(C_, cap, False) for C_ in (C, 1, 31, 8192, 32768)
+                for cap in (0.0, 30.0)]
+    k5_cases += [(C, 0.0, True), (8192, 30.0, True)]
+    for C_, cap, one in k5_cases:
+        err, bound = k5_case(B, C_, Hk, rep, D, cap, gen, one)
+        k5_err = max(k5_err, err)
+        print(f"[chip_smoke] K5 B={B} C={C_} Hk={Hk} rep={rep} D={D} "
+              f"softcap={cap}{' all but one masked' if one else ''}: max abs "
+              f"{err:.3e} (bound {bound:.1e})", flush=True)
+        check(err <= bound, "K5 differs from its plain version")
+    torch.cuda.empty_cache()
+    k6_ties, k6_err = 0, 0.0
+    k6_cases = [(B_, greedy, None, False) for B_ in (1, 8, 32)
+                for greedy in (True, False)]
+    k6_cases += [(8, True, (100, 101), False), (8, True, (100, 90000), False),
+                 (8, False, None, True)]
+    for B_, greedy, dup, pad in k6_cases:
+        ties, bad, err = k6_case(B_, greedy, gen, dup, pad)
+        k6_ties += ties
+        k6_err = max(k6_err, err)
+        print(f"[chip_smoke] K6 B={B_} V={V_PAD} v_real={V_REAL} "
+              f"{'greedy' if greedy else 'gumbel'}"
+              f"{f' duplicated rows {dup}' if dup else ''}"
+              f"{' masked padded winner' if pad else ''}: near-tie "
+              f"exceptions {ties}, violations {bad}, winning logit max abs "
+              f"{err:.3e}", flush=True)
+        check(bad == 0, "K6 breaks the near-tie rule against its plain "
+              "version")
+    torch.cuda.empty_cache()
+
+    # ---- 9. serving main path: prefill reuse + 63 decode steps -------------
+    print("[chip_smoke] serve main path: serve('qwen2-0.5b', reduced=False, "
+          f"use_decode_kernel=True, {SERVE})", flush=True)
+    _, k5_launches, k6_launches, speak = serve_main_path()
+    cfg_full, sparams = serve_params()
+    ties, n_ids = teacher_forced(cfg_full, sparams)
+    print(f"[chip_smoke] kernel vs plain decode, teacher-forced, full width: "
+          f"{n_ids} ids, near-tie exceptions {ties}", flush=True)
+
+    # ---- 10. continuous batching at full width -----------------------------
+    print(f"[chip_smoke] serve_continuous('qwen2-0.5b', reduced=False, "
+          f"use_decode_kernel=True, {TRACE})", flush=True)
+    _, _, _, cties, ccompared = continuous_path(cfg_full, sparams)
+    print(f"[chip_smoke]   ring tokens vs solo serving (requests 0, 7, 15, "
+          f"teacher-forced): {ccompared} ids, near-tie exceptions {cties}",
+          flush=True)
+    del sparams
+    torch.cuda.empty_cache()
+
+    # ---- 11. K5 and K6 timed at the serve path's shapes --------------------
+    k5t, k6t = time_decode_kernels(gen)
+    for label, t in (("K5", k5t), ("K6", k6t)):
+        print(f"[chip_smoke] {label} at the serve path's shape: "
+              f"{t['ms'] * 1e3:.2f} us/call, plain {t['plain_ms'] * 1e3:.2f} "
+              f"us, library {t['library_ms'] * 1e3:.2f} us, bound "
+              f"{t['bound_ms'] * 1e3:.3f} us ({t['bytes']} B)", flush=True)
+
     kernels = [{
         "name": "fused_step_flat", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_step.cu",
@@ -578,16 +912,30 @@ def main():
         "launches": k3_launches, "max_abs_err": k3_err, "ms": k3_ms,
         "plain_ms": k3_plain_ms, "bound_ms": k3_bound_ms,
         "bound_by": "bytes", "library_ms": None,
+    }, {
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_step.py:71",
+        "launches": k5_launches, "max_abs_err": k5_err, "ms": k5t["ms"],
+        "plain_ms": k5t["plain_ms"], "bound_ms": k5t["bound_ms"],
+        "bound_by": "bytes", "library_ms": k5t["library_ms"],
+    }, {
+        "name": "decode_sample", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_sample.cu",
+        "replaces": "src/repro/kernels/decode_step.py:133",
+        "launches": k6_launches, "max_abs_err": k6_err, "ms": k6t["ms"],
+        "plain_ms": k6t["plain_ms"], "bound_ms": k6t["bound_ms"],
+        "bound_by": "bytes", "library_ms": k6t["library_ms"],
     }]
     print(f"[chip_smoke] peak memory: savic {peak:.2f} GiB, savic int8 + EF "
-          f"{cpeak:.2f} GiB, savic OASIS + participation 0.5 {rpeak:.2f} GiB",
-          flush=True)
+          f"{cpeak:.2f} GiB, savic OASIS + participation 0.5 {rpeak:.2f} GiB, "
+          f"serve {speak:.2f} GiB", flush=True)
     print(f"[chip_smoke] total {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}), flush=True)
 
 

@@ -1,6 +1,7 @@
-"""Carry the reference's parameters and engine state into the port.
+"""Carry the reference's parameters, engine state and decode caches into the
+port.
 
-Both functions take trees of numpy arrays, as ``jax.device_get`` returns
+The functions take trees of numpy arrays, as ``jax.device_get`` returns
 them, and give the port's tensors, so the two packages can compute the same
 thing in tests. bf16 arrays (numpy has no bf16 dtype of its own) move as
 their 16-bit pattern.
@@ -30,3 +31,9 @@ def state_from_jax(np_state, device):
     """Engine state (numpy leaves: params, mom, precond d/t, round, server
     m/v) -> the port's state dict with the same paths."""
     return tree_map(lambda x: _to_torch(x, device), np_state)
+
+
+def cache_from_jax(np_cache, device):
+    """Decode cache (numpy leaves: bf16 k/v (L, B, C, Hk, hd)) -> the port's
+    cache dict, bf16 tensors with the same bits."""
+    return tree_map(lambda x: _to_torch(x, device), np_cache)

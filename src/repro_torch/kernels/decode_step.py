@@ -1,0 +1,200 @@
+"""Decode-step kernels K5 and K6 (counterpart of
+``repro/kernels/decode_step.py``).
+
+``decode_attention`` (K5) is single-query attention of one decode step over
+the bf16 KV cache: for each slot b and kv head g, the rep = H/Hk query heads
+that share g,
+
+    s = (q·D^-½)·k;  s = cap·tanh(s/cap) if softcap;  s += bias[b];
+    w = softmax_C(s);  out = Σ_C w·v          -> (B, H, Dv) fp32
+
+* Replaces ``repro/kernels/decode_step.py::decode_attention``
+  (``pl.pallas_call`` at decode_step.py:71).
+* Kernel: ``csrc/decode_attention.cu``: one block per (g, b), an online
+  softmax over C in tiles of 128 positions, so any C ≥ 1 fits (the TPU
+  kernel held all of C in VMEM).
+* Bound on an H100: bytes. At the serve path's shape (B=8, C=576, Hk=2,
+  rep=7, D=64) q, k, v, bias and out are 2,435,072 B, ≥ 0.73 µs at
+  3.35 TB/s: launch latency, not bandwidth, sets its time.
+
+``decode_sample`` (K6) is the logits → token tail of a decode step:
+
+    id[b] = argmax_{v < v_real} (y[b]·table[v])·scale + noise[b, v]
+
+with the first index winning ties, without writing the (B, V) logits.
+
+* Replaces ``repro/kernels/decode_step.py::decode_sample``
+  (``pl.pallas_call`` at decode_step.py:133).
+* Kernel: ``csrc/decode_sample.cu``: pass 1 reads each table row once for
+  all B rows of y (staged in shared memory) and writes one (best, id) pair
+  per block and row; pass 2 reduces the pairs, ordering candidates by
+  (value descending, id ascending). One wrapper call is one launch.
+* Bound on an H100: bytes. At the serve path's shape (B=8, v_real=151,936,
+  d=896) the real table rows are 544.5 MB, ≥ 0.163 ms per decode step.
+
+Plain versions: ``kernels/ref.py::decode_attention_ref`` and
+``decode_sample_ref``. Both kernels launch on PyTorch's current stream and
+are checked with ``cudaGetLastError`` right after the launch; they sum in
+another order than PyTorch, so they agree with the plain versions to
+rounding (K6's ids under the near-tie rule), not bitwise.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+RMAX, OMAX_ELEMS, HEAD_MAX = 16, 1024, 128   # K5 limits (csrc constants)
+BMAX, D_MAX = 64, 2048                       # K6 limits
+SMEM_MAX = 232_448                           # a block's shared memory (H100)
+_WARPS = 8                                   # K6 warps per block
+
+
+def _check(name, t, dtype, shape, device):
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check_attention_args(q, k, v, bias):
+    """K5's contract, shared with its plain version; raises ValueError."""
+    if q.dim() != 3 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q must be (B, H, D) and k/v (B, C, Hk, D|Dv)")
+    B, H, D = q.shape
+    C, Hk = k.shape[1], k.shape[2]
+    Dv = v.shape[3]
+    _check("q", q, torch.float32, (B, H, D), q.device)
+    _check("k", k, torch.bfloat16, (B, C, Hk, D), q.device)
+    _check("v", v, torch.bfloat16, (B, C, Hk, Dv), q.device)
+    _check("bias", bias, torch.float32, (B, C), q.device)
+    if C < 1 or Hk < 1 or H % Hk:
+        raise ValueError(f"need C >= 1 and H % Hk == 0 (C={C}, H={H}, "
+                         f"Hk={Hk})")
+    rep = H // Hk
+    if rep > RMAX or rep * Dv > OMAX_ELEMS or D > HEAD_MAX or Dv > HEAD_MAX:
+        raise ValueError(f"K5 takes rep <= {RMAX}, rep·Dv <= {OMAX_ELEMS}, "
+                         f"D, Dv <= {HEAD_MAX}; got rep={rep}, D={D}, "
+                         f"Dv={Dv}")
+    if B > 65535:
+        raise ValueError(f"B={B} exceeds the grid's y limit of 65535")
+
+
+def check_sample_args(y, table, noise, v_real):
+    """K6's contract, shared with its plain version; raises ValueError."""
+    if y.dim() != 2 or table.dim() != 2:
+        raise ValueError("y must be (B, d) and table (V, d)")
+    B, d = y.shape
+    V = table.shape[0]
+    _check("y", y, torch.float32, (B, d), y.device)
+    _check("table", table, torch.float32, (V, d), y.device)
+    _check("noise", noise, torch.float32, (B, V), y.device)
+    if not 1 <= v_real <= V < 2 ** 31:
+        raise ValueError(f"need 1 <= v_real <= V < 2^31 (v_real={v_real}, "
+                         f"V={V})")
+    if not 1 <= B <= BMAX or d % 4 or not 4 <= d <= D_MAX:
+        raise ValueError(f"K6 takes 1 <= B <= {BMAX} and d % 4 == 0, "
+                         f"d <= {D_MAX}; got B={B}, d={d}")
+    if 4 * B * d + 8 * _WARPS * B > SMEM_MAX:
+        raise ValueError(f"y ({B}, {d}) does not fit in a block's shared "
+                         f"memory")
+
+
+@functools.cache
+def _attention_lib():
+    from repro_torch.kernels import build
+    fn = build.load("decode_attention.cu").decode_attention_f32
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_longlong,
+                   ci, ci, ci, ci, ctypes.c_float, ctypes.c_float, ci, vp]
+    fn.restype = ci
+    return fn
+
+
+@functools.cache
+def _sample_lib():
+    from repro_torch.kernels import build
+    fn = build.load("decode_sample.cu").decode_sample_f32
+    vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, cll, cll, cll, ci,
+                   ctypes.c_float, vp]
+    fn.restype = ci
+    return fn
+
+
+def _need_cuda(name, t, router):
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} launches on CUDA tensors; got {t.device} "
+                         f"(ops.{router} routes CPU tensors to the plain "
+                         f"version)")
+
+
+def decode_attention(q, k, v, bias, *, softcap=0.0):
+    """K5 on CUDA tensors: ``q`` (B, H, D) fp32, ``k``/``v`` (B, C, Hk,
+    D|Dv) bf16, ``bias`` (B, C) fp32 -> (B, H, Dv) fp32, a new tensor."""
+    check_attention_args(q, k, v, bias)
+    _need_cuda("decode_attention", q, "decode_attention")
+    B, H, D = q.shape
+    C, Hk, Dv = k.shape[1], k.shape[2], v.shape[3]
+    out = torch.empty((B, H, Dv), dtype=torch.float32, device=q.device)
+    vec = int(D % 8 == 0 and Dv % 8 == 0 and k.data_ptr() % 16 == 0
+              and v.data_ptr() % 16 == 0)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _attention_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               bias.data_ptr(), out.data_ptr(), B, C, H, Hk,
+                               D, Dv, D ** -0.5, float(softcap), vec, stream)
+    if err != 0:
+        raise RuntimeError(f"decode_attention_f32 launch failed: CUDA error "
+                           f"{err}")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0   # kernel launches since the count was reset
+
+
+def sample_grid(v_real: int):
+    """(rows per block, blocks) of K6's first pass: about 18 rows per warp,
+    at most 1056 blocks (8 per SM of an H100)."""
+    nblocks = max(1, min(1056, -(-v_real // (_WARPS * 16))))
+    rows = -(-v_real // nblocks)
+    return rows, -(-v_real // rows)
+
+
+def decode_sample(y, table, noise, *, scale, v_real, return_best=False):
+    """K6 on CUDA tensors: ``y`` (B, d) fp32, ``table`` (V, d) fp32,
+    ``noise`` (B, V) fp32 -> token ids (B,) int32 (and the winning values
+    (B,) fp32 with ``return_best``), new tensors."""
+    check_sample_args(y, table, noise, v_real)
+    _need_cuda("decode_sample", y, "decode_sample")
+    if table.data_ptr() % 16:
+        raise ValueError("table must be 16-byte aligned (float4 loads)")
+    B, d = y.shape
+    V = table.shape[0]
+    rows, nblocks = sample_grid(v_real)
+    part_val = torch.empty((nblocks, B), dtype=torch.float32,
+                           device=y.device)
+    part_arg = torch.empty((nblocks, B), dtype=torch.int32, device=y.device)
+    ids = torch.empty((B,), dtype=torch.int32, device=y.device)
+    best = torch.empty((B,), dtype=torch.float32, device=y.device)
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream(y.device).cuda_stream
+        err = _sample_lib()(y.data_ptr(), table.data_ptr(), noise.data_ptr(),
+                            part_val.data_ptr(), part_arg.data_ptr(),
+                            ids.data_ptr(), best.data_ptr(), B, d, V, v_real,
+                            rows, nblocks, float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"decode_sample_f32 launch failed: CUDA error "
+                           f"{err}")
+    decode_sample.launches += 1
+    return (ids, best) if return_best else ids
+
+
+decode_sample.launches = 0      # wrapper calls (two kernels each) since reset

@@ -8,6 +8,7 @@ other.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import decode_step as _ds
 from repro_torch.kernels import quantize_update as _qu
 from repro_torch.kernels import ref
 from repro_torch.kernels import scaled_update as _su
@@ -54,3 +55,27 @@ def quantize_update(x, u, scale):
         raise ValueError(f"no quantize_update for device {x.device}")
     _qu.check_args(x, u, scale)
     return ref.quantize_update_ref(x, u, scale)
+
+
+def decode_attention(q, k, v, bias, *, softcap=0.0):
+    """Single-query decode attention: ``q`` (B, H, D) fp32 over the bf16
+    cache ``k``/``v`` (B, C, Hk, D|Dv) with the additive fp32 mask ``bias``
+    (B, C) -> (B, H, Dv) fp32."""
+    if q.device.type == "cuda":
+        return _ds.decode_attention(q, k, v, bias, softcap=softcap)
+    if q.device.type != "cpu":
+        raise ValueError(f"no decode_attention for device {q.device}")
+    _ds.check_attention_args(q, k, v, bias)
+    return ref.decode_attention_ref(q, k, v, bias, softcap=softcap)
+
+
+def decode_sample(y, table, noise, *, scale, v_real):
+    """Token ids (B,) int32 = argmax over ids < ``v_real`` of
+    (y·table)·scale + noise, first index on ties; ``y`` (B, d), ``table``
+    (V, d), ``noise`` (B, V), all fp32. The logits are not returned."""
+    if y.device.type == "cuda":
+        return _ds.decode_sample(y, table, noise, scale=scale, v_real=v_real)
+    if y.device.type != "cpu":
+        raise ValueError(f"no decode_sample for device {y.device}")
+    _ds.check_sample_args(y, table, noise, v_real)
+    return ref.decode_sample_ref(y, table, noise, scale=scale, v_real=v_real)

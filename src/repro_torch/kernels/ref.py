@@ -70,3 +70,110 @@ def quantize_update_ref(x, u, scale):
     v = torch.where(pos, x / torch.where(pos, s, 1.0), 0.0)
     qf = v.add_(u).floor_().clamp_(-127.0, 127.0)
     return qf.to(torch.int8), qf * s
+
+
+def decode_attention_math(q, k, v, bias, softcap):
+    """Single-query decode attention for (batch-slot, kv-head) cells.
+
+    q (..., R, D) query heads sharing one kv head; k (..., C, D),
+    v (..., C, Dv); bias (..., C) additive fp32 mask (causal / window / ring
+    validity, from ``models.layers._mask_bias``). In the reference's order of
+    fp32 operations: q·D^-½ first, then the softcap, then + bias, then the
+    softmax; contractions are elementwise-mul + axis-sum, as the reference
+    writes them. The plain version of kernel K5."""
+    qf = q.float() * (q.shape[-1] ** -0.5)
+    kf = k.float()
+    s = (qf[..., :, None, :] * kf[..., None, :, :]).sum(-1)       # (..., R, C)
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    s = s + bias[..., None, :].float()
+    w = torch.softmax(s, dim=-1)
+    vf = v.float()
+    return (w[..., :, :, None] * vf[..., None, :, :]).sum(-2)  # (..., R, Dv)
+
+
+def decode_attention_ref(q, k, v, bias, *, softcap=0.0):
+    """q (B,H,D), k/v (B,C,Hk,D|Dv) cache layout, bias (B,C) -> (B,H,Dv)
+    fp32."""
+    B, H, D = q.shape
+    Hk = k.shape[2]
+    qr = q.reshape(B, Hk, H // Hk, D)
+    kr = k.transpose(1, 2)                                        # (B,Hk,C,D)
+    vr = v.transpose(1, 2)
+    out = decode_attention_math(qr, kr, vr, bias[:, None, :], softcap)
+    return out.reshape(B, H, -1)
+
+
+def decode_sample_math(y, table, noise, scale):
+    """One vocab-block logit tile: (y·table_v)·scale + noise, two fp32
+    roundings. y (B,d), table (blk,d), noise (B,blk) -> (B,blk) fp32;
+    mul + sum contraction, as the reference writes it."""
+    s = (y.float()[:, None, :] * table.float()[None, :, :]).sum(-1)
+    return s * scale + noise.float()
+
+
+def decode_sample_logits(y, table, noise, *, scale, v_real, block=2048):
+    """The (B, V) logits the TPU kernel walks: ``decode_sample_math`` per
+    vocab block of ``block`` rows, ids >= ``v_real`` set to -1e30."""
+    V = table.shape[0]
+    block = min(block, V)
+    if V % block:
+        raise ValueError(f"V={V} is not a multiple of block={block}")
+    logits = torch.cat([decode_sample_math(y, table[lo:lo + block],
+                                           noise[:, lo:lo + block], scale)
+                        for lo in range(0, V, block)], dim=1)
+    if v_real < V:
+        logits[:, v_real:] = -1e30
+    return logits
+
+
+def decode_sample_ref(y, table, noise, *, scale, v_real, block=2048,
+                      return_best=False):
+    """Blockwise argmax over ``decode_sample_logits`` in the TPU kernel's
+    block order: the strict ``>`` running compare across blocks keeps the
+    first index of the maximum, as a full argmax does. Returns token ids
+    (B,) int32 (and the winning values (B,) fp32 with ``return_best``). The
+    plain version of kernel K6."""
+    logits = decode_sample_logits(y, table, noise, scale=scale,
+                                  v_real=v_real, block=block)
+    B, V = logits.shape
+    block = min(block, V)
+    best = torch.full((B,), float("-inf"), dtype=torch.float32,
+                      device=y.device)
+    arg = torch.zeros((B,), dtype=torch.int32, device=y.device)
+    for lo in range(0, V, block):
+        blk = logits[:, lo:lo + block]
+        a = torch.argmax(blk, dim=1)             # first index of the max
+        m = blk.gather(1, a[:, None])[:, 0]
+        upd = m > best
+        arg = torch.where(upd, (a + lo).to(torch.int32), arg)
+        best = torch.where(upd, m, best)
+    return (arg, best) if return_best else arg
+
+
+def near_tie_check(logits, ids, want, v_real, rel=1e-5):
+    """Hold token ids ``ids`` of one implementation against ``want`` of
+    another, both (B,), under the near-tie rule, with ``logits`` the plain
+    (B, V) logits (noise added) that ``want`` was chosen from. Per row, over
+    the real ids < ``v_real``, let τ = rel·(1 + max|ℓ|): where the top-2 gap
+    of ℓ is > τ the ids must be equal; where it is not, ℓ[id] must be
+    >= max ℓ − τ. Two implementations that sum in different orders may
+    only disagree inside such a tie.
+
+    Returns ``(exceptions, violations)``: rows whose ids differ inside a
+    near tie, and rows that break the rule (an id >= v_real breaks it)."""
+    lg = logits[:, :v_real].float()
+    ids = ids.long().to(lg.device)
+    want = want.long().to(lg.device)
+    tau = rel * (1.0 + lg.abs().amax(dim=1))
+    top = lg.topk(min(2, v_real), dim=1).values
+    if v_real > 1:
+        gap = top[:, 0] - top[:, 1]
+    else:
+        gap = torch.full_like(tau, float("inf"))
+    in_range = ids < v_real
+    chosen = lg.gather(1, ids.clamp(max=v_real - 1)[:, None])[:, 0]
+    differ = ids != want
+    tie = gap <= tau
+    bad = ~in_range | (differ & ~tie) | (tie & (chosen < top[:, 0] - tau))
+    return int((differ & tie & in_range).sum()), int(bad.sum())

@@ -1,0 +1,122 @@
+"""Where a decode step's time goes on the GPU (serving).
+
+Builds the model and prompt as ``launch/serve.py::serve`` does, prefills the
+decode cache, runs ``--untraced`` greedy decode steps (each timed between
+device synchronizations), then ``--traced`` more under ``torch.profiler``,
+and prints: the prefill time, the untraced steps' wall times and their
+median, the device-busy time per traced step (summed kernel time) as a
+share of the traced step and of the untraced median, the device time and
+launches of K5 (decode attention) and K6 (unembed + argmax), the kernels
+that took the most device time, the host ops that took the most host time
+(self time), and the peak device memory. CUDA only. The profiler's own cost
+inflates the host times and the traced steps' wall time.
+
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+      --arch qwen2-0.5b --full --decode-kernel --batch 8 --prompt-len 512
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.launch import serve
+from repro_torch.models import sample_batch, sample_ids
+from repro_torch.utils import rng
+
+# the port's decode kernels by the names of their CUDA functions
+KERNELS = {"k5": ("decode_attention_kernel",),
+           "k6": ("decode_sample_blocks", "decode_sample_reduce")}
+TOP = 12
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--full", action="store_true")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=512)
+    ap.add_argument("--untraced", type=int, default=24)
+    ap.add_argument("--traced", type=int, default=8)
+    ap.add_argument("--decode-kernel", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    cfg, model, params, device = serve._setup(
+        args.arch, reduced=not args.full, dtype=torch.float32,
+        decode_window=0, use_decode_kernel=args.decode_kernel,
+        seed=args.seed, device="cuda", params=None)
+    B, S = args.batch, args.prompt_len
+    steps = args.untraced + args.traced
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        prompt = sample_batch(cfg, rng.TorchStream(args.seed + 1), B, S,
+                              device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill_cache(params, prompt, S + steps + 1)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        head = model.sample_head(params) if args.decode_kernel else None
+        noise = torch.zeros_like(logits)
+        tok = sample_ids(logits, noise, cfg.vocab_size)
+        untraced_ms = []
+        for g in range(args.untraced):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tok, cache = model.decode_sample(params, cache, tok, S + g,
+                                             noise, head)
+            torch.cuda.synchronize()
+            untraced_ms.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for g in range(args.untraced, steps):
+                tok, cache = model.decode_sample(params, cache, tok, S + g,
+                                                 noise, head)
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1e3 / args.traced
+    steady = sorted(untraced_ms[1:])
+    median_ms = steady[len(steady) // 2]
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type.name == "CUDA"]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 \
+        / args.traced
+    ours = {}
+    for name, fns in KERNELS.items():
+        evs = [e for e in kernels if any(f in e.key for f in fns)]
+        ours[f"{name}_ms_per_step"] = sum(e.self_device_time_total
+                                          for e in evs) / 1e3 / args.traced
+        ours[f"{name}_launches"] = sum(e.count for e in evs)
+    tops = sorted(kernels, key=lambda e: -e.self_device_time_total)[:TOP]
+    host = sorted((e for e in events if e.device_type.name == "CPU"),
+                  key=lambda e: -e.self_cpu_time_total)[:TOP]
+    summary = {
+        "device": torch.cuda.get_device_name(0), "batch": B,
+        "prompt_len": S, "decode_kernel": args.decode_kernel,
+        "prefill_ms": prefill_ms, "untraced_step_ms": untraced_ms,
+        "untraced_step_median_ms": median_ms,
+        "traced_step_ms": traced_ms, "device_busy_ms_per_step": busy_ms,
+        "device_busy_share": busy_ms / traced_ms,
+        "device_busy_share_untraced": busy_ms / median_ms,
+        "tokens_per_s_untraced": B / median_ms * 1e3,
+        **ours,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "top_kernels": [{"name": e.key[:90], "calls": e.count,
+                         "ms_per_step": e.self_device_time_total / 1e3
+                         / args.traced} for e in tops],
+        "host_self_ms_per_step": sum(e.self_cpu_time_total for e in events
+                                     if e.device_type.name == "CPU") / 1e3
+        / args.traced,
+        "top_host_ops": [{"name": e.key[:90], "calls": e.count,
+                          "self_ms": e.self_cpu_time_total / 1e3}
+                         for e in host],
+    }
+    print(json.dumps(summary, indent=1), flush=True)
+    return summary
+
+
+if __name__ == "__main__":
+    main()

@@ -1,1 +1,3 @@
-from repro_torch.models.model import Model, ModelCallConfig, build  # noqa
+from repro_torch.models.model import (Model, ModelCallConfig,  # noqa
+                                      batch_struct, build, sample_batch,
+                                      sample_ids)

@@ -115,17 +115,31 @@ def _softcap(x, cap):
     return cap * torch.tanh(x / cap) if cap else x
 
 
-def _mask_bias(q_pos, k_pos, window):
-    """Additive fp32 mask bias (Sq, Sk): causal + optional sliding window."""
-    ok = k_pos[None, :] <= q_pos[:, None]
-    if window:
-        ok &= (q_pos[:, None] - k_pos[None, :]) < window
+def _mask_bias(q_pos, k_pos, window, k_valid=None):
+    """Additive fp32 mask bias: causal + optional sliding window + validity.
+
+    ``q_pos``/``k_pos`` are (Sq,)/(Sk,) for a shared position grid, or carry
+    leading batch dims, (B,Sq)/(B,Sk) for per-slot decode positions in the
+    continuous-batching ring, giving a (B,Sq,Sk) bias. ``window`` is 0 (full
+    attention) or a positive int (``HUGE_WINDOW`` on global layers)."""
+    ok = k_pos[..., None, :] <= q_pos[..., :, None]
+    if _window_on(window):
+        ok &= (q_pos[..., :, None] - k_pos[..., None, :]) < window
+    if k_valid is not None:
+        ok &= k_valid[..., None, :]
     zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
     return torch.where(ok, zero, torch.full_like(zero, -1e30))
 
 
-def _sdpa_dense(q, k, v, q_pos, k_pos, window, softcap):
-    """q (B,Sq,H,D), k/v (B,Sk,Hk,D) -> (B,Sq,H,D). fp32 softmax."""
+def _window_on(window) -> bool:
+    return bool(window) and window > 0
+
+
+def _sdpa_dense(q, k, v, q_pos, k_pos, window, softcap, k_valid=None):
+    """q (B,Sq,H,D), k/v (B,Sk,Hk,D) -> (B,Sq,H,D). fp32 softmax.
+
+    Positions are (Sq,)/(Sk,) shared across the batch, or (B,Sq)/(B,Sk) for
+    per-slot decode positions (continuous batching)."""
     B, Sq, H, D = q.shape
     Hk = k.shape[2]
     rep = H // Hk
@@ -134,7 +148,9 @@ def _sdpa_dense(q, k, v, q_pos, k_pos, window, softcap):
     vf = v.float()
     logits = torch.einsum("bqhrd,bkhd->bhrqk", qf, kf)
     logits = _softcap(logits, softcap)
-    logits = logits + _mask_bias(q_pos, k_pos, window)
+    bias = _mask_bias(q_pos, k_pos, window, k_valid)
+    # (Sq,Sk) -> (1,1,Sq,Sk) broadcast; (B,Sq,Sk) -> (B,1,1,Sq,Sk)
+    logits = logits + bias[..., None, None, :, :]
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhrqk,bkhd->bqhrd", w, vf)
     return out.reshape(B, Sq, H, v.shape[-1])
@@ -142,17 +158,22 @@ def _sdpa_dense(q, k, v, q_pos, k_pos, window, softcap):
 
 @dataclasses.dataclass
 class AttnCall:
-    """Runtime knobs for an attention call (not parameters)."""
+    """Runtime knobs for an attention call (not parameters). ``window`` is
+    0 (full attention) or a positive int; ``force_window`` overrides every
+    layer's window (the ring-buffer decode cache of ``decode_window``)."""
     window: int = 0
     softcap: float = 0.0
     chunk: int = 0                  # 0 = dense; KV-chunked is not ported
     use_flash_kernel: bool = False  # K4 (flash attention) is not ported
+    use_decode_kernel: bool = False  # K5, single-query decode attention
+    force_window: int = 0
 
 
 def attention(p, cfg: ModelConfig, x, positions, call: AttnCall, dtype):
     """Full causal self-attention over x (B,S,d) at integer positions (S,).
     KV heads are repeated to the full head count first, as in the
-    reference."""
+    reference. Returns (out (B,S,d), (k, v)): the compact Hk-head keys
+    (after RoPE) and values, for the decode cache."""
     if call.use_flash_kernel:
         raise NotImplementedError("the flash-attention kernel (K4) is not "
                                   "ported yet")
@@ -169,13 +190,81 @@ def attention(p, cfg: ModelConfig, x, positions, call: AttnCall, dtype):
     cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin).to(dtype)
     k = apply_rope(k, cos, sin).to(dtype)
+    cache_kv = (k, v)
     rep = h // hk
     if rep > 1:
         k = torch.repeat_interleave(k, rep, dim=2)
         v = torch.repeat_interleave(v, rep, dim=2)
     out = _sdpa_dense(q, k, v, positions, positions, call.window,
                       call.softcap)
-    return _proj_out(p["wo"], out.to(dtype), dtype)
+    return _proj_out(p["wo"], out.to(dtype), dtype), cache_kv
+
+
+def attention_decode(p, cfg: ModelConfig, x, pos, kcache, vcache,
+                     call: AttnCall, dtype):
+    """Decode one token: x (B,1,d); cache (B,C,Hk,D) bf16.
+
+    ``pos`` is an int (one shared position, the batched-serve path) or a
+    (B,) int tensor of per-slot positions (continuous batching: every slot
+    of the ring is at its own depth in its own sequence). The cache may be a
+    ring buffer (C == window): the new key and value go to slot pos % C and
+    the absolute positions of the slots are reconstructed, so the causal and
+    window masks stay right.
+
+    Unlike the reference, which returns updated copies, the new token's K/V
+    are written into ``kcache``/``vcache`` IN PLACE; the same tensors are
+    returned. With ``call.use_decode_kernel`` the attention runs on kernel
+    K5 (``kernels.ops.decode_attention``)."""
+    B = x.shape[0]
+    hd = cfg.head_dim
+    C = kcache.shape[1]
+    dev = x.device
+    q = _proj_heads(p["wq"], x, dtype)
+    k = _proj_heads(p["wk"], x, dtype)
+    v = _proj_heads(p["wv"], x, dtype)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    idx = torch.arange(C, dtype=torch.int32, device=dev)
+    if not torch.is_tensor(pos) or pos.dim() == 0:
+        pos = int(pos)
+        posv = torch.full((1,), pos, dtype=torch.int32, device=dev)
+        cos, sin = rope_cos_sin(posv, hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin).to(dtype)
+        k = apply_rope(k, cos, sin).to(dtype)
+        slot = pos % C
+        kcache[:, slot] = k[:, 0].to(kcache.dtype)
+        vcache[:, slot] = v[:, 0].to(vcache.dtype)
+        # absolute positions of the cache slots of a ring buffer
+        wrap = (pos // C) * C
+        k_pos = torch.where(idx <= slot, wrap + idx, wrap - C + idx)
+        q_pos = posv
+    else:
+        posb = pos.to(device=dev, dtype=torch.int32)            # (B,)
+        cos, sin = rope_cos_sin(posb[:, None], hd, cfg.rope_theta)  # (B,1,·)
+        q = apply_rope(q, cos, sin).to(dtype)
+        k = apply_rope(k, cos, sin).to(dtype)
+        slot = torch.remainder(posb, C)                         # (B,)
+        rows = torch.arange(B, device=dev)
+        kcache[rows, slot] = k[:, 0].to(kcache.dtype)
+        vcache[rows, slot] = v[:, 0].to(vcache.dtype)
+        wrap = torch.div(posb, C, rounding_mode="floor") * C    # (B,)
+        k_pos = torch.where(idx[None, :] <= slot[:, None],
+                            wrap[:, None] + idx[None, :],
+                            wrap[:, None] - C + idx[None, :])   # (B,C)
+        q_pos = posb[:, None]                                   # (B,1)
+    k_valid = k_pos >= 0
+    if call.use_decode_kernel:
+        from repro_torch.kernels import ops as kops
+        bias = _mask_bias(q_pos, k_pos, call.window, k_valid)   # (·,1,C)
+        bias = bias.reshape(-1, C).expand(B, C).contiguous()
+        out = kops.decode_attention(q[:, 0].float().contiguous(), kcache,
+                                    vcache, bias,
+                                    softcap=call.softcap)[:, None]
+    else:
+        out = _sdpa_dense(q, kcache, vcache, q_pos, k_pos, call.window,
+                          call.softcap, k_valid=k_valid)
+    return _proj_out(p["wo"], out.to(dtype), dtype), kcache, vcache
 
 
 # --------------------------------------------------------------------------- #

@@ -1,11 +1,16 @@
 """Decoder stack, dense family (counterpart of
-``repro/models/transformer.py``).
+``repro/models/transformer.py``): the full-sequence forward (training and
+prefill), the decode cache and the one-token decode step.
 
 Block parameters are stacked with a leading L dim, as in the reference tree
 (``{"stack": {...}}``). Where the reference scans over layers under
 ``jax.checkpoint``, this loops over them in Python and wraps each layer in
 ``torch.utils.checkpoint`` (``remat``), so only layer inputs are kept for the
 backward pass.
+
+The decode cache is ``{"k", "v"}``, each (L, B, C, Hk, hd) bf16, slot-major
+with the batch at dim 1; ``decode`` writes the new token's K/V into it in
+place.
 """
 from __future__ import annotations
 
@@ -23,6 +28,8 @@ from repro_torch.configs import ModelConfig
 from repro_torch.models import layers as Lyr
 from repro_torch.models.layers import AttnCall, init_rmsnorm, mlp, rmsnorm
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
+
+HUGE_WINDOW = 2 ** 30
 
 
 def _init_block(gen, cfg: ModelConfig):
@@ -42,26 +49,123 @@ def init_stack(gen, cfg: ModelConfig):
     return {"stack": tree_map(lambda *xs: torch.stack(xs), *blocks)}
 
 
-def _block_fwd(bp, cfg, x, positions, call: AttnCall, dtype):
+def layer_windows(cfg: ModelConfig, n_layers: int, force_window: int = 0):
+    """Per-layer attention window, a list of ints; ``HUGE_WINDOW`` means
+    global. The port's configs carry no local:global pattern (gemma3's is
+    not ported), so every layer gets the same window."""
+    if force_window:
+        return [int(force_window)] * n_layers
+    return [cfg.sliding_window or HUGE_WINDOW] * n_layers
+
+
+def _layers(stack, n_layers):
+    """The L per-layer parameter trees of a stacked tree. One unbind per
+    leaf: its backward stacks the L layer grads in one buffer (indexing per
+    layer would allocate a full (L, ...) zero tensor for every layer's
+    grad)."""
+    per_leaf = [leaf.unbind(0) for leaf in tree_leaves(stack)]
+    return [tree_unflatten(stack, [layers[i] for layers in per_leaf])
+            for i in range(n_layers)]
+
+
+def _block_fwd(bp, cfg, x, positions, window, call: AttnCall, dtype):
+    """One block. Returns (x, (k, v))."""
     h_in = rmsnorm(bp["norm1"], x, cfg.norm_eps)
-    x = x + Lyr.attention(bp["attn"], cfg, h_in, positions, call, dtype)
+    c = AttnCall(window=window, softcap=call.softcap, chunk=call.chunk,
+                 use_flash_kernel=call.use_flash_kernel)
+    h, kv = Lyr.attention(bp["attn"], cfg, h_in, positions, c, dtype)
+    x = x + h
     f_in = rmsnorm(bp["norm2"], x, cfg.norm_eps)
-    return x + mlp(bp["ffn"], f_in, cfg.act, dtype)
+    return x + mlp(bp["ffn"], f_in, cfg.act, dtype), kv
+
+
+def _block_remat(bp, cfg, x, positions, window, call, dtype):
+    return _block_fwd(bp, cfg, x, positions, window, call, dtype)[0]
 
 
 def forward(params, cfg: ModelConfig, x, positions, call: AttnCall, dtype,
-            remat=True):
-    """x (B,S,d) residual stream -> y (B,S,d)."""
-    stack = params["stack"]
-    # unbind once per leaf: its backward stacks the L layer grads in one
-    # buffer (indexing per layer would allocate a full (L, ...) zero tensor
-    # for every layer's grad)
-    per_leaf = [leaf.unbind(0) for leaf in tree_leaves(stack)]
-    for i in range(cfg.n_layers):
-        bp = tree_unflatten(stack, [layers[i] for layers in per_leaf])
-        if remat and torch.is_grad_enabled():
-            x = checkpoint(_block_fwd, bp, cfg, x, positions, call, dtype,
-                           use_reentrant=False, preserve_rng_state=False)
+            want_cache=False, remat=True):
+    """x (B,S,d) residual stream -> (y (B,S,d), caches). ``caches`` is
+    ``{"stack": (k, v)}``, each (L,B,S,Hk,hd), with ``want_cache``, else
+    empty."""
+    wins = layer_windows(cfg, cfg.n_layers, call.force_window)
+    ks, vs = [], []
+    for bp, win in zip(_layers(params["stack"], cfg.n_layers), wins):
+        if remat and torch.is_grad_enabled() and not want_cache:
+            x = checkpoint(_block_remat, bp, cfg, x, positions, win, call,
+                           dtype, use_reentrant=False,
+                           preserve_rng_state=False)
         else:
-            x = _block_fwd(bp, cfg, x, positions, call, dtype)
-    return x
+            x, (k, v) = _block_fwd(bp, cfg, x, positions, win, call, dtype)
+            if want_cache:
+                ks.append(k)
+                vs.append(v)
+    caches = {"stack": (torch.stack(ks), torch.stack(vs))} if want_cache \
+        else {}
+    return x, caches
+
+
+# --------------------------------------------------------------------------- #
+# decode (one token, cache carried)
+# --------------------------------------------------------------------------- #
+
+
+def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int, device,
+                      dtype=torch.bfloat16):
+    """An empty decode cache: k and v (L, batch, cache_len, Hk, hd)."""
+    shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _ring_place(src, C, S, axis):
+    """Place a length-S sequence axis into a C-slot ring at slot = pos % C.
+
+    Keeps the last min(S, C) positions (the only ones a windowed decode can
+    ever attend to) so decode at pos = S reconstructs k_pos exactly like a
+    cache that was filled token by token."""
+    if S <= C:
+        shape = list(src.shape)
+        shape[axis] = C
+        out = torch.zeros(shape, dtype=src.dtype, device=src.device)
+        out.narrow(axis, 0, S).copy_(src)
+        return out
+    # slot c holds the unique position p in [S-C, S) with p % C == c
+    c = torch.arange(C, device=src.device)
+    p = (S - C) + torch.remainder(c - (S - C), C)
+    return src.index_select(axis, p)
+
+
+def prefill_to_decode_cache(cfg: ModelConfig, caches, prompt_len: int,
+                            cache):
+    """Convert ``forward(want_cache=True)`` caches into the decode layout.
+
+    ``cache`` is a fresh ``init_decode_cache`` tree whose leaves fix the
+    target shapes and dtype (including the ring size C when
+    ``decode_window`` is on); the populated copy is returned, ready for
+    decode at pos = prompt_len."""
+    C = cache["k"].shape[2]
+    k, v = caches["stack"]                           # (L,B,S,Hk,hd)
+    new = dict(cache)
+    new["k"] = _ring_place(k, C, prompt_len, axis=2).to(cache["k"].dtype)
+    new["v"] = _ring_place(v, C, prompt_len, axis=2).to(cache["v"].dtype)
+    return new
+
+
+def decode(params, cfg: ModelConfig, x, pos, cache, call: AttnCall, dtype):
+    """x (B,1,d), pos an int or a (B,) per-slot tensor -> (y (B,1,d),
+    cache). The new token's K/V are written into ``cache`` in place, layer
+    by layer; the same dict is returned."""
+    wins = layer_windows(cfg, cfg.n_layers, call.force_window)
+    for i, (bp, win) in enumerate(zip(_layers(params["stack"],
+                                              cfg.n_layers), wins)):
+        h_in = rmsnorm(bp["norm1"], x, cfg.norm_eps)
+        c = AttnCall(window=win, softcap=call.softcap,
+                     use_decode_kernel=call.use_decode_kernel)
+        h, _, _ = Lyr.attention_decode(bp["attn"], cfg, h_in, pos,
+                                       cache["k"][i], cache["v"][i], c,
+                                       dtype)
+        x = x + h
+        f_in = rmsnorm(bp["norm2"], x, cfg.norm_eps)
+        x = x + mlp(bp["ffn"], f_in, cfg.act, dtype)
+    return x, cache

@@ -1,18 +1,22 @@
 """The port's rng interface: every random draw of a round goes through a
 *stream* (counterpart of the reference's ``jax.random`` key discipline).
 
-A stream is an address, not a state. It has five methods:
+A stream is an address, not a state. It has six methods:
 
   ``fold(c)``                  the stream for one named purpose (a constant);
   ``split(n)``                 n independent child streams, as a list;
   ``uniform(shape, device)``   fp32 draws in [0, 1);
   ``rademacher(shape, device)`` fp32 draws of ±1;
-  ``permutation(n, device)``   an int64 permutation of range(n).
+  ``permutation(n, device)``   an int64 permutation of range(n);
+  ``gumbel(shape, device)``    fp32 standard Gumbel draws (as
+                               ``jax.random.gumbel``).
 
 Drawing twice from one stream gives the same numbers, as reusing a JAX key
 does; a caller folds or splits first. The engine's draws use the reference's
 fold constants below and its per-step ``split`` of the round stream into
-H·M streams (row-major over (h, m)).
+H·M streams (row-major over (h, m)). Serving's sampling noise chains
+``nxt, draw = stream.split(2)`` per step from ``TorchStream(seed + 2)``, as
+the reference's ``key, k = split(key)`` from ``PRNGKey(seed + 2)``.
 
 ``TorchStream`` is the production stream. It is derived from ``(seed,
 path)`` alone, where the path is the sequence of folds and splits that led to
@@ -68,6 +72,17 @@ class TorchStream:
     def permutation(self, n: int, device="cpu") -> torch.Tensor:
         return torch.randperm(int(n), generator=self._generator(device),
                               device=device, dtype=torch.int64)
+
+    def gumbel(self, shape, device) -> torch.Tensor:
+        return gumbel_from_uniform(self.uniform(shape, device))
+
+
+def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    """-log(-log(u)) on U[0, 1) draws, in place. u is first raised to the
+    smallest normal fp32 (as ``jax.random.gumbel`` draws u in [tiny, 1)), so
+    every draw is finite: u = 0 gives -4.47, the largest u < 1 gives 16.6."""
+    return u.clamp_(min=torch.finfo(torch.float32).tiny).log_().neg_() \
+        .log_().neg_()
 
 
 def step_streams(stream, H: int, M: int) -> list:

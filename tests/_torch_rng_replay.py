@@ -3,9 +3,9 @@ the port's rng interface (``repro_torch.utils.rng``).
 
 ``JaxStream`` wraps one JAX key. ``fold``/``split`` are
 ``jax.random.fold_in``/``split``; the draws are ``jax.random.uniform``,
-``rademacher`` and ``permutation`` on that key, returned as torch tensors. A
-port round driven by ``JaxStream(jax.random.PRNGKey(r))`` therefore sees the
-very numbers the reference round draws from the same key, so the two
+``rademacher``, ``permutation`` and ``gumbel`` on that key, returned as
+torch tensors. A port round (or serve loop) driven by a ``JaxStream`` sees
+the very numbers the reference draws from the same key, so the two
 trajectories can be compared value by value.
 """
 from __future__ import annotations
@@ -37,3 +37,7 @@ class JaxStream:
     def permutation(self, n: int, device="cpu") -> torch.Tensor:
         a = np.asarray(jax.random.permutation(self.key, int(n)))
         return torch.from_numpy(a.astype(np.int64)).to(device)
+
+    def gumbel(self, shape, device) -> torch.Tensor:
+        a = np.asarray(jax.random.gumbel(self.key, tuple(shape), np.float32))
+        return torch.from_numpy(a.copy()).to(device)

@@ -7,11 +7,15 @@ The module imports only the port, so it runs on a machine without JAX:
 
 K1 (``fused_step_flat``) and K3 (``quantize_update_flat``) are held bitwise:
 kernel and plain version run the same fp32 operations in the same order, and
-the kernels are built without FMA contraction (K3's int8 q exactly).
+the kernels are built without FMA contraction (K3's int8 q exactly). K5
+(``decode_attention``) and K6 (``decode_sample``) sum in another order than
+their plain versions: K5 is held to 1e-5 of max|v| in absolute error, K6's
+ids to the near-tie rule (``ref.near_tie_check``), its tie cases exactly.
 """
 import pytest
 import torch
 
+from repro_torch.kernels import decode_step as ds
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import quantize_update as qu
 from repro_torch.kernels import scaled_update as su
@@ -149,3 +153,119 @@ def test_k3_rejects_mixed_devices(dev):
     x, u, s = _qdq_inputs(2, 64, dev)
     with pytest.raises(ValueError, match="u is on"):
         qu.quantize_update_flat(x, u.cpu(), s)
+
+
+def _k5_inputs(B, C, Hk, rep, D, dev, one_valid=False, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, Hk * rep, D), generator=gen, device=dev)
+    k = torch.randn((B, C, Hk, D), generator=gen, device=dev).bfloat16()
+    v = torch.randn((B, C, Hk, D), generator=gen, device=dev).bfloat16()
+    pos = torch.randint(0, C, (B,), generator=gen, device=dev)
+    idx = torch.arange(C, device=dev)
+    ok = idx[None] == pos[:, None] if one_valid else idx[None] <= pos[:, None]
+    bias = torch.where(ok, 0.0, -1e30).float().contiguous()
+    return q, k, v, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("one_valid", [False, True])
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+@pytest.mark.parametrize("B,C,rep", [(8, 576, 7), (3, 1, 7), (2, 31, 2),
+                                     (1, 300, 16), (2, 4099, 7)])
+def test_k5_vs_plain(dev, B, C, rep, cap, one_valid):
+    """C crosses tiles of 128 with a ragged tail; one_valid masks all but
+    one position per row."""
+    q, k, v, bias = _k5_inputs(B, C, 2, rep, 64, dev, one_valid)
+    want = ref.decode_attention_ref(q, k, v, bias, softcap=cap)
+    before = ds.decode_attention.launches
+    got = ops.decode_attention(q, k, v, bias, softcap=cap)
+    torch.cuda.synchronize()
+    assert ds.decode_attention.launches == before + 1
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * float(v.float().abs().max()), err
+
+
+@pytest.mark.cuda
+def test_k5_scalar_loads_on_odd_head_dim(dev):
+    """D = 36 (not a multiple of 8): the kernel takes its scalar loads."""
+    q, k, v, bias = _k5_inputs(2, 200, 2, 7, 36, dev)
+    want = ref.decode_attention_ref(q, k, v, bias)
+    got = ds.decode_attention(q, k, v, bias)
+    assert float((got - want).abs().max()) <= 1e-5 * float(
+        v.float().abs().max())
+
+
+@pytest.mark.cuda
+def test_k5_rejects_mixed_devices_and_types(dev):
+    q, k, v, bias = _k5_inputs(2, 16, 2, 7, 64, dev)
+    with pytest.raises(ValueError, match="bias is on"):
+        ds.decode_attention(q, k, v, bias.cpu())
+    with pytest.raises(ValueError, match="k must be"):
+        ds.decode_attention(q, k.float(), v, bias)
+
+
+def _k6_inputs(B, V, d, dev, greedy, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    y = torch.randn((B, d), generator=gen, device=dev)
+    table = torch.randn((V, d), generator=gen, device=dev) * 0.02
+    noise = torch.zeros((B, V), device=dev) if greedy else \
+        -torch.log(-torch.log(torch.rand((B, V), generator=gen, device=dev)
+                              .clamp_min(torch.finfo(torch.float32).tiny)))
+    return y, table, noise
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("greedy", [True, False])
+@pytest.mark.parametrize("B,V,v_real,d", [(1, 153600, 151936, 896),
+                                          (8, 153600, 151936, 896),
+                                          (32, 153600, 151936, 896),
+                                          (3, 8192, 8000, 112),
+                                          (64, 4096, 4096, 128)])
+def test_k6_vs_plain(dev, B, V, v_real, d, greedy):
+    y, table, noise = _k6_inputs(B, V, d, dev, greedy)
+    scale = d ** -0.5
+    logits = ref.decode_sample_logits(y, table, noise, scale=scale,
+                                      v_real=v_real)
+    want = ref.decode_sample_ref(y, table, noise, scale=scale, v_real=v_real)
+    before = ds.decode_sample.launches
+    got = ops.decode_sample(y, table, noise, scale=scale, v_real=v_real)
+    torch.cuda.synchronize()
+    assert ds.decode_sample.launches == before + 1
+    ties, bad = ref.near_tie_check(logits, got, want, v_real)
+    assert bad == 0 and ties <= max(1, B // 8), (ties, bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [(100, 101), (100, 90000), (7, 151935)])
+def test_k6_duplicated_rows_lower_index_wins(dev, rows):
+    """Identical rows give identical logits wherever they fall in the grid,
+    and the lower index wins."""
+    y, table, noise = _k6_inputs(4, 153600, 896, dev, greedy=True)
+    lo, hi = rows
+    table[lo] = table[hi] = y[0] / y[0].norm() * 5.0
+    ids, best = ds.decode_sample(y, table, noise, scale=896 ** -0.5,
+                                 v_real=151936, return_best=True)
+    assert int(ids[0]) == lo
+
+
+@pytest.mark.cuda
+def test_k6_masked_padded_id_never_wins(dev):
+    y, table, noise = _k6_inputs(4, 153600, 896, dev, greedy=True)
+    table[151936 + 9] = y[1] / y[1].norm() * 50.0
+    got = ds.decode_sample(y, table, noise, scale=896 ** -0.5, v_real=151936)
+    logits = ref.decode_sample_logits(y, table, noise, scale=896 ** -0.5,
+                                      v_real=151936)
+    assert int(got.max()) < 151936
+    assert ref.near_tie_check(logits, got, logits.argmax(dim=1),
+                              151936)[1] == 0
+
+
+@pytest.mark.cuda
+def test_k6_rejects_bad_arguments(dev):
+    y, table, noise = _k6_inputs(2, 4096, 128, dev, greedy=True)
+    with pytest.raises(ValueError, match="noise is on"):
+        ds.decode_sample(y, table, noise.cpu(), scale=1.0, v_real=4096)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        buf = torch.empty(table.numel() + 1, device=dev)
+        ds.decode_sample(y, buf[1:].view(4096, 128), noise, scale=1.0,
+                         v_real=4096)

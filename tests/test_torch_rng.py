@@ -6,6 +6,7 @@ Everything here is exact: keys and integer draws are compared with equality,
 float draws bitwise.
 """
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -128,3 +129,37 @@ def test_train_round_r_draws_from_fold_r_of_seed_plus_one():
                           "cpu", "--seed", "3"], root_stream=JaxStream(key))
     np.testing.assert_array_equal(_key_data(replay.stream(2)),
                                   np.asarray(jax.random.fold_in(key, 2)))
+
+
+def test_replay_stream_gumbel_is_the_reference_gumbel():
+    """JaxStream.gumbel replays jax.random.gumbel bitwise, also along the
+    serve noise chain ``key, k = split(key)`` (``nxt, draw = split(2)``)."""
+    key = jax.random.PRNGKey(2)
+    st = JaxStream(key)
+    for _ in range(3):
+        key, k = jax.random.split(key)
+        st, draw = st.split(2)
+        np.testing.assert_array_equal(
+            draw.gumbel((2, 7), "cpu").numpy(),
+            np.asarray(jax.random.gumbel(k, (2, 7), jnp.float32)))
+        np.testing.assert_array_equal(_key_data(st), np.asarray(key))
+
+
+def test_torch_stream_gumbel_is_addressed_and_finite_at_the_edges():
+    a = rng.TorchStream(5).fold(2).split(2)[1].gumbel((4000,), "cpu")
+    torch.rand(10)
+    b = rng.TorchStream(5).fold(2).split(2)[1].gumbel((4000,), "cpu")
+    assert a.dtype == torch.float32 and torch.equal(a, b)
+    assert not torch.equal(a, rng.TorchStream(5).fold(2).split(2)[0]
+                           .gumbel((4000,), "cpu"))
+    assert bool(torch.isfinite(a).all())
+    assert abs(float(a.mean()) - 0.5772) < 0.1      # Euler–Mascheroni
+    edges = rng.gumbel_from_uniform(
+        torch.tensor([0.0, torch.finfo(torch.float32).tiny, 0.5,
+                      1.0 - 2.0 ** -24]))
+    assert bool(torch.isfinite(edges).all())
+    # u = 0 is raised to tiny, the bottom of the reference's [tiny, 1)
+    assert float(edges[0]) == float(edges[1])
+    np.testing.assert_allclose(edges.numpy(),
+                               [-4.4698, -4.4698, 0.3665, 16.6355],
+                               atol=1e-4)
