@@ -9,16 +9,18 @@ round; local-adam; SAVIC with int8-stochastic compression and error
 feedback; SAVIC with OASIS and half the clients sampled), holds the fused
 client loop against the tree loop, then drives the serving path through
 ``repro_torch.launch.serve`` at full width (prefill-cache reuse with 63
-decode steps on K5 and K6; continuous batching over a ring of 8 slots),
-holds the kernel decode path against the plain one teacher-forced, and
-checks what comes out. Any failed phase raises and the script exits
-non-zero. Without a CUDA device, or without the rest of the
-repository beside it, it exits non-zero before printing any result.
+decode steps on K5 and K6; continuous batching over a ring of 8 slots; an
+8192-token prompt at batch 2 prefilled on K4, then 31 decode steps), holds
+the kernel paths against the plain ones teacher-forced (the K4 prefill
+against the chunked ``models/flash.py`` one), and checks what comes out.
+Any failed phase raises and the script exits non-zero. Without a CUDA
+device, or without the rest of the repository beside it, it exits non-zero
+before printing any result.
 
-The second-to-last lines are one JSON object listing the kernels (launches on
-the main path, error against the plain version, measured and least
-possible times) and the card's name and power limit; the last line is
-``{"ok": true, "device": {...}}``.
+The second-to-last lines are one JSON object listing the kernels (launches
+on the main path, error against the plain version (K4's over its fp32
+cases), measured and least possible times) and the card's name and power
+limit; the last line is ``{"ok": true, "device": {...}}``.
 """
 import json
 import os
@@ -42,6 +44,7 @@ from repro_torch.core import engine  # noqa: E402
 from repro_torch.data import LMRoundLoader, TokenStream  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import decode_step as ds  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import quantize_update as qu  # noqa: E402
 from repro_torch.kernels import scaled_update as su  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
@@ -49,6 +52,7 @@ from repro_torch.launch import train  # noqa: E402
 from repro_torch.models import (ModelCallConfig, sample_batch,  # noqa: E402
                                 sample_ids)
 from repro_torch.models import build as build_model  # noqa: E402
+from repro_torch.models.flash import flash_attention_bshd  # noqa: E402
 from repro_torch.utils import rng  # noqa: E402
 from repro_torch.utils.tree import tree_paths, tree_size  # noqa: E402
 
@@ -70,6 +74,21 @@ K5_MAIN = (8, 576, 2, 7, 64)       # B, C, Hk, rep, D of the decode steps
 V_PAD, V_REAL, D_MODEL = 153_600, 151_936, 896
 TRACE = dict(slots=8, n_requests=16, prompt_len=256, gen_len=64,
              arrival_rate=0.5, seed=0)
+# long-prompt prefill: batch 2, prompt 8192, 32 tokens (31 decode steps)
+LONG = dict(batch=2, prompt_len=8192, gen_len=32)
+K4_MAIN = (2, 8192, 14, 2, 64)     # B, S, H, Hk, D of the prefill's K4
+K5_LONG = (2, 8224, 2, 7, 64)      # B, C, Hk, rep, D of its decode steps
+# K4 against its plain version: (B, S, H, Hk, D, window, softcap, dtype)
+K4_CASES = [(*K4_MAIN, 0, 0.0, torch.float32),
+            (2, 2048, 8, 1, 64, 0, 0.0, torch.float32),        # MQA
+            (2, 2048, 14, 2, 32, 0, 0.0, torch.float32),
+            (2, 2048, 14, 2, 128, 0, 0.0, torch.float32),
+            (2, 2048, 14, 2, 64, 16, 0.0, torch.float32),
+            (2, 2048, 14, 2, 64, 100, 0.0, torch.float32),
+            (2, 2048, 14, 2, 64, 0, 30.0, torch.float32),
+            (*K4_MAIN, 0, 0.0, torch.bfloat16),
+            (2, 1, 14, 2, 64, 0, 0.0, torch.float32),
+            (2, 1000, 14, 2, 64, 0, 0.0, torch.float32)]
 
 
 def main_argv(method, rounds, extra=()):
@@ -84,11 +103,11 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def smi_line():
+def smi_line(query="name,power.limit"):
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip() \
+        .splitlines()[0]
 
 
 def max_diff(a, b, chunk=1 << 26):
@@ -419,12 +438,11 @@ def k6_bytes(B):
     return 4 * (V_REAL * D_MODEL + B * V_REAL + B * D_MODEL + B)
 
 
-def time_decode_kernels(gen):
-    """K5 and K6 at the serve path's shapes: CUDA-event times of the kernel
-    wrappers, their plain versions and one PyTorch library call each
-    (SDPA with the bias as mask over fp32 k/v, GQA; matmul·scale + noise,
-    masked, argmax)."""
-    B, C, Hk, rep, D = K5_MAIN
+def time_k5(shape, gen):
+    """K5 at ``shape`` (B, C, Hk, rep, D): CUDA-event times of the kernel
+    wrapper, its plain version and SDPA (the bias as mask over fp32 k/v,
+    GQA), and its bound."""
+    B, C, Hk, rep, D = shape
     q, k, v, bias = k5_inputs(B, C, Hk, rep, D, gen)
     k5 = {"ms": cuda_ms(lambda: ds.decode_attention(q, k, v, bias), 200),
           "plain_ms": cuda_ms(lambda: ref.decode_attention_ref(q, k, v,
@@ -442,7 +460,13 @@ def time_decode_kernels(gen):
     k5["bytes"] = k5_bytes(B, C, Hk, rep, D)
     k5["bound_ms"] = k5["bytes"] / HBM_BYTES_PER_S * 1e3
     del q, k, v, bias, kf, vf, lib
+    torch.cuda.empty_cache()
+    return k5
 
+
+def time_k6(gen):
+    """K6 at the serve path's shape: CUDA-event times of the kernel wrapper,
+    its plain version and matmul·scale + noise, masked, argmax."""
     y, table, noise = k6_inputs(SERVE["batch"], gen, greedy=True)
     scale = D_MODEL ** -0.5
     pad = torch.arange(V_PAD, device=DEV) >= V_REAL
@@ -463,7 +487,84 @@ def time_decode_kernels(gen):
                          flops / FP32_FLOP_PER_S) * 1e3
     del y, table, noise
     torch.cuda.empty_cache()
-    return k5, k6
+    return k6
+
+
+# --------------------------------------------------------------------------- #
+# K4 inputs, the kernel-vs-plain comparison and its timing
+# --------------------------------------------------------------------------- #
+
+
+def k4_inputs(B, S, H, Hk, D, dtype, gen):
+    return [torch.randn(shape, generator=gen, device=DEV).to(dtype)
+            for shape in ((B, S, H, D), (B, S, Hk, D), (B, S, Hk, D))]
+
+
+def k4_plain(q, k, v, window=0, softcap=0.0):
+    """K4's plain version, one batch row at a time: at the prefill's shape
+    one row's (H, S, S) fp32 scores are 3.8 GB."""
+    return torch.cat([ref.flash_attention_ref(q[b:b + 1], k[b:b + 1],
+                                              v[b:b + 1], window=window,
+                                              softcap=softcap)
+                      for b in range(q.shape[0])])
+
+
+def k4_case(B, S, H, Hk, D, window, cap, dtype, gen):
+    """(max abs error, its bound) of K4 against its plain version: 2e-5 of
+    max|v| in fp32, 1e-2 in bf16 (both round the output to bf16)."""
+    q, k, v = k4_inputs(B, S, H, Hk, D, dtype, gen)
+    want = k4_plain(q, k, v, window, cap)
+    got = fa.flash_attention(q, k, v, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    check(got.shape == (B, S, H, D) and got.dtype == dtype,
+          f"K4 output {tuple(got.shape)} {got.dtype}")
+    err = float((got.float() - want.float()).abs().max())
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    bound = tol * float(v.float().abs().max())
+    del q, k, v, want, got
+    torch.cuda.empty_cache()
+    return err, bound
+
+
+def k4_work(B, S, H, Hk, D):
+    """(flops, bytes) K4 must do at a causal shape without a window: two
+    D-long dots per causal pair; read q, k, v once, write out."""
+    pairs = B * H * S * (S + 1) // 2
+    return 4 * D * pairs, 4 * (2 * B * S * H * D + 2 * B * S * Hk * D)
+
+
+def time_k4(gen):
+    """K4 at the prefill's shape: CUDA-event times of the kernel wrapper,
+    its plain version (row by row), the port's chunked ``models/flash.py``
+    forward (KV repeated to H heads beforehand, blocks of 1024, as the
+    model's plain route runs it) and SDPA (fp32, causal, GQA), and its
+    bound."""
+    B, S, H, Hk, D = K4_MAIN
+    q, k, v = k4_inputs(B, S, H, Hk, D, torch.float32, gen)
+    out = fa.flash_attention(q, k, v)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True).transpose(1, 2)
+    err = float((lib - out).abs().max())
+    check(err <= 1e-4 * float(v.abs().max()),
+          f"SDPA does not compute K4's function ({err:.3e})")
+    del lib, out
+    torch.cuda.empty_cache()
+    t = {"ms": cuda_ms(lambda: fa.flash_attention(q, k, v), 10),
+         "plain_ms": cuda_ms(lambda: k4_plain(q, k, v), 2),
+         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+             qt, kt, vt, is_causal=True, enable_gqa=True), 5)}
+    pos = torch.arange(S, device=DEV)
+    kr, vr = (torch.repeat_interleave(x, H // Hk, dim=2) for x in (k, v))
+    with torch.no_grad():
+        t["chunked_ms"] = cuda_ms(lambda: flash_attention_bshd(
+            q, kr, vr, pos, pos, bq=1024, bk=1024), 2)
+    t["flops"], t["bytes"] = k4_work(B, S, H, Hk, D)
+    t["bound_ms"] = max(t["bytes"] / HBM_BYTES_PER_S,
+                        t["flops"] / FP32_FLOP_PER_S) * 1e3
+    del q, k, v, qt, kt, vt, kr, vr
+    torch.cuda.empty_cache()
+    return t
 
 
 # --------------------------------------------------------------------------- #
@@ -593,6 +694,93 @@ def continuous_path(cfg, params):
     return res, k5, k6, ties, compared
 
 
+def long_serve_path():
+    """``serve`` at full width on an 8192-token prompt with K4 in the
+    prefill and K5/K6 in decode, counts set to 0 just before and read just
+    after. Returns (result, K4, K5, K6 launches, peak GiB)."""
+    fa.flash_attention.launches = 0
+    ds.decode_attention.launches = 0
+    ds.decode_sample.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = serve_mod.serve("qwen2-0.5b", reduced=False, use_flash_kernel=True,
+                          use_decode_kernel=True, device="cuda",
+                          verbose=False, **LONG)
+    k4 = fa.flash_attention.launches
+    k5, k6 = ds.decode_attention.launches, ds.decode_sample.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = LONG["gen_len"] - 1
+    t = res.timings
+    print(f"[chip_smoke]   TTFT (prefill, B={LONG['batch']}, S="
+          f"{LONG['prompt_len']}) {t['prefill_s'] * 1e3:.3f} ms; decode "
+          f"{steps} steps {t['decode_s']:.4f} s, median step "
+          f"{float(np.median(res.per_token_s)) * 1e3:.3f} ms; "
+          f"{t['tok_per_s']:.2f} tokens/s; peak memory {peak:.2f} GiB; "
+          f"launches K4 {k4}, K5 {k5}, K6 {k6}", flush=True)
+    check(res.tokens.shape == (LONG["batch"], LONG["gen_len"]),
+          f"tokens {res.tokens.shape}")
+    check(0 <= int(res.tokens.min()) and int(res.tokens.max()) < V_REAL,
+          "an id outside the real vocabulary")
+    check(k4 == 24, f"K4 launched {k4} times, expected 24")
+    check(k5 == 24 * steps, f"K5 launched {k5} times, expected {24 * steps}")
+    check(k6 == steps, f"K6 launched {k6} times, expected {steps}")
+    return res, k4, k5, k6, peak
+
+
+def long_teacher_forced(cfg, params):
+    """The K4 path (K4 prefill, K5/K6 decode) against the plain path (the
+    chunked ``models/flash.py`` prefill, dense decode) at full width on the
+    long prompt, teacher-forced on the plain path's greedy tokens. Held:
+    last-position logits within 1e-4·max|logit|, the bf16 caches within
+    2^-7·max|cache| (one bf16 ulp at the top binade), every id under the
+    near-tie rule. Returns (logit error, its bound, cache error, the
+    largest ratio of a layer's cache error to its bound, near-tie
+    exceptions, ids compared)."""
+    B, S, G = LONG["batch"], LONG["prompt_len"], LONG["gen_len"]
+    plain = build_model(cfg, ModelCallConfig(dtype=torch.float32))
+    kern = build_model(cfg, ModelCallConfig(dtype=torch.float32,
+                                            use_flash_kernel=True,
+                                            use_decode_kernel=True))
+    with torch.inference_mode():
+        prompt = sample_batch(cfg, rng.TorchStream(1), B, S, DEV)
+        lg_p, cache_p = plain.prefill_cache(params, prompt, S + G)
+        lg_k, cache_k = kern.prefill_cache(params, prompt, S + G)
+        lerr = float((lg_k - lg_p).abs().max())
+        lbound = 1e-4 * float(lg_p.abs().max())
+        check(lerr <= lbound, f"long prefill logits differ by {lerr:.3e} "
+              f"(bound {lbound:.3e})")
+        cerr = cratio = 0.0
+        for key in ("k", "v"):
+            for i, (a, b) in enumerate(zip(cache_k[key], cache_p[key])):
+                e = float((a.float() - b.float()).abs().max())
+                bound = 2.0 ** -7 * float(b.float().abs().max())
+                check(e <= bound, f"long prefill cache {key}, layer {i}: "
+                      f"differs by {e:.3e} (bound {bound:.3e})")
+                cerr, cratio = max(cerr, e), max(cratio, e / bound)
+        want = sample_ids(lg_p, 0.0, cfg.vocab_size)
+        ties, bad = ref.near_tie_check(lg_p, sample_ids(lg_k, 0.0,
+                                                        cfg.vocab_size),
+                                       want, cfg.vocab_size)
+        check(bad == 0, "long prefill: K4 path's first ids break the "
+              "near-tie rule")
+        tok = want
+        zeros = torch.zeros_like(lg_p)
+        head = kern.sample_head(params)
+        for g in range(G - 1):
+            lg, cache_p = plain.decode(params, cache_p, tok, S + g)
+            ids, cache_k = kern.decode_sample(params, cache_k, tok, S + g,
+                                              zeros, head)
+            want = sample_ids(lg, 0.0, cfg.vocab_size)
+            t, bad = ref.near_tie_check(lg, ids, want, cfg.vocab_size)
+            check(bad == 0, f"long prompt, teacher-forced step {g}: K4 "
+                  f"path's ids break the near-tie rule")
+            ties += t
+            tok = want
+    del cache_p, cache_k
+    torch.cuda.empty_cache()
+    return lerr, lbound, cerr, cratio, ties, B * G
+
+
 # --------------------------------------------------------------------------- #
 # phases
 # --------------------------------------------------------------------------- #
@@ -689,15 +877,15 @@ def fused_vs_tree(name, rounds=1, flips=False, **method_kw):
 def build_all():
     """One nvcc per kernel source, all started together."""
     t0 = time.perf_counter()
-    libs = (su._lib, qu._lib, ds._attention_lib, ds._sample_lib)
+    libs = (su._lib, qu._lib, ds._attention_lib, ds._sample_lib, fa._lib)
     with ThreadPoolExecutor(max_workers=len(libs)) as pool:
         list(pool.map(lambda f: f(), libs))
     for src in ("fused_step.cu", "quantize_update.cu", "decode_attention.cu",
-                "decode_sample.cu"):
+                "decode_sample.cu", "flash_attention.cu"):
         info = build.BUILD_LOG.get(src, {"seconds": 0.0, "ptxas": "(cached)"})
         print(f"[chip_smoke] {src}: nvcc {info['seconds']:.2f} s\n"
               f"{info['ptxas']}", flush=True)
-    print(f"[chip_smoke] built K1, K3, K5 and K6 in "
+    print(f"[chip_smoke] built K1, K3, K4, K5 and K6 in "
           f"{time.perf_counter() - t0:.2f} s",
           flush=True)
 
@@ -871,6 +1059,17 @@ def main():
               "version")
     torch.cuda.empty_cache()
 
+    # ---- 8b. K4 against its plain version ----------------------------------
+    k4_err = 0.0
+    for B_, S_, H_, Hk_, D_, win, cap, dt in K4_CASES:
+        err, bound = k4_case(B_, S_, H_, Hk_, D_, win, cap, dt, gen)
+        if dt == torch.float32:
+            k4_err = max(k4_err, err)
+        print(f"[chip_smoke] K4 B={B_} S={S_} H={H_} Hk={Hk_} D={D_} "
+              f"window={win} softcap={cap} {str(dt)[6:]}: max abs "
+              f"{err:.3e} (bound {bound:.1e})", flush=True)
+        check(err <= bound, "K4 differs from its plain version")
+
     # ---- 9. serving main path: prefill reuse + 63 decode steps -------------
     print("[chip_smoke] serve main path: serve('qwen2-0.5b', reduced=False, "
           f"use_decode_kernel=True, {SERVE})", flush=True)
@@ -887,16 +1086,40 @@ def main():
     print(f"[chip_smoke]   ring tokens vs solo serving (requests 0, 7, 15, "
           f"teacher-forced): {ccompared} ids, near-tie exceptions {cties}",
           flush=True)
+    # ---- 10b. long-prompt serve: K4 prefill, K5/K6 decode at C = 8224 -----
+    print("[chip_smoke] long-prompt serve path: serve('qwen2-0.5b', "
+          f"reduced=False, use_flash_kernel=True, use_decode_kernel=True, "
+          f"{LONG})", flush=True)
+    _, k4_launches, _, _, lpeak = long_serve_path()
+    lerr, lbound, cerr, cratio, lties, l_ids = long_teacher_forced(cfg_full,
+                                                                   sparams)
+    print(f"[chip_smoke] K4 path vs chunked plain path, teacher-forced, "
+          f"full width, prompt {LONG['prompt_len']}: last logits max abs "
+          f"{lerr:.3e} (bound {lbound:.3e}), caches max abs {cerr:.3e} "
+          f"(worst layer at {cratio:.3f} of its bound), {l_ids} ids, "
+          f"near-tie exceptions {lties}", flush=True)
     del sparams
     torch.cuda.empty_cache()
 
-    # ---- 11. K5 and K6 timed at the serve path's shapes --------------------
-    k5t, k6t = time_decode_kernels(gen)
-    for label, t in (("K5", k5t), ("K6", k6t)):
+    # ---- 11. K4, K5 and K6 timed at the serve paths' shapes ----------------
+    k5t, k5lt, k6t = time_k5(K5_MAIN, gen), time_k5(K5_LONG, gen), \
+        time_k6(gen)
+    for label, t in (("K5", k5t), (f"K5 at C={K5_LONG[1]}", k5lt),
+                     ("K6", k6t)):
         print(f"[chip_smoke] {label} at the serve path's shape: "
               f"{t['ms'] * 1e3:.2f} us/call, plain {t['plain_ms'] * 1e3:.2f} "
               f"us, library {t['library_ms'] * 1e3:.2f} us, bound "
               f"{t['bound_ms'] * 1e3:.3f} us ({t['bytes']} B)", flush=True)
+    k4t = time_k4(gen)
+    print(f"[chip_smoke] K4 at the prefill's shape {K4_MAIN}: "
+          f"{k4t['ms']:.3f} ms/launch, plain {k4t['plain_ms']:.3f} ms, "
+          f"chunked models/flash.py {k4t['chunked_ms']:.3f} ms, SDPA "
+          f"{k4t['library_ms']:.3f} ms, bound {k4t['bound_ms']:.3f} ms "
+          f"(operations: {k4t['flops'] / 1e9:.1f} GFLOP; bytes "
+          f"{k4t['bytes'] / 1e6:.1f} MB), achieved "
+          f"{k4t['flops'] / k4t['ms'] / 1e9:.2f} TFLOP/s; clocks "
+          f"max/now (MHz) {smi_line('clocks.max.sm,clocks.sm')}",
+          flush=True)
 
     kernels = [{
         "name": "fused_step_flat", "route": "cuda",
@@ -926,10 +1149,18 @@ def main():
         "launches": k6_launches, "max_abs_err": k6_err, "ms": k6t["ms"],
         "plain_ms": k6t["plain_ms"], "bound_ms": k6t["bound_ms"],
         "bound_by": "bytes", "library_ms": k6t["library_ms"],
+    }, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:76",
+        "launches": k4_launches, "max_abs_err": k4_err, "ms": k4t["ms"],
+        "plain_ms": k4t["plain_ms"], "bound_ms": k4t["bound_ms"],
+        "bound_by": "operations", "library_ms": k4t["library_ms"],
     }]
     print(f"[chip_smoke] peak memory: savic {peak:.2f} GiB, savic int8 + EF "
           f"{cpeak:.2f} GiB, savic OASIS + participation 0.5 {rpeak:.2f} GiB, "
-          f"serve {speak:.2f} GiB", flush=True)
+          f"serve {speak:.2f} GiB, long-prompt serve {lpeak:.2f} GiB",
+          flush=True)
     print(f"[chip_smoke] total {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -9,6 +9,7 @@ other.
 from __future__ import annotations
 
 from repro_torch.kernels import decode_step as _ds
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import quantize_update as _qu
 from repro_torch.kernels import ref
 from repro_torch.kernels import scaled_update as _su
@@ -55,6 +56,18 @@ def quantize_update(x, u, scale):
         raise ValueError(f"no quantize_update for device {x.device}")
     _qu.check_args(x, u, scale)
     return ref.quantize_update_ref(x, u, scale)
+
+
+def flash_attention(q, k, v, *, window=0, softcap=0.0):
+    """Causal attention of q (B, S, H, D) over the compact kv heads k/v
+    (B, S, Hk, D) -> (B, S, H, D) in q's dtype; ``window`` 0 is full
+    attention. Forward only: raises for an input that requires grad."""
+    if q.device.type == "cuda":
+        return _fa.flash_attention(q, k, v, window=window, softcap=softcap)
+    if q.device.type != "cpu":
+        raise ValueError(f"no flash_attention for device {q.device}")
+    _fa.check_args(q, k, v)
+    return ref.flash_attention_ref(q, k, v, window=window, softcap=softcap)
 
 
 def decode_attention(q, k, v, bias, *, softcap=0.0):

@@ -72,6 +72,29 @@ def quantize_update_ref(x, u, scale):
     return qf.to(torch.int8), qf * s
 
 
+def flash_attention_ref(q, k, v, *, window=0, softcap=0.0):
+    """Causal attention, dense: q (B,S,H,D), k/v (B,S,Hk,D) -> (B,S,H,D) in
+    q's dtype. Query head h reads kv head h // (H/Hk). In fp32, in the
+    reference's order: q·D^-½ first, then the softcap, then masked scores
+    set to -1e30 (causal col <= row, and row - col < ``window`` when
+    ``window`` > 0), then the softmax over the keys. The plain version of
+    kernel K4; it holds all (B, H, S, S) scores at once."""
+    B, S, H, D = q.shape
+    Hk = k.shape[2]
+    qf = (q.float() * (D ** -0.5)).reshape(B, S, Hk, H // Hk, D)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qf, k.float())
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    i = torch.arange(S, device=q.device)
+    mask = i[None, :] <= i[:, None]
+    if window and window > 0:
+        mask &= (i[:, None] - i[None, :]) < window
+    s = torch.where(mask, s, -1e30)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", w, v.float())
+    return out.reshape(B, S, H, v.shape[-1]).to(q.dtype)
+
+
 def decode_attention_math(q, k, v, bias, softcap):
     """Single-query decode attention for (batch-slot, kv-head) cells.
 

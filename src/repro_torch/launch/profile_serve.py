@@ -1,18 +1,25 @@
-"""Where a decode step's time goes on the GPU (serving).
+"""Where the time of a prefill and of a decode step goes on the GPU
+(serving).
 
 Builds the model and prompt as ``launch/serve.py::serve`` does, prefills the
-decode cache, runs ``--untraced`` greedy decode steps (each timed between
-device synchronizations), then ``--traced`` more under ``torch.profiler``,
-and prints: the prefill time, the untraced steps' wall times and their
-median, the device-busy time per traced step (summed kernel time) as a
-share of the traced step and of the untraced median, the device time and
-launches of K5 (decode attention) and K6 (unembed + argmax), the kernels
-that took the most device time, the host ops that took the most host time
-(self time), and the peak device memory. CUDA only. The profiler's own cost
-inflates the host times and the traced steps' wall time.
+decode cache (timed between device synchronizations), prefills once more
+under ``torch.profiler``, runs ``--untraced`` greedy decode steps (each
+timed between device synchronizations), then ``--traced`` more under the
+profiler, and prints: the prefill time and the traced prefill's device time
+split into K4 (flash attention, with ``--flash-kernel``), GEMMs and the
+rest; the untraced steps' wall times and their median, the device-busy time
+per traced step (summed kernel time) as a share of the traced step and of
+the untraced median, the device time and launches of K5 (decode attention)
+and K6 (unembed + argmax), the kernels that took the most device time, the
+host ops that took the most host time (self time), and the peak device
+memory. CUDA only. The profiler's own cost inflates the host times and the
+traced steps' wall time.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
       --arch qwen2-0.5b --full --decode-kernel --batch 8 --prompt-len 512
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+      --arch qwen2-0.5b --full --flash-kernel --decode-kernel --batch 2 \\
+      --prompt-len 8192
 """
 from __future__ import annotations
 
@@ -27,10 +34,42 @@ from repro_torch.launch import serve
 from repro_torch.models import sample_batch, sample_ids
 from repro_torch.utils import rng
 
-# the port's decode kernels by the names of their CUDA functions
+# the port's kernels by the names of their CUDA functions
 KERNELS = {"k5": ("decode_attention_kernel",),
            "k6": ("decode_sample_blocks", "decode_sample_reduce")}
+K4 = ("flash_attention_kernel",)
+GEMM = ("gemm", "cutlass", "xmma")    # cuBLAS's kernels, by name (lower case)
 TOP = 12
+
+
+def _device_events(prof):
+    return [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+
+
+def _ms(events):
+    return sum(e.self_device_time_total for e in events) / 1e3
+
+
+def _tops(kernels, per, key):
+    return [{"name": e.key[:90], "calls": e.count,
+             key: e.self_device_time_total / 1e3 / per}
+            for e in sorted(kernels, key=lambda e: -e.self_device_time_total)
+            [:TOP]]
+
+
+def prefill_breakdown(prof):
+    """Device time of a traced prefill: total, K4, GEMMs, the rest (ms), K4
+    launches and the top kernels."""
+    kernels = _device_events(prof)
+    k4 = [e for e in kernels if any(f in e.key for f in K4)]
+    gemm = [e for e in kernels if e not in k4
+            and any(f in e.key.lower() for f in GEMM)]
+    total = _ms(kernels)
+    return {"prefill_device_ms": total, "prefill_k4_ms": _ms(k4),
+            "prefill_k4_launches": sum(e.count for e in k4),
+            "prefill_gemm_ms": _ms(gemm),
+            "prefill_other_ms": total - _ms(k4) - _ms(gemm),
+            "prefill_top_kernels": _tops(kernels, 1, "ms")}
 
 
 def main(argv=None):
@@ -42,12 +81,14 @@ def main(argv=None):
     ap.add_argument("--untraced", type=int, default=24)
     ap.add_argument("--traced", type=int, default=8)
     ap.add_argument("--decode-kernel", action="store_true")
+    ap.add_argument("--flash-kernel", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     cfg, model, params, device = serve._setup(
         args.arch, reduced=not args.full, dtype=torch.float32,
         decode_window=0, use_decode_kernel=args.decode_kernel,
-        seed=args.seed, device="cuda", params=None)
+        use_flash_kernel=args.flash_kernel, seed=args.seed, device="cuda",
+        params=None)
     B, S = args.batch, args.prompt_len
     steps = args.untraced + args.traced
     torch.cuda.reset_peak_memory_stats()
@@ -59,6 +100,14 @@ def main(argv=None):
         logits, cache = model.prefill_cache(params, prompt, S + steps + 1)
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            again = model.prefill_cache(params, prompt, S + steps + 1)
+            torch.cuda.synchronize()
+            traced_prefill_ms = (time.perf_counter() - t0) * 1e3
+        del again
+        prefill = prefill_breakdown(prof)
         head = model.sample_head(params) if args.decode_kernel else None
         noise = torch.zeros_like(logits)
         tok = sample_ids(logits, noise, cfg.vocab_size)
@@ -81,22 +130,21 @@ def main(argv=None):
     steady = sorted(untraced_ms[1:])
     median_ms = steady[len(steady) // 2]
     events = prof.key_averages()
-    kernels = [e for e in events if e.device_type.name == "CUDA"]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 \
-        / args.traced
+    kernels = _device_events(prof)
+    busy_ms = _ms(kernels) / args.traced
     ours = {}
     for name, fns in KERNELS.items():
         evs = [e for e in kernels if any(f in e.key for f in fns)]
-        ours[f"{name}_ms_per_step"] = sum(e.self_device_time_total
-                                          for e in evs) / 1e3 / args.traced
+        ours[f"{name}_ms_per_step"] = _ms(evs) / args.traced
         ours[f"{name}_launches"] = sum(e.count for e in evs)
-    tops = sorted(kernels, key=lambda e: -e.self_device_time_total)[:TOP]
     host = sorted((e for e in events if e.device_type.name == "CPU"),
                   key=lambda e: -e.self_cpu_time_total)[:TOP]
     summary = {
         "device": torch.cuda.get_device_name(0), "batch": B,
         "prompt_len": S, "decode_kernel": args.decode_kernel,
-        "prefill_ms": prefill_ms, "untraced_step_ms": untraced_ms,
+        "flash_kernel": args.flash_kernel, "prefill_ms": prefill_ms,
+        "traced_prefill_ms": traced_prefill_ms, **prefill,
+        "untraced_step_ms": untraced_ms,
         "untraced_step_median_ms": median_ms,
         "traced_step_ms": traced_ms, "device_busy_ms_per_step": busy_ms,
         "device_busy_share": busy_ms / traced_ms,
@@ -104,9 +152,7 @@ def main(argv=None):
         "tokens_per_s_untraced": B / median_ms * 1e3,
         **ours,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-        "top_kernels": [{"name": e.key[:90], "calls": e.count,
-                         "ms_per_step": e.self_device_time_total / 1e3
-                         / args.traced} for e in tops],
+        "top_kernels": _tops(kernels, args.traced, "ms_per_step"),
         "host_self_ms_per_step": sum(e.self_cpu_time_total for e in events
                                      if e.device_type.name == "CPU") / 1e3
         / args.traced,

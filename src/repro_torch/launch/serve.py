@@ -41,6 +41,9 @@ Examples:
       --full --mode continuous --decode-kernel --batch 8 --requests 16 \\
       --prompt-len 256 --gen-len 64 --arrival-rate 0.5
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
+      --full --flash-kernel --decode-kernel --batch 2 --prompt-len 8192 \\
+      --gen-len 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --device cpu --mode continuous --decode-kernel
 """
 from __future__ import annotations
@@ -79,12 +82,13 @@ def _sync(device):
 
 
 def _setup(arch, *, reduced, dtype, decode_window, use_decode_kernel, seed,
-           device, params):
+           device, params, use_flash_kernel=False):
     device = resolve_device(device)
     cfg = get_config(arch, reduced=reduced)
     model = build(cfg, ModelCallConfig(dtype=dtype,
                                        decode_window=decode_window,
-                                       use_decode_kernel=use_decode_kernel))
+                                       use_decode_kernel=use_decode_kernel,
+                                       use_flash_kernel=use_flash_kernel))
     if params is None:
         params = model.init(torch.Generator(device=device).manual_seed(seed))
     return cfg, model, params, device
@@ -149,17 +153,20 @@ def _decode_loop(model, params, cache, tok, pos, logits_shape, gen_len,
 
 def serve(arch: str, *, reduced=True, batch=4, prompt_len=32, gen_len=32,
           decode_window=0, dtype=torch.float32, greedy=True, seed=0,
-          use_decode_kernel=False, cache_len=None, prompt=None, params=None,
-          stream=None, verbose=True, device=None) -> ServeResult:
+          use_decode_kernel=False, use_flash_kernel=False, cache_len=None,
+          prompt=None, params=None, stream=None, verbose=True,
+          device=None) -> ServeResult:
     """Prefill once, decode from the returned cache: no prompt replay.
 
     The timings include first-call set-up, as a cold server start does.
     ``stream`` is the noise stream (default ``TorchStream(seed + 2)``).
+    ``use_flash_kernel`` runs the prefill's attention on kernel K4 (the
+    reference's ``ModelCallConfig`` knob, passed through).
     """
     cfg, model, params, device = _setup(
         arch, reduced=reduced, dtype=dtype, decode_window=decode_window,
         use_decode_kernel=use_decode_kernel, seed=seed, device=device,
-        params=params)
+        params=params, use_flash_kernel=use_flash_kernel)
     with torch.inference_mode():
         if prompt is None:
             prompt = sample_batch(cfg, rng.TorchStream(seed + 1), batch,
@@ -258,12 +265,12 @@ def _trace_metrics(mode, slots, n_requests, gens, requests, per_step_s,
 
 
 def _trace_setup(arch, *, reduced, dtype, decode_window, use_decode_kernel,
-                 seed, device, params, prompts, n_requests, arrival_rate,
-                 prompt_len, gen_len):
+                 use_flash_kernel, seed, device, params, prompts, n_requests,
+                 arrival_rate, prompt_len, gen_len):
     cfg, model, params, device = _setup(
         arch, reduced=reduced, dtype=dtype, decode_window=decode_window,
         use_decode_kernel=use_decode_kernel, seed=seed, device=device,
-        params=params)
+        params=params, use_flash_kernel=use_flash_kernel)
     arrivals, gens = poisson_trace(n_requests, arrival_rate, seed, gen_len)
     if prompts is None:
         prompts = [request_prompt(cfg, seed, r, prompt_len, device)
@@ -274,8 +281,8 @@ def _trace_setup(arch, *, reduced, dtype, decode_window, use_decode_kernel,
 def serve_continuous(arch: str, *, reduced=True, slots=4, n_requests=8,
                      prompt_len=8, gen_len=8, arrival_rate=0.5,
                      decode_window=0, dtype=torch.float32, greedy=True,
-                     seed=0, use_decode_kernel=False, params=None,
-                     prompts=None, stream=None, verbose=True,
+                     seed=0, use_decode_kernel=False, use_flash_kernel=False,
+                     params=None, prompts=None, stream=None, verbose=True,
                      device=None) -> TraceResult:
     """Continuous batching: per-slot admission and eviction on a fixed
     decode ring. One decode step with per-slot (B,) positions serves every
@@ -283,7 +290,8 @@ def serve_continuous(arch: str, *, reduced=True, slots=4, n_requests=8,
     cache is copied into slot b of the ring's cache along dim 1."""
     cfg, model, params, device, arrivals, gens, prompts = _trace_setup(
         arch, reduced=reduced, dtype=dtype, decode_window=decode_window,
-        use_decode_kernel=use_decode_kernel, seed=seed, device=device,
+        use_decode_kernel=use_decode_kernel,
+        use_flash_kernel=use_flash_kernel, seed=seed, device=device,
         params=params, prompts=prompts, n_requests=n_requests,
         arrival_rate=arrival_rate, prompt_len=prompt_len, gen_len=gen_len)
     cache_len = prompt_len + gen_len
@@ -376,8 +384,9 @@ def serve_continuous(arch: str, *, reduced=True, slots=4, n_requests=8,
 def serve_static(arch: str, *, reduced=True, slots=4, n_requests=8,
                  prompt_len=8, gen_len=8, arrival_rate=0.5, decode_window=0,
                  dtype=torch.float32, greedy=True, seed=0,
-                 use_decode_kernel=False, params=None, prompts=None,
-                 stream=None, verbose=True, device=None) -> TraceResult:
+                 use_decode_kernel=False, use_flash_kernel=False, params=None,
+                 prompts=None, stream=None, verbose=True,
+                 device=None) -> TraceResult:
     """Static-batching baseline on the SAME Poisson trace as
     ``serve_continuous``: requests are served in arrival-order groups of
     ``slots``; a group starts only when all members have arrived and the
@@ -385,7 +394,8 @@ def serve_static(arch: str, *, reduced=True, slots=4, n_requests=8,
     (short members pad)."""
     cfg, model, params, device, arrivals, gens, prompts = _trace_setup(
         arch, reduced=reduced, dtype=dtype, decode_window=decode_window,
-        use_decode_kernel=use_decode_kernel, seed=seed, device=device,
+        use_decode_kernel=use_decode_kernel,
+        use_flash_kernel=use_flash_kernel, seed=seed, device=device,
         params=params, prompts=prompts, n_requests=n_requests,
         arrival_rate=arrival_rate, prompt_len=prompt_len, gen_len=gen_len)
     cache_len = prompt_len + gen_len
@@ -465,6 +475,8 @@ def main(argv=None):
     ap.add_argument("--no-greedy", action="store_true")
     ap.add_argument("--decode-kernel", action="store_true",
                     help="decode attention on K5 and sampling on K6")
+    ap.add_argument("--flash-kernel", action="store_true",
+                    help="prefill attention on K4")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--arrival-rate", type=float, default=0.5,
                     help="Poisson arrivals per decode step (trace modes)")
@@ -474,15 +486,15 @@ def main(argv=None):
                   gen_len=args.gen_len, decode_window=args.decode_window,
                   seed=args.seed, greedy=not args.no_greedy,
                   device=args.device)
-    if args.mode == "reuse":
-        return serve(args.arch, batch=args.batch,
-                     use_decode_kernel=args.decode_kernel, **common)
     if args.mode == "replay":
         return serve_replay(args.arch, batch=args.batch, **common)
+    kernels = dict(use_decode_kernel=args.decode_kernel,
+                   use_flash_kernel=args.flash_kernel)
+    if args.mode == "reuse":
+        return serve(args.arch, batch=args.batch, **kernels, **common)
     fn = serve_continuous if args.mode == "continuous" else serve_static
     return fn(args.arch, slots=args.batch, n_requests=args.requests,
-              arrival_rate=args.arrival_rate,
-              use_decode_kernel=args.decode_kernel, **common)
+              arrival_rate=args.arrival_rate, **kernels, **common)
 
 
 if __name__ == "__main__":

@@ -2,9 +2,10 @@
 
 Parameters are plain dicts of tensors with the reference's tree paths and
 layouts (head-major QKV weights (d, H, hd), output (H, hd, d)); they are
-stored in fp32 and cast to the compute ``dtype`` at use. Attention is written
-out in plain torch, as the reference's training path evaluates it
-(``_sdpa_dense`` with ``use_flash_kernel=False``).
+stored in fp32 and cast to the compute ``dtype`` at use. Attention takes
+the reference's routes: dense (``_sdpa_dense``), KV-chunked
+(``models/flash.py``) for long sequences, or kernel K4 with
+``use_flash_kernel``; one-token decode runs dense or on kernel K5.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
+from repro_torch.models.flash import HUGE_WINDOW, flash_attention_bshd
 
 # --------------------------------------------------------------------------- #
 # initializers / basics
@@ -132,7 +134,10 @@ def _mask_bias(q_pos, k_pos, window, k_valid=None):
 
 
 def _window_on(window) -> bool:
-    return bool(window) and window > 0
+    """A window that masks: a positive int below ``HUGE_WINDOW``. (The
+    reference's per-layer windows are traced inside its layer scan, so its
+    ``_window_on`` counts ``HUGE_WINDOW`` as on; the port's are ints.)"""
+    return bool(window) and 0 < window < HUGE_WINDOW
 
 
 def _sdpa_dense(q, k, v, q_pos, k_pos, window, softcap, k_valid=None):
@@ -163,23 +168,26 @@ class AttnCall:
     layer's window (the ring-buffer decode cache of ``decode_window``)."""
     window: int = 0
     softcap: float = 0.0
-    chunk: int = 0                  # 0 = dense; KV-chunked is not ported
-    use_flash_kernel: bool = False  # K4 (flash attention) is not ported
+    chunk: int = 0                  # 0 = dense; else KV-chunked online softmax
+    use_flash_kernel: bool = False  # K4 (flash attention) when no window
     use_decode_kernel: bool = False  # K5, single-query decode attention
     force_window: int = 0
 
 
 def attention(p, cfg: ModelConfig, x, positions, call: AttnCall, dtype):
     """Full causal self-attention over x (B,S,d) at integer positions (S,).
-    KV heads are repeated to the full head count first, as in the
-    reference. Returns (out (B,S,d), (k, v)): the compact Hk-head keys
-    (after RoPE) and values, for the decode cache."""
-    if call.use_flash_kernel:
-        raise NotImplementedError("the flash-attention kernel (K4) is not "
-                                  "ported yet")
-    if call.chunk and x.shape[1] > call.chunk:
-        raise NotImplementedError("KV-chunked attention (S > dense_attn_max) "
-                                  "is not ported yet")
+    Returns (out (B,S,d), (k, v)): the compact Hk-head keys (after RoPE) and
+    values, for the decode cache.
+
+    The reference's three routes, in its order: kernel K4
+    (``kernels.ops.flash_attention``, forward only) when
+    ``use_flash_kernel`` is set and no window masks, at every S; else the
+    KV-chunked online softmax of ``models/flash.py`` when ``chunk`` is set
+    and S > ``chunk``; else dense attention. K4 reads the compact Hk-head
+    K/V (query head h on kv head h // rep, as the TPU kernel's index map
+    does); the other two routes repeat KV to the full head count first, as
+    the reference does."""
+    S = x.shape[1]
     h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = _proj_heads(p["wq"], x, dtype)
     k = _proj_heads(p["wk"], x, dtype)
@@ -192,12 +200,28 @@ def attention(p, cfg: ModelConfig, x, positions, call: AttnCall, dtype):
     k = apply_rope(k, cos, sin).to(dtype)
     cache_kv = (k, v)
     rep = h // hk
-    if rep > 1:
-        k = torch.repeat_interleave(k, rep, dim=2)
-        v = torch.repeat_interleave(v, rep, dim=2)
-    out = _sdpa_dense(q, k, v, positions, positions, call.window,
-                      call.softcap)
+    if call.use_flash_kernel and not _window_on(call.window):
+        from repro_torch.kernels import ops as kops
+        out = kops.flash_attention(q, k, v, softcap=call.softcap)
+    elif call.chunk and S > call.chunk:
+        win = call.window if _window_on(call.window) else None
+        out = flash_attention_bshd(q, *_repeat_kv(k, v, rep), positions,
+                                   positions, window=win,
+                                   softcap=call.softcap, bq=call.chunk,
+                                   bk=call.chunk)
+    else:
+        out = _sdpa_dense(q, *_repeat_kv(k, v, rep), positions, positions,
+                          call.window, call.softcap)
     return _proj_out(p["wo"], out.to(dtype), dtype), cache_kv
+
+
+def _repeat_kv(k, v, rep):
+    """(B,S,Hk,D) K/V repeated to the full head count, each kv head rep
+    times in a row (query head h reads kv head h // rep)."""
+    if rep == 1:
+        return k, v
+    return (torch.repeat_interleave(k, rep, dim=2),
+            torch.repeat_interleave(v, rep, dim=2))
 
 
 def attention_decode(p, cfg: ModelConfig, x, pos, kcache, vcache,

@@ -26,10 +26,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ModelConfig
 from repro_torch.models import layers as Lyr
-from repro_torch.models.layers import AttnCall, init_rmsnorm, mlp, rmsnorm
+from repro_torch.models.layers import (HUGE_WINDOW, AttnCall, init_rmsnorm,
+                                       mlp, rmsnorm)
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
-
-HUGE_WINDOW = 2 ** 30
 
 
 def _init_block(gen, cfg: ModelConfig):

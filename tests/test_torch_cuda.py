@@ -8,14 +8,17 @@ The module imports only the port, so it runs on a machine without JAX:
 K1 (``fused_step_flat``) and K3 (``quantize_update_flat``) are held bitwise:
 kernel and plain version run the same fp32 operations in the same order, and
 the kernels are built without FMA contraction (K3's int8 q exactly). K5
-(``decode_attention``) and K6 (``decode_sample``) sum in another order than
-their plain versions: K5 is held to 1e-5 of max|v| in absolute error, K6's
-ids to the near-tie rule (``ref.near_tie_check``), its tie cases exactly.
+(``decode_attention``), K6 (``decode_sample``) and K4 (``flash_attention``)
+sum in another order than their plain versions: K5 is held to 1e-5 of
+max|v| in absolute error, K4 to 2e-5 of max|v| in fp32 and 1e-2 in bf16,
+K6's ids to the near-tie rule (``ref.near_tie_check``), its tie cases
+exactly.
 """
 import pytest
 import torch
 
 from repro_torch.kernels import decode_step as ds
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import quantize_update as qu
 from repro_torch.kernels import scaled_update as su
@@ -269,3 +272,71 @@ def test_k6_rejects_bad_arguments(dev):
         buf = torch.empty(table.numel() + 1, device=dev)
         ds.decode_sample(y, buf[1:].view(4096, 128), noise, scale=1.0,
                          v_real=4096)
+
+
+def _k4_inputs(B, S, H, Hk, D, dtype, dev, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for shape in ((B, S, H, D), (B, S, Hk, D), (B, S, Hk, D))]
+
+
+def _k4_bound(v):
+    """K4's tolerance against its plain version: 2e-5·max|v| in fp32,
+    1e-2·max|v| in bf16 (both round the output to bf16)."""
+    tol = 2e-5 if v.dtype == torch.float32 else 1e-2
+    return tol * float(v.float().abs().max())
+
+
+# (B, S, H, Hk, D, window, softcap, dtype): the prefill's heads at a reduced
+# S, MQA, D of 32/64/128 and 30 (scalar loads), windows cutting tiles on
+# both sides, softcap, bf16, S = 1 and a ragged S
+K4_CASES = [(2, 1024, 14, 2, 64, 0, 0.0, torch.float32),
+            (2, 512, 8, 1, 64, 0, 0.0, torch.float32),
+            (1, 256, 4, 2, 32, 0, 0.0, torch.float32),
+            (1, 256, 4, 2, 128, 0, 0.0, torch.float32),
+            (1, 200, 4, 2, 30, 0, 0.0, torch.float32),
+            (2, 256, 4, 2, 64, 16, 0.0, torch.float32),
+            (2, 300, 4, 2, 64, 100, 0.0, torch.float32),
+            (2, 256, 4, 2, 64, 0, 30.0, torch.float32),
+            (2, 512, 14, 2, 64, 0, 0.0, torch.bfloat16),
+            (2, 1, 14, 2, 64, 0, 0.0, torch.float32),
+            (2, 1000, 14, 2, 64, 0, 0.0, torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Hk,D,window,cap,dtype", K4_CASES)
+def test_k4_vs_plain(dev, B, S, H, Hk, D, window, cap, dtype):
+    q, k, v = _k4_inputs(B, S, H, Hk, D, dtype, dev)
+    want = ref.flash_attention_ref(q, k, v, window=window, softcap=cap)
+    before = fa.flash_attention.launches
+    got = ops.flash_attention(q, k, v, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == (B, S, H, D)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= _k4_bound(v), err
+
+
+@pytest.mark.cuda
+def test_k4_reads_strided_views(dev):
+    """q, k, v as views of other layouts (heads before sequence, a slice of
+    a wider last dim, a d stride of 2) give what contiguous copies give."""
+    B, S, H, Hk, D = 2, 320, 6, 2, 64
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn((B, H, S, D), generator=gen, device=dev).transpose(1, 2)
+    k = torch.randn((B, S, Hk, 2 * D), generator=gen, device=dev)[..., :D]
+    v = torch.randn((B, S, Hk, 2 * D), generator=gen, device=dev)[..., ::2]
+    want = ref.flash_attention_ref(q, k, v)
+    got = fa.flash_attention(q, k, v)
+    assert float((got - want).abs().max()) <= _k4_bound(v)
+    same = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    assert float((got - same).abs().max()) <= _k4_bound(v)
+
+
+@pytest.mark.cuda
+def test_k4_rejects_grad_and_mixed_devices(dev):
+    q, k, v = _k4_inputs(1, 64, 2, 2, 64, torch.float32, dev)
+    with pytest.raises(ValueError, match="forward-only"):
+        ops.flash_attention(q.requires_grad_(), k, v)
+    with pytest.raises(ValueError, match="one device"):
+        ops.flash_attention(q.detach(), k.cpu(), v)

@@ -157,12 +157,141 @@ def test_dense_attention_matches_reference(window):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
-def test_unported_attention_paths_raise():
-    cfg = get_config(ARCH, reduced=True)
-    x = torch.zeros((1, 4, cfg.d_model))
-    pos = torch.arange(4)
-    with pytest.raises(NotImplementedError, match="K4"):
-        L.attention({}, cfg, x, pos, L.AttnCall(use_flash_kernel=True),
-                    torch.float32)
-    with pytest.raises(NotImplementedError, match="chunked"):
-        L.attention({}, cfg, x, pos, L.AttnCall(chunk=2), torch.float32)
+# --------------------------------------------------------------------------- #
+# attention routes: K4, KV-chunked (models/flash.py), dense
+# --------------------------------------------------------------------------- #
+
+
+def _layer0(tree):
+    """Layer 0's attention params of a stacked tree."""
+    return {k: _layer0(v) if isinstance(v, dict) else v[0]
+            for k, v in tree.items()}
+
+
+@pytest.fixture
+def routes(monkeypatch):
+    """Counts of the port's calls into K4's wrapper and models/flash.py."""
+    from repro_torch.kernels import ops as kops
+    seen = {"k4": 0, "chunked": 0}
+
+    def spy(name, fn):
+        def wrapped(*a, **kw):
+            seen[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(kops, "flash_attention",
+                        spy("k4", kops.flash_attention))
+    monkeypatch.setattr(L, "flash_attention_bshd",
+                        spy("chunked", L.flash_attention_bshd))
+    return seen
+
+
+# (use_flash_kernel, chunk, window, S, the port's route): the reference's
+# order — K4 whenever its flag is set and no window masks (chunk or not),
+# then the chunked route for S > chunk, then dense
+ROUTES = [(True, 0, 0, 64, "k4"), (True, 16, 0, 64, "k4"),
+          (False, 16, 0, 64, "chunked"), (False, 16, 8, 64, "chunked"),
+          (True, 16, 8, 64, "chunked"), (True, 0, 8, 64, "dense"),
+          (False, 64, 0, 64, "dense")]
+
+
+@pytest.mark.parametrize("flash,chunk,window,S,route", ROUTES,
+                         ids=[f"{r[4]}-flash{int(r[0])}-chunk{r[1]}-win{r[2]}"
+                              for r in ROUTES])
+def test_attention_routes_match_reference(setup, routes, flash, chunk,
+                                          window, S, route):
+    """``layers.attention`` on each route against the reference's
+    ``layers.attention`` with the same ``AttnCall`` (its K4 route runs the
+    Pallas kernel in interpret mode), fp32: outputs and the cache K/V to
+    2e-5 of their largest magnitude."""
+    jcfg, cfg, jp, _, _ = setup
+    rng = np.random.default_rng(S + chunk + window)
+    x = rng.normal(size=(2, S, cfg.d_model)).astype(np.float32)
+    pos = np.arange(S, dtype=np.int32)
+    jpa = _layer0(jp["blocks"]["stack"]["attn"])
+    tpa = _layer0(params_from_jax(jp, "cpu")["blocks"]["stack"]["attn"])
+    kw = dict(window=window, chunk=chunk, use_flash_kernel=flash)
+    jout, jkv = JL.attention(jax.tree.map(jnp.asarray, jpa), jcfg,
+                             jnp.asarray(x), jnp.asarray(pos),
+                             JL.AttnCall(**kw), jnp.float32)
+    with torch.no_grad():
+        tout, tkv = L.attention(tpa, cfg, torch.from_numpy(x),
+                                torch.from_numpy(pos), L.AttnCall(**kw),
+                                torch.float32)
+    assert routes == {"k4": int(route == "k4"),
+                      "chunked": int(route == "chunked")}
+    for got, want in zip((tout, *tkv), (jout, *jkv)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-5,
+                                   atol=2e-5 * np.abs(want).max())
+
+
+def _long_batches(cfg, S=32):
+    rng = np.random.default_rng(11)
+    toks = rng.integers(0, cfg.vocab_size, size=(2, S)).astype(np.int32)
+    labs = rng.integers(0, cfg.vocab_size, size=(2, S)).astype(np.int32)
+    return _batches(toks, labs)
+
+
+LONG = {"chunked": dict(dense_attn_max=16, attn_chunk=16),
+        "flash_kernel": dict(use_flash_kernel=True)}
+
+
+@pytest.mark.parametrize("name", list(LONG))
+def test_long_prompt_prefill_cache_matches_reference(setup, name):
+    """``prefill_cache`` at S = 32 on the chunked route (S > dense_attn_max
+    = 16) and on K4, against the reference built with the same
+    ``ModelCallConfig``: logits to 1e-5 of the largest, the bf16 cache
+    within one bf16 ulp (rtol 2^-7)."""
+    jcfg, cfg, jp, _, _ = setup
+    jb, tb = _long_batches(cfg)
+    jm = jbuild(jcfg, JCall(dtype=jnp.float32, **LONG[name]))
+    tm = build(cfg, ModelCallConfig(dtype=torch.float32, **LONG[name]))
+    jl, jc = jm.prefill_cache(jax.tree.map(jnp.asarray, jp), jb, 40)
+    with torch.inference_mode():
+        tl, tc = tm.prefill_cache(params_from_jax(jp, "cpu"), tb, 40)
+    want = np.asarray(jl)
+    np.testing.assert_allclose(tl.numpy(), want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
+    for key in ("k", "v"):
+        np.testing.assert_allclose(tc[key].float().numpy(),
+                                   np.asarray(jc[key], np.float32),
+                                   rtol=2.0 ** -7, atol=0)
+
+
+def test_long_prompt_loss_and_grads_match_reference_chunked(setup):
+    """``loss`` and its gradients through the chunked route's recompute
+    backward (S = 32 > dense_attn_max = 16), fp32, at the tolerances of
+    ``test_loss_and_grads_match_reference_fp32``."""
+    jcfg, cfg, jp, _, _ = setup
+    jb, tb = _long_batches(cfg)
+    jm = jbuild(jcfg, JCall(dtype=jnp.float32, **LONG["chunked"]))
+    tm = build(cfg, ModelCallConfig(dtype=torch.float32, **LONG["chunked"]))
+    jl, jg = jax.value_and_grad(jm.loss)(jax.tree.map(jnp.asarray, jp), jb)
+    tl, tg = value_and_grad(tm.loss)(params_from_jax(jp, "cpu"), tb)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+    tgd = dict(tree_paths(tg))
+    for k, want in jtree_paths(jax.device_get(jg)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(tgd[k].numpy(), want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max(), err_msg=k)
+
+
+def test_flash_kernel_loss_matches_reference_and_refuses_grads(setup):
+    """With ``use_flash_kernel`` the loss runs on K4 and equals the
+    reference's to 1e-5; K4 has no backward (nor has the TPU kernel), so
+    differentiating it raises rather than returning no gradient."""
+    jcfg, cfg, jp, _, _ = setup
+    jb, tb = _long_batches(cfg)
+    jm = jbuild(jcfg, JCall(dtype=jnp.float32, **LONG["flash_kernel"]))
+    tm = build(cfg, ModelCallConfig(dtype=torch.float32,
+                                    **LONG["flash_kernel"]))
+    tp = params_from_jax(jp, "cpu")
+    with torch.no_grad():
+        tl = tm.loss(tp, tb)
+    np.testing.assert_allclose(
+        float(tl), float(jm.loss(jax.tree.map(jnp.asarray, jp), jb)),
+        rtol=1e-5)
+    with pytest.raises(ValueError, match="forward-only"):
+        value_and_grad(tm.loss)(tp, tb)

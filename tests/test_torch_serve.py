@@ -310,6 +310,56 @@ def test_serve_replays_the_reference(weights, greedy, kernel):
     np.testing.assert_array_equal(got.tokens, want.tokens)
 
 
+@pytest.mark.parametrize("kernel", [False, True], ids=["plain", "kernel"])
+def test_serve_with_flash_kernel_replays_the_reference(weights, kernel):
+    """``serve(use_flash_kernel=True)`` (the prefill's attention on K4's
+    route, its plain version on the CPU) gives the reference's greedy
+    tokens: the reference's prefill and decode on the same weights and
+    prompt."""
+    jcfg, cfg, jp, tp = weights
+    jb, tb = _prompt(cfg, s=24, seed=8)
+    want = jserve.serve(ARCH, reduced=True, batch=B, prompt_len=24,
+                        gen_len=6, seed=0, prompt=jb, verbose=False)
+    got = serve.serve(ARCH, batch=B, prompt_len=24, gen_len=6, seed=0,
+                      prompt=tb, params=tp, use_flash_kernel=True,
+                      use_decode_kernel=kernel, verbose=False, device="cpu")
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+
+
+@pytest.mark.parametrize("mode", ["continuous", "static"])
+def test_trace_drivers_pass_the_flash_kernel_through(weights, mode):
+    """``serve_continuous``/``serve_static(use_flash_kernel=True)`` build
+    the model with K4 and give the tokens of the default route; the CLI's
+    ``--flash-kernel`` reaches ``serve``."""
+    _, _, _, tp = weights
+    fn = serve.serve_continuous if mode == "continuous" else \
+        serve.serve_static
+    kw = dict(slots=2, n_requests=4, prompt_len=6, gen_len=4, params=tp,
+              verbose=False, device="cpu")
+    on, off = fn(ARCH, use_flash_kernel=True, **kw), fn(ARCH, **kw)
+    for r in range(4):
+        np.testing.assert_array_equal(on.tokens[r], off.tokens[r])
+    res = serve.main(["--arch", ARCH, "--device", "cpu", "--flash-kernel",
+                      "--batch", "2", "--prompt-len", "6", "--gen-len", "3"])
+    assert res.tokens.shape == (2, 3)
+
+
+def test_flash_kernel_flag_reaches_the_model(monkeypatch):
+    seen = []
+    real = serve.build
+
+    def spy(cfg, call):
+        seen.append(call.use_flash_kernel)
+        return real(cfg, call)
+
+    monkeypatch.setattr(serve, "build", spy)
+    for flag in ([], ["--flash-kernel"]):
+        serve.main(["--arch", ARCH, "--device", "cpu", "--mode", "static",
+                    "--requests", "2", "--batch", "2", "--prompt-len", "4",
+                    "--gen-len", "2", *flag])
+    assert seen == [False, True]
+
+
 def test_sampling_noise_chain():
     """Greedy noise is zeros and leaves the stream where it was; sampled
     noise draws from split(2)[1] and moves on to split(2)[0], as the
