@@ -10,17 +10,22 @@ feedback; SAVIC with OASIS and half the clients sampled), holds the fused
 client loop against the tree loop, then drives the serving path through
 ``repro_torch.launch.serve`` at full width (prefill-cache reuse with 63
 decode steps on K5 and K6; continuous batching over a ring of 8 slots; an
-8192-token prompt at batch 2 prefilled on K4, then 31 decode steps), holds
-the kernel paths against the plain ones teacher-forced (the K4 prefill
-against the chunked ``models/flash.py`` one), and checks what comes out.
+8192-token prompt at batch 2 prefilled on K4, then 31 decode steps; then
+the SSM family: full-width mamba2-1.3b prefilled at batch 4 from a
+2048-token prompt through K7 into its recurrent state, 63 decode steps on
+K6, and continuous batching of 16 requests on 8 slots), holds the kernel
+paths against the plain ones teacher-forced (the K4 prefill against the
+chunked ``models/flash.py`` one, the K7 prefill against
+``models.ssm.ssd_chunked``), and checks what comes out.
 Any failed phase raises and the script exits non-zero. Without a CUDA
 device, or without the rest of the repository beside it, it exits non-zero
 before printing any result.
 
 The second-to-last lines are one JSON object listing the kernels (launches
 on the main path, error against the plain version (K4's over its fp32
-cases), measured and least possible times) and the card's name and power
-limit; the last line is ``{"ok": true, "device": {...}}``.
+cases, K7's over all its cases), measured and least possible times) and the
+card's name and power limit; the last line is ``{"ok": true, "device":
+{...}}``.
 """
 import json
 import os
@@ -47,12 +52,15 @@ from repro_torch.kernels import decode_step as ds  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import quantize_update as qu  # noqa: E402
 from repro_torch.kernels import scaled_update as su  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.models import (ModelCallConfig, sample_batch,  # noqa: E402
                                 sample_ids)
 from repro_torch.models import build as build_model  # noqa: E402
 from repro_torch.models.flash import flash_attention_bshd  # noqa: E402
+from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 from repro_torch.utils import rng  # noqa: E402
 from repro_torch.utils.tree import tree_paths, tree_size  # noqa: E402
 
@@ -89,6 +97,22 @@ K4_CASES = [(*K4_MAIN, 0, 0.0, torch.float32),
             (*K4_MAIN, 0, 0.0, torch.bfloat16),
             (2, 1, 14, 2, 64, 0, 0.0, torch.float32),
             (2, 1000, 14, 2, 64, 0, 0.0, torch.float32)]
+# mamba2-1.3b serving: batch 4, prompt 2048, 64 tokens (63 decode steps)
+MAMBA = dict(batch=4, prompt_len=2048, gen_len=64)
+K7_MAIN = (4, 2048, 64, 64, 128, 256)   # B, S, H, P, N, Q of the prefill's K7
+N_MAMBA_LAYERS = 48
+MTRACE = dict(slots=8, n_requests=16, prompt_len=256, gen_len=64,
+              arrival_rate=0.5, seed=0)
+# K7 against its plain version: (B, S, H, P, N, Q, A, shared B/C): the
+# prefill's shape with one B/C group over the heads (head stride 0, as the
+# model passes them) and per head; Q 64/128 x N 16/64 x P 32/128; one chunk
+# (the continuous-batching prefill); A = -16 on every head (largest |cum|)
+K7_CASES = [(*K7_MAIN, None, True), (*K7_MAIN, None, False),
+            *[(2, 512, 8, P, N, Q, None, False) for Q in (64, 128)
+              for N in (16, 64) for P in (32, 128)],
+            (1, 256, 64, 64, 128, 256, None, True),
+            (*K7_MAIN, -16.0, True)]
+U = 2.0 ** -24
 
 
 def main_argv(method, rounds, extra=()):
@@ -393,49 +417,56 @@ def k5_bytes(B, C, Hk, rep, D):
     return 4 * B * H * D + 2 * 2 * B * C * Hk * D + 4 * B * C + 4 * B * H * D
 
 
-def k6_inputs(B, gen, greedy):
-    y = torch.randn((B, D_MODEL), generator=gen, device=DEV)
-    table = torch.randn((V_PAD, D_MODEL), generator=gen, device=DEV) * 0.02
-    noise = torch.zeros((B, V_PAD), device=DEV) if greedy else \
-        rng.gumbel_from_uniform(torch.rand((B, V_PAD), generator=gen,
+# the heads K6 samples from: (V, v_real, d, table scale, logit scale) of
+# qwen2-0.5b's tied table and mamba2-1.3b's untied head
+QWEN_HEAD = (V_PAD, V_REAL, D_MODEL, 0.02, D_MODEL ** -0.5)
+MAMBA_HEAD = (51_200, 50_280, 2048, 2048 ** -0.5, 1.0)
+
+
+def k6_inputs(B, gen, greedy, head=QWEN_HEAD):
+    V, _, d, tscale, _ = head
+    y = torch.randn((B, d), generator=gen, device=DEV)
+    table = torch.randn((V, d), generator=gen, device=DEV) * tscale
+    noise = torch.zeros((B, V), device=DEV) if greedy else \
+        rng.gumbel_from_uniform(torch.rand((B, V), generator=gen,
                                            device=DEV))
     return y, table, noise
 
 
-def k6_case(B, greedy, gen, dup=None, pad=False):
+def k6_case(B, greedy, gen, dup=None, pad=False, head=QWEN_HEAD):
     """K6 against its plain version under the near-tie rule. ``dup``: two
     table rows made identical and best for row 0 (the lower index must
     win); ``pad``: a padded id that would win row 1 if it were not masked.
     Returns (exceptions, violations, max abs difference of the winning
     logit)."""
-    y, table, noise = k6_inputs(B, gen, greedy)
+    _, v_real, _, _, scale = head
+    y, table, noise = k6_inputs(B, gen, greedy, head)
     if dup:
         table[dup[0]] = table[dup[1]] = y[0] / y[0].norm() * 5.0
     if pad:
-        table[V_REAL + 9] = y[1] / y[1].norm() * 50.0
-    scale = D_MODEL ** -0.5
+        table[v_real + 9] = y[1] / y[1].norm() * 50.0
     logits = ref.decode_sample_logits(y, table, noise, scale=scale,
-                                      v_real=V_REAL)
+                                      v_real=v_real)
     want, wbest = ref.decode_sample_ref(y, table, noise, scale=scale,
-                                        v_real=V_REAL, return_best=True)
-    got, best = ds.decode_sample(y, table, noise, scale=scale, v_real=V_REAL,
+                                        v_real=v_real, return_best=True)
+    got, best = ds.decode_sample(y, table, noise, scale=scale, v_real=v_real,
                                  return_best=True)
     torch.cuda.synchronize()
-    ties, bad = ref.near_tie_check(logits, got, want, V_REAL)
+    ties, bad = ref.near_tie_check(logits, got, want, v_real)
     err = float((best - wbest).abs().max())
     if dup:
         check(int(got[0]) == dup[0] == int(want[0]),
               f"K6 duplicated rows {dup}: got id {int(got[0])}")
     if pad:
-        check(int(got.max()) < V_REAL, "K6 chose a padded id")
+        check(int(got.max()) < v_real, "K6 chose a padded id")
     del y, table, noise, logits
     return ties, bad, err
 
 
-def k6_bytes(B):
+def k6_bytes(B, v_real=V_REAL, d=D_MODEL):
     """Bytes K6 must move: the real table rows, the real noise columns and
     y, and the ids written."""
-    return 4 * (V_REAL * D_MODEL + B * V_REAL + B * D_MODEL + B)
+    return 4 * (v_real * d + B * v_real + B * d + B)
 
 
 def time_k5(shape, gen):
@@ -464,12 +495,12 @@ def time_k5(shape, gen):
     return k5
 
 
-def time_k6(gen):
-    """K6 at the serve path's shape: CUDA-event times of the kernel wrapper,
+def time_k6(gen, B=SERVE["batch"], head=QWEN_HEAD):
+    """K6 at a serve path's shape: CUDA-event times of the kernel wrapper,
     its plain version and matmul·scale + noise, masked, argmax."""
-    y, table, noise = k6_inputs(SERVE["batch"], gen, greedy=True)
-    scale = D_MODEL ** -0.5
-    pad = torch.arange(V_PAD, device=DEV) >= V_REAL
+    V, v_real, d, _, scale = head
+    y, table, noise = k6_inputs(B, gen, True, head)
+    pad = torch.arange(V, device=DEV) >= v_real
 
     def library():
         lg = torch.matmul(y, table.T) * scale + noise
@@ -477,12 +508,12 @@ def time_k6(gen):
 
     k6 = {"ms": cuda_ms(lambda: ds.decode_sample(y, table, noise,
                                                  scale=scale,
-                                                 v_real=V_REAL), 50),
+                                                 v_real=v_real), 50),
           "plain_ms": cuda_ms(lambda: ref.decode_sample_ref(
-              y, table, noise, scale=scale, v_real=V_REAL), 5),
+              y, table, noise, scale=scale, v_real=v_real), 5),
           "library_ms": cuda_ms(library, 50),
-          "bytes": k6_bytes(SERVE["batch"])}
-    flops = 2 * SERVE["batch"] * V_REAL * D_MODEL
+          "bytes": k6_bytes(B, v_real, d)}
+    flops = 2 * B * v_real * d
     k6["bound_ms"] = max(k6["bytes"] / HBM_BYTES_PER_S,
                          flops / FP32_FLOP_PER_S) * 1e3
     del y, table, noise
@@ -563,6 +594,102 @@ def time_k4(gen):
     t["bound_ms"] = max(t["bytes"] / HBM_BYTES_PER_S,
                         t["flops"] / FP32_FLOP_PER_S) * 1e3
     del q, k, v, qt, kt, vt, kr, vr
+    torch.cuda.empty_cache()
+    return t
+
+
+# --------------------------------------------------------------------------- #
+# K7 inputs, the kernel-vs-plain comparison and its timing
+# --------------------------------------------------------------------------- #
+
+
+def k7_inputs(B, S, H, P, N, a, shared, gen):
+    """x, B, C ~ N(0, 1), dt = softplus(N(0, 1)), A = -linspace(1, 16) (the
+    model's A_log range) or ``a`` on every head; ``shared``: one B/C group
+    expanded over the heads."""
+    f = lambda *shape: torch.randn(shape, generator=gen, device=DEV)
+    x = f(B, S, H, P)
+    dt = F.softplus(f(B, S, H))
+    A = torch.full((H,), a, device=DEV) if a is not None else \
+        -torch.linspace(1.0, 16.0, H, device=DEV)
+    if shared:
+        Bm = f(B, S, 1, N).expand(B, S, H, N)
+        Cm = f(B, S, 1, N).expand(B, S, H, N)
+    else:
+        Bm, Cm = f(B, S, H, N), f(B, S, H, N)
+    return x, dt, A, Bm, Cm
+
+
+def cum_max(dt, A, Q):
+    """max over cells of |cumsum(dt·A)|: the largest chunk sum of |dt·A|."""
+    B, S, H = dt.shape
+    return float((dt * A.abs()).reshape(B, S // Q, Q, H).sum(2).max())
+
+
+def k7_eps(cmax, N, Q):
+    """K7's relative bound against its plain version, of the magnitude sum
+    (the plain version on |x|, |B|, |C|), u = 2^-24: both sum N products for
+    C·Bᵀ and up to Q for the rest, within (N + Q)·u each; their exps differ
+    by <= 2 ulps; cum, an fp64 sum rounded once on both sides, differs by
+    one ulp only where two fp64 sums straddle an fp32 rounding boundary,
+    which moves an L by <= 4u·max|cum|."""
+    return U * (4 * cmax + 2 * (N + Q) + 16)
+
+
+def k7_case(B, S, H, P, N, Q, a, shared, gen):
+    """K7 against its plain version element by element. Returns (max abs
+    error, the worst ratio of an error to its bound, eps, max|cum|)."""
+    x, dt, A, Bm, Cm = k7_inputs(B, S, H, P, N, a, shared, gen)
+    want = ref.ssd_intra_chunk_ref(x, dt, A, Bm, Cm, Q)
+    got = ssd.ssd_intra_chunk(x, dt, A, Bm, Cm, Q)
+    torch.cuda.synchronize()
+    cmax = cum_max(dt, A, Q)
+    eps = k7_eps(cmax, N, Q)
+    mags = ref.ssd_intra_chunk_ref(x.abs(), dt, A, Bm.abs(), Cm.abs(), Q)
+    nc = S // Q
+    err = ratio = 0.0
+    for g, w, m, shape in zip(got, want, mags,
+                              ((B, S, H, P), (B, nc, H, N, P), (B, nc, H))):
+        check(g.shape == shape and g.dtype == torch.float32,
+              f"K7 output {tuple(g.shape)} {g.dtype}")
+        d = (g - w).abs()
+        err = max(err, float(d.max()))
+        ratio = max(ratio, float((d / (eps * m).clamp_min(1e-30)).max()))
+    del x, dt, A, Bm, Cm, want, got, mags
+    torch.cuda.empty_cache()
+    return err, ratio, eps, cmax
+
+
+def k7_work(B, S, H, P, N, Q):
+    """(flops, bytes) K7 must do: per cell the causal half of C·Bᵀ (2N per
+    pair i >= j), of (G⊙L)·xdt (2P per pair) and the chunk state (2QNP);
+    read x, dt, A and B/C once (one (B, S, N) group each, as the model
+    passes them), write Y, S_chunk and total."""
+    nc = S // Q
+    cells = B * nc * H
+    pairs = Q * (Q + 1) // 2
+    flops = cells * (pairs * 2 * N + pairs * 2 * P + 2 * Q * N * P)
+    nbytes = 4 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * N
+                  + B * nc * H * N * P + B * nc * H)
+    return flops, nbytes
+
+
+def time_k7(gen):
+    """K7 at the prefill's shape (B/C one group over the heads, A as the
+    model's): CUDA-event times of the kernel wrapper, its plain version and
+    the whole plain SSD (``models.ssm.ssd_chunked``), and its bound. No
+    single PyTorch call computes K7's function: no library time."""
+    B, S, H, P, N, Q = K7_MAIN
+    x, dt, A, Bm, Cm = k7_inputs(B, S, H, P, N, None, True, gen)
+    t = {"ms": cuda_ms(lambda: ssd.ssd_intra_chunk(x, dt, A, Bm, Cm, Q), 20),
+         "plain_ms": cuda_ms(lambda: ref.ssd_intra_chunk_ref(x, dt, A, Bm,
+                                                             Cm, Q), 3),
+         "chunked_ms": cuda_ms(lambda: ssd_chunked(x, dt, A, Bm, Cm, Q), 3),
+         "route_ms": cuda_ms(lambda: kops.ssd(x, dt, A, Bm, Cm, chunk=Q), 5)}
+    t["flops"], t["bytes"] = k7_work(B, S, H, P, N, Q)
+    t["bound_ms"] = max(t["bytes"] / HBM_BYTES_PER_S,
+                        t["flops"] / FP32_FLOP_PER_S) * 1e3
+    del x, dt, A, Bm, Cm
     torch.cuda.empty_cache()
     return t
 
@@ -781,6 +908,187 @@ def long_teacher_forced(cfg, params):
     return lerr, lbound, cerr, cratio, ties, B * G
 
 
+def mamba_params():
+    """The weights ``serve`` makes for seed 0 at mamba2-1.3b's full width."""
+    cfg = get_config("mamba2-1.3b")
+    return cfg, build_model(cfg).init(
+        torch.Generator(device=DEV).manual_seed(0))
+
+
+def mamba_serve_path():
+    """``serve`` of full-width mamba2-1.3b with K7 in the prefill and K6 in
+    decode, counts set to 0 just before and read just after. Returns
+    (result, K7, K6 launches, peak GiB)."""
+    ssd.ssd_intra_chunk.launches = 0
+    ds.decode_attention.launches = 0
+    ds.decode_sample.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    res = serve_mod.serve("mamba2-1.3b", reduced=False, use_ssd_kernel=True,
+                          use_decode_kernel=True, device="cuda",
+                          verbose=False, **MAMBA)
+    k7, k6 = ssd.ssd_intra_chunk.launches, ds.decode_sample.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = MAMBA["gen_len"] - 1
+    t = res.timings
+    print(f"[chip_smoke]   TTFT (prefill, B={MAMBA['batch']}, S="
+          f"{MAMBA['prompt_len']}) {t['prefill_s'] * 1e3:.3f} ms; decode "
+          f"{steps} steps {t['decode_s']:.4f} s, median step "
+          f"{float(np.median(res.per_token_s)) * 1e3:.3f} ms; "
+          f"{t['tok_per_s']:.2f} tokens/s; peak memory {peak:.2f} GiB "
+          f"({held:.2f} GiB held by the script before the phase); "
+          f"launches K7 {k7}, K6 {k6}, K5 {ds.decode_attention.launches}",
+          flush=True)
+    check(res.tokens.shape == (MAMBA["batch"], MAMBA["gen_len"]),
+          f"tokens {res.tokens.shape}")
+    check(0 <= int(res.tokens.min()) and int(res.tokens.max())
+          < MAMBA_HEAD[1], "an id outside mamba2's real vocabulary")
+    check(k7 == N_MAMBA_LAYERS, f"K7 launched {k7} times, expected "
+          f"{N_MAMBA_LAYERS}")
+    check(k6 == steps, f"K6 launched {k6} times, expected {steps}")
+    check(ds.decode_attention.launches == 0, "K5 ran in an attention-free "
+          "model")
+    return res, k7, k6, peak
+
+
+class CumRecorder:
+    """Wraps ``ops.ssd`` (the K7 route's entry) and records the largest
+    |cum| of every call, for the teacher-forced bound."""
+
+    def __init__(self):
+        self.max, self.real = 0.0, kops.ssd
+
+    def __call__(self, xh, dt, A, Bm, Cm, *, chunk, h0=None):
+        self.max = max(self.max, cum_max(dt, A, chunk))
+        return self.real(xh, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+
+
+def mamba_teacher_forced(cfg, params):
+    """The K7 route (K7 prefill, K6 decode) against the plain route
+    (``ssd_chunked`` prefill, plain decode) at full width on one prompt,
+    teacher-forced on the plain route's greedy tokens. Held, with
+    eps = u·(4·max|cum| + N + Q + 2·nc + 8), u = 2^-24, max|cum| recorded
+    over the prefill's 48 SSD calls (both routes accumulate cum in fp64 and
+    round it once, so cum differs by at most one ulp, which moves an L by
+    <= 4u·max|cum|; the products add (N + Q)·u, the chunk recurrence 2u per
+    chunk; the fp32 projections and norms around the SSD add ~d·u, far
+    below): last-position logits within eps·max|logit|, every leaf of the
+    decode cache (h, conv tails) within eps of its largest value, every id
+    under the near-tie rule. Returns (logit error, its bound, the worst
+    ratio of a cache leaf's error to its bound, near-tie exceptions, ids
+    compared, max|cum|)."""
+    B, S, G = MAMBA["batch"], MAMBA["prompt_len"], MAMBA["gen_len"]
+    s = cfg.ssm
+    plain = build_model(cfg, ModelCallConfig(dtype=torch.float32))
+    kern = build_model(cfg, ModelCallConfig(dtype=torch.float32,
+                                            use_ssd_kernel=True,
+                                            use_decode_kernel=True))
+    rec = CumRecorder()
+    with torch.inference_mode():
+        prompt = sample_batch(cfg, rng.TorchStream(1), B, S, DEV)
+        lg_p, cache_p = plain.prefill_cache(params, prompt, S + G)
+        kops.ssd = rec
+        try:
+            lg_k, cache_k = kern.prefill_cache(params, prompt, S + G)
+        finally:
+            kops.ssd = rec.real
+        eps = U * (4 * rec.max + s.d_state + s.chunk + 2 * (S // s.chunk)
+                   + 8)
+        lerr = float((lg_k - lg_p).abs().max())
+        lbound = eps * float(lg_p.abs().max())
+        check(lerr <= lbound, f"mamba2 prefill logits differ by {lerr:.3e} "
+              f"(bound {lbound:.3e})")
+        cratio = 0.0
+        for key, want in cache_p["mamba"].items():
+            e = float((cache_k["mamba"][key] - want).abs().max())
+            bound = eps * float(want.abs().max())
+            check(e <= bound, f"mamba2 prefill cache {key}: differs by "
+                  f"{e:.3e} (bound {bound:.3e})")
+            cratio = max(cratio, e / bound)
+        want = sample_ids(lg_p, 0.0, cfg.vocab_size)
+        ties, bad = ref.near_tie_check(lg_p, sample_ids(lg_k, 0.0,
+                                                        cfg.vocab_size),
+                                       want, cfg.vocab_size)
+        check(bad == 0, "mamba2 prefill: K7 route's first ids break the "
+              "near-tie rule")
+        tok = want
+        zeros = torch.zeros_like(lg_p)
+        head = kern.sample_head(params)
+        for g in range(G - 1):
+            lg, cache_p = plain.decode(params, cache_p, tok, S + g)
+            ids, cache_k = kern.decode_sample(params, cache_k, tok, S + g,
+                                              zeros, head)
+            want = sample_ids(lg, 0.0, cfg.vocab_size)
+            t, bad = ref.near_tie_check(lg, ids, want, cfg.vocab_size)
+            check(bad == 0, f"mamba2 teacher-forced step {g}: K7/K6 route's "
+                  f"ids break the near-tie rule")
+            ties += t
+            tok = want
+    del cache_p, cache_k, head
+    torch.cuda.empty_cache()
+    return lerr, lbound, cratio, ties, B * G, rec.max
+
+
+def mamba_continuous(cfg, params):
+    """``serve_continuous`` of full-width mamba2-1.3b with K7 and K6 (counts
+    set to 0 just before), then three of its requests held against solo
+    serving, teacher-forced on the ring's tokens under the near-tie rule.
+    Each admission's B=1 prefill cache tree goes into its slot through
+    ``insert_slot``. Returns (result, K7, K6 launches, exceptions, ids
+    compared)."""
+    ssd.ssd_intra_chunk.launches = 0
+    ds.decode_sample.launches = 0
+    res = serve_mod.serve_continuous("mamba2-1.3b", reduced=False,
+                                     use_ssd_kernel=True,
+                                     use_decode_kernel=True, device="cuda",
+                                     verbose=False, **MTRACE)
+    k7, k6 = ssd.ssd_intra_chunk.launches, ds.decode_sample.launches
+    m = res.metrics
+    print(f"[chip_smoke]   {m['n_requests']} requests / {m['slots']} slots: "
+          f"{m['total_tokens']} tokens in {m['makespan_steps']} steps "
+          f"({m['tok_per_step']:.3f} tokens/step), {m['decode_steps']} "
+          f"decode steps, p50 step {m['p50_step_s'] * 1e3:.3f} ms, p99 "
+          f"{m['p99_step_s'] * 1e3:.3f} ms, wall {m['wall_s']:.3f} s "
+          f"({m['wall_tok_per_s']:.1f} tokens/s), prefill "
+          f"{m['prefill_s']:.3f} s; launches K7 {k7}, K6 {k6}", flush=True)
+    n = MTRACE["n_requests"]
+    check(all(rq["finish"] is not None for rq in res.requests.values()),
+          "a request did not finish")
+    _, gens = serve_mod.poisson_trace(n, MTRACE["arrival_rate"],
+                                      MTRACE["seed"], MTRACE["gen_len"])
+    check([len(res.tokens[r]) for r in range(n)] == [int(g) for g in gens],
+          "a request got the wrong token count")
+    check(k7 == N_MAMBA_LAYERS * n and k6 == m["decode_steps"],
+          f"launches K7 {k7}, K6 {k6} for {n} prefills and "
+          f"{m['decode_steps']} steps")
+    check(all(int(t.max()) < MAMBA_HEAD[1] for t in res.tokens.values()),
+          "an id outside mamba2's real vocabulary")
+    S, G = MTRACE["prompt_len"], MTRACE["gen_len"]
+    kern = build_model(cfg, ModelCallConfig(dtype=torch.float32,
+                                            use_ssd_kernel=True))
+    ties = compared = 0
+    with torch.inference_mode():
+        for r in (0, 7, 15):
+            ring = torch.from_numpy(res.tokens[r]).to(DEV)
+            prompt = serve_mod.request_prompt(cfg, MTRACE["seed"], r, S, DEV)
+            logits, cache = kern.prefill_cache(params, prompt, S + G)
+            first = sample_ids(logits, 0.0, cfg.vocab_size)
+            check(int(first[0]) == int(ring[0]),
+                  f"mamba2 request {r}: first token differs from solo")
+            for g in range(1, len(ring)):
+                lg, cache = kern.decode(params, cache, ring[g - 1:g],
+                                        S + g - 1)
+                want = sample_ids(lg, 0.0, cfg.vocab_size)
+                t, bad = ref.near_tie_check(lg, ring[g:g + 1], want,
+                                            cfg.vocab_size)
+                check(bad == 0, f"mamba2 request {r} step {g}: ring token "
+                      f"breaks the near-tie rule against solo serving")
+                ties += t
+                compared += 1
+    return res, k7, k6, ties, compared
+
+
 # --------------------------------------------------------------------------- #
 # phases
 # --------------------------------------------------------------------------- #
@@ -877,15 +1185,17 @@ def fused_vs_tree(name, rounds=1, flips=False, **method_kw):
 def build_all():
     """One nvcc per kernel source, all started together."""
     t0 = time.perf_counter()
-    libs = (su._lib, qu._lib, ds._attention_lib, ds._sample_lib, fa._lib)
+    libs = (su._lib, qu._lib, ds._attention_lib, ds._sample_lib, fa._lib,
+            ssd._lib)
     with ThreadPoolExecutor(max_workers=len(libs)) as pool:
         list(pool.map(lambda f: f(), libs))
     for src in ("fused_step.cu", "quantize_update.cu", "decode_attention.cu",
-                "decode_sample.cu", "flash_attention.cu"):
+                "decode_sample.cu", "flash_attention.cu",
+                "ssd_intra_chunk.cu"):
         info = build.BUILD_LOG.get(src, {"seconds": 0.0, "ptxas": "(cached)"})
         print(f"[chip_smoke] {src}: nvcc {info['seconds']:.2f} s\n"
               f"{info['ptxas']}", flush=True)
-    print(f"[chip_smoke] built K1, K3, K4, K5 and K6 in "
+    print(f"[chip_smoke] built K1, K3, K4, K5, K6 and K7 in "
           f"{time.perf_counter() - t0:.2f} s",
           flush=True)
 
@@ -1101,7 +1411,58 @@ def main():
     del sparams
     torch.cuda.empty_cache()
 
-    # ---- 11. K4, K5 and K6 timed at the serve paths' shapes ----------------
+    # ---- 12. K7 against its plain version ----------------------------------
+    k7_err = 0.0
+    for B_, S_, H_, P_, N_, Q_, a_, shared in K7_CASES:
+        err, ratio, eps, cmax = k7_case(B_, S_, H_, P_, N_, Q_, a_, shared,
+                                        gen)
+        k7_err = max(k7_err, err)
+        print(f"[chip_smoke] K7 B={B_} S={S_} H={H_} P={P_} N={N_} Q={Q_} "
+              f"A={'-linspace(1, 16)' if a_ is None else a_}"
+              f"{' B/C head stride 0' if shared else ''}: max abs "
+              f"{err:.3e}, worst error at {ratio:.3f} of its bound (bound "
+              f"{eps:.2e} of the magnitude sum, max|cum| {cmax:.1f})",
+              flush=True)
+        check(ratio <= 1.0, "K7 differs from its plain version")
+
+    # ---- 12b. K6 against its plain version at mamba2's head ----------------
+    for B_, greedy in ((MAMBA["batch"], True), (MAMBA["batch"], False),
+                       (MTRACE["slots"], True)):
+        ties, bad, err = k6_case(B_, greedy, gen, head=MAMBA_HEAD)
+        print(f"[chip_smoke] K6 B={B_} V={MAMBA_HEAD[0]} v_real="
+              f"{MAMBA_HEAD[1]} d={MAMBA_HEAD[2]} "
+              f"{'greedy' if greedy else 'gumbel'}: near-tie exceptions "
+              f"{ties}, violations {bad}, winning logit max abs {err:.3e}",
+              flush=True)
+        check(bad == 0, "K6 breaks the near-tie rule at mamba2's head")
+    torch.cuda.empty_cache()
+
+    # ---- 13. mamba2-1.3b serve: K7 prefill, K6 decode ----------------------
+    print("[chip_smoke] mamba2 serve path: serve('mamba2-1.3b', "
+          f"reduced=False, use_ssd_kernel=True, use_decode_kernel=True, "
+          f"{MAMBA})", flush=True)
+    _, k7_launches, _, mpeak = mamba_serve_path()
+    mcfg, mparams = mamba_params()
+    lerr, lbound, cratio, mties, m_ids, cmax = mamba_teacher_forced(mcfg,
+                                                                    mparams)
+    print(f"[chip_smoke] K7 route vs ssd_chunked route, teacher-forced, full "
+          f"width, prompt {MAMBA['prompt_len']}: last logits max abs "
+          f"{lerr:.3e} (bound {lbound:.3e}, max|cum| {cmax:.1f}), cache "
+          f"leaves at {cratio:.3f} of their bounds at worst, {m_ids} ids, "
+          f"near-tie exceptions {mties}", flush=True)
+
+    # ---- 13b. mamba2 continuous batching at full width ---------------------
+    print(f"[chip_smoke] serve_continuous('mamba2-1.3b', reduced=False, "
+          f"use_ssd_kernel=True, use_decode_kernel=True, {MTRACE})",
+          flush=True)
+    _, _, _, mcties, mcompared = mamba_continuous(mcfg, mparams)
+    print(f"[chip_smoke]   ring tokens vs solo serving (requests 0, 7, 15, "
+          f"teacher-forced): {mcompared} ids, near-tie exceptions {mcties}",
+          flush=True)
+    del mparams
+    torch.cuda.empty_cache()
+
+    # ---- 14. K4, K5, K6 and K7 timed at the serve paths' shapes ------------
     k5t, k5lt, k6t = time_k5(K5_MAIN, gen), time_k5(K5_LONG, gen), \
         time_k6(gen)
     for label, t in (("K5", k5t), (f"K5 at C={K5_LONG[1]}", k5lt),
@@ -1110,6 +1471,20 @@ def main():
               f"{t['ms'] * 1e3:.2f} us/call, plain {t['plain_ms'] * 1e3:.2f} "
               f"us, library {t['library_ms'] * 1e3:.2f} us, bound "
               f"{t['bound_ms'] * 1e3:.3f} us ({t['bytes']} B)", flush=True)
+    k6m = time_k6(gen, MAMBA["batch"], MAMBA_HEAD)
+    print(f"[chip_smoke] K6 at mamba2's head (B={MAMBA['batch']}, "
+          f"V={MAMBA_HEAD[0]}, v_real={MAMBA_HEAD[1]}, d={MAMBA_HEAD[2]}): "
+          f"{k6m['ms'] * 1e3:.2f} us/call, plain {k6m['plain_ms'] * 1e3:.2f} "
+          f"us, library {k6m['library_ms'] * 1e3:.2f} us, bound "
+          f"{k6m['bound_ms'] * 1e3:.3f} us ({k6m['bytes']} B)", flush=True)
+    k7t = time_k7(gen)
+    print(f"[chip_smoke] K7 at the prefill's shape {K7_MAIN}: "
+          f"{k7t['ms']:.3f} ms/launch, plain {k7t['plain_ms']:.3f} ms, "
+          f"whole plain SSD (ssd_chunked) {k7t['chunked_ms']:.3f} ms, whole "
+          f"K7 route (ops.ssd) {k7t['route_ms']:.3f} ms, library none, bound "
+          f"{k7t['bound_ms']:.3f} ms (operations: {k7t['flops'] / 1e9:.2f} "
+          f"GFLOP; bytes {k7t['bytes'] / 1e6:.1f} MB), achieved "
+          f"{k7t['flops'] / k7t['ms'] / 1e9:.2f} TFLOP/s", flush=True)
     k4t = time_k4(gen)
     print(f"[chip_smoke] K4 at the prefill's shape {K4_MAIN}: "
           f"{k4t['ms']:.3f} ms/launch, plain {k4t['plain_ms']:.3f} ms, "
@@ -1156,11 +1531,18 @@ def main():
         "launches": k4_launches, "max_abs_err": k4_err, "ms": k4t["ms"],
         "plain_ms": k4t["plain_ms"], "bound_ms": k4t["bound_ms"],
         "bound_by": "operations", "library_ms": k4t["library_ms"],
+    }, {
+        "name": "ssd_intra_chunk", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_intra_chunk.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:52",
+        "launches": k7_launches, "max_abs_err": k7_err, "ms": k7t["ms"],
+        "plain_ms": k7t["plain_ms"], "bound_ms": k7t["bound_ms"],
+        "bound_by": "operations", "library_ms": None,
     }]
     print(f"[chip_smoke] peak memory: savic {peak:.2f} GiB, savic int8 + EF "
           f"{cpeak:.2f} GiB, savic OASIS + participation 0.5 {rpeak:.2f} GiB, "
-          f"serve {speak:.2f} GiB, long-prompt serve {lpeak:.2f} GiB",
-          flush=True)
+          f"serve {speak:.2f} GiB, long-prompt serve {lpeak:.2f} GiB, "
+          f"mamba2 serve {mpeak:.2f} GiB", flush=True)
     print(f"[chip_smoke] total {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,21 +1,33 @@
 """Architecture configs (counterpart of ``repro/configs/__init__.py``).
 
-The port's own copy of ``ModelConfig`` and ``get_config``. Only the dense
-family's fields are carried, and only ``qwen2-0.5b`` (full and ``REDUCED``) is
-registered; the reference's other architectures raise until their model
-family is ported.
+The port's own copy of ``SSMConfig``, ``ModelConfig`` and ``get_config``.
+Only the dense and ssm families' fields are carried, and only ``qwen2-0.5b``
+and ``mamba2-1.3b`` (each full and ``REDUCED``) are registered; the
+reference's other architectures (hybrid, MoE, MLA, audio, vlm) raise until
+their model family is ported.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from dataclasses import dataclass
+from typing import Optional
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 64
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    chunk: int = 256                # SSD chunk length
+    ngroups: int = 1
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # only "dense" is ported
+    family: str                     # "dense" | "ssm" are ported
     n_layers: int
     d_model: int
     n_heads: int
@@ -31,6 +43,7 @@ class ModelConfig:
     norm_eps: float = 1e-6
     act: str = "silu"               # silu (SwiGLU) | gelu (GeGLU)
     tie_embeddings: bool = False
+    ssm: Optional[SSMConfig] = None
     source: str = ""
 
     @property
@@ -39,11 +52,15 @@ class ModelConfig:
             return self.d_head
         return self.d_model // self.n_heads if self.n_heads else 0
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
 
-_MODULE_FOR = {"qwen2-0.5b": "qwen2_0p5b"}
+_MODULE_FOR = {"qwen2-0.5b": "qwen2_0p5b", "mamba2-1.3b": "mamba2_1p3b"}
 
 
 def get_config(arch: str, reduced: bool = False) -> ModelConfig:

@@ -13,6 +13,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import quantize_update as _qu
 from repro_torch.kernels import ref
 from repro_torch.kernels import scaled_update as _su
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def fused_local_step(p, m, g, d=None, h=None, t=None, s=None, *, gamma, beta1,
@@ -92,3 +93,16 @@ def decode_sample(y, table, noise, *, scale, v_real):
         raise ValueError(f"no decode_sample for device {y.device}")
     _ds.check_sample_args(y, table, noise, v_real)
     return ref.decode_sample_ref(y, table, noise, scale=scale, v_real=v_real)
+
+
+def ssd(xh, dt, A, Bm, Cm, *, chunk, h0=None):
+    """The chunked SSD scan on the intra-chunk kernel (equal to
+    ``models.ssm.ssd_chunked``): -> (y (B, S, H, P), h_final (B, H, P, N)),
+    fp32, from the state ``h0`` (zeros when None). Forward only."""
+    if xh.device.type == "cuda":
+        return _ssd.ssd_kernel_forward(xh, dt, A, Bm, Cm, chunk, h0=h0)
+    if xh.device.type != "cpu":
+        raise ValueError(f"no ssd for device {xh.device}")
+    _ssd.check_args(xh, dt, A, Bm, Cm, chunk)
+    return _ssd.ssd_kernel_forward(xh, dt, A, Bm, Cm, chunk, h0=h0,
+                                   intra=ref.ssd_intra_chunk_ref)

@@ -200,3 +200,54 @@ def near_tie_check(logits, ids, want, v_real, rel=1e-5):
     tie = gap <= tau
     bad = ~in_range | (differ & ~tie) | (tie & (chosen < top[:, 0] - tau))
     return int((differ & tie & in_range).sum()), int(bad.sum())
+
+
+def ssd_cumsum(dA):
+    """Cumulative sum over the last axis, accumulated in fp64 and rounded
+    once to fp32: within half an ulp of the exact sum, whatever order the
+    device adds in, so kernel K7 (which adds in fp64 in order) and this
+    plain version agree on cum bit for bit, but for an fp64 sum that lands
+    within ~2^-29 relative of an fp32 rounding boundary (then one ulp).
+    dA (..., Q) fp32 -> (..., Q) fp32."""
+    return torch.cumsum(dA.double(), dim=-1).float()
+
+
+def ssd_intra_chunk_ref(xh, dt, A, Bm, Cm, chunk):
+    """The SSD intra-chunk term of each (batch, chunk, head) cell, batched
+    over cells, in fp32: for a cell's x (Q,P), dt (Q,), B/C (Q,N),
+
+        cum = cumsum(dt·A) (``ssd_cumsum``: fp64, rounded once);
+        L = exp(cum_i - cum_j)·[i >= j], masked to -1e30 before the exp;
+        Y_diag = ((C·Bᵀ) ⊙ L)·(x·dt);
+        S_chunk = Bᵀ·((x·dt)·exp(cum_Q - cum));  total = exp(cum_Q).
+
+    xh (B,S,H,P), dt (B,S,H), A (H,), Bm/Cm (B,S,H,N) (any strides), S %
+    chunk == 0. Returns (Y_diag (B,S,H,P), S_chunk (B,nc,H,N,P), total
+    (B,nc,H)). The plain version of kernel K7 (the TPU kernel's body at
+    ``repro/kernels/ssd_scan.py:26``)."""
+    B, S, H, P = xh.shape
+    Q = chunk
+    nc = S // Q
+
+    def cells(t):               # (B,S,H,...) -> (B,nc,H,Q,...)
+        t = t.float().reshape((B, nc, Q) + tuple(t.shape[2:]))
+        return t.transpose(2, 3)
+
+    x, dtc, Bc, Cc = cells(xh), cells(dt), cells(Bm), cells(Cm)
+    cum = ssd_cumsum(dtc * A.float()[None, None, :, None])      # (B,nc,H,Q)
+    xdt = x * dtc[..., None]                                     # (B,nc,H,Q,P)
+    diff = cum[..., :, None] - cum[..., None, :]
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                 device=xh.device))
+    Lm = torch.exp(torch.where(mask, diff, -1e30)) * mask
+    G = Cc @ Bc.transpose(-1, -2)                                # (B,nc,H,Q,Q)
+    y = ((G * Lm) @ xdt).transpose(2, 3).reshape(B, S, H, P)
+    decay_out = torch.exp(cum[..., -1:] - cum)                   # (B,nc,H,Q)
+    s_chunk = Bc.transpose(-1, -2) @ (xdt * decay_out[..., None])
+    return y, s_chunk, torch.exp(cum[..., -1])
+
+
+def ssd_ref(xh, dt, A, Bm, Cm):
+    """Naive sequential SSD recurrence (``models.ssm.ssd_reference``)."""
+    from repro_torch.models.ssm import ssd_reference
+    return ssd_reference(xh, dt, A, Bm, Cm)

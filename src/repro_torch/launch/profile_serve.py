@@ -6,11 +6,13 @@ decode cache (timed between device synchronizations), prefills once more
 under ``torch.profiler``, runs ``--untraced`` greedy decode steps (each
 timed between device synchronizations), then ``--traced`` more under the
 profiler, and prints: the prefill time and the traced prefill's device time
-split into K4 (flash attention, with ``--flash-kernel``), GEMMs and the
-rest; the untraced steps' wall times and their median, the device-busy time
-per traced step (summed kernel time) as a share of the traced step and of
-the untraced median, the device time and launches of K5 (decode attention)
-and K6 (unembed + argmax), the kernels that took the most device time, the
+split into K4 (flash attention, with ``--flash-kernel``), K7 (the SSD
+intra-chunk term, with ``--ssd-kernel``), GEMMs and the rest; the untraced
+steps' wall times and their median, the device-busy time per traced step
+(summed kernel time) as a share of the traced step and of the untraced
+median, the device time and launches of K5 (decode attention) and K6
+(unembed + argmax) and the rest of a step's device time, the kernels that
+took the most device time, the
 host ops that took the most host time (self time), and the peak device
 memory. CUDA only. The profiler's own cost inflates the host times and the
 traced steps' wall time.
@@ -20,6 +22,9 @@ traced steps' wall time.
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
       --arch qwen2-0.5b --full --flash-kernel --decode-kernel --batch 2 \\
       --prompt-len 8192
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+      --arch mamba2-1.3b --full --ssd-kernel --decode-kernel --batch 4 \\
+      --prompt-len 2048
 """
 from __future__ import annotations
 
@@ -37,7 +42,8 @@ from repro_torch.utils import rng
 # the port's kernels by the names of their CUDA functions
 KERNELS = {"k5": ("decode_attention_kernel",),
            "k6": ("decode_sample_blocks", "decode_sample_reduce")}
-K4 = ("flash_attention_kernel",)
+PREFILL_KERNELS = {"k4": ("flash_attention_kernel",),
+                   "k7": ("ssd_intra_chunk_kernel",)}
 GEMM = ("gemm", "cutlass", "xmma")    # cuBLAS's kernels, by name (lower case)
 TOP = 12
 
@@ -58,17 +64,21 @@ def _tops(kernels, per, key):
 
 
 def prefill_breakdown(prof):
-    """Device time of a traced prefill: total, K4, GEMMs, the rest (ms), K4
-    launches and the top kernels."""
+    """Device time of a traced prefill: total, K4, K7, GEMMs, the rest (ms),
+    K4 and K7 launches and the top kernels."""
     kernels = _device_events(prof)
-    k4 = [e for e in kernels if any(f in e.key for f in K4)]
-    gemm = [e for e in kernels if e not in k4
+    out, ours = {}, []
+    for name, fns in PREFILL_KERNELS.items():
+        evs = [e for e in kernels if any(f in e.key for f in fns)]
+        ours += evs
+        out[f"prefill_{name}_ms"] = _ms(evs)
+        out[f"prefill_{name}_launches"] = sum(e.count for e in evs)
+    gemm = [e for e in kernels if e not in ours
             and any(f in e.key.lower() for f in GEMM)]
     total = _ms(kernels)
-    return {"prefill_device_ms": total, "prefill_k4_ms": _ms(k4),
-            "prefill_k4_launches": sum(e.count for e in k4),
+    return {"prefill_device_ms": total, **out,
             "prefill_gemm_ms": _ms(gemm),
-            "prefill_other_ms": total - _ms(k4) - _ms(gemm),
+            "prefill_other_ms": total - _ms(ours) - _ms(gemm),
             "prefill_top_kernels": _tops(kernels, 1, "ms")}
 
 
@@ -82,13 +92,14 @@ def main(argv=None):
     ap.add_argument("--traced", type=int, default=8)
     ap.add_argument("--decode-kernel", action="store_true")
     ap.add_argument("--flash-kernel", action="store_true")
+    ap.add_argument("--ssd-kernel", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     cfg, model, params, device = serve._setup(
         args.arch, reduced=not args.full, dtype=torch.float32,
         decode_window=0, use_decode_kernel=args.decode_kernel,
-        use_flash_kernel=args.flash_kernel, seed=args.seed, device="cuda",
-        params=None)
+        use_flash_kernel=args.flash_kernel, use_ssd_kernel=args.ssd_kernel,
+        seed=args.seed, device="cuda", params=None)
     B, S = args.batch, args.prompt_len
     steps = args.untraced + args.traced
     torch.cuda.reset_peak_memory_stats()
@@ -137,12 +148,15 @@ def main(argv=None):
         evs = [e for e in kernels if any(f in e.key for f in fns)]
         ours[f"{name}_ms_per_step"] = _ms(evs) / args.traced
         ours[f"{name}_launches"] = sum(e.count for e in evs)
+    ours["other_ms_per_step"] = busy_ms - sum(
+        ours[f"{name}_ms_per_step"] for name in KERNELS)
     host = sorted((e for e in events if e.device_type.name == "CPU"),
                   key=lambda e: -e.self_cpu_time_total)[:TOP]
     summary = {
         "device": torch.cuda.get_device_name(0), "batch": B,
         "prompt_len": S, "decode_kernel": args.decode_kernel,
-        "flash_kernel": args.flash_kernel, "prefill_ms": prefill_ms,
+        "flash_kernel": args.flash_kernel, "ssd_kernel": args.ssd_kernel,
+        "prefill_ms": prefill_ms,
         "traced_prefill_ms": traced_prefill_ms, **prefill,
         "untraced_step_ms": untraced_ms,
         "untraced_step_median_ms": median_ms,

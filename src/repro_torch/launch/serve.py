@@ -1,5 +1,5 @@
 """Batched serving driver: prefill once, reuse the cache, decode (counterpart
-of ``repro/launch/serve.py``, dense family, single device).
+of ``repro/launch/serve.py``, dense and ssm families, single device).
 
 Four entry points, as in the reference:
 
@@ -11,8 +11,8 @@ Four entry points, as in the reference:
   reported as ``cache_setup_s``.
 * ``serve_continuous``: continuous batching over a fixed ring of ``slots``
   decode slots. Requests of a Poisson arrival trace are admitted into free
-  slots (a B=1 prefill whose cache is copied into slot b along dim 1) and
-  evicted when done, while one decode step with per-slot (B,) positions
+  slots (a B=1 prefill whose cache tree is copied into slot b along dim 1)
+  and evicted when done, while one decode step with per-slot (B,) positions
   serves the whole ring.
 * ``serve_static``: the static-batching baseline on the same trace: groups
   of ``slots`` requests, a group starts when every member has arrived and
@@ -45,6 +45,9 @@ Examples:
       --gen-len 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --device cpu --mode continuous --decode-kernel
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
+      --full --ssd-kernel --decode-kernel --batch 4 --prompt-len 2048 \\
+      --gen-len 64
 """
 from __future__ import annotations
 
@@ -60,6 +63,7 @@ from repro_torch.models import (ModelCallConfig, build, sample_batch,
                                 sample_ids)
 from repro_torch.utils import rng
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.tree import tree_leaves
 
 
 @dataclasses.dataclass
@@ -82,13 +86,14 @@ def _sync(device):
 
 
 def _setup(arch, *, reduced, dtype, decode_window, use_decode_kernel, seed,
-           device, params, use_flash_kernel=False):
+           device, params, use_flash_kernel=False, use_ssd_kernel=False):
     device = resolve_device(device)
     cfg = get_config(arch, reduced=reduced)
     model = build(cfg, ModelCallConfig(dtype=dtype,
                                        decode_window=decode_window,
                                        use_decode_kernel=use_decode_kernel,
-                                       use_flash_kernel=use_flash_kernel))
+                                       use_flash_kernel=use_flash_kernel,
+                                       use_ssd_kernel=use_ssd_kernel))
     if params is None:
         params = model.init(torch.Generator(device=device).manual_seed(seed))
     return cfg, model, params, device
@@ -124,6 +129,13 @@ def request_prompt(cfg, seed, rid, prompt_len, device):
                         prompt_len, device)
 
 
+def insert_slot(cache, one, b):
+    """Copy the B=1 cache tree ``one`` into slot ``b`` of the ring's cache
+    tree, in place: every leaf is slot-major (batch at dim 1)."""
+    for dst, src in zip(tree_leaves(cache), tree_leaves(one)):
+        dst[:, b:b + 1].copy_(src)
+
+
 def _decode_loop(model, params, cache, tok, pos, logits_shape, gen_len,
                  greedy, stream, device):
     """gen_len - 1 decode steps after the first token: (tokens (B, gen_len)
@@ -153,20 +165,22 @@ def _decode_loop(model, params, cache, tok, pos, logits_shape, gen_len,
 
 def serve(arch: str, *, reduced=True, batch=4, prompt_len=32, gen_len=32,
           decode_window=0, dtype=torch.float32, greedy=True, seed=0,
-          use_decode_kernel=False, use_flash_kernel=False, cache_len=None,
-          prompt=None, params=None, stream=None, verbose=True,
-          device=None) -> ServeResult:
+          use_decode_kernel=False, use_flash_kernel=False,
+          use_ssd_kernel=False, cache_len=None, prompt=None, params=None,
+          stream=None, verbose=True, device=None) -> ServeResult:
     """Prefill once, decode from the returned cache: no prompt replay.
 
     The timings include first-call set-up, as a cold server start does.
     ``stream`` is the noise stream (default ``TorchStream(seed + 2)``).
     ``use_flash_kernel`` runs the prefill's attention on kernel K4 (the
-    reference's ``ModelCallConfig`` knob, passed through).
+    reference's ``ModelCallConfig`` knob, passed through);
+    ``use_ssd_kernel`` runs an ssm model's prefill SSD on kernel K7.
     """
     cfg, model, params, device = _setup(
         arch, reduced=reduced, dtype=dtype, decode_window=decode_window,
         use_decode_kernel=use_decode_kernel, seed=seed, device=device,
-        params=params, use_flash_kernel=use_flash_kernel)
+        params=params, use_flash_kernel=use_flash_kernel,
+        use_ssd_kernel=use_ssd_kernel)
     with torch.inference_mode():
         if prompt is None:
             prompt = sample_batch(cfg, rng.TorchStream(seed + 1), batch,
@@ -198,14 +212,16 @@ def serve(arch: str, *, reduced=True, batch=4, prompt_len=32, gen_len=32,
 def serve_replay(arch: str, *, reduced=True, batch=4, prompt_len=32,
                  gen_len=32, decode_window=0, dtype=torch.float32,
                  greedy=True, seed=0, cache_len=None, prompt=None,
-                 params=None, stream=None, verbose=True,
+                 params=None, stream=None, verbose=True, use_ssd_kernel=False,
                  device=None) -> ServeResult:
     """Differential baseline: build the decode cache by replaying the prompt
-    token by token through ``model.decode`` (no kernels). The replay loop is
-    reported as ``cache_setup_s``, not as prefill."""
+    token by token through ``model.decode`` (no decode kernels; there is no
+    prefill, so ``use_ssd_kernel`` only reaches the model's call config).
+    The replay loop is reported as ``cache_setup_s``, not as prefill."""
     cfg, model, params, device = _setup(
         arch, reduced=reduced, dtype=dtype, decode_window=decode_window,
-        use_decode_kernel=False, seed=seed, device=device, params=params)
+        use_decode_kernel=False, seed=seed, device=device, params=params,
+        use_ssd_kernel=use_ssd_kernel)
     with torch.inference_mode():
         if prompt is None:
             prompt = sample_batch(cfg, rng.TorchStream(seed + 1), batch,
@@ -265,12 +281,13 @@ def _trace_metrics(mode, slots, n_requests, gens, requests, per_step_s,
 
 
 def _trace_setup(arch, *, reduced, dtype, decode_window, use_decode_kernel,
-                 use_flash_kernel, seed, device, params, prompts, n_requests,
-                 arrival_rate, prompt_len, gen_len):
+                 use_flash_kernel, use_ssd_kernel, seed, device, params,
+                 prompts, n_requests, arrival_rate, prompt_len, gen_len):
     cfg, model, params, device = _setup(
         arch, reduced=reduced, dtype=dtype, decode_window=decode_window,
         use_decode_kernel=use_decode_kernel, seed=seed, device=device,
-        params=params, use_flash_kernel=use_flash_kernel)
+        params=params, use_flash_kernel=use_flash_kernel,
+        use_ssd_kernel=use_ssd_kernel)
     arrivals, gens = poisson_trace(n_requests, arrival_rate, seed, gen_len)
     if prompts is None:
         prompts = [request_prompt(cfg, seed, r, prompt_len, device)
@@ -282,16 +299,18 @@ def serve_continuous(arch: str, *, reduced=True, slots=4, n_requests=8,
                      prompt_len=8, gen_len=8, arrival_rate=0.5,
                      decode_window=0, dtype=torch.float32, greedy=True,
                      seed=0, use_decode_kernel=False, use_flash_kernel=False,
-                     params=None, prompts=None, stream=None, verbose=True,
-                     device=None) -> TraceResult:
+                     use_ssd_kernel=False, params=None, prompts=None,
+                     stream=None, verbose=True, device=None) -> TraceResult:
     """Continuous batching: per-slot admission and eviction on a fixed
     decode ring. One decode step with per-slot (B,) positions serves every
     composition of in-flight requests; admission is a B=1 prefill whose
-    cache is copied into slot b of the ring's cache along dim 1."""
+    cache tree is copied into slot b of the ring's cache along dim 1
+    (``insert_slot``)."""
     cfg, model, params, device, arrivals, gens, prompts = _trace_setup(
         arch, reduced=reduced, dtype=dtype, decode_window=decode_window,
         use_decode_kernel=use_decode_kernel,
-        use_flash_kernel=use_flash_kernel, seed=seed, device=device,
+        use_flash_kernel=use_flash_kernel, use_ssd_kernel=use_ssd_kernel,
+        seed=seed, device=device,
         params=params, prompts=prompts, n_requests=n_requests,
         arrival_rate=arrival_rate, prompt_len=prompt_len, gen_len=gen_len)
     cache_len = prompt_len + gen_len
@@ -325,8 +344,7 @@ def serve_continuous(arch: str, *, reduced=True, slots=4, n_requests=8,
                 tp = time.perf_counter()
                 logits1, c1 = model.prefill_cache(params, prompts[r],
                                                   cache_len)
-                for key in cache:       # every leaf is slot-major (dim 1)
-                    cache[key][:, b:b + 1].copy_(c1[key])
+                insert_slot(cache, c1, b)
                 _sync(device)
                 t_prefill_total += time.perf_counter() - tp
                 V = logits1.shape[-1]
@@ -384,9 +402,9 @@ def serve_continuous(arch: str, *, reduced=True, slots=4, n_requests=8,
 def serve_static(arch: str, *, reduced=True, slots=4, n_requests=8,
                  prompt_len=8, gen_len=8, arrival_rate=0.5, decode_window=0,
                  dtype=torch.float32, greedy=True, seed=0,
-                 use_decode_kernel=False, use_flash_kernel=False, params=None,
-                 prompts=None, stream=None, verbose=True,
-                 device=None) -> TraceResult:
+                 use_decode_kernel=False, use_flash_kernel=False,
+                 use_ssd_kernel=False, params=None, prompts=None, stream=None,
+                 verbose=True, device=None) -> TraceResult:
     """Static-batching baseline on the SAME Poisson trace as
     ``serve_continuous``: requests are served in arrival-order groups of
     ``slots``; a group starts only when all members have arrived and the
@@ -395,7 +413,8 @@ def serve_static(arch: str, *, reduced=True, slots=4, n_requests=8,
     cfg, model, params, device, arrivals, gens, prompts = _trace_setup(
         arch, reduced=reduced, dtype=dtype, decode_window=decode_window,
         use_decode_kernel=use_decode_kernel,
-        use_flash_kernel=use_flash_kernel, seed=seed, device=device,
+        use_flash_kernel=use_flash_kernel, use_ssd_kernel=use_ssd_kernel,
+        seed=seed, device=device,
         params=params, prompts=prompts, n_requests=n_requests,
         arrival_rate=arrival_rate, prompt_len=prompt_len, gen_len=gen_len)
     cache_len = prompt_len + gen_len
@@ -477,6 +496,8 @@ def main(argv=None):
                     help="decode attention on K5 and sampling on K6")
     ap.add_argument("--flash-kernel", action="store_true",
                     help="prefill attention on K4")
+    ap.add_argument("--ssd-kernel", action="store_true",
+                    help="ssm prefill SSD on K7")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--arrival-rate", type=float, default=0.5,
                     help="Poisson arrivals per decode step (trace modes)")
@@ -485,7 +506,7 @@ def main(argv=None):
     common = dict(reduced=not args.full, prompt_len=args.prompt_len,
                   gen_len=args.gen_len, decode_window=args.decode_window,
                   seed=args.seed, greedy=not args.no_greedy,
-                  device=args.device)
+                  use_ssd_kernel=args.ssd_kernel, device=args.device)
     if args.mode == "replay":
         return serve_replay(args.arch, batch=args.batch, **common)
     kernels = dict(use_decode_kernel=args.decode_kernel,

@@ -32,6 +32,7 @@ class ModelCallConfig:
     decode_window: int = 0          # ring-buffer decode cache of this size
     use_decode_kernel: bool = False  # K5 decode attention + K6 sampling
     softcap: float = 0.0
+    use_ssd_kernel: bool = False    # ssm family: the SSD on K7 (forward only)
 
 
 @dataclasses.dataclass
@@ -74,7 +75,8 @@ def build(cfg: ModelConfig, call: Optional[ModelCallConfig] = None) -> Model:
         chunk = call.attn_chunk if S > call.dense_attn_max else 0
         return AttnCall(window=0, softcap=call.softcap, chunk=chunk,
                         use_flash_kernel=call.use_flash_kernel,
-                        force_window=call.decode_window)
+                        force_window=call.decode_window,
+                        use_ssd_kernel=call.use_ssd_kernel)
 
     def _forward(params, tokens, want_cache, remat):
         x = embed(params["embed"], tokens, dtype)

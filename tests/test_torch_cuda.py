@@ -8,11 +8,17 @@ The module imports only the port, so it runs on a machine without JAX:
 K1 (``fused_step_flat``) and K3 (``quantize_update_flat``) are held bitwise:
 kernel and plain version run the same fp32 operations in the same order, and
 the kernels are built without FMA contraction (K3's int8 q exactly). K5
-(``decode_attention``), K6 (``decode_sample``) and K4 (``flash_attention``)
-sum in another order than their plain versions: K5 is held to 1e-5 of
-max|v| in absolute error, K4 to 2e-5 of max|v| in fp32 and 1e-2 in bf16,
-K6's ids to the near-tie rule (``ref.near_tie_check``), its tie cases
-exactly.
+(``decode_attention``), K6 (``decode_sample``), K4 (``flash_attention``) and
+K7 (``ssd_intra_chunk``) sum in another order than their plain versions: K5
+is held to 1e-5 of max|v| in absolute error, K4 to 2e-5 of max|v| in fp32
+and 1e-2 in bf16, K6's ids to the near-tie rule (``ref.near_tie_check``),
+its tie cases exactly. K7 is held element by element to
+u·(4·max|cum| + 2(N + Q) + 16) of the magnitude sum (the plain version on
+|x|, |B|, |C|), u = 2^-24: both sum N products for C·Bᵀ and up to Q for the
+rest, within (N + Q)·u of that sum each; their exps differ by <= 2 ulps;
+and cum, an fp64 sum rounded once on both sides, differs by one ulp only
+where the fp64 sums straddle an fp32 rounding boundary, which moves an L
+by at most 4u·max|cum| relative.
 """
 import pytest
 import torch
@@ -22,6 +28,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import quantize_update as qu
 from repro_torch.kernels import scaled_update as su
+from repro_torch.kernels import ssd_scan as ssd
 
 # (kind, schedule, clip, d, update_d, wd, h, s)
 CASES = [
@@ -340,3 +347,132 @@ def test_k4_rejects_grad_and_mixed_devices(dev):
         ops.flash_attention(q.requires_grad_(), k, v)
     with pytest.raises(ValueError, match="one device"):
         ops.flash_attention(q.detach(), k.cpu(), v)
+
+
+# (B, S, H, P, N, Q, A, shared B/C): the serve prefill's shape with one
+# B/C group over the heads (head stride 0), per-head B/C, Q 64/128 with N
+# 16/64 and P 32/128, one chunk (the continuous-batching prefill), A = -16
+# (max|cum| in the thousands), and ragged P, N and Q
+K7_CASES = [(4, 2048, 64, 64, 128, 256, None, True),
+            (2, 1024, 16, 64, 128, 256, None, False),
+            (2, 512, 8, 32, 16, 64, None, False),
+            (2, 512, 8, 128, 64, 128, None, False),
+            (2, 512, 8, 128, 16, 64, None, True),
+            (2, 512, 8, 32, 64, 128, None, True),
+            (1, 256, 64, 64, 128, 256, None, True),
+            (2, 1024, 8, 64, 128, 256, -16.0, True),
+            (1, 144, 3, 30, 20, 48, None, False)]
+
+
+def _k7_inputs(B, S, H, P, N, dev, a=None, shared=False, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    x = f(B, S, H, P)
+    dt = torch.nn.functional.softplus(f(B, S, H))
+    A = torch.full((H,), a, device=dev) if a is not None else -torch.exp(f(H))
+    if shared:
+        Bm, Cm = f(B, S, 1, N).expand(B, S, H, N), \
+            f(B, S, 1, N).expand(B, S, H, N)
+    else:
+        Bm, Cm = f(B, S, H, N), f(B, S, H, N)
+    return x, dt, A, Bm, Cm
+
+
+def k7_bounds(x, dt, A, Bm, Cm, chunk):
+    """K7's per-element bounds against its plain version (module
+    docstring): u·(4·max|cum| + 2(N + Q) + 16) times the plain version on
+    |x|, |B|, |C|."""
+    B, S, H = dt.shape
+    cmax = float((dt * A.abs()).reshape(B, S // chunk, chunk, H).sum(2).max())
+    eps = 2.0 ** -24 * (4 * cmax + 2 * (Bm.shape[-1] + chunk) + 16)
+    mags = ref.ssd_intra_chunk_ref(x.abs(), dt, A, Bm.abs(), Cm.abs(), chunk)
+    return [eps * m for m in mags], cmax
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,P,N,Q,a,shared", K7_CASES)
+def test_k7_vs_plain(dev, B, S, H, P, N, Q, a, shared):
+    x, dt, A, Bm, Cm = _k7_inputs(B, S, H, P, N, dev, a, shared)
+    want = ref.ssd_intra_chunk_ref(x, dt, A, Bm, Cm, Q)
+    before = ssd.ssd_intra_chunk.launches
+    got = ssd.ssd_intra_chunk(x, dt, A, Bm, Cm, Q)
+    torch.cuda.synchronize()
+    assert ssd.ssd_intra_chunk.launches == before + 1
+    bounds, cmax = k7_bounds(x, dt, A, Bm, Cm, Q)
+    nc = S // Q
+    for g, w, bd, shape in zip(got, want, bounds,
+                               ((B, S, H, P), (B, nc, H, N, P), (B, nc, H))):
+        assert g.shape == shape and g.dtype == torch.float32
+        assert bool(((g - w).abs() <= bd).all()), \
+            float(((g - w).abs() / bd.clamp_min(1e-30)).max())
+    if a is not None:
+        assert cmax > 2000.0
+
+
+@pytest.mark.cuda
+def test_k7_reads_strided_views(dev):
+    """x, dt, B, C as views of other layouts (heads before sequence, every
+    other element of a wider dim, one group expanded) give what contiguous
+    copies give."""
+    B, S, H, P, N, Q = 2, 256, 4, 64, 32, 128
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((B, H, S, P), generator=gen, device=dev).transpose(1, 2)
+    dt = torch.nn.functional.softplus(torch.randn(
+        (B, S, 2 * H), generator=gen, device=dev))[..., ::2]
+    A = -torch.exp(torch.randn((2 * H,), generator=gen, device=dev))[::2]
+    Bm = torch.randn((B, S, 1, 2 * N), generator=gen,
+                     device=dev)[..., :N].expand(B, S, H, N)
+    Cm = torch.randn((B, S, H, N), generator=gen, device=dev)
+    got = ssd.ssd_intra_chunk(x, dt, A, Bm, Cm, Q)
+    same = ssd.ssd_intra_chunk(x.contiguous(), dt.contiguous(),
+                               A.contiguous(), Bm.contiguous(), Cm, Q)
+    bounds, _ = k7_bounds(x, dt, A, Bm, Cm, Q)
+    for g, s_, bd in zip(got, same, bounds):
+        assert bool(((g - s_).abs() <= bd).all())
+
+
+@pytest.mark.cuda
+def test_k7_route_matches_chunked_ssd(dev):
+    """``ops.ssd`` (K7 + the inter-chunk recurrence, from an h0) against
+    ``models.ssm.ssd_chunked`` on the card."""
+    from repro_torch.models import ssm
+    x, dt, A, Bm, Cm = _k7_inputs(2, 1024, 8, 64, 128, dev, shared=True)
+    h0 = torch.randn((2, 8, 64, 128), device=dev)
+    y, h = ops.ssd(x, dt, A, Bm, Cm, chunk=256, h0=h0)
+    yw, hw = ssm.ssd_chunked(x, dt, A, Bm, Cm, 256, h0=h0)
+    my, mh = ssm.ssd_chunked(x.abs(), dt, A, Bm.abs(), Cm.abs(), 256,
+                             h0=h0.abs())
+    cmax = float((dt * A.abs()).reshape(2, 4, 256, 8).sum(2).max())
+    eps = 2.0 ** -24 * (4 * cmax + 2 * (128 + 256) + 32)
+    assert bool(((y - yw).abs() <= eps * my).all())
+    assert bool(((h - hw).abs() <= eps * mh).all())
+
+
+@pytest.mark.cuda
+def test_k7_rejects_grad_limits_and_mixed_devices(dev):
+    x, dt, A, Bm, Cm = _k7_inputs(1, 64, 2, 16, 8, dev)
+    with pytest.raises(ValueError, match="forward-only"):
+        ops.ssd(x.requires_grad_(), dt, A, Bm, Cm, chunk=16)
+    x = x.detach()
+    with pytest.raises(ValueError, match="one device"):
+        ssd.ssd_intra_chunk(x, dt.cpu(), A, Bm, Cm, 16)
+    with pytest.raises(ValueError, match="dividing S"):
+        ssd.ssd_intra_chunk(x, dt, A, Bm, Cm, 24)
+    wide = torch.zeros((1, 64, 2, 129), device=dev)
+    with pytest.raises(ValueError, match="N <= 128"):
+        ops.ssd(x, dt, A, wide, wide, chunk=16)
+
+
+@pytest.mark.cuda
+def test_k7_launches_through_serve(dev):
+    """``serve(use_ssd_kernel=True)`` on the card prefills through K7, one
+    launch per layer, and decodes on K6."""
+    from repro_torch.launch import serve
+    ssd.ssd_intra_chunk.launches = 0
+    ds.decode_sample.launches = 0
+    res = serve.serve("mamba2-1.3b", reduced=True, batch=2, prompt_len=64,
+                      gen_len=4, use_ssd_kernel=True, use_decode_kernel=True,
+                      verbose=False, device="cuda")
+    assert ssd.ssd_intra_chunk.launches == 2
+    assert ds.decode_sample.launches == 3
+    assert res.tokens.shape == (2, 4) and int(res.tokens.max()) < 512
