@@ -3,19 +3,27 @@
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 (one nvcc per source, started together), holds each against its plain
-PyTorch version on the card, drives the port's paths through
-``repro_torch.launch.train.main`` at the full width of qwen2-0.5b (the SAVIC
-round; local-adam; SAVIC with int8-stochastic compression and error
-feedback; SAVIC with OASIS and half the clients sampled), holds the fused
-client loop against the tree loop, then drives the serving path through
-``repro_torch.launch.serve`` at full width (prefill-cache reuse with 63
-decode steps on K5 and K6; continuous batching over a ring of 8 slots; an
-8192-token prompt at batch 2 prefilled on K4, then 31 decode steps; then
-the SSM family: full-width mamba2-1.3b prefilled at batch 4 from a
-2048-token prompt through K7 into its recurrent state, 63 decode steps on
-K6, and continuous batching of 16 requests on 8 slots), holds the kernel
-paths against the plain ones teacher-forced (the K4 prefill against the
-chunked ``models/flash.py`` one, the K7 prefill against
+PyTorch version on the card (K2, the per-leaf scaled step, bitwise over
+ragged n, misaligned views and two launches past 2^31 elements), drives the
+port's paths through ``repro_torch.launch.train.main`` at the full width of
+qwen2-0.5b (the SAVIC round; local-adam; SAVIC with int8-stochastic
+compression and error feedback; SAVIC with OASIS and half the clients
+sampled), runs the pre-refactor round's per-leaf step (the momentum pass,
+then ``ops.scaled_update_tree``: K2 once a leaf) on the Fig. 1 MLP, on the
+reference kernels_fused bench's leaves and on full-width qwen2-0.5b, held
+against the tree step and timed beside K1, holds the fused client loop
+against the tree loop, runs the paper's experiments through
+``repro_torch.launch.paper`` (Fig. 1 at main_frac 0.5 for its five methods
+on the tree and fused loops, Theorem 1's transient, §5.2's six points),
+then drives the serving path through ``repro_torch.launch.serve`` at full
+width (prefill-cache reuse with 63 decode steps on K5 and K6; continuous
+batching over a ring of 8 slots; an 8192-token prompt at batch 2 prefilled
+on K4, then 31 decode steps; then the SSM family: full-width mamba2-1.3b
+prefilled at batch 4 from a 2048-token prompt through K7 into its
+recurrent state, 63 decode steps on K6, and continuous batching of 16
+requests on 8 slots), holds K6 at heads wider than 2048 (d = 2560, 8192),
+holds the kernel paths against the plain ones teacher-forced (the K4
+prefill against the chunked ``models/flash.py`` one, the K7 prefill against
 ``models.ssm.ssd_chunked``), and checks what comes out.
 Any failed phase raises and the script exits non-zero. Without a CUDA
 device, or without the rest of the repository beside it, it exits non-zero
@@ -23,9 +31,10 @@ before printing any result.
 
 The second-to-last lines are one JSON object listing the kernels (launches
 on the main path, error against the plain version (K4's over its fp32
-cases, K7's over all its cases), measured and least possible times) and the
-card's name and power limit; the last line is ``{"ok": true, "device":
-{...}}``.
+cases, K7's over all its cases), measured and least possible times; K2's
+times are one per-leaf step over full-width qwen2-0.5b's 14 leaves at M =
+4) and the card's name and power limit; the last line is ``{"ok": true,
+"device": {...}}``.
 """
 import json
 import os
@@ -45,8 +54,10 @@ if not torch.cuda.is_available():
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import engine  # noqa: E402
-from repro_torch.data import LMRoundLoader, TokenStream  # noqa: E402
+from repro_torch.core import PrecondConfig, engine  # noqa: E402
+from repro_torch.core import preconditioner as PC  # noqa: E402
+from repro_torch.data import (LMRoundLoader, TokenStream,  # noqa: E402
+                              main_class_partition)
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import decode_step as ds  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -54,6 +65,7 @@ from repro_torch.kernels import quantize_update as qu  # noqa: E402
 from repro_torch.kernels import scaled_update as su  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
+from repro_torch.launch import paper  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.models import (ModelCallConfig, sample_batch,  # noqa: E402
@@ -62,7 +74,9 @@ from repro_torch.models import build as build_model  # noqa: E402
 from repro_torch.models.flash import flash_attention_bshd  # noqa: E402
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 from repro_torch.utils import rng  # noqa: E402
-from repro_torch.utils.tree import tree_paths, tree_size  # noqa: E402
+from repro_torch.utils.flatten import FlatLayout  # noqa: E402
+from repro_torch.utils.tree import tree_map, tree_paths, tree_size  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
 FP32_FLOP_PER_S = 67e12            # fp32 outside the tensor cores
@@ -113,6 +127,31 @@ K7_CASES = [(*K7_MAIN, None, True), (*K7_MAIN, None, False),
             (1, 256, 64, 64, 128, 256, None, True),
             (*K7_MAIN, -16.0, True)]
 U = 2.0 ** -24
+# K2 against its plain version: n of every residue mod 4 around the float4
+# width and at 2^20; one launch with n > 2^31 on aligned tensors (float4
+# with a masked tail) and on views one float in (the scalar path)
+K2_NS = (1, 3, 4, 5, 127, 128, 129, 1 << 20, (1 << 20) + 3)
+K2_BIG = (1 << 31) + 3
+# the per-leaf step's trees: the Fig. 1 MLP (192 -> 128 -> 10) at M = 10, the
+# reference kernels_fused bench's leaves at M = 8; full-width qwen2-0.5b at
+# M = 4 comes from the model
+MLP_TREE = ({"w1": (192, 128), "b1": (128,), "w2": (128, 10), "b2": (10,)},
+            10)
+BENCH_TREE = ({"w1": (256, 128), "b1": (128,), "w2": (128, 10),
+               "b2": (10,)}, 8)
+K2_STEP = dict(gamma=0.002, beta1=0.9, alpha=1e-2)   # Fig. 1's constants
+# K6 at heads wider than 2048 (y staged in slices over d): (V, v_real, d,
+# table scale, logit scale); V padded to a multiple of 2048
+WIDE_HEADS = {"zamba2-2.7b": (32_768, 32_000, 2560, 2560 ** -0.5, 1.0),
+              "gemma3-4b": (262_144, 262_144, 2560, 2560 ** -0.5, 1.0),
+              "qwen3-4b": (153_600, 151_936, 2560, 2560 ** -0.5, 1.0),
+              "deepseek-67b": (102_400, 102_400, 8192, 8192 ** -0.5, 1.0)}
+# the paper's experiments on the card: fig1 at one main fraction, all five
+# methods, tree and fused (K1) loops; fused against tree per round within
+# 1e-5 of the loss (both run the same fp32 operations; K1 is bitwise its
+# plain version) and 2 of the 1000 held-out examples
+FIG1_FRAC = 0.5
+FIG1_TOL = 1e-5
 
 
 def main_argv(method, rounds, extra=()):
@@ -380,6 +419,286 @@ def k3_embed(gen, iters=20):
     torch.cuda.empty_cache()
     return diff, ms, plain_ms, k3_bytes(M, n)
 
+
+
+# --------------------------------------------------------------------------- #
+# K2: against its plain version, and on its path (the per-leaf step)
+# --------------------------------------------------------------------------- #
+
+
+def k2_inputs(n, gen, alpha=K2_STEP["alpha"], misalign=False):
+    """p, m, g ~ N(0, 1) and d = |N(0, 1)| with every fifth element 0 and
+    every seventh under α² (the clip is hit), (n,) fp32; ``misalign`` views
+    each one float into its buffer (not 16-byte aligned: the scalar path)."""
+    off = int(misalign)
+    x = [torch.randn(n + off, generator=gen, device=DEV)[off:]
+         for _ in range(4)]
+    d = x[3].abs_()
+    d[::5] = 0.0
+    d[1::7] = 0.25 * alpha ** 2
+    return x
+
+
+def k2_case(n, squared, beta1, alpha, gen, misalign=False):
+    """(max abs, max ulp) of K2 against its plain version."""
+    x = k2_inputs(n, gen, alpha, misalign)
+    kw = dict(gamma=0.05, beta1=beta1, alpha=alpha, squared=squared)
+    want = ref.scaled_update_ref(*x, **kw)
+    got = su.scaled_update_flat(*x, **kw)
+    torch.cuda.synchronize()
+    err, ulps = 0.0, 0
+    for w, g in zip(want, got):
+        e, u = max_diff(w, g)
+        err, ulps = max(err, e), max(ulps, u)
+    return err, ulps
+
+
+def k2_big(gen, misalign, chunk=1 << 26):
+    """One K2 launch past 2^31 elements, diffed against the plain version
+    over the whole array chunk by chunk (the plain version's temporaries stay
+    one chunk wide; 6 arrays of 8.6 GB)."""
+    n = K2_BIG
+    check(n > 2 ** 31, "K2 big case is not above 2^31 elements")
+    torch.cuda.empty_cache()
+    x = k2_inputs(n, gen, misalign=misalign)
+    kw = dict(gamma=0.05, beta1=0.9, alpha=K2_STEP["alpha"], squared=True)
+    got = su.scaled_update_flat(*x, **kw)
+    torch.cuda.synchronize()
+    err, ulps = 0.0, 0
+    for lo in range(0, n, chunk):
+        want = ref.scaled_update_ref(*(t[lo:lo + chunk] for t in x), **kw)
+        for w, g in zip(want, got):
+            e, u = max_diff(w, g[lo:lo + chunk])
+            err, ulps = max(err, e), max(ulps, u)
+        del want
+    del x, got
+    torch.cuda.empty_cache()
+    return n, err, ulps
+
+
+def rand_tree(shapes, M, gen, positive=False):
+    """{name: (M, *shape)} fp32 N(0, 1) leaves (|N(0, 1)| for a local D)."""
+    tree = {k: torch.randn((M,) + tuple(shp), generator=gen, device=DEV)
+            for k, shp in shapes.items()}
+    if positive:
+        tree = tree_map(torch.abs_, tree)
+    return tree
+
+
+def momentum_pass(mom, grads, beta1=K2_STEP["beta1"]):
+    """m' = β₁m + g per leaf, the pre-refactor round's pass before K2."""
+    return tree_map(lambda m, g: beta1 * m + g, mom, grads)
+
+
+def per_leaf_step(params, mom, grads, d):
+    """The pre-refactor round's scaled step: the momentum pass, then
+    ``ops.scaled_update_tree`` (one K2 launch per leaf). Returns (params',
+    m')."""
+    mom2 = momentum_pass(mom, grads)
+    return kops.scaled_update_tree(params, mom2, d, K2_STEP["gamma"],
+                                   K2_STEP["alpha"]), mom2
+
+
+def tree_step_check(params, mom2, d, newp):
+    """The per-leaf step's params against the port's tree step p − γ·(m'/D̂)
+    (``preconditioner.precondition``, the engine's order), element by
+    element within 2⁻²¹·(|p'| + |γm'/D̂|): (γ·m')/D̂ and γ·(m'/D̂) each round
+    twice, within 2⁻²³|γm'/D̂| of the exact step, and p − u once more, so
+    the two differ by at most 2⁻²²|u| + 2⁻²³|p'|; the bound is twice that.
+    Returns (elements beyond the bound, worst share of the bound)."""
+    pc = PrecondConfig(kind="adam", alpha=K2_STEP["alpha"])
+    bad, worst = 0, 0.0
+    for k in params:
+        upd = K2_STEP["gamma"] * PC.precondition(pc, {"d": d[k]}, mom2[k])
+        want = params[k] - upd
+        tol = 2.0 ** -21 * (want.abs() + upd.abs())
+        diff = (newp[k] - want).abs()
+        bad += int((diff > tol).sum())
+        worst = max(worst, float((diff / tol.clamp_min(1e-38)).max()))
+        del upd, want, tol, diff
+    return bad, worst
+
+
+def k2_path(name, shapes, M, gen):
+    """K2 on the per-leaf step of one tree: the step (K2's count set to 0
+    just before and read just after), held against the tree step, then
+    timed (CUDA events, 10 steps): K2 alone (one launch a
+    leaf on prepared inputs), its plain version, the whole per-leaf step
+    (momentum pass, zeros, K2), and K1 (``fused_local_step``) on the same
+    state flattened to (M, n) with a global D (client 0's) and with the
+    local D. Returns a dict of the results."""
+    params, mom, grads = (rand_tree(shapes, M, gen) for _ in range(3))
+    d = rand_tree(shapes, M, gen, positive=True)
+    su.scaled_update_flat.launches = 0
+    newp, mom2 = per_leaf_step(params, mom, grads, d)
+    launches = su.scaled_update_flat.launches
+    torch.cuda.synchronize()
+    check(launches == len(shapes), f"K2 launched {launches} times on "
+          f"{name}, expected {len(shapes)} (one a leaf)")
+    bad, worst = tree_step_check(params, mom2, d, newp)
+    del newp
+    n = sum(int(np.prod(s)) for s in shapes.values())
+    out = {"name": name, "M": M, "n": n, "leaves": len(shapes), "bad": bad,
+           "worst": worst, "launches": launches}
+    torch.cuda.empty_cache()
+    out["step_ms"] = cuda_ms(lambda: per_leaf_step(params, mom, grads, d),
+                             10)
+    flats = [(params[k].reshape(-1), torch.zeros_like(mom2[k]).reshape(-1),
+              mom2[k].reshape(-1), d[k].reshape(-1)) for k in params]
+    kw = dict(gamma=K2_STEP["gamma"], beta1=0.0, alpha=K2_STEP["alpha"])
+    out["ms"] = cuda_ms(lambda: [su.scaled_update_flat(*f, **kw)
+                                 for f in flats], 10)
+    out["plain_ms"] = cuda_ms(lambda: [ref.scaled_update_ref(*f, **kw)
+                                       for f in flats], 3)
+    del flats, mom2
+    torch.cuda.empty_cache()
+    layout = FlatLayout.for_tree(params, batch_dims=1)
+    bufs = {}
+    for key, tree in (("p", params), ("m", mom), ("g", grads), ("d", d)):
+        bufs[key] = layout.flatten(tree, batch_dims=1)
+        tree.clear()                         # the flat copy replaces it
+    del params, mom, grads, d
+    torch.cuda.empty_cache()
+    k1kw = dict(gamma=K2_STEP["gamma"], beta1=K2_STEP["beta1"],
+                alpha=K2_STEP["alpha"], kind="adam")
+    dg = bufs["d"][0].clone()
+    out["k1_global_ms"] = cuda_ms(lambda: kops.fused_local_step(
+        bufs["p"], bufs["m"], bufs["g"], dg, **k1kw), 10)
+    out["k1_local_ms"] = cuda_ms(lambda: kops.fused_local_step(
+        bufs["p"], bufs["m"], bufs["g"], bufs["d"], **k1kw), 10)
+    del bufs, dg
+    torch.cuda.empty_cache()
+    # K2 moves p, m, g, d in and p', m' out: 24 bytes an element
+    out["bytes"] = 24 * M * n
+    out["bound_ms"] = out["bytes"] / HBM_BYTES_PER_S * 1e3
+    return out
+
+
+def print_k2_path(r):
+    print(f"[chip_smoke] K2 per-leaf step on {r['name']} (M={r['M']}, "
+          f"n={r['n']}, {r['leaves']} leaves): against the tree step "
+          f"p - g*(m'/D): {r['bad']} elements beyond 2^-21(|p'|+|u|), "
+          f"worst at {r['worst']:.3f} of it; K2 alone {r['ms']:.4f} ms "
+          f"({r['leaves']} launches), plain {r['plain_ms']:.4f} ms, whole "
+          f"per-leaf step {r['step_ms']:.4f} ms, K1 global D "
+          f"{r['k1_global_ms']:.4f} ms, K1 local D {r['k1_local_ms']:.4f} "
+          f"ms, K2 bound {r['bound_ms']:.4f} ms ({r['bytes'] / 1e9:.3f} GB),"
+          f" achieved {r['bytes'] / r['ms'] / 1e6:.1f} GB/s", flush=True)
+    check(r["bad"] == 0, f"K2's per-leaf step differs from the tree step on "
+          f"{r['name']}")
+
+
+# --------------------------------------------------------------------------- #
+# the paper's experiments (launch/paper.py)
+# --------------------------------------------------------------------------- #
+
+
+def pct(xs, q):
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+def profile_fig1_round(method, fused, data, parts):
+    """One steady Fig. 1 round (after a warm-up round) under the profiler:
+    (kernel launches, device busy ms, wall ms)."""
+    step, state, loader, _, _ = paper.fig1_setup(
+        FIG1_FRAC, method, device=DEV, data=data, parts=parts,
+        use_fused_kernel=fused)
+    streams = paper.default_streams(0)
+    for r in range(2):
+        nb = paper.to_device(loader.round_batch(paper.FIG1["h_local"]), DEV)
+        torch.cuda.synchronize()
+        if r == 0:
+            state, met = step(state, nb, streams(r))
+            float(met["loss"])
+            continue
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, met = step(state, nb, streams(r))
+            float(met["loss"])
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA"]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    return sum(e.count for e in kernels), busy, wall
+
+
+def paper_phase():
+    """fig1 at main_frac 0.5 for the five methods, 25 rounds, on the tree
+    loop and on the fused loop (K1); thm1's transient case and sec52's six
+    points on the fused loop, through ``launch/paper.py``. Every count is
+    set to 0 just before a run and read just after."""
+    data = paper.fig1_data(0)
+    parts = main_class_partition(data.y[:-paper.FIG1["ntest"]],
+                                 paper.FIG1["clients"], FIG1_FRAC, seed=0)
+    H, R = paper.FIG1["h_local"], paper.FIG1["rounds"]
+    rows = {}
+    for fused in (False, True):
+        su.fused_step_flat.launches = 0
+        t0 = time.perf_counter()
+        rows[fused] = {m: paper.fig1_run(FIG1_FRAC, m, device=DEV, data=data,
+                                         parts=parts, use_fused_kernel=fused)
+                       for m in paper.FIG1_METHODS}
+        k1 = su.fused_step_flat.launches
+        loop = "fused (K1)" if fused else "tree"
+        want = len(paper.FIG1_METHODS) * R * H if fused else 0
+        check(k1 == want, f"fig1 {loop}: K1 launched {k1} times, expected "
+              f"{want}")
+        print(f"[chip_smoke] fig1 main_frac {FIG1_FRAC}, {loop} loop: "
+              f"{time.perf_counter() - t0:.1f} s for 5 methods x {R} rounds,"
+              f" K1 launches {k1} ({H} a round)", flush=True)
+        for m, rs in rows[fused].items():
+            loss = [r["metrics"]["loss"] for r in rs]
+            acc = [r["metrics"]["test_acc"] for r in rs]
+            wall = [r["metrics"]["wall_s"] * 1e3 for r in rs[1:]]
+            check(all(finite(v) for v in loss + acc), f"fig1 {m}: "
+                  f"non-finite results")
+            check(loss[-1] < loss[0], f"fig1 {m} ({loop}): round-{R - 1} "
+                  f"loss {loss[-1]} is not below round 0's {loss[0]}")
+            print(f"[chip_smoke]   {m}: loss {loss[0]:.4f} -> {loss[-1]:.4f}"
+                  f", test acc {acc[-1]:.3f}; round wall (rounds 1-{R - 1})"
+                  f" median {pct(wall, 50):.2f} ms, p90 {pct(wall, 90):.2f}"
+                  f" ms; round 0 {rs[0]['metrics']['wall_s'] * 1e3:.1f} ms",
+                  flush=True)
+        summ = paper.summary("fig1", [r for rs in rows[fused].values()
+                                      for r in rs])
+        print(f"[chip_smoke]   summary ({loop}): {json.dumps(dict(summ))}",
+              flush=True)
+    worst = 0.0
+    for m in paper.FIG1_METHODS:
+        for a, b in zip(rows[True][m], rows[False][m]):
+            la, lb = a["metrics"]["loss"], b["metrics"]["loss"]
+            worst = max(worst, abs(la - lb) / abs(lb))
+            check(abs(a["metrics"]["test_acc"] - b["metrics"]["test_acc"])
+                  <= 2 / paper.FIG1["ntest"] + 1e-6, f"fig1 {m}: fused and "
+                  f"tree test accuracy differ")
+    print(f"[chip_smoke]   fused against tree: worst per-round loss "
+          f"difference {worst:.3e} of the loss (bound {FIG1_TOL})",
+          flush=True)
+    check(worst <= FIG1_TOL, "fig1: fused and tree losses differ")
+    for m in ("Adam global", "OASIS local"):
+        for fused in (False, True):
+            n_k, busy, wall = profile_fig1_round(m, fused, data, parts)
+            print(f"[chip_smoke]   one traced fig1 round, {m}, "
+                  f"{'fused' if fused else 'tree'}: {n_k} kernel launches, "
+                  f"device busy {busy:.2f} ms of {wall:.2f} ms "
+                  f"({busy / wall:.1%})", flush=True)
+    for exp, argv, want in (
+            ("thm1", ["--experiment", "transient"], 40 * 4),
+            ("sec52", [], len(paper.SEC52_POINTS) * paper.SEC52["rounds"]
+             * paper.SEC52["h_local"])):
+        su.fused_step_flat.launches = 0
+        t0 = time.perf_counter()
+        out = paper.main(["--exp", exp, "--device", "cuda",
+                          "--use-fused-kernel", *argv])[exp]
+        k1 = su.fused_step_flat.launches
+        vals = [v for r in out["rows"] for v in r["metrics"].values()]
+        check(all(finite(float(v)) for v in vals), f"{exp}: non-finite rows")
+        check(k1 == want, f"{exp}: K1 launched {k1} times, expected {want}")
+        print(f"[chip_smoke] {exp} ({' '.join(argv) or 'six points'}), "
+              f"fused loop: {time.perf_counter() - t0:.1f} s, K1 launches "
+              f"{k1}, summary {json.dumps(out['summary'])}", flush=True)
 
 # --------------------------------------------------------------------------- #
 # K5 and K6 inputs and the kernel-vs-plain comparisons
@@ -1185,17 +1504,17 @@ def fused_vs_tree(name, rounds=1, flips=False, **method_kw):
 def build_all():
     """One nvcc per kernel source, all started together."""
     t0 = time.perf_counter()
-    libs = (su._lib, qu._lib, ds._attention_lib, ds._sample_lib, fa._lib,
-            ssd._lib)
+    libs = (su._lib, su._flat_lib, qu._lib, ds._attention_lib,
+            ds._sample_lib, fa._lib, ssd._lib)
     with ThreadPoolExecutor(max_workers=len(libs)) as pool:
         list(pool.map(lambda f: f(), libs))
-    for src in ("fused_step.cu", "quantize_update.cu", "decode_attention.cu",
-                "decode_sample.cu", "flash_attention.cu",
-                "ssd_intra_chunk.cu"):
+    for src in ("fused_step.cu", "scaled_update.cu", "quantize_update.cu",
+                "decode_attention.cu", "decode_sample.cu",
+                "flash_attention.cu", "ssd_intra_chunk.cu"):
         info = build.BUILD_LOG.get(src, {"seconds": 0.0, "ptxas": "(cached)"})
         print(f"[chip_smoke] {src}: nvcc {info['seconds']:.2f} s\n"
               f"{info['ptxas']}", flush=True)
-    print(f"[chip_smoke] built K1, K3, K4, K5, K6 and K7 in "
+    print(f"[chip_smoke] built K1, K2, K3, K4, K5, K6 and K7 in "
           f"{time.perf_counter() - t0:.2f} s",
           flush=True)
 
@@ -1257,6 +1576,42 @@ def main():
           f"{k3_nbytes / k3_ms / 1e6:.1f} GB/s", flush=True)
     check(bad == 0 and ulps == 0, "K3 differs at the embed.table shape")
 
+    # ---- 2c. K2 against its plain version ----------------------------------
+    k2_err = 0.0
+    for n in K2_NS:
+        worst = (0.0, 0)
+        for squared in (True, False):
+            for beta1 in (0.0, 0.9):
+                for alpha in (1e-3, 1e-2):
+                    err, ulps = k2_case(n, squared, beta1, alpha, gen)
+                    worst = (max(worst[0], err), max(worst[1], ulps))
+        k2_err = max(k2_err, worst[0])
+        print(f"[chip_smoke] K2 n={n}, squared both ways, beta1 0 / 0.9, "
+              f"alpha 1e-3 / 1e-2: max abs {worst[0]:.3e}, max ulp "
+              f"{worst[1]}", flush=True)
+        check(worst[1] == 0, f"K2 differs from its plain version at n={n}")
+    x = k2_inputs(K2_NS[-2], gen)
+    k2_1m = cuda_ms(lambda: su.scaled_update_flat(*x, **K2_STEP), 200)
+    del x
+    print(f"[chip_smoke] K2 at n={K2_NS[-2]}: {k2_1m * 1e3:.2f} us/launch, "
+          f"bound {24 * K2_NS[-2] / HBM_BYTES_PER_S * 1e6:.2f} us "
+          f"({24 * K2_NS[-2]} B)", flush=True)
+    for n in (K2_NS[-2], K2_NS[-1]):
+        err, ulps = k2_case(n, True, 0.9, 1e-2, gen, misalign=True)
+        k2_err = max(k2_err, err)
+        print(f"[chip_smoke] K2 n={n} misaligned views (scalar path): max abs"
+              f" {err:.3e}, max ulp {ulps}", flush=True)
+        check(ulps == 0, "K2 differs from its plain version on misaligned "
+              "views")
+    for misalign in (False, True):
+        n, err, ulps = k2_big(gen, misalign)
+        k2_err = max(k2_err, err)
+        print(f"[chip_smoke] K2 n={n} (> 2^31, "
+              f"{'views one float in, scalar path' if misalign else 'aligned, float4 path with a masked tail'}"
+              f"): max abs {err:.3e}, max ulp {ulps} over every element",
+              flush=True)
+        check(ulps == 0, "K2 differs from its plain version beyond 2^31")
+
     # ---- 3. main path: savic, full-width qwen2-0.5b ------------------------
     argv = main_argv("savic", 2)
     print("[chip_smoke] main path: train.main " + " ".join(argv), flush=True)
@@ -1265,6 +1620,7 @@ def main():
     params = build_model(get_config("qwen2-0.5b")).init(
         torch.Generator(device=DEV).manual_seed(0))
     n_main = tree_size(params)          # per-client flat length n
+    qwen_shapes = {k: tuple(v.shape) for k, v in tree_paths(params)}
     wire = engine.bytes_on_wire(engine.method_spec(
         "savic", compression="int8-stochastic", error_feedback=True), params)
     del params
@@ -1280,6 +1636,16 @@ def main():
           f"({nbytes / 1e9:.2f} GB), achieved {nbytes / ms / 1e6:.1f} GB/s",
           flush=True)
     check(ulps == 0, "K1 differs from its plain version at the main shape")
+
+    # ---- 3b. K2 on its path: the per-leaf step ------------------------------
+    k2_runs = [k2_path("the Fig. 1 MLP", *MLP_TREE, gen),
+               k2_path("the kernels_fused bench's leaves", *BENCH_TREE, gen),
+               k2_path("full-width qwen2-0.5b", qwen_shapes, 4, gen)]
+    for r in k2_runs:
+        print_k2_path(r)
+    k2_launches = sum(r["launches"] for r in k2_runs)
+    k2_full = k2_runs[-1]
+    check(k2_full["n"] == n_main, "the qwen2 tree is not the model's")
 
     # ---- 4. local-adam: update_d + debias ---------------------------------
     argv = main_argv("local-adam", 1)
@@ -1335,6 +1701,9 @@ def main():
     fused_vs_tree("savic int8 + EF", rounds=2, flips=True,
                   compression="int8-stochastic", error_feedback=True)
     fused_vs_tree("savic local OASIS", pc_kind="oasis", scaling="local")
+
+    # ---- 7b. the paper's experiments: fig1, thm1 transient, sec52 ---------
+    paper_phase()
 
     # ---- 8. K5 and K6 against their plain versions ------------------------
     k5_err = 0.0
@@ -1437,6 +1806,23 @@ def main():
         check(bad == 0, "K6 breaks the near-tie rule at mamba2's head")
     torch.cuda.empty_cache()
 
+    # ---- 12c. K6 at heads wider than 2048 (y staged in slices over d) -----
+    for name, head in WIDE_HEADS.items():
+        worst = (0, 0, 0.0)
+        for B_ in (1, 4, 8):
+            for greedy in (True, False):
+                ties, bad, err = k6_case(B_, greedy, gen, head=head)
+                worst = (worst[0] + ties, worst[1] + bad, max(worst[2], err))
+        k6_err = max(k6_err, worst[2])
+        print(f"[chip_smoke] K6 {name} head (V={head[0]}, v_real={head[1]}, "
+              f"d={head[2]}, slices of "
+              f"{ds.sample_plan(8, head[2], head[1])[2]} at B=8), B 1/4/8, "
+              f"greedy and gumbel: near-tie exceptions {worst[0]}, "
+              f"violations {worst[1]}, winning logit max abs "
+              f"{worst[2]:.3e}", flush=True)
+        check(worst[1] == 0, f"K6 breaks the near-tie rule at {name}'s head")
+    torch.cuda.empty_cache()
+
     # ---- 13. mamba2-1.3b serve: K7 prefill, K6 decode ----------------------
     print("[chip_smoke] mamba2 serve path: serve('mamba2-1.3b', "
           f"reduced=False, use_ssd_kernel=True, use_decode_kernel=True, "
@@ -1477,6 +1863,15 @@ def main():
           f"{k6m['ms'] * 1e3:.2f} us/call, plain {k6m['plain_ms'] * 1e3:.2f} "
           f"us, library {k6m['library_ms'] * 1e3:.2f} us, bound "
           f"{k6m['bound_ms'] * 1e3:.3f} us ({k6m['bytes']} B)", flush=True)
+    for name in ("gemma3-4b", "deepseek-67b"):
+        head = WIDE_HEADS[name]
+        k6w = time_k6(gen, 8, head)
+        print(f"[chip_smoke] K6 at {name}'s head (B=8, V={head[0]}, "
+              f"v_real={head[1]}, d={head[2]}): {k6w['ms'] * 1e3:.2f} us/call,"
+              f" plain {k6w['plain_ms'] * 1e3:.2f} us, library "
+              f"{k6w['library_ms'] * 1e3:.2f} us, bound "
+              f"{k6w['bound_ms'] * 1e3:.3f} us ({k6w['bytes']} B)",
+              flush=True)
     k7t = time_k7(gen)
     print(f"[chip_smoke] K7 at the prefill's shape {K7_MAIN}: "
           f"{k7t['ms']:.3f} ms/launch, plain {k7t['plain_ms']:.3f} ms, "
@@ -1502,6 +1897,14 @@ def main():
         "replaces": "src/repro/kernels/scaled_update.py:201",
         "launches": launches, "max_abs_err": max_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "scaled_update_flat", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/scaled_update.cu",
+        "replaces": "src/repro/kernels/scaled_update.py:103",
+        "launches": k2_launches, "max_abs_err": k2_err,
+        "ms": k2_full["ms"], "plain_ms": k2_full["plain_ms"],
+        "bound_ms": k2_full["bound_ms"], "bound_by": "bytes",
         "library_ms": None,
     }, {
         "name": "quantize_update_flat", "route": "cuda",

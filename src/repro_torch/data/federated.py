@@ -1,6 +1,18 @@
-"""Systems-heterogeneity models used by the training CLI (numpy copy of the
-parts of ``repro/data/federated.py`` that ``launch/train.py`` calls)."""
+"""Heterogeneous client partitioning (the paper's §6.1 protocol) and the
+systems-heterogeneity models of the training CLI: numpy copies of
+``repro/data/federated.py``, byte-identical for a seed.
+
+Statistical heterogeneity: the main-class fraction partitioner (client m's
+"main" class is m % n_classes; ``main_frac`` of its samples come from it,
+the rest evenly from the other classes), the label-Dirichlet(α) partitioner
+and an iid partitioner for the identical-data regime of Theorem 1. The
+reference's ``labeled_mask`` (client objectives) and
+``local_steps_from_times`` / ``sample_local_steps`` (per-client H_m) are
+not ported yet.
+"""
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 
@@ -45,3 +57,136 @@ def simulated_round_time(step_times: np.ndarray, local_steps, *,
     if barrier == "async":
         return slowest / max(int(buffer_rounds), 1)
     raise ValueError(f"barrier {barrier!r}; expected 'sync' or 'async'")
+
+
+def main_class_partition(labels: np.ndarray, n_clients: int, main_frac: float,
+                         seed: int = 0):
+    """Paper protocol. Client m's "main" class = m % n_classes; main_frac of
+    its samples come from that class, the rest drawn evenly from the others.
+
+    Returns list of index arrays (one per client, equal sizes). The realized
+    main fraction can fall below ``main_frac`` when a main-class pool runs
+    dry; that shortfall is reported with a ``UserWarning`` (see
+    ``realized_main_fraction``).
+    """
+    rng = np.random.default_rng(seed)
+    classes = np.unique(labels)
+    n_classes = len(classes)
+    per_client = len(labels) // n_clients
+    n_main = int(round(per_client * main_frac))
+
+    by_class = {c: rng.permutation(np.where(labels == c)[0]).tolist()
+                for c in classes}
+    out = []
+    dry = []
+    for m in range(n_clients):
+        main_c = classes[m % n_classes]
+        take = []
+        pool = by_class[main_c]
+        k = min(n_main, len(pool))
+        if k < n_main:
+            dry.append((m, int(main_c), n_main - k))
+        take += pool[:k]
+        by_class[main_c] = pool[k:]
+        # fill the remainder evenly from other classes
+        others = [c for c in classes if c != main_c]
+        need = per_client - len(take)
+        for i, c in enumerate(others):
+            share = need // len(others) + (1 if i < need % len(others) else 0)
+            pool = by_class[c]
+            k = min(share, len(pool))
+            take += pool[:k]
+            by_class[c] = pool[k:]
+        # top up from whatever is left if classes ran dry
+        if len(take) < per_client:
+            leftovers = [i for c in classes for i in by_class[c]]
+            rng.shuffle(leftovers)
+            extra = leftovers[: per_client - len(take)]
+            take += extra
+            used = set(extra)
+            for c in classes:
+                by_class[c] = [i for i in by_class[c] if i not in used]
+        out.append(np.array(take[:per_client]))
+    if dry:
+        worst = min(1.0 - s / n_main for _, _, s in dry) if n_main else 1.0
+        warnings.warn(
+            f"main_class_partition: main-class pool ran dry for "
+            f"{len(dry)}/{n_clients} clients (first: client {dry[0][0]}, "
+            f"class {dry[0][1]}, short {dry[0][2]} samples); realized main "
+            f"fraction drops to {worst * main_frac:.3f} < {main_frac} for "
+            f"the worst client. See realized_main_fraction().",
+            UserWarning, stacklevel=2)
+    return out
+
+
+def realized_main_fraction(labels: np.ndarray, parts) -> np.ndarray:
+    """Per-client fraction of samples actually in the client's main class
+    (main class of client m = classes[m % n_classes])."""
+    classes = np.unique(labels)
+    fr = []
+    for m, idx in enumerate(parts):
+        main_c = classes[m % len(classes)]
+        fr.append((labels[idx] == main_c).mean() if len(idx) else 0.0)
+    return np.asarray(fr, dtype=np.float64)
+
+
+def _largest_remainder(raw: np.ndarray, total: int) -> np.ndarray:
+    """Integer quotas summing to ``total`` that minimize |quota - raw|:
+    floor everything, then hand the shortfall to the largest fractional
+    remainders (deterministic stable order)."""
+    quota = np.floor(raw).astype(np.int64)
+    short = int(total - quota.sum())
+    if short > 0:
+        order = np.argsort(-(raw - quota), kind="stable")
+        quota[order[:short]] += 1
+    return quota
+
+
+def dirichlet_partition(labels: np.ndarray, n_clients: int, alpha: float,
+                        seed: int = 0):
+    """Label-Dirichlet federated split (equal client sizes); per-client class
+    quotas by largest-remainder rounding of the Dirichlet proportions, a
+    uniform backfill only for class pools that run dry."""
+    rng = np.random.default_rng(seed)
+    classes = np.unique(labels)
+    per_client = len(labels) // n_clients
+    props = rng.dirichlet([alpha] * len(classes), size=n_clients)
+    by_class = {c: rng.permutation(np.where(labels == c)[0]).tolist()
+                for c in classes}
+    out = []
+    for m in range(n_clients):
+        take = []
+        quota = _largest_remainder(props[m] * per_client, per_client)
+        for c, q in zip(classes, quota):
+            pool = by_class[c]
+            k = min(q, len(pool))
+            take += pool[:k]
+            by_class[c] = pool[k:]
+        if len(take) < per_client:
+            leftovers = [i for c in classes for i in by_class[c]]
+            rng.shuffle(leftovers)
+            extra = leftovers[: per_client - len(take)]
+            used = set(extra)
+            take += extra
+            for c in classes:
+                by_class[c] = [i for i in by_class[c] if i not in used]
+        out.append(np.array(take[:per_client]))
+    return out
+
+
+def iid_partition(n: int, n_clients: int, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    idx = rng.permutation(n)
+    per = n // n_clients
+    return [idx[m * per:(m + 1) * per] for m in range(n_clients)]
+
+
+def heterogeneity_score(labels: np.ndarray, parts) -> float:
+    """Mean total-variation distance between client label dists and global."""
+    classes = np.unique(labels)
+    glob = np.array([(labels == c).mean() for c in classes])
+    tv = []
+    for idx in parts:
+        loc = np.array([(labels[idx] == c).mean() for c in classes])
+        tv.append(0.5 * np.abs(loc - glob).sum())
+    return float(np.mean(tv))

@@ -1,6 +1,64 @@
-"""Round batches for LM training (numpy copy of ``LMRoundLoader`` from
-``repro/data/loader.py``)."""
+"""Client-sharded round batches (numpy copies of ``repro/data/loader.py``;
+the same rng sequence, hence byte-identical batches).
+
+A round consumes a batch whose leaves are (M, H, b, ...): H local
+microbatches of size b for each of M clients. ``FederatedLoader`` wraps a
+dataset and a partition, ``QuadraticLoader`` draws the gradient noise of a
+``QuadraticProblem``, ``LMRoundLoader`` cuts token streams.
+"""
 from __future__ import annotations
+
+import numpy as np
+
+
+class FederatedLoader:
+    """Round batches from a dataset ``x``, ``y`` and a partition ``parts``
+    (one index array per client), each client's microbatches drawn with
+    replacement from its own indices. The reference's ``labeled`` mask
+    belongs to the semi-supervised objectives, which are not ported yet:
+    passing one raises ``NotImplementedError``."""
+
+    def __init__(self, x, y, parts, batch_size: int, seed: int = 0,
+                 labeled=None):
+        if labeled is not None:
+            raise NotImplementedError("not ported to repro_torch yet: "
+                                      "labeled masks (client objectives)")
+        self.x, self.y = x, y
+        self.parts = parts
+        self.b = batch_size
+        self.rng = np.random.default_rng(seed)
+
+    @property
+    def n_clients(self):
+        return len(self.parts)
+
+    def round_batch(self, H: int):
+        """{"x": (M, H, b, D), "y": (M, H, b)} numpy arrays."""
+        M, b = self.n_clients, self.b
+        xs = np.empty((M, H, b) + self.x.shape[1:], dtype=self.x.dtype)
+        ys = np.empty((M, H, b), dtype=self.y.dtype)
+        for m, idx in enumerate(self.parts):
+            pick = self.rng.choice(idx, size=(H, b), replace=True)
+            xs[m] = self.x[pick]
+            ys[m] = self.y[pick]
+        return {"x": xs, "y": ys}
+
+
+class QuadraticLoader:
+    """Noise-only 'batches' for ``QuadraticProblem``: each microbatch is a
+    noise vector z added to the gradient (Assumption 2 with variance σ²) and
+    the client id that picks f_m."""
+
+    def __init__(self, problem, seed: int = 0):
+        self.p = problem
+        self.rng = np.random.default_rng(seed)
+
+    def round_batch(self, H: int):
+        """{"z": (M, H, d) float32, "cid": (M, H) int32} numpy arrays."""
+        M, d = self.p.b.shape
+        z = self.rng.normal(size=(M, H, d)) * (self.p.sigma / np.sqrt(d))
+        cid = np.broadcast_to(np.arange(M, dtype=np.int32)[:, None], (M, H))
+        return {"z": z.astype(np.float32), "cid": np.ascontiguousarray(cid)}
 
 
 class LMRoundLoader:

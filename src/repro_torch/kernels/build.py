@@ -5,7 +5,7 @@ shared library with a plain C interface, in ``_build/`` beside this file (a
 directory git ignores). The library's name carries a hash of its source and
 flags, so an edited source is rebuilt and an unchanged one is reused. Nothing
 is built when a module is imported: only the first launch on a CUDA tensor
-asks for a library.
+asks for a library. That holds for every kernel, K1 to K7.
 """
 from __future__ import annotations
 

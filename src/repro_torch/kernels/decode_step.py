@@ -26,9 +26,10 @@ with the first index winning ties, without writing the (B, V) logits.
 * Replaces ``repro/kernels/decode_step.py::decode_sample``
   (``pl.pallas_call`` at decode_step.py:133).
 * Kernel: ``csrc/decode_sample.cu``: pass 1 reads each table row once for
-  all B rows of y (staged in shared memory) and writes one (best, id) pair
-  per block and row; pass 2 reduces the pairs, ordering candidates by
-  (value descending, id ascending). One wrapper call is one launch.
+  all B rows of y (staged in shared memory, in slices over d where all of
+  it does not fit: any d % 4 == 0) and writes one (best, id) pair per block
+  and row; pass 2 reduces the pairs, ordering candidates by (value
+  descending, id ascending). One wrapper call is one launch.
 * Bound on an H100: bytes. At the serve path's shape (B=8, v_real=151,936,
   d=896) the real table rows are 544.5 MB, ≥ 0.163 ms per decode step.
 
@@ -46,9 +47,10 @@ import functools
 import torch
 
 RMAX, OMAX_ELEMS, HEAD_MAX = 16, 1024, 128   # K5 limits (csrc constants)
-BMAX, D_MAX = 64, 2048                       # K6 limits
+BMAX, SLICE_MAX = 64, 2048                   # K6: rows of y, y floats a slice
 SMEM_MAX = 232_448                           # a block's shared memory (H100)
 _WARPS = 8                                   # K6 warps per block
+_SLICED_ROWS = 256                           # K6 rows a block, d in slices
 
 
 def _check(name, t, dtype, shape, device):
@@ -98,12 +100,9 @@ def check_sample_args(y, table, noise, v_real):
     if not 1 <= v_real <= V < 2 ** 31:
         raise ValueError(f"need 1 <= v_real <= V < 2^31 (v_real={v_real}, "
                          f"V={V})")
-    if not 1 <= B <= BMAX or d % 4 or not 4 <= d <= D_MAX:
-        raise ValueError(f"K6 takes 1 <= B <= {BMAX} and d % 4 == 0, "
-                         f"d <= {D_MAX}; got B={B}, d={d}")
-    if 4 * B * d + 8 * _WARPS * B > SMEM_MAX:
-        raise ValueError(f"y ({B}, {d}) does not fit in a block's shared "
-                         f"memory")
+    if not 1 <= B <= BMAX or d % 4 or d < 4:
+        raise ValueError(f"K6 takes 1 <= B <= {BMAX} and d % 4 == 0; got "
+                         f"B={B}, d={d}")
 
 
 @functools.cache
@@ -122,8 +121,8 @@ def _sample_lib():
     from repro_torch.kernels import build
     fn = build.load("decode_sample.cu").decode_sample_f32
     vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, cll, cll, cll, ci,
-                   ctypes.c_float, vp]
+    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, cll, cll, cll,
+                   ci, ctypes.c_float, vp]
     fn.restype = ci
     return fn
 
@@ -168,6 +167,25 @@ def sample_grid(v_real: int):
     return rows, -(-v_real // rows)
 
 
+def sample_plan(B: int, d: int, v_real: int):
+    """(rows per block, blocks, ds) of K6's first pass, ds the floats of y
+    staged in shared memory at a time. All of d in one pass where d <=
+    ``SLICE_MAX`` and y fits beside the warps' bests (the sum order of every
+    head measured so far); else slices of ds floats, a multiple of 128,
+    beside (rows, B) partial sums, with rows capped at ``_SLICED_ROWS``
+    (for B <= ``BMAX`` that leaves room for ds >= 512)."""
+    rows, nblocks = sample_grid(v_real)
+    fixed = 8 * _WARPS * B
+    if d <= SLICE_MAX and 4 * B * d + fixed <= SMEM_MAX:
+        return rows, nblocks, d
+    if rows > _SLICED_ROWS:
+        nblocks = -(-v_real // _SLICED_ROWS)
+        rows = -(-v_real // nblocks)
+        nblocks = -(-v_real // rows)
+    room = (SMEM_MAX - fixed - 4 * rows * B) // (4 * B)
+    return rows, nblocks, min(SLICE_MAX, room // 128 * 128)
+
+
 def decode_sample(y, table, noise, *, scale, v_real, return_best=False):
     """K6 on CUDA tensors: ``y`` (B, d) fp32, ``table`` (V, d) fp32,
     ``noise`` (B, V) fp32 -> token ids (B,) int32 (and the winning values
@@ -178,7 +196,7 @@ def decode_sample(y, table, noise, *, scale, v_real, return_best=False):
         raise ValueError("table must be 16-byte aligned (float4 loads)")
     B, d = y.shape
     V = table.shape[0]
-    rows, nblocks = sample_grid(v_real)
+    rows, nblocks, ds = sample_plan(B, d, v_real)
     part_val = torch.empty((nblocks, B), dtype=torch.float32,
                            device=y.device)
     part_arg = torch.empty((nblocks, B), dtype=torch.int32, device=y.device)
@@ -188,8 +206,8 @@ def decode_sample(y, table, noise, *, scale, v_real, return_best=False):
         stream = torch.cuda.current_stream(y.device).cuda_stream
         err = _sample_lib()(y.data_ptr(), table.data_ptr(), noise.data_ptr(),
                             part_val.data_ptr(), part_arg.data_ptr(),
-                            ids.data_ptr(), best.data_ptr(), B, d, V, v_real,
-                            rows, nblocks, float(scale), stream)
+                            ids.data_ptr(), best.data_ptr(), B, d, ds, V,
+                            v_real, rows, nblocks, float(scale), stream)
     if err != 0:
         raise RuntimeError(f"decode_sample_f32 launch failed: CUDA error "
                            f"{err}")

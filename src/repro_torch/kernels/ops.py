@@ -8,12 +8,48 @@ other.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import decode_step as _ds
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import quantize_update as _qu
 from repro_torch.kernels import ref
 from repro_torch.kernels import scaled_update as _su
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.utils.tree import tree_leaves, tree_unflatten
+
+
+def scaled_update(p, m, g, d, *, gamma, beta1, alpha, squared=True):
+    """The per-leaf scaled step on tensors of any shape (one number of
+    elements): flattened, run in fp32 on K2 (CUDA) or its plain version
+    (CPU), and returned as ``(p', m')`` in the shape and dtypes of ``p`` and
+    ``m``."""
+    shape = p.shape
+    flat = lambda x: x.reshape(-1).to(torch.float32).contiguous()
+    args = (flat(p), flat(m), flat(g), flat(d))
+    kw = dict(gamma=float(gamma), beta1=float(beta1), alpha=float(alpha),
+              squared=squared)
+    if p.device.type == "cuda":
+        po, mo = _su.scaled_update_flat(*args, **kw)
+    elif p.device.type == "cpu":
+        _su.check_flat_args(*args)
+        po, mo = ref.scaled_update_ref(*args, **kw)
+    else:
+        raise ValueError(f"no scaled_update for device {p.device}")
+    return po.reshape(shape).to(p.dtype), mo.reshape(shape).to(m.dtype)
+
+
+def scaled_update_tree(params, mom, d_tree, gamma, alpha, squared=True):
+    """p' = p − (γ·m)/D̂ for every leaf, the momentum ``mom`` already
+    carrying β₁ (the pre-refactor SAVIC round's fused update): each leaf is
+    one ``scaled_update`` with zeros in the momentum slot, β₁ = 0 and the
+    momentum passed as g, as the reference calls it. Returns the new params
+    tree."""
+    news = [scaled_update(p, torch.zeros_like(m), m, d, gamma=gamma,
+                          beta1=0.0, alpha=alpha, squared=squared)[0]
+            for p, m, d in zip(tree_leaves(params), tree_leaves(mom),
+                               tree_leaves(d_tree))]
+    return tree_unflatten(params, news)
 
 
 def fused_local_step(p, m, g, d=None, h=None, t=None, s=None, *, gamma, beta1,

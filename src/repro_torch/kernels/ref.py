@@ -8,6 +8,22 @@ import torch
 from repro_torch.core import preconditioner as PC
 
 
+def scaled_update_ref(p, m, g, d, *, gamma, beta1, alpha, squared=True):
+    """The legacy per-leaf scaled step on fp32 tensors of one shape:
+
+        m' = β₁m + g;  D̂ = max(α, √d) (|d| when not ``squared``);
+        p' = p − (γ·m')/D̂
+
+    in the reference's order of fp32 operations (``gamma * m / dhat`` is
+    (γ·m')/D̂). β₁m and + g are separate roundings, never one FMA, and the
+    max passes a NaN through, as ``jnp.maximum`` does. Returns ``(p', m')``.
+    The plain version of kernel K2."""
+    m_new = torch.mul(m, beta1).add_(g)
+    mag = torch.sqrt(d) if squared else torch.abs(d)
+    dhat = torch.clamp(mag, min=alpha)
+    return p - torch.mul(m_new, gamma).div_(dhat), m_new
+
+
 def fused_step_math(p, m, g, d, h, t, s, *, gamma, beta1, weight_decay,
                     alpha, beta2, kind, clip, schedule, update_d):
     """One generic-scaling local step, the paper's unified Assumption-4 rule.

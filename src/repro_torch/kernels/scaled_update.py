@@ -1,4 +1,4 @@
-"""Fused local-step kernel K1 (counterpart of
+"""Scaled-step kernels K1 and K2 (counterpart of
 ``repro/kernels/scaled_update.py``).
 
 ``fused_step_flat`` is the whole generic-scaling local step of the paper's
@@ -17,10 +17,26 @@ step, for every ``PrecondConfig`` kind including identity.
 * Bound on an H100 (3.35 TB/s): bandwidth. Global D without an update moves
   (5·M·n + n)·4 bytes (41.6 GB at M=4 on full-width qwen2-0.5b, ≥ 12.4 ms);
   local D with an update moves 7·M·n·4 bytes (55.5 GB, ≥ 16.6 ms).
-* The legacy per-leaf ``scaled_update_flat`` (K2) is not ported yet.
 
 The kernel writes p', m' (and d' with ``update_d``) IN PLACE over ``p``,
 ``m`` and ``d``, which saves three (M, n) buffers (~24 GB at full width).
+
+``scaled_update_flat`` (K2) is the legacy per-leaf step on one flat fp32
+array, D̂ fixed and the clip "max" rule:
+
+    m' = β₁m + g;  D̂ = max(α, √d) (|d| when not squared);  p' = p − (γ·m')/D̂
+
+* Replaces the TPU kernel ``repro/kernels/scaled_update.py::
+  scaled_update_flat`` (``pl.pallas_call`` at scaled_update.py:103). It backs
+  ``ops.scaled_update`` and ``ops.scaled_update_tree``, the per-leaf step of
+  the pre-refactor SAVIC round.
+* Kernel: ``csrc/scaled_update.cu``, built and bound as K1's. It writes new
+  (p', m') tensors, as the TPU kernel does, and masks its tail where the TPU
+  kernel padded.
+* Plain version: ``kernels/ref.py::scaled_update_ref``, which the kernel
+  matches bitwise.
+* Bound on an H100 (3.35 TB/s): bandwidth, 24 bytes an element (read p, m,
+  g, d; write p', m'): 25.2 MB at n = 2²⁰, ≥ 7.5 µs.
 """
 from __future__ import annotations
 
@@ -137,3 +153,58 @@ def fused_step_flat(p, m, g, d=None, h=None, t=None, s=None, *, gamma, beta1,
 
 
 fused_step_flat.launches = 0   # kernel launches since the count was last reset
+
+
+def check_flat_args(p, m, g, d):
+    """K2's contract, shared with its plain version: four 1-D contiguous
+    fp32 tensors of one length n >= 1 on one device; raises ValueError."""
+    if p.dim() != 1 or p.numel() < 1:
+        raise ValueError(f"p must be (n,) with n >= 1, got {tuple(p.shape)}")
+    for name, x in (("p", p), ("m", m), ("g", g), ("d", d)):
+        if x.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {x.dtype}")
+        if x.device != p.device:
+            raise ValueError(f"{name} is on {x.device}, p on {p.device}")
+        if tuple(x.shape) != tuple(p.shape):
+            raise ValueError(f"{name} must be {tuple(p.shape)}, got "
+                             f"{tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+@functools.cache
+def _flat_lib():
+    """K2's C entry point, built, loaded and bound once."""
+    from repro_torch.kernels import build
+    fn = build.load("scaled_update.cu").scaled_update_f32
+    vp = ctypes.c_void_p
+    fn.argtypes = [vp, vp, vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_float,
+                   ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                   vp]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def scaled_update_flat(p, m, g, d, *, gamma, beta1, alpha, squared=True):
+    """K2 on CUDA tensors: ``p``, ``m``, ``g``, ``d`` (n,) fp32 ->
+    ``(p', m')``, new (n,) fp32 tensors."""
+    check_flat_args(p, m, g, d)
+    if p.device.type != "cuda":
+        raise ValueError(f"scaled_update_flat launches on CUDA tensors; got "
+                         f"{p.device} (ops.scaled_update routes CPU tensors "
+                         f"to the plain version)")
+    p_out, m_out = torch.empty_like(p), torch.empty_like(m)
+    ptrs = [x.data_ptr() for x in (p, m, g, d, p_out, m_out)]
+    vec4 = int(all(q % 16 == 0 for q in ptrs))
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        err = _flat_lib()(*ptrs, p.numel(), float(gamma), float(beta1),
+                          float(alpha), int(squared), vec4, stream)
+    if err != 0:
+        raise RuntimeError(f"scaled_update_f32 launch failed: CUDA error "
+                           f"{err}")
+    scaled_update_flat.launches += 1
+    return p_out, m_out
+
+
+scaled_update_flat.launches = 0  # kernel launches since the count was reset

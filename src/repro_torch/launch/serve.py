@@ -360,6 +360,8 @@ def serve_continuous(arch: str, *, reduced=True, slots=4, n_requests=8,
                 active[b], rid_of[b], remaining[b] = True, r, gens[r] - 1
 
             if not active.any():
+                if next_req >= n_requests:
+                    break          # the last request finished at admission
                 # ring empty: jump the clock to the next arrival
                 clock = max(clock + 1, int(arrivals[next_req]))
                 continue

@@ -45,12 +45,23 @@ def _init_block(gen, cfg: ModelConfig):
 
 
 def init_stack(gen, cfg: ModelConfig):
-    """All stack params: per-block leaves stacked with a leading L dim."""
+    """All stack params: per-block leaves stacked with a leading L dim.
+
+    The (L, ...) leaves are allocated once and block i is initialised into
+    slice i, in layer order (the draw order of one block after another), so
+    at most one block lives beside the stack."""
     if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(f"model family {cfg.family!r} is not "
                                   f"ported yet")
-    blocks = [_init_block(gen, cfg) for _ in range(cfg.n_layers)]
-    return {"stack": tree_map(lambda *xs: torch.stack(xs), *blocks)}
+    stack = None
+    for i in range(cfg.n_layers):
+        block = _init_block(gen, cfg)
+        if stack is None:
+            stack = tree_map(lambda x: x.new_empty((cfg.n_layers,)
+                                                   + tuple(x.shape)), block)
+        tree_map(lambda s, x: s[i].copy_(x), stack, block)
+        del block
+    return {"stack": stack}
 
 
 def layer_windows(cfg: ModelConfig, n_layers: int, force_window: int = 0):

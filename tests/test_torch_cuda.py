@@ -5,9 +5,10 @@ The module imports only the port, so it runs on a machine without JAX:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-K1 (``fused_step_flat``) and K3 (``quantize_update_flat``) are held bitwise:
-kernel and plain version run the same fp32 operations in the same order, and
-the kernels are built without FMA contraction (K3's int8 q exactly). K5
+K1 (``fused_step_flat``), K2 (``scaled_update_flat``) and K3
+(``quantize_update_flat``) are held bitwise: kernel and plain version run the
+same fp32 operations in the same order, and the kernels are built without FMA
+contraction (K3's int8 q exactly). K5
 (``decode_attention``), K6 (``decode_sample``), K4 (``flash_attention``) and
 K7 (``ssd_intra_chunk``) sum in another order than their plain versions: K5
 is held to 1e-5 of max|v| in absolute error, K4 to 2e-5 of max|v| in fp32
@@ -476,3 +477,120 @@ def test_k7_launches_through_serve(dev):
     assert ssd.ssd_intra_chunk.launches == 2
     assert ds.decode_sample.launches == 3
     assert res.tokens.shape == (2, 4) and int(res.tokens.max()) < 512
+
+
+def _k2_inputs(n, dev, seed=0, alpha=1e-2):
+    """p, m, g ~ N(0, 1); d = |N(0, 1)| with every fifth element 0 and every
+    seventh under α² (the clip is hit)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p, m, g = (torch.randn(n, generator=gen, device=dev) for _ in range(3))
+    d = torch.randn(n, generator=gen, device=dev).abs_()
+    d[::5] = 0.0
+    d[1::7] = 0.25 * alpha ** 2
+    return p, m, g, d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha", [1e-3, 1e-2])
+@pytest.mark.parametrize("beta1", [0.0, 0.9])
+@pytest.mark.parametrize("squared", [True, False])
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 127, 128, 129, 1 << 20,
+                               (1 << 20) + 3])
+def test_k2_bitwise_vs_plain(dev, n, squared, beta1, alpha):
+    """Every residue of n mod 4 (float4 path with a masked tail on aligned
+    tensors), both magnitudes, both β₁, two α floors: bitwise."""
+    x = _k2_inputs(n, dev, seed=n, alpha=alpha)
+    kw = dict(gamma=0.05, beta1=beta1, alpha=alpha, squared=squared)
+    want = ref.scaled_update_ref(*x, **kw)
+    before = su.scaled_update_flat.launches
+    got = ops.scaled_update(*x, **kw)
+    torch.cuda.synchronize()
+    assert su.scaled_update_flat.launches == before + 1
+    for w, g in zip(want, got):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4096, 4099])
+def test_k2_scalar_path_on_misaligned_views(dev, n):
+    """Views one float into a buffer are not 16-byte aligned: the scalar
+    path, bitwise; NaN from a negative d under √ passes through."""
+    x = list(_k2_inputs(n, dev, seed=1))
+    x[3][:3] = -1.0
+    views = []
+    for t in x:
+        buf = torch.empty(n + 1, device=dev)
+        buf[1:] = t
+        views.append(buf[1:])
+    kw = dict(gamma=0.05, beta1=0.9, alpha=1e-2)
+    want = ref.scaled_update_ref(*views, **kw)
+    got = su.scaled_update_flat(*views, **kw)
+    assert bool(torch.isnan(got[0][:3]).all())
+    for w, g in zip(want, got):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_k2_tree_launches_once_per_leaf(dev):
+    """``scaled_update_tree`` on the Fig. 1 MLP tree with a client dim: one
+    K2 launch per leaf, each leaf bitwise its plain step."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shapes = {"w1": (10, 192, 128), "b1": (10, 128), "w2": (10, 128, 10),
+              "b2": (10, 10)}
+    mk = lambda: {k: torch.randn(s, generator=gen, device=dev)
+                  for k, s in shapes.items()}
+    params, mom, d = mk(), mk(), {k: v.abs() for k, v in mk().items()}
+    before = su.scaled_update_flat.launches
+    got = ops.scaled_update_tree(params, mom, d, 0.002, 1e-2)
+    torch.cuda.synchronize()
+    assert su.scaled_update_flat.launches == before + 4
+    for k in shapes:
+        want = ref.scaled_update_ref(
+            params[k].reshape(-1), torch.zeros_like(mom[k]).reshape(-1),
+            mom[k].reshape(-1), d[k].reshape(-1), gamma=0.002, beta1=0.0,
+            alpha=1e-2)[0]
+        assert torch.equal(got[k].reshape(-1), want), k
+
+
+@pytest.mark.cuda
+def test_k2_rejects_mixed_devices(dev):
+    p, m, g, d = _k2_inputs(64, dev)
+    with pytest.raises(ValueError, match="g is on"):
+        su.scaled_update_flat(p, m, g.cpu(), d, gamma=0.1, beta1=0.9,
+                              alpha=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("greedy", [True, False])
+@pytest.mark.parametrize("B", [1, 4, 8])
+@pytest.mark.parametrize("V,v_real,d", [(32768, 32000, 2560),
+                                        (16384, 16000, 8192)])
+def test_k6_wide_heads_vs_plain(dev, V, v_real, d, B, greedy):
+    """d > 2048 (zamba2, gemma3, qwen3 at 2560; deepseek-67b at 8192): y is
+    staged in slices over d; ids under the near-tie rule."""
+    y, table, noise = _k6_inputs(B, V, d, dev, greedy)
+    scale = d ** -0.5
+    assert ds.sample_plan(B, d, v_real)[2] < d
+    logits = ref.decode_sample_logits(y, table, noise, scale=scale,
+                                      v_real=v_real)
+    want = ref.decode_sample_ref(y, table, noise, scale=scale, v_real=v_real)
+    got = ops.decode_sample(y, table, noise, scale=scale, v_real=v_real)
+    torch.cuda.synchronize()
+    ties, bad = ref.near_tie_check(logits, got, want, v_real)
+    assert bad == 0 and ties <= 1, (ties, bad)
+
+
+@pytest.mark.cuda
+def test_fig1_short_run_on_cuda(dev):
+    """Two Fig. 1 rounds of Adam (global) on the fused loop: K1 once a local
+    step, finite losses, the tree loop within 1e-5."""
+    from repro_torch.launch import paper
+    su.fused_step_flat.launches = 0
+    fused = paper.fig1_run(0.5, "Adam global", device="cuda", rounds=2,
+                           use_fused_kernel=True)
+    assert su.fused_step_flat.launches == 2 * paper.FIG1["h_local"]
+    tree = paper.fig1_run(0.5, "Adam global", device="cuda", rounds=2)
+    for f, t in zip(fused, tree):
+        loss = f["metrics"]["loss"]
+        assert loss == loss and abs(loss) < float("inf")
+        assert abs(loss - t["metrics"]["loss"]) <= 1e-5 * abs(loss)
