@@ -93,6 +93,8 @@ OASIS_HALF = ["--preconditioner", "oasis", "--participation", "0.5"]
 # serving: batch 8, prompt 512, 64 tokens (63 decode steps) at full width
 SERVE = dict(batch=8, prompt_len=512, gen_len=64)
 K5_MAIN = (8, 576, 2, 7, 64)       # B, C, Hk, rep, D of the decode steps
+K5_PER_CALL = 2                    # K5 launches a call: partials, then merge
+K5_MAIN_SPLITS = (32, 64, 96)      # split lengths timed beside the plan's
 V_PAD, V_REAL, D_MODEL = 153_600, 151_936, 896
 TRACE = dict(slots=8, n_requests=16, prompt_len=256, gen_len=64,
              arrival_rate=0.5, seed=0)
@@ -100,6 +102,7 @@ TRACE = dict(slots=8, n_requests=16, prompt_len=256, gen_len=64,
 LONG = dict(batch=2, prompt_len=8192, gen_len=32)
 K4_MAIN = (2, 8192, 14, 2, 64)     # B, S, H, Hk, D of the prefill's K4
 K5_LONG = (2, 8224, 2, 7, 64)      # B, C, Hk, rep, D of its decode steps
+K5_LONG_SPLITS = (64, 96, 128, 160)
 # K4 against its plain version: (B, S, H, Hk, D, window, softcap, dtype)
 K4_CASES = [(*K4_MAIN, 0, 0.0, torch.float32),
             (2, 2048, 8, 1, 64, 0, 0.0, torch.float32),        # MQA
@@ -110,7 +113,13 @@ K4_CASES = [(*K4_MAIN, 0, 0.0, torch.float32),
             (2, 2048, 14, 2, 64, 0, 30.0, torch.float32),
             (*K4_MAIN, 0, 0.0, torch.bfloat16),
             (2, 1, 14, 2, 64, 0, 0.0, torch.float32),
-            (2, 1000, 14, 2, 64, 0, 0.0, torch.float32)]
+            (2, 1000, 14, 2, 64, 0, 0.0, torch.float32),
+            # S not a multiple of the 64-row tile, with D 32 / 128, a
+            # window and softcap, and bf16
+            (2, 8191, 14, 2, 64, 0, 0.0, torch.float32),
+            (1, 2049, 14, 2, 128, 300, 30.0, torch.float32),
+            (1, 1025, 14, 2, 32, 0, 0.0, torch.float32),
+            (1, 4097, 14, 2, 64, 0, 0.0, torch.bfloat16)]
 # mamba2-1.3b serving: batch 4, prompt 2048, 64 tokens (63 decode steps)
 MAMBA = dict(batch=4, prompt_len=2048, gen_len=64)
 K7_MAIN = (4, 2048, 64, 64, 128, 256)   # B, S, H, P, N, Q of the prefill's K7
@@ -200,6 +209,27 @@ def cuda_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls=50, replays=20):
+    """Device time of one ``fn()`` call: ``calls`` calls captured in one
+    CUDA graph, replayed ``replays`` times between CUDA events. It leaves
+    out the host's time to issue each call (Python, allocation, launch),
+    which back-to-back ``cuda_ms`` timing counts where a call's device work
+    is shorter than its host work."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = cuda_ms(graph.replay, replays) / calls
+    del graph
+    return ms
 
 
 def k3_bytes(M, n):
@@ -717,10 +747,13 @@ def k5_inputs(B, C, Hk, rep, D, gen, one_valid=False):
     return q, k, v, torch.where(ok, 0.0, -1e30).float().contiguous()
 
 
-def k5_case(B, C, Hk, rep, D, cap, gen, one_valid=False):
+def k5_case(B, C, Hk, rep, D, cap, gen, one_valid=False, at=None):
     """(max abs error, its bound 1e-5·max|v|) of K5 against its plain
-    version."""
+    version. ``at``: every position but ``at`` masked in every row."""
     q, k, v, bias = k5_inputs(B, C, Hk, rep, D, gen, one_valid)
+    if at is not None:
+        bias.fill_(-1e30)
+        bias[:, at] = 0.0
     want = ref.decode_attention_ref(q, k, v, bias, softcap=cap)
     got = ds.decode_attention(q, k, v, bias, softcap=cap)
     torch.cuda.synchronize()
@@ -788,15 +821,17 @@ def k6_bytes(B, v_real=V_REAL, d=D_MODEL):
     return 4 * (v_real * d + B * v_real + B * d + B)
 
 
-def time_k5(shape, gen):
+def time_k5(shape, gen, splits=()):
     """K5 at ``shape`` (B, C, Hk, rep, D): CUDA-event times of the kernel
-    wrapper, its plain version and SDPA (the bias as mask over fp32 k/v,
-    GQA), and its bound."""
+    wrapper (its two launches), its plain version and SDPA (the bias as
+    mask over fp32 k/v, GQA), each timed back to back as every kernel is
+    (``ms``: where a call's host work outlasts its device work, the host
+    sets it) and as device time (``device_ms``, ``graph_ms``); the
+    wrapper's two times with its plan swapped for each split length in
+    ``splits`` and the plan's own (``split_ms``: {split: (ms, device_ms)});
+    and its bound."""
     B, C, Hk, rep, D = shape
     q, k, v, bias = k5_inputs(B, C, Hk, rep, D, gen)
-    k5 = {"ms": cuda_ms(lambda: ds.decode_attention(q, k, v, bias), 200),
-          "plain_ms": cuda_ms(lambda: ref.decode_attention_ref(q, k, v,
-                                                               bias), 100)}
     q4 = q[:, :, None, :]
     kf = k.float().transpose(1, 2).contiguous()      # (B, Hk, C, D)
     vf = v.float().transpose(1, 2).contiguous()
@@ -805,8 +840,23 @@ def time_k5(shape, gen):
                                          enable_gqa=True)[:, :, 0]
     check(float((lib - ref.decode_attention_ref(q, k, v, bias)).abs().max())
           <= 1e-4, "SDPA does not compute K5's function")
-    k5["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q4, kf, vf, attn_mask=mask, enable_gqa=True), 200)
+    fns = {"": (lambda: ds.decode_attention(q, k, v, bias), 200),
+           "plain_": (lambda: ref.decode_attention_ref(q, k, v, bias), 100),
+           "library_": (lambda: F.scaled_dot_product_attention(
+               q4, kf, vf, attn_mask=mask, enable_gqa=True), 200)}
+    k5 = {}
+    for key, (fn, iters) in fns.items():
+        k5[key + "ms"] = cuda_ms(fn, iters)
+        k5[key + "device_ms"] = graph_ms(fn)
+    plan = ds.attention_plan
+    k5["plan"], k5["split_ms"] = plan(B, Hk, C)[0], {}
+    try:
+        for split in sorted({k5["plan"], *splits}):
+            ds.attention_plan = lambda B_, Hk_, C_, s=split: (s, -(-C_ // s))
+            k5["split_ms"][split] = (cuda_ms(fns[""][0], 200),
+                                     graph_ms(fns[""][0]))
+    finally:
+        ds.attention_plan = plan
     k5["bytes"] = k5_bytes(B, C, Hk, rep, D)
     k5["bound_ms"] = k5["bytes"] / HBM_BYTES_PER_S * 1e3
     del q, k, v, bias, kf, vf, lib
@@ -1049,7 +1099,8 @@ def serve_main_path():
           f"tokens {res.tokens.shape}")
     check(0 <= int(res.tokens.min()) and int(res.tokens.max()) < V_REAL,
           "an id outside the real vocabulary")
-    check(k5 == 24 * steps, f"K5 launched {k5} times, expected {24 * steps}")
+    check(k5 == K5_PER_CALL * 24 * steps,
+          f"K5 launched {k5} times, expected {K5_PER_CALL * 24 * steps}")
     check(k6 == steps, f"K6 launched {k6} times, expected {steps}")
     return res, k5, k6, peak
 
@@ -1113,7 +1164,8 @@ def continuous_path(cfg, params):
                                       TRACE["gen_len"])
     check([len(res.tokens[r]) for r in range(TRACE["n_requests"])]
           == [int(g) for g in gens], "a request got the wrong token count")
-    check(k5 == 24 * m["decode_steps"] and k6 == m["decode_steps"],
+    check(k5 == K5_PER_CALL * 24 * m["decode_steps"]
+          and k6 == m["decode_steps"],
           f"launches K5 {k5}, K6 {k6} for {m['decode_steps']} steps")
     S, G = TRACE["prompt_len"], TRACE["gen_len"]
     kern = build_model(cfg, ModelCallConfig(dtype=torch.float32,
@@ -1168,7 +1220,8 @@ def long_serve_path():
     check(0 <= int(res.tokens.min()) and int(res.tokens.max()) < V_REAL,
           "an id outside the real vocabulary")
     check(k4 == 24, f"K4 launched {k4} times, expected 24")
-    check(k5 == 24 * steps, f"K5 launched {k5} times, expected {24 * steps}")
+    check(k5 == K5_PER_CALL * 24 * steps,
+          f"K5 launched {k5} times, expected {K5_PER_CALL * 24 * steps}")
     check(k6 == steps, f"K6 launched {k6} times, expected {steps}")
     return res, k4, k5, k6, peak
 
@@ -1501,6 +1554,21 @@ def fused_vs_tree(name, rounds=1, flips=False, **method_kw):
     return worst, n_flips
 
 
+def ptxas_summary(log):
+    """One line per kernel of a ``-Xptxas -v`` log: its (mangled) name,
+    registers, spill stores and loads, shared memory."""
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name, spill = line.split("'")[1], ""
+        elif "spill stores" in line and name:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+            name = None
+    return out
+
+
 def build_all():
     """One nvcc per kernel source, all started together."""
     t0 = time.perf_counter()
@@ -1514,6 +1582,10 @@ def build_all():
         info = build.BUILD_LOG.get(src, {"seconds": 0.0, "ptxas": "(cached)"})
         print(f"[chip_smoke] {src}: nvcc {info['seconds']:.2f} s\n"
               f"{info['ptxas']}", flush=True)
+    for src in ("decode_attention.cu", "flash_attention.cu"):
+        for line in ptxas_summary(build.BUILD_LOG.get(src, {}).get("ptxas",
+                                                                  "")):
+            print(f"[chip_smoke] ptxas {src}: {line}", flush=True)
     print(f"[chip_smoke] built K1, K2, K3, K4, K5, K6 and K7 in "
           f"{time.perf_counter() - t0:.2f} s",
           flush=True)
@@ -1708,16 +1780,43 @@ def main():
     # ---- 8. K5 and K6 against their plain versions ------------------------
     k5_err = 0.0
     B, C, Hk, rep, D = K5_MAIN
-    k5_cases = [(C_, cap, False) for C_ in (C, 1, 31, 8192, 32768)
+    k5_cases = [(B, C_, Hk, rep, D, cap, False)
+                for C_ in (C, 1, 31, 127, 128, 129, 8192, 32768)
                 for cap in (0.0, 30.0)]
-    k5_cases += [(C, 0.0, True), (8192, 30.0, True)]
-    for C_, cap, one in k5_cases:
-        err, bound = k5_case(B, C_, Hk, rep, D, cap, gen, one)
+    k5_cases += [(*K5_LONG[:4], D, cap, False) for cap in (0.0, 30.0)]
+    k5_cases += [(B, C, Hk, rep, D, 0.0, True), (B, 8192, Hk, rep, D, 30.0,
+                                                 True),
+                 (1, 4099, 1, rep, D, 0.0, False),     # B·Hk = 1
+                 (1, 32768, 1, rep, D, 30.0, True),
+                 (2, 8224, Hk, rep, 36, 0.0, False),   # scalar loads
+                 (2, 300, Hk, 16, D, 30.0, False)]     # rep = RMAX
+    for B_, C_, Hk_, rep_, D_, cap, one in k5_cases:
+        err, bound = k5_case(B_, C_, Hk_, rep_, D_, cap, gen, one)
         k5_err = max(k5_err, err)
-        print(f"[chip_smoke] K5 B={B} C={C_} Hk={Hk} rep={rep} D={D} "
-              f"softcap={cap}{' all but one masked' if one else ''}: max abs "
+        print(f"[chip_smoke] K5 B={B_} C={C_} Hk={Hk_} rep={rep_} D={D_} "
+              f"softcap={cap} plan {ds.attention_plan(B_, Hk_, C_)}"
+              f"{' all but one masked' if one else ''}: max abs "
               f"{err:.3e} (bound {bound:.1e})", flush=True)
         check(err <= bound, "K5 differs from its plain version")
+    # one valid position, at the start, middle and end of every split (all
+    # other splits wholly masked), at both path shapes and around whole
+    # splits (C one short and one past)
+    for B_, C_, Hk_ in ((B, C, Hk), (*K5_LONG[:2], Hk), (B, 3 * 64 - 1, Hk),
+                        (B, 3 * 64 + 1, Hk)):
+        split, splits = ds.attention_plan(B_, Hk_, C_)
+        worst, least = 0.0, float("inf")     # largest error, smallest bound
+        for sp in range(splits):
+            for at in sorted({sp * split, min(C_ - 1, sp * split + split // 2),
+                              min(C_ - 1, (sp + 1) * split - 1)}):
+                err, bound = k5_case(B_, C_, Hk_, rep, D, 30.0 * (sp % 2),
+                                     gen, at=at)
+                check(err <= bound, f"K5 differs from its plain version with "
+                      f"one valid position at {at} (C={C_})")
+                worst, least = max(worst, err), min(least, bound)
+        k5_err = max(k5_err, worst)
+        print(f"[chip_smoke] K5 B={B_} C={C_}: one valid position at the "
+              f"start, middle and end of each of {splits} splits of {split}: "
+              f"max abs {worst:.3e} (smallest bound {least:.1e})", flush=True)
     torch.cuda.empty_cache()
     k6_ties, k6_err = 0, 0.0
     k6_cases = [(B_, greedy, None, False) for B_ in (1, 8, 32)
@@ -1849,14 +1948,25 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- 14. K4, K5, K6 and K7 timed at the serve paths' shapes ------------
-    k5t, k5lt, k6t = time_k5(K5_MAIN, gen), time_k5(K5_LONG, gen), \
-        time_k6(gen)
-    for label, t in (("K5", k5t), (f"K5 at C={K5_LONG[1]}", k5lt),
-                     ("K6", k6t)):
+    k5t, k5lt, k6t = (time_k5(K5_MAIN, gen, K5_MAIN_SPLITS),
+                      time_k5(K5_LONG, gen, K5_LONG_SPLITS), time_k6(gen))
+    for label, t in (("K5", k5t), (f"K5 at C={K5_LONG[1]}", k5lt)):
+        alts = ", ".join(f"{sp}{' (plan)' if sp == t['plan'] else ''}: "
+                         f"{a * 1e3:.2f} / {b * 1e3:.2f} us"
+                         for sp, (a, b) in t["split_ms"].items())
         print(f"[chip_smoke] {label} at the serve path's shape: "
-              f"{t['ms'] * 1e3:.2f} us/call, plain {t['plain_ms'] * 1e3:.2f} "
-              f"us, library {t['library_ms'] * 1e3:.2f} us, bound "
-              f"{t['bound_ms'] * 1e3:.3f} us ({t['bytes']} B)", flush=True)
+              f"{t['ms'] * 1e3:.2f} us/call back to back (2 launches), "
+              f"plain {t['plain_ms'] * 1e3:.2f} us, library "
+              f"{t['library_ms'] * 1e3:.2f} us; device time (CUDA graph of "
+              f"50 calls) {t['device_ms'] * 1e3:.2f} us, plain "
+              f"{t['plain_device_ms'] * 1e3:.2f} us, library "
+              f"{t['library_device_ms'] * 1e3:.2f} us; bound "
+              f"{t['bound_ms'] * 1e3:.3f} us ({t['bytes']} B); by split "
+              f"length, back to back / device: {alts}", flush=True)
+    print(f"[chip_smoke] K6 at the serve path's shape: "
+          f"{k6t['ms'] * 1e3:.2f} us/call, plain {k6t['plain_ms'] * 1e3:.2f} "
+          f"us, library {k6t['library_ms'] * 1e3:.2f} us, bound "
+          f"{k6t['bound_ms'] * 1e3:.3f} us ({k6t['bytes']} B)", flush=True)
     k6m = time_k6(gen, MAMBA["batch"], MAMBA_HEAD)
     print(f"[chip_smoke] K6 at mamba2's head (B={MAMBA['batch']}, "
           f"V={MAMBA_HEAD[0]}, v_real={MAMBA_HEAD[1]}, d={MAMBA_HEAD[2]}): "
@@ -1920,6 +2030,7 @@ def main():
         "launches": k5_launches, "max_abs_err": k5_err, "ms": k5t["ms"],
         "plain_ms": k5t["plain_ms"], "bound_ms": k5t["bound_ms"],
         "bound_by": "bytes", "library_ms": k5t["library_ms"],
+        "device_ms": k5t["device_ms"],
     }, {
         "name": "decode_sample", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_sample.cu",

@@ -2,10 +2,11 @@
 
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
 shared library with a plain C interface, in ``_build/`` beside this file (a
-directory git ignores). The library's name carries a hash of its source and
-flags, so an edited source is rebuilt and an unchanged one is reused. Nothing
-is built when a module is imported: only the first launch on a CUDA tensor
-asks for a library. That holds for every kernel, K1 to K7.
+directory git ignores). The library's name carries a hash of its source, the
+headers in ``csrc/`` and the flags, so an edited source is rebuilt and an
+unchanged one is reused. Nothing is built when a module is imported: only
+the first launch on a CUDA tensor asks for a library. That holds for every
+kernel, K1 to K7.
 """
 from __future__ import annotations
 
@@ -42,8 +43,14 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> str:
-    with open(os.path.join(CSRC, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path: its name hashes the source, the flags and every
+    header in ``csrc/`` (a header edit rebuilds the sources that may
+    include it)."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in [source] + sorted(n for n in os.listdir(CSRC)
+                                  if n.endswith(".cuh")):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            digest.update(f.read())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
 

@@ -22,8 +22,9 @@
 // kernel: running max m (from -1e30) and sum l per row, corr = exp(m_old -
 // m_new), l = l * corr + sum p, acc = acc * corr + p . v, out = acc /
 // max(l, 1e-30). Key tiles above the diagonal or wholly beyond the window
-// are skipped, not computed and masked. Thread t owns rows 4 * (t / 8) + i
-// (i < 4); the 8 threads of a row hold its score columns t % 8 + 8 j
+// are skipped, not computed and masked. Thread t owns rows t / 8 + 16 i
+// (i < 4; rows 16 apart, so the 4 row groups of a warp read q without bank
+// conflicts); the 8 threads of a row hold its score columns t % 8 + 8 j
 // (j < 8) and an eighth of its output columns, and reduce the row's max
 // and sum with shuffles. The 64 x 64 score tile stays in registers; the
 // weights go through shared memory (transposed) for the p . v product. The
@@ -34,6 +35,21 @@
 // first tile is all masked is rescaled by exp(-1e30 - m) = +0 once it meets
 // a real score, and every real row meets one (its own key) in its diagonal
 // tile.
+//
+// Pipeline (the Hopper redesign). fp32 inputs with 16-byte rows stream in
+// with cp.async: the next key tile loads into the second of two K buffers
+// while the current tile's scores and p . v run, and the value tile loads
+// while the next tile's scores run. The transposed weights reuse the
+// current K buffer once every thread has read it, so the shared memory is
+// Q + 2 K + V (68.6 KB at DP = 64) and three blocks (12 warps) fit on an
+// SM; __launch_bounds__(128, 3) holds the registers to 168 a thread (the
+// kernel before this pipeline took 255, and 2 blocks). The accumulator is
+// rescaled
+// before p . v adds into it, so no second (rows x columns) array of
+// partial sums is live. Masks are computed in 32-bit row - column offsets,
+// and only for tiles that reach the diagonal or the window's edge. bf16
+// inputs and views without 16-byte rows take the same
+// pipeline with synchronous loads (converted to fp32 on the way).
 //
 // The dots are chains of explicit fmaf in d (and in c for p . v), and the
 // row sums are butterfly shuffles, so the kernel sums in another order than
@@ -46,26 +62,31 @@
 // cost 4 * D = 256 flops each (the two dots), 240.5 GFLOP, >= 3.59 ms at the
 // 67 TFLOP/s of fp32 outside the tensor cores; q, k, v and out are 134 MB,
 // 0.04 ms at 3.35 TB/s. This kernel runs on the CUDA cores in fp32 (the
-// port keeps TF32 off); wgmma with 3xTF32 or bf16 operands, TMA staging and
-// warp specialisation are later work.
+// port keeps TF32 off); 3xTF32 on the tensor cores (mma/wgmma), which
+// changes both the bound and the tolerance argument, is its next step.
+#include <atomic>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "smem_once.cuh"
+
 namespace {
 
-constexpr int THREADS = 128;
 constexpr int BQ = 64;           // query rows per block
 constexpr int BK = 64;           // keys per tile
 constexpr int RPT = 4;           // query rows per thread
+constexpr int RSTEP = BQ / RPT;  // distance between a thread's rows
 constexpr int CG = 8;            // threads sharing a query row
+constexpr int THREADS = BQ / RPT * CG;
 constexpr int CPT = BK / CG;     // score columns per thread
 constexpr int PT = BQ + 4;       // pitch of the transposed weight tile
-constexpr int LPASS = 8;         // 16-byte loads in flight per thread
+constexpr int LPASS = 4;         // 16-byte loads in flight per thread
 constexpr float NEG = -1e30f;
 
 static_assert(THREADS / CG * RPT == BQ, "thread layout must cover BQ rows");
+static_assert(RPT == 4, "a thread's rows are one float4 of the weights");
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -90,6 +111,21 @@ __device__ __forceinline__ float group_sum(float x) {
   return x;
 }
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
 // Copy rows [row0, row0 + 64) of one head to dst[r * pitch + d] as fp32
 // (times qscale when SCALE), zeros past S and for d in [D, DP). vec: unit
 // d stride, 16-byte aligned rows and D a multiple of the 16-byte width, so
@@ -105,7 +141,7 @@ __device__ __forceinline__ void load_rows(float* dst, int pitch,
   constexpr int CH = DP / W;             // chunks per row
   constexpr int TOT = BQ * CH;
   if (vec) {
-#pragma unroll
+#pragma unroll 1
     for (int base = 0; base < TOT; base += LPASS * THREADS) {
       uint4 raw[LPASS];
 #pragma unroll
@@ -143,6 +179,24 @@ __device__ __forceinline__ void load_rows(float* dst, int pitch,
   }
 }
 
+// The same rows of an fp32 head with 16-byte rows (vec), by cp.async: the
+// copies complete at the next cp.async.wait_group that covers them.
+template <int DP>
+__device__ __forceinline__ void copy_rows_async(float* dst, int pitch,
+                                                const float* __restrict__ src,
+                                                int64_t rs, int64_t row0,
+                                                int64_t S, int D) {
+  constexpr int CH = DP / 4;
+  static_assert(BK * CH % THREADS == 0, "whole passes of the block");
+#pragma unroll
+  for (int j = 0; j < BK * CH / THREADS; ++j) {
+    const int i = threadIdx.x + j * THREADS;
+    const int r = i / CH, c = (i % CH) * 4;
+    const bool ok = row0 + r < S && c < D;
+    cp_async16(dst + r * pitch + c, ok ? src + (row0 + r) * rs + c : src, ok);
+  }
+}
+
 // Output column of a thread's j-th accumulator: groups of 4 consecutive
 // columns, the 8 threads of a row side by side, so that one float4 load of
 // v per group covers 128 contiguous bytes across them.
@@ -163,17 +217,28 @@ struct Args {
   int vec;
 };
 
+// floats of one K buffer: a key tile, or the transposed weights after it
+template <int DP>
+__host__ __device__ constexpr int kbuf_floats() {
+  return BK * ((DP + 4) > PT ? (DP + 4) : PT);
+}
+
+template <int DP>
+__host__ __device__ constexpr int min_blocks() {
+  return DP <= 64 ? 3 : 1;
+}
+
 template <typename T, int DP>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, min_blocks<DP>())
     flash_attention_kernel(const Args a) {
   constexpr int P = DP + 4;      // q/k tile pitch: 16-byte rows, odd banks
   constexpr int OPT = DP / CG;   // output columns per thread
+  constexpr int KB = kbuf_floats<DP>();
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* qs = smem;              // BQ x P, pre-scaled
-  float* ks = qs + BQ * P;       // BK x P
-  float* vs = ks + BK * P;       // BK x DP
-  float* pt = vs + BK * DP;      // BK x PT, weights transposed
+  float* kbuf = qs + BQ * P;     // 2 x KB: key tiles / weights transposed
+  float* vs = kbuf + 2 * KB;     // BK x DP
 
   const int t = threadIdx.x, cg = t % CG, rg = t / CG;
   const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
@@ -183,7 +248,43 @@ __global__ void __launch_bounds__(THREADS)
   const T* kb = static_cast<const T*>(a.k) + b * a.ks[0] + g * a.ks[2];
   const T* vb = static_cast<const T*>(a.v) + b * a.vs[0] + g * a.vs[2];
   const bool vec = a.vec != 0;
+  const bool async = sizeof(T) == 4 && vec;
 
+  auto stage_k = [&](int64_t k0, float* dst) {
+    if (async)
+      copy_rows_async<DP>(dst, P, reinterpret_cast<const float*>(kb),
+                          a.ks[1], k0, a.S, a.D);
+    else
+      load_rows<T, DP, false>(dst, P, kb, a.ks[1], a.ks[3], k0, a.S, a.D,
+                              1.0f, vec);
+  };
+  auto stage_v = [&](int64_t k0) {
+    if (async)
+      copy_rows_async<DP>(vs, DP, reinterpret_cast<const float*>(vb),
+                          a.vs[1], k0, a.S, a.D);
+    else
+      load_rows<T, DP, false>(vs, DP, vb, a.vs[1], a.vs[3], k0, a.S, a.D,
+                              1.0f, vec);
+  };
+
+  // the key tiles that hold an unmasked pair: from the first not wholly
+  // beyond the window (q0 - (k0 + BK - 1) < window) to the diagonal one
+  int64_t kt_begin = 0;
+  if (a.window > 0) {
+    const int64_t lo = q0 - a.window - BK + 2;
+    if (lo > 0) kt_begin = (lo + BK - 1) / BK;
+  }
+  const int64_t kt_end = q0 / BK + 1;  // BQ == BK: the diagonal tile
+
+  // cp.async groups, in order: K[kt_begin], V[kt_begin], then per tile
+  // K[kt + 1] after the tile's first barrier and V[kt + 1] at its end (an
+  // empty group where there is none), so "wait_group 1" always means "all
+  // but the newest group": the tile's K at the first wait, its V at the
+  // second
+  stage_k(kt_begin * BK, kbuf);
+  cp_commit();
+  stage_v(kt_begin * BK);
+  cp_commit();
   load_rows<T, DP, true>(qs, P, qb, a.qs[1], a.qs[3], q0, a.S, a.D,
                          a.qscale, vec);
 
@@ -196,16 +297,15 @@ __global__ void __launch_bounds__(THREADS)
     for (int j = 0; j < OPT; ++j) acc[i][j] = 0.0f;
   }
 
-  const int64_t last = q0 + BQ - 1;          // the tile's last row
-  for (int64_t k0 = 0; k0 <= last && k0 < a.S; k0 += BK) {
-    // wholly beyond the window: even (q0, k0 + BK - 1) is too far apart
-    if (a.window > 0 && q0 - (k0 + BK - 1) >= a.window) continue;
-    __syncthreads();  // the previous tile's readers are done
-    load_rows<T, DP, false>(ks, P, kb, a.ks[1], a.ks[3], k0, a.S, a.D, 1.0f,
-                            vec);
-    load_rows<T, DP, false>(vs, DP, vb, a.vs[1], a.vs[3], k0, a.S, a.D, 1.0f,
-                            vec);
-    __syncthreads();
+#pragma unroll 1
+  for (int64_t kt = kt_begin; kt < kt_end; ++kt) {
+    const int64_t k0 = kt * BK;
+    float* ks = kbuf + ((kt - kt_begin) & 1) * KB;
+    float* kn = kbuf + ((kt - kt_begin + 1) & 1) * KB;
+    cp_wait1();
+    __syncthreads();  // K[kt] (and q) landed; the last p . v is done
+    if (kt + 1 < kt_end) stage_k(k0 + BK, kn);
+    cp_commit();
 
     // scores: s[i][j] = q'[row i] . k[col j], one fmaf chain over d
     float s[RPT][CPT];
@@ -213,12 +313,13 @@ __global__ void __launch_bounds__(THREADS)
     for (int i = 0; i < RPT; ++i)
 #pragma unroll
       for (int j = 0; j < CPT; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
+#pragma unroll 1
     for (int d = 0; d < DP; d += 4) {
       float4 qv[RPT];
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(qs + (rg * RPT + i) * P + d);
+        qv[i] =
+            *reinterpret_cast<const float4*>(qs + (rg + RSTEP * i) * P + d);
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
         const float4 kv =
@@ -233,20 +334,22 @@ __global__ void __launch_bounds__(THREADS)
       }
     }
 
-    // softcap, mask, online softmax; the weights go to pt[col][row]
-    float corr[RPT];
+    // softcap, mask, online softmax; the accumulator is rescaled now. A
+    // tile wholly below the diagonal and inside the window needs no mask.
+    const bool whole = k0 + BK - 1 <= q0 &&
+                       (a.window <= 0 || q0 + BQ - 1 - k0 < (int64_t)a.window);
+    const int rel = (int)(q0 - k0);   // row - col = rel + (row, col) offsets
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
-      const int64_t row = q0 + rg * RPT + i;
+      const int ri = rel + rg + RSTEP * i;
       float mx = NEG;
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
-        const int64_t col = k0 + cg + CG * j;
+        const int dd = ri - (cg + CG * j);   // row - col
         float x = s[i][j];
         if (a.softcap > 0.0f)
           x = __fmul_rn(a.softcap, tanhf(__fdiv_rn(x, a.softcap)));
-        const bool ok =
-            col <= row && (a.window <= 0 || row - col < (int64_t)a.window);
+        const bool ok = whole || (dd >= 0 && (a.window <= 0 || dd < a.window));
         s[i][j] = ok ? x : NEG;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -257,23 +360,24 @@ __global__ void __launch_bounds__(THREADS)
         s[i][j] = expf(__fsub_rn(s[i][j], m_new));
         sum = __fadd_rn(sum, s[i][j]);
       }
-      corr[i] = expf(__fsub_rn(m[i], m_new));
-      l[i] = __fadd_rn(__fmul_rn(l[i], corr[i]), group_sum(sum));
+      const float corr = expf(__fsub_rn(m[i], m_new));
+      l[i] = __fadd_rn(__fmul_rn(l[i], corr), group_sum(sum));
       m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < OPT; ++j) acc[i][j] = __fmul_rn(acc[i][j], corr);
     }
+    __syncthreads();  // every thread is done reading K[kt]
+    // the weights, transposed, into K[kt]'s buffer: pt[col][4 * rg + i]
+    float* pt = ks;
 #pragma unroll
     for (int j = 0; j < CPT; ++j)
       *reinterpret_cast<float4*>(pt + (cg + CG * j) * PT + rg * RPT) =
           make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();
+    cp_wait1();
+    __syncthreads();  // V[kt] landed; the weights are visible
 
-    // acc = acc * corr + sum_c p[row][c] * v[c][col], one chain over c
+    // acc += sum_c p[row][c] * v[c][col], one chain over c
     const int n = (int)(a.S - k0 < BK ? a.S - k0 : BK);
-    float part[RPT][OPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < OPT; ++j) part[i][j] = 0.0f;
 #pragma unroll 4
     for (int c = 0; c < n; ++c) {
       const float4 p =
@@ -285,24 +389,22 @@ __global__ void __launch_bounds__(THREADS)
             *reinterpret_cast<const float4*>(vs + c * DP + out_col(cg, j));
 #pragma unroll
         for (int i = 0; i < RPT; ++i) {
-          part[i][j] = __fmaf_rn(pr[i], vv.x, part[i][j]);
-          part[i][j + 1] = __fmaf_rn(pr[i], vv.y, part[i][j + 1]);
-          part[i][j + 2] = __fmaf_rn(pr[i], vv.z, part[i][j + 2]);
-          part[i][j + 3] = __fmaf_rn(pr[i], vv.w, part[i][j + 3]);
+          acc[i][j] = __fmaf_rn(pr[i], vv.x, acc[i][j]);
+          acc[i][j + 1] = __fmaf_rn(pr[i], vv.y, acc[i][j + 1]);
+          acc[i][j + 2] = __fmaf_rn(pr[i], vv.z, acc[i][j + 2]);
+          acc[i][j + 3] = __fmaf_rn(pr[i], vv.w, acc[i][j + 3]);
         }
       }
     }
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < OPT; ++j)
-        acc[i][j] = __fadd_rn(__fmul_rn(acc[i][j], corr[i]), part[i][j]);
+    __syncthreads();  // every thread is done with V[kt] and the weights
+    if (kt + 1 < kt_end) stage_v(k0 + BK);
+    cp_commit();
   }
 
   T* ob = static_cast<T*>(a.o);
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
-    const int64_t row = q0 + rg * RPT + i;
+    const int64_t row = q0 + rg + RSTEP * i;
     if (row >= a.S) continue;
     const float den = fmaxf(l[i], 1e-30f);
     T* orow = ob + ((b * a.S + row) * a.H + h) * (int64_t)a.D;
@@ -316,17 +418,15 @@ __global__ void __launch_bounds__(THREADS)
 
 template <int DP>
 constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         ((size_t)BQ * (DP + 4) + (size_t)BK * (DP + 4) + (size_t)BK * DP +
-          (size_t)BK * PT);
+  return sizeof(float) * ((size_t)BQ * (DP + 4) +
+                          2 * (size_t)kbuf_floats<DP>() + (size_t)BK * DP);
 }
 
 template <typename T, int DP>
 int launch(const Args& a, int64_t B, cudaStream_t stream) {
+  static std::atomic<int> done[SMEM_MAX_DEVICES];
   const size_t smem = smem_bytes<DP>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, DP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = allow_smem(flash_attention_kernel<T, DP>, done, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned)(B * a.H), (unsigned)((a.S + BQ - 1) / BQ));
   flash_attention_kernel<T, DP><<<grid, THREADS, smem, stream>>>(a);

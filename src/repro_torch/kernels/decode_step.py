@@ -10,12 +10,17 @@ that share g,
 
 * Replaces ``repro/kernels/decode_step.py::decode_attention``
   (``pl.pallas_call`` at decode_step.py:71).
-* Kernel: ``csrc/decode_attention.cu``: one block per (g, b), an online
-  softmax over C in tiles of 128 positions, so any C ≥ 1 fits (the TPU
-  kernel held all of C in VMEM).
+* Kernel: ``csrc/decode_attention.cu``, split-C flash-decoding in two
+  launches. Pass 1 gives each (kv head, slot, split of C) one block: the
+  split's k/v rows stream through a 4-stage cp.async ring, q sits in
+  registers, and the block writes its split's unnormalised partials (m, l,
+  acc) to an fp32 scratch buffer; pass 2 merges the splits in a fixed
+  order (no atomics). ``attention_plan`` picks the split length so that
+  the grid puts about two blocks on every SM. Any C ≥ 1 fits.
 * Bound on an H100: bytes. At the serve path's shape (B=8, C=576, Hk=2,
   rep=7, D=64) q, k, v, bias and out are 2,435,072 B, ≥ 0.73 µs at
-  3.35 TB/s: launch latency, not bandwidth, sets its time.
+  3.35 TB/s; at the long prompt's (B=2, C=8224) 8,501,504 B, ≥ 2.54 µs:
+  launch latency and filling the card, not bandwidth, set its time.
 
 ``decode_sample`` (K6) is the logits → token tail of a decode step:
 
@@ -46,7 +51,9 @@ import functools
 
 import torch
 
-RMAX, OMAX_ELEMS, HEAD_MAX = 16, 1024, 128   # K5 limits (csrc constants)
+RMAX, OMAX_ELEMS, HEAD_MAX = 16, 1024, 128   # K5 limits
+SPLIT_GRAIN = 32             # K5 positions a pipeline stage (csrc TILE)
+TARGET_BLOCKS = 264          # two K5 blocks on each of an H100's 132 SMs
 BMAX, SLICE_MAX = 64, 2048                   # K6: rows of y, y floats a slice
 SMEM_MAX = 232_448                           # a block's shared memory (H100)
 _WARPS = 8                                   # K6 warps per block
@@ -110,8 +117,9 @@ def _attention_lib():
     from repro_torch.kernels import build
     fn = build.load("decode_attention.cu").decode_attention_f32
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_longlong,
-                   ci, ci, ci, ci, ctypes.c_float, ctypes.c_float, ci, vp]
+    fn.argtypes = [vp, vp, vp, vp, vp, vp, ctypes.c_longlong,
+                   ctypes.c_longlong, ci, ci, ci, ci, ci, ci, ctypes.c_float,
+                   ctypes.c_float, ci, vp]
     fn.restype = ci
     return fn
 
@@ -134,29 +142,53 @@ def _need_cuda(name, t, router):
                          f"version)")
 
 
+@functools.lru_cache(maxsize=1024)
+def attention_plan(B: int, Hk: int, C: int):
+    """(split, splits) of K5's first pass: C cut into ``splits`` runs of
+    ``split`` positions, the last one ragged and never empty. The split
+    length is the one that puts ``TARGET_BLOCKS`` blocks on the grid,
+    rounded up to a multiple of ``SPLIT_GRAIN``, so the grid holds fewer
+    than ``TARGET_BLOCKS`` blocks plus one split per (b, g) (fewer where
+    the rounding is large). C ≤ ``SPLIT_GRAIN`` gives one split. At
+    the serve path's B·Hk = 16, C = 576: splits of 64, 9 splits, 144
+    blocks (splits of 32, 288 blocks, are slower there: ``chip_smoke.py``
+    times both); at the long prompt's B·Hk = 4, C = 8224: splits of 128,
+    65 splits, 260 blocks."""
+    want = -(-TARGET_BLOCKS // (B * Hk))
+    split = -(-C // want)
+    split = max(SPLIT_GRAIN, -(-split // SPLIT_GRAIN) * SPLIT_GRAIN)
+    return split, -(-C // split)
+
+
 def decode_attention(q, k, v, bias, *, softcap=0.0):
     """K5 on CUDA tensors: ``q`` (B, H, D) fp32, ``k``/``v`` (B, C, Hk,
-    D|Dv) bf16, ``bias`` (B, C) fp32 -> (B, H, Dv) fp32, a new tensor."""
+    D|Dv) bf16, ``bias`` (B, C) fp32 -> (B, H, Dv) fp32, a new tensor. Two
+    kernel launches: the split partials, then their merge."""
     check_attention_args(q, k, v, bias)
     _need_cuda("decode_attention", q, "decode_attention")
     B, H, D = q.shape
     C, Hk, Dv = k.shape[1], k.shape[2], v.shape[3]
+    split, splits = attention_plan(B, Hk, C)
     out = torch.empty((B, H, Dv), dtype=torch.float32, device=q.device)
+    part = torch.empty(B * H * splits * (Dv + 2), dtype=torch.float32,
+                       device=q.device)
     vec = int(D % 8 == 0 and Dv % 8 == 0 and k.data_ptr() % 16 == 0
               and v.data_ptr() % 16 == 0)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _attention_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                               bias.data_ptr(), out.data_ptr(), B, C, H, Hk,
-                               D, Dv, D ** -0.5, float(softcap), vec, stream)
+                               bias.data_ptr(), part.data_ptr(),
+                               out.data_ptr(), B, C, H, Hk, D, Dv, split,
+                               splits, D ** -0.5, float(softcap), vec, stream)
     if err != 0:
         raise RuntimeError(f"decode_attention_f32 launch failed: CUDA error "
                            f"{err}")
-    decode_attention.launches += 1
+    decode_attention.launches += 2
     return out
 
 
-decode_attention.launches = 0   # kernel launches since the count was reset
+# kernel launches since the count was reset: 2 a call (pass 1 and merge)
+decode_attention.launches = 0
 
 
 def sample_grid(v_real: int):

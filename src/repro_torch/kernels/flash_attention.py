@@ -16,6 +16,9 @@ kv head h // (H/Hk),
   tiles wholly above the diagonal or beyond the window skipped; fp32
   arithmetic on the CUDA cores, for fp32 or bf16 inputs read through their
   strides, any S >= 1 (the TPU kernel needs S % 128 == 0) and D <= 128.
+  fp32 key and value tiles with 16-byte rows stream in with ``cp.async``
+  (the next key tile under the current tile's two products, the value tile
+  under the scores), and three blocks fit on an SM.
 * Bound on an H100: operations. At the long-prompt prefill's shape (B=2,
   H=14, Hk=2, S=8192, D=64, fp32) the causal pairs need 240.5 GFLOP,
   >= 3.59 ms at 67 TFLOP/s (fp32 outside the tensor cores).

@@ -143,6 +143,36 @@ def decode_attention_ref(q, k, v, bias, *, softcap=0.0):
     return out.reshape(B, H, -1)
 
 
+def decode_attention_split_ref(q, k, v, bias, *, split, softcap=0.0):
+    """K5's split-and-merge arithmetic in plain PyTorch (for the tests): the
+    scores of ``decode_attention_math``, cut over C into runs of ``split``
+    positions; each run's max m_s, sum l_s = Σ e^(s - m_s) and unnormalised
+    acc_s = Σ e^(s - m_s)·v, then the merge in run order, m* = max_s m_s,
+    out = Σ_s e^(m_s - m*)·acc_s / Σ_s e^(m_s - m*)·l_s. Same layouts as
+    ``decode_attention_ref``."""
+    B, H, D = q.shape
+    C, Hk = k.shape[1], k.shape[2]
+    qf = (q.float() * (D ** -0.5)).reshape(B, Hk, H // Hk, D)
+    kf = k.float().transpose(1, 2)                                # (B,Hk,C,D)
+    vf = v.float().transpose(1, 2)
+    s = (qf[..., :, None, :] * kf[..., None, :, :]).sum(-1)       # (B,Hk,R,C)
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    s = s + bias[:, None, None, :].float()
+    ms, ls, accs = [], [], []
+    for lo in range(0, C, split):
+        x = s[..., lo:lo + split]
+        m = x.amax(-1)
+        p = torch.exp(x - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append((p[..., None] * vf[:, :, None, lo:lo + split]).sum(-2))
+    m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    w = torch.exp(m - m.amax(0))
+    out = (w[..., None] * acc).sum(0) / (w * l).sum(0)[..., None]
+    return out.reshape(B, H, -1)
+
+
 def decode_sample_math(y, table, noise, scale):
     """One vocab-block logit tile: (y·table_v)·scale + noise, two fp32
     roundings. y (B,d), table (blk,d), noise (B,blk) -> (B,blk) fp32;

@@ -10,7 +10,8 @@ split into K4 (flash attention, with ``--flash-kernel``), K7 (the SSD
 intra-chunk term, with ``--ssd-kernel``), GEMMs and the rest; the untraced
 steps' wall times and their median, the device-busy time per traced step
 (summed kernel time) as a share of the traced step and of the untraced
-median, the device time and launches of K5 (decode attention) and K6
+median, the device time and launches of K5 (decode attention: its split
+pass and its merge, two launches a layer) and K6
 (unembed + argmax) and the rest of a step's device time, the kernels that
 took the most device time, the
 host ops that took the most host time (self time), and the peak device
@@ -40,7 +41,7 @@ from repro_torch.models import sample_batch, sample_ids
 from repro_torch.utils import rng
 
 # the port's kernels by the names of their CUDA functions
-KERNELS = {"k5": ("decode_attention_kernel",),
+KERNELS = {"k5": ("decode_split", "decode_merge"),
            "k6": ("decode_sample_blocks", "decode_sample_reduce")}
 PREFILL_KERNELS = {"k4": ("flash_attention_kernel",),
                    "k7": ("ssd_intra_chunk_kernel",)}

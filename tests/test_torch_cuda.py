@@ -182,24 +182,75 @@ def _k5_inputs(B, C, Hk, rep, D, dev, one_valid=False, seed=0):
 @pytest.mark.parametrize("one_valid", [False, True])
 @pytest.mark.parametrize("cap", [0.0, 30.0])
 @pytest.mark.parametrize("B,C,rep", [(8, 576, 7), (3, 1, 7), (2, 31, 2),
-                                     (1, 300, 16), (2, 4099, 7)])
+                                     (1, 300, 16), (2, 4099, 7), (8, 127, 7),
+                                     (8, 128, 7), (8, 129, 7), (2, 8224, 7),
+                                     (1, 32768, 7)])
 def test_k5_vs_plain(dev, B, C, rep, cap, one_valid):
-    """C crosses tiles of 128 with a ragged tail; one_valid masks all but
-    one position per row."""
+    """C across splits and 32-position tiles with a ragged tail; one_valid
+    masks all but one position per row. One call is two launches."""
     q, k, v, bias = _k5_inputs(B, C, 2, rep, 64, dev, one_valid)
     want = ref.decode_attention_ref(q, k, v, bias, softcap=cap)
     before = ds.decode_attention.launches
     got = ops.decode_attention(q, k, v, bias, softcap=cap)
     torch.cuda.synchronize()
-    assert ds.decode_attention.launches == before + 1
+    assert ds.decode_attention.launches == before + 2
     err = float((got - want).abs().max())
     assert err <= 1e-5 * float(v.float().abs().max()), err
 
 
 @pytest.mark.cuda
-def test_k5_scalar_loads_on_odd_head_dim(dev):
+@pytest.mark.parametrize("B,Hk,C", [(8, 2, 576), (2, 2, 8224), (1, 1, 4099),
+                                    (8, 2, 64 * 3 + 1), (8, 2, 64 * 3 - 1)])
+def test_k5_one_valid_position_in_each_split(dev, B, Hk, C):
+    """Every other split wholly masked: the split holding the one valid
+    position decides the output, within 1e-5·max|v| (B·Hk = 1 too, and C
+    one past and one short of whole splits)."""
+    q, k, v, _ = _k5_inputs(B, C, Hk, 7, 64, dev)
+    split, splits = ds.attention_plan(B, Hk, C)
+    bound = 1e-5 * float(v.float().abs().max())
+    for s in range(splits):
+        for p in {s * split, min(C - 1, s * split + split // 2),
+                  min(C - 1, (s + 1) * split - 1)}:
+            bias = torch.full((B, C), -1e30, device=dev)
+            bias[:, p] = 0.0
+            got = ds.decode_attention(q, k, v, bias)
+            want = ref.decode_attention_ref(q, k, v, bias)
+            assert float((got - want).abs().max()) <= bound, (s, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [32, 64, 96, 128, 4096])
+@pytest.mark.parametrize("B,C", [(8, 576), (2, 8224)])
+def test_k5_any_split_length_agrees(dev, monkeypatch, B, C, split):
+    """The split length (the plan's neighbours that chip_smoke.py times,
+    and one split holding all of C) changes the order of the sums only:
+    within 1e-5·max|v| of the plain version, two launches a call."""
+    monkeypatch.setattr(ds, "attention_plan",
+                        lambda B_, Hk_, C_: (split, -(-C_ // split)))
+    q, k, v, bias = _k5_inputs(B, C, 2, 7, 64, dev)
+    want = ref.decode_attention_ref(q, k, v, bias, softcap=30.0)
+    before = ds.decode_attention.launches
+    got = ds.decode_attention(q, k, v, bias, softcap=30.0)
+    torch.cuda.synchronize()
+    assert ds.decode_attention.launches == before + 2
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * float(v.float().abs().max()), err
+
+
+@pytest.mark.cuda
+def test_k5_is_deterministic(dev):
+    """The merge adds the splits in a fixed order: two calls agree
+    bitwise."""
+    q, k, v, bias = _k5_inputs(2, 8224, 2, 7, 64, dev)
+    assert torch.equal(ds.decode_attention(q, k, v, bias),
+                       ds.decode_attention(q, k, v, bias))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [200, 8224])
+def test_k5_scalar_loads_on_odd_head_dim(dev, C):
     """D = 36 (not a multiple of 8): the kernel takes its scalar loads."""
-    q, k, v, bias = _k5_inputs(2, 200, 2, 7, 36, dev)
+    q, k, v, bias = _k5_inputs(2, C, 2, 7, 36, dev)
     want = ref.decode_attention_ref(q, k, v, bias)
     got = ds.decode_attention(q, k, v, bias)
     assert float((got - want).abs().max()) <= 1e-5 * float(
@@ -297,7 +348,8 @@ def _k4_bound(v):
 
 # (B, S, H, Hk, D, window, softcap, dtype): the prefill's heads at a reduced
 # S, MQA, D of 32/64/128 and 30 (scalar loads), windows cutting tiles on
-# both sides, softcap, bf16, S = 1 and a ragged S
+# both sides, softcap, bf16, S = 1 and S not a multiple of the 64-row tile
+# (one past, one short, with windows, bf16 and D = 128)
 K4_CASES = [(2, 1024, 14, 2, 64, 0, 0.0, torch.float32),
             (2, 512, 8, 1, 64, 0, 0.0, torch.float32),
             (1, 256, 4, 2, 32, 0, 0.0, torch.float32),
@@ -308,7 +360,12 @@ K4_CASES = [(2, 1024, 14, 2, 64, 0, 0.0, torch.float32),
             (2, 256, 4, 2, 64, 0, 30.0, torch.float32),
             (2, 512, 14, 2, 64, 0, 0.0, torch.bfloat16),
             (2, 1, 14, 2, 64, 0, 0.0, torch.float32),
-            (2, 1000, 14, 2, 64, 0, 0.0, torch.float32)]
+            (2, 1000, 14, 2, 64, 0, 0.0, torch.float32),
+            (1, 65, 4, 2, 64, 0, 0.0, torch.float32),
+            (1, 127, 4, 2, 128, 0, 0.0, torch.float32),
+            (1, 191, 4, 2, 32, 40, 0.0, torch.float32),
+            (1, 97, 4, 2, 64, 0, 0.0, torch.bfloat16),
+            (1, 1111, 4, 2, 128, 70, 30.0, torch.float32)]
 
 
 @pytest.mark.cuda

@@ -20,6 +20,8 @@ Tolerances:
 The CUDA kernels themselves are held against the plain versions on the card
 in tests/test_torch_cuda.py and by chip_smoke.py.
 """
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -117,6 +119,115 @@ def test_k5_contract_raises(bad):
         q = q.to("meta")
     with pytest.raises(ValueError):
         ops.decode_attention(q, k, v, bias)
+
+
+@pytest.mark.parametrize("B,Hk,C", [(8, 2, 576), (2, 2, 8224), (1, 1, 1),
+                                    (1, 1, 32), (1, 1, 33), (3, 2, 4099),
+                                    (8, 2, 1), (64, 8, 100), (1, 1, 32768),
+                                    (2, 4, 129), (512, 1, 5000)])
+def test_k5_attention_plan_covers_c(B, Hk, C):
+    """K5's split plan: whole 32-position tiles but the last split, which
+    is never empty; C covered exactly; C <= 32 gives one split; the grid
+    within one split a (b, g) of TARGET_BLOCKS."""
+    split, splits = ds.attention_plan(B, Hk, C)
+    assert split % ds.SPLIT_GRAIN == 0 and split >= ds.SPLIT_GRAIN
+    assert (splits - 1) * split < C <= splits * split
+    assert 1 <= splits <= 65535
+    if C <= ds.SPLIT_GRAIN:
+        assert splits == 1
+    if splits > 1:
+        assert B * Hk * (splits - 1) < ds.TARGET_BLOCKS
+
+
+def test_k5_attention_plan_at_the_path_shapes():
+    """The serve path (B=8, Hk=2, C=576) and the long prompt (B=2, C=8224):
+    144 and 260 blocks."""
+    assert ds.attention_plan(8, 2, 576) == (64, 9)
+    assert ds.attention_plan(2, 2, 8224) == (128, 65)
+    assert 16 * 9 == 144 and 4 * 65 == 260
+
+
+def test_library_path_hashes_csrc_headers(tmp_path, monkeypatch):
+    """A kernel library's name changes with its source and with any header
+    in csrc/ (decode_attention.cu and flash_attention.cu include
+    smem_once.cuh), so an edited header rebuilds them."""
+    from repro_torch.kernels import build
+    assert os.path.exists(os.path.join(build.CSRC, "smem_once.cuh"))
+    monkeypatch.setattr(build, "CSRC", str(tmp_path))
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    first = build.library_path("a.cu")
+    assert build.library_path("a.cu") == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    second = build.library_path("a.cu")
+    assert second != first
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n// edited\n')
+    assert build.library_path("a.cu") not in (first, second)
+
+
+def _k5_split_bias(B, C, split, mode, seed):
+    """(B, C) fp32 mask: random causal holes ("holes"); one valid position
+    in the first, a middle or the last split ("first", "middle", "last");
+    or valid positions in one split only, every other split wholly masked
+    ("one_split")."""
+    rng = np.random.default_rng(seed)
+    splits = -(-C // split)
+    ok = np.zeros((B, C), bool)
+    if mode == "holes":
+        ok = rng.random((B, C)) > 0.5
+        ok[:, rng.integers(0, C)] = True
+    elif mode == "one_split":
+        s = splits // 2
+        lo, hi = s * split, min(C, (s + 1) * split)
+        ok[:, lo:hi] = rng.random((B, hi - lo)) > 0.3
+        ok[:, lo] = True
+    else:
+        s = {"first": 0, "middle": splits // 2, "last": splits - 1}[mode]
+        ok[:, min(C - 1, s * split + rng.integers(0, split))] = True
+    return np.where(ok, 0.0, -1e30).astype(np.float32)
+
+
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+@pytest.mark.parametrize("mode", ["holes", "first", "middle", "last",
+                                  "one_split"])
+@pytest.mark.parametrize("C,split", [(1, 32), (7, 32), (31, 32), (32, 32),
+                                     (33, 32), (97, 32), (25, 8)])
+def test_k5_split_merge_matches_plain_and_reference(C, split, mode, cap):
+    """K5's two-pass arithmetic (``ref.decode_attention_split_ref``) against
+    its one-pass plain version and the reference's interpret-mode Pallas
+    kernel, with C at 1, 7, split - 1, split, split + 1, 3·split + 1 and
+    wholly masked splits. Tolerance rtol 1e-5, atol 1e-6 as for K5: the
+    merge reorders the sums, e^(m_s - m*) of a wholly masked split is +0."""
+    B, H, Hk, D = 2, 14, 2, 64
+    q, k, v, _ = _k5_inputs(B, H, Hk, C, D, seed=C * 10 + split)
+    bias = _k5_split_bias(B, C, split, mode, seed=C + split)
+    kj, kt = _bf16(k)
+    vj, vt = _bf16(v)
+    qt, bt = torch.from_numpy(q), torch.from_numpy(bias)
+    got = ref.decode_attention_split_ref(qt, kt, vt, bt, split=split,
+                                         softcap=cap)
+    assert got.shape == (B, H, D) and bool(torch.isfinite(got).all())
+    plain = ref.decode_attention_ref(qt, kt, vt, bt, softcap=cap)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=RTOL,
+                               atol=ATOL)
+    interp = np.asarray(jops.decode_attention(jnp.asarray(q), kj, vj,
+                                              jnp.asarray(bias), softcap=cap))
+    np.testing.assert_allclose(got.numpy(), interp, rtol=RTOL, atol=ATOL)
+
+
+def test_k5_split_merge_at_the_long_prompt_plan():
+    """The long prompt's plan (splits of 128) on a reduced slot count:
+    C = 3·128 + 1 with one valid position in the last, one-position
+    split."""
+    B, H, Hk, D, C = 1, 14, 2, 64, 3 * 128 + 1
+    q, k, v, _ = _k5_inputs(B, H, Hk, C, D, seed=17)
+    bias = np.full((B, C), -1e30, np.float32)
+    bias[:, C - 1] = 0.0
+    args = [torch.from_numpy(q), _bf16(k)[1], _bf16(v)[1],
+            torch.from_numpy(bias)]
+    got = ref.decode_attention_split_ref(*args, split=128)
+    want = args[2][:, C - 1].float().repeat_interleave(7, dim=1)
+    assert torch.equal(got, want)
 
 
 def _k6_inputs(B, d, V, seed, greedy):
