@@ -126,15 +126,20 @@ K7_MAIN = (4, 2048, 64, 64, 128, 256)   # B, S, H, P, N, Q of the prefill's K7
 N_MAMBA_LAYERS = 48
 MTRACE = dict(slots=8, n_requests=16, prompt_len=256, gen_len=64,
               arrival_rate=0.5, seed=0)
+K7_ONE = (1, 256, 64, 64, 128, 256)     # the continuous-batching prefill's
 # K7 against its plain version: (B, S, H, P, N, Q, A, shared B/C): the
 # prefill's shape with one B/C group over the heads (head stride 0, as the
 # model passes them) and per head; Q 64/128 x N 16/64 x P 32/128; one chunk
-# (the continuous-batching prefill); A = -16 on every head (largest |cum|)
+# (the continuous-batching prefill); A = -16 on every head (largest |cum|);
+# B with head stride 0 beside a per-head C ("B": the per-head G path); one
+# chunk with A = -16
 K7_CASES = [(*K7_MAIN, None, True), (*K7_MAIN, None, False),
             *[(2, 512, 8, P, N, Q, None, False) for Q in (64, 128)
               for N in (16, 64) for P in (32, 128)],
-            (1, 256, 64, 64, 128, 256, None, True),
-            (*K7_MAIN, -16.0, True)]
+            (*K7_ONE, None, True),
+            (*K7_MAIN, -16.0, True),
+            (2, 512, 8, 64, 64, 128, None, "B"),
+            (*K7_ONE, -16.0, True)]
 U = 2.0 ** -24
 # K2 against its plain version: n of every residue mod 4 around the float4
 # width and at 2^20; one launch with n > 2^31 on aligned tensors (float4
@@ -974,18 +979,16 @@ def time_k4(gen):
 
 def k7_inputs(B, S, H, P, N, a, shared, gen):
     """x, B, C ~ N(0, 1), dt = softplus(N(0, 1)), A = -linspace(1, 16) (the
-    model's A_log range) or ``a`` on every head; ``shared``: one B/C group
-    expanded over the heads."""
+    model's A_log range) or ``a`` on every head; ``shared``: True for one
+    B/C group expanded over the heads, "B" for B alone (C per head)."""
     f = lambda *shape: torch.randn(shape, generator=gen, device=DEV)
     x = f(B, S, H, P)
     dt = F.softplus(f(B, S, H))
     A = torch.full((H,), a, device=DEV) if a is not None else \
         -torch.linspace(1.0, 16.0, H, device=DEV)
-    if shared:
-        Bm = f(B, S, 1, N).expand(B, S, H, N)
-        Cm = f(B, S, 1, N).expand(B, S, H, N)
-    else:
-        Bm, Cm = f(B, S, H, N), f(B, S, H, N)
+    Bm = f(B, S, 1, N).expand(B, S, H, N) if shared else f(B, S, H, N)
+    Cm = f(B, S, 1, N).expand(B, S, H, N) if shared is True \
+        else f(B, S, H, N)
     return x, dt, A, Bm, Cm
 
 
@@ -1006,12 +1009,17 @@ def k7_eps(cmax, N, Q):
 
 
 def k7_case(B, S, H, P, N, Q, a, shared, gen):
-    """K7 against its plain version element by element. Returns (max abs
-    error, the worst ratio of an error to its bound, eps, max|cum|)."""
+    """K7 against its plain version element by element, and a second call
+    against the first bit for bit. Returns (max abs error, the worst ratio
+    of an error to its bound, eps, max|cum|, G groups)."""
     x, dt, A, Bm, Cm = k7_inputs(B, S, H, P, N, a, shared, gen)
     want = ref.ssd_intra_chunk_ref(x, dt, A, Bm, Cm, Q)
     got = ssd.ssd_intra_chunk(x, dt, A, Bm, Cm, Q)
+    again = ssd.ssd_intra_chunk(x, dt, A, Bm, Cm, Q)
     torch.cuda.synchronize()
+    check(all(torch.equal(u, v) for u, v in zip(got, again)),
+          "two K7 calls on the same inputs differ")
+    groups = ssd.plan(B, S, H, P, N, Q, Bm.stride(), Cm.stride()).groups
     cmax = cum_max(dt, A, Q)
     eps = k7_eps(cmax, N, Q)
     mags = ref.ssd_intra_chunk_ref(x.abs(), dt, A, Bm.abs(), Cm.abs(), Q)
@@ -1024,38 +1032,31 @@ def k7_case(B, S, H, P, N, Q, a, shared, gen):
         d = (g - w).abs()
         err = max(err, float(d.max()))
         ratio = max(ratio, float((d / (eps * m).clamp_min(1e-30)).max()))
-    del x, dt, A, Bm, Cm, want, got, mags
+    del x, dt, A, Bm, Cm, want, got, again, mags
     torch.cuda.empty_cache()
-    return err, ratio, eps, cmax
+    return err, ratio, eps, cmax, groups
 
 
-def k7_work(B, S, H, P, N, Q):
-    """(flops, bytes) K7 must do: per cell the causal half of C·Bᵀ (2N per
-    pair i >= j), of (G⊙L)·xdt (2P per pair) and the chunk state (2QNP);
-    read x, dt, A and B/C once (one (B, S, N) group each, as the model
-    passes them), write Y, S_chunk and total."""
-    nc = S // Q
-    cells = B * nc * H
-    pairs = Q * (Q + 1) // 2
-    flops = cells * (pairs * 2 * N + pairs * 2 * P + 2 * Q * N * P)
-    nbytes = 4 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * N
-                  + B * nc * H * N * P + B * nc * H)
-    return flops, nbytes
-
-
-def time_k7(gen):
-    """K7 at the prefill's shape (B/C one group over the heads, A as the
-    model's): CUDA-event times of the kernel wrapper, its plain version and
-    the whole plain SSD (``models.ssm.ssd_chunked``), and its bound. No
-    single PyTorch call computes K7's function: no library time."""
-    B, S, H, P, N, Q = K7_MAIN
+def time_k7(gen, shape=K7_MAIN):
+    """K7 at a serve path's shape (B/C one group over the heads, as the
+    model passes them; A as the model's): CUDA-event times of the kernel
+    wrapper (two launches a call) back to back and as device time (a CUDA
+    graph of calls), of its plain version and of the whole plain SSD
+    (``models.ssm.ssd_chunked``), and its bound from ``ssd_scan.work``
+    with the plan's groups. No single PyTorch call computes K7's function:
+    no library time."""
+    B, S, H, P, N, Q = shape
     x, dt, A, Bm, Cm = k7_inputs(B, S, H, P, N, None, True, gen)
     t = {"ms": cuda_ms(lambda: ssd.ssd_intra_chunk(x, dt, A, Bm, Cm, Q), 20),
          "plain_ms": cuda_ms(lambda: ref.ssd_intra_chunk_ref(x, dt, A, Bm,
                                                              Cm, Q), 3),
          "chunked_ms": cuda_ms(lambda: ssd_chunked(x, dt, A, Bm, Cm, Q), 3),
-         "route_ms": cuda_ms(lambda: kops.ssd(x, dt, A, Bm, Cm, chunk=Q), 5)}
-    t["flops"], t["bytes"] = k7_work(B, S, H, P, N, Q)
+         "route_ms": cuda_ms(lambda: kops.ssd(x, dt, A, Bm, Cm, chunk=Q), 5),
+         "device_ms": graph_ms(lambda: ssd.ssd_intra_chunk(x, dt, A, Bm, Cm,
+                                                           Q),
+                               calls=10 if B * S > 2048 else 50)}
+    t["groups"] = ssd.plan(B, S, H, P, N, Q, Bm.stride(), Cm.stride()).groups
+    t["flops"], t["bytes"] = ssd.work(B, S, H, P, N, Q, t["groups"])
     t["bound_ms"] = max(t["bytes"] / HBM_BYTES_PER_S,
                         t["flops"] / FP32_FLOP_PER_S) * 1e3
     del x, dt, A, Bm, Cm
@@ -1582,7 +1583,8 @@ def build_all():
         info = build.BUILD_LOG.get(src, {"seconds": 0.0, "ptxas": "(cached)"})
         print(f"[chip_smoke] {src}: nvcc {info['seconds']:.2f} s\n"
               f"{info['ptxas']}", flush=True)
-    for src in ("decode_attention.cu", "flash_attention.cu"):
+    for src in ("decode_attention.cu", "flash_attention.cu",
+                "ssd_intra_chunk.cu"):
         for line in ptxas_summary(build.BUILD_LOG.get(src, {}).get("ptxas",
                                                                   "")):
             print(f"[chip_smoke] ptxas {src}: {line}", flush=True)
@@ -1882,15 +1884,17 @@ def main():
     # ---- 12. K7 against its plain version ----------------------------------
     k7_err = 0.0
     for B_, S_, H_, P_, N_, Q_, a_, shared in K7_CASES:
-        err, ratio, eps, cmax = k7_case(B_, S_, H_, P_, N_, Q_, a_, shared,
-                                        gen)
+        err, ratio, eps, cmax, groups = k7_case(B_, S_, H_, P_, N_, Q_, a_,
+                                                shared, gen)
         k7_err = max(k7_err, err)
+        stride0 = {True: " B/C head stride 0", "B": " B head stride 0, C "
+                   "per head", False: ""}[shared]
         print(f"[chip_smoke] K7 B={B_} S={S_} H={H_} P={P_} N={N_} Q={Q_} "
-              f"A={'-linspace(1, 16)' if a_ is None else a_}"
-              f"{' B/C head stride 0' if shared else ''}: max abs "
+              f"A={'-linspace(1, 16)' if a_ is None else a_}{stride0} "
+              f"({groups} G group{'s' if groups > 1 else ''}): max abs "
               f"{err:.3e}, worst error at {ratio:.3f} of its bound (bound "
-              f"{eps:.2e} of the magnitude sum, max|cum| {cmax:.1f})",
-              flush=True)
+              f"{eps:.2e} of the magnitude sum, max|cum| {cmax:.1f}); a "
+              f"second call bitwise the first", flush=True)
         check(ratio <= 1.0, "K7 differs from its plain version")
 
     # ---- 12b. K6 against its plain version at mamba2's head ----------------
@@ -1982,14 +1986,23 @@ def main():
               f"{k6w['library_ms'] * 1e3:.2f} us, bound "
               f"{k6w['bound_ms'] * 1e3:.3f} us ({k6w['bytes']} B)",
               flush=True)
-    k7t = time_k7(gen)
-    print(f"[chip_smoke] K7 at the prefill's shape {K7_MAIN}: "
-          f"{k7t['ms']:.3f} ms/launch, plain {k7t['plain_ms']:.3f} ms, "
-          f"whole plain SSD (ssd_chunked) {k7t['chunked_ms']:.3f} ms, whole "
-          f"K7 route (ops.ssd) {k7t['route_ms']:.3f} ms, library none, bound "
-          f"{k7t['bound_ms']:.3f} ms (operations: {k7t['flops'] / 1e9:.2f} "
-          f"GFLOP; bytes {k7t['bytes'] / 1e6:.1f} MB), achieved "
-          f"{k7t['flops'] / k7t['ms'] / 1e9:.2f} TFLOP/s", flush=True)
+    k7t, k7o = time_k7(gen), time_k7(gen, K7_ONE)
+    for label, shape, t in (("the prefill's", K7_MAIN, k7t),
+                            ("the continuous-batching prefill's", K7_ONE,
+                             k7o)):
+        print(f"[chip_smoke] K7 at {label} shape {shape}: "
+              f"{t['ms'] * 1e3:.2f} us/call back to back (2 launches), "
+              f"device time (CUDA graph) {t['device_ms'] * 1e3:.2f} us, plain "
+              f"{t['plain_ms'] * 1e3:.2f} us, whole plain SSD (ssd_chunked) "
+              f"{t['chunked_ms'] * 1e3:.2f} us, whole K7 route (ops.ssd) "
+              f"{t['route_ms'] * 1e3:.2f} us, library none, bound "
+              f"{t['bound_ms'] * 1e3:.3f} us (operations: "
+              f"{t['flops'] / 1e9:.3f} GFLOP, {t['groups']} G group(s); "
+              f"bytes {t['bytes'] / 1e6:.1f} MB), achieved "
+              f"{t['flops'] / t['ms'] / 1e9:.2f} TFLOP/s, "
+              f"{t['bound_ms'] / t['ms'] * 100:.1f} % of the bound "
+              f"({t['bound_ms'] / t['device_ms'] * 100:.1f} % on device "
+              f"time)", flush=True)
     k4t = time_k4(gen)
     print(f"[chip_smoke] K4 at the prefill's shape {K4_MAIN}: "
           f"{k4t['ms']:.3f} ms/launch, plain {k4t['plain_ms']:.3f} ms, "
@@ -2052,6 +2065,7 @@ def main():
         "launches": k7_launches, "max_abs_err": k7_err, "ms": k7t["ms"],
         "plain_ms": k7t["plain_ms"], "bound_ms": k7t["bound_ms"],
         "bound_by": "operations", "library_ms": None,
+        "device_ms": k7t["device_ms"],
     }]
     print(f"[chip_smoke] peak memory: savic {peak:.2f} GiB, savic int8 + EF "
           f"{cpeak:.2f} GiB, savic OASIS + participation 0.5 {rpeak:.2f} GiB, "

@@ -11,56 +11,75 @@
 //   S_chunk = sum_j B_j^T ((x_j * dt_j) * exp(cum_{Q-1} - cum_j))  (N, P)
 //   total   = exp(cum_{Q-1})
 //
-// x, dt, B and C are read through their strides (B and C may repeat one
-// group over the heads with a head stride of 0); A is (H,). All fp32. Y is
+// x, dt, B and C are read through their strides; A is (H,). All fp32. Y is
 // written (B, S, H, P), S_chunk (B, nc, H, N, P) and total (B, nc, H), all
 // contiguous.
 //
-// Design. The TPU kernel holds a whole cell (about 0.9 MiB at Q = 256,
-// N = 128, P = 64) in VMEM; a Hopper block has 227 KB, so a cell is split
-// over blocks that run in parallel. A block of 256 threads is either
-//  * a Y block for one 64-row tile i of the chunk: it walks the column
-//    tiles j <= i, builds the 64 x 64 tile G = C_i B_j^T from 32-wide
-//    N-slices staged (transposed) in shared memory, multiplies it by L in
-//    registers (zero above the diagonal and past Q), stores W = G * L
-//    transposed in shared memory, and accumulates Y_i += W (x_j * dt_j)
-//    over all j in one fmaf chain per output; or
-//  * a state block for one 64-row tile of N: it walks the chunk in 64-row
-//    tiles and accumulates S_chunk = B^T (x * dt * decay).
-// The Y blocks of the last (heaviest) row tile launch first. Every block
-// computes its cell's cum itself: all threads load dt * A (fp32), then one
-// thread adds them up in order in fp64 and rounds each partial sum once to
-// fp32. That is within half an ulp of the exact sum in any order, so cum is
-// the plain version's (ref.py's ssd_cumsum, an fp64 cumsum) bit for bit
-// but for the rare fp64 sum within ~2^-29 of an fp32 rounding boundary; a
-// cum in fp32 would differ from any other order by several ulps, and at
-// |cum| ~ 3000 one ulp is 2.4e-4 of every L near the diagonal. The rest
-// sums in another order than cuBLAS, so the kernel agrees with the plain
-// version to rounding, not bitwise.
-// Thread (ty, tx) of the 16 x 16 layout owns rows 4 ty + r (r < 4) and the
-// G columns 4 tx + k (k < 4), and the output columns tx + 16 k (k < DP/16)
-// of P padded to DP in {32, 64, 128}. Masked pairs are skipped (W = 0),
-// never exp'd: an upper-triangle exp(cum_i - cum_j) can overflow. Offsets
-// are 64-bit.
+// Design: two launches a call, planned by kernels/ssd_scan.py::plan.
+//  1. ssd_intra_chunk_prep, 256 threads a block, two kinds of block:
+//     * a G block computes one causal 64 x 64 tile (i >= j) of G = C B^T
+//       for one (batch, chunk, group): each element one fmaf chain over n
+//       in index order, from C and B rows staged (transposed, by cp.async)
+//       in shared memory. When B and C both have a head stride of 0 (one
+//       group over the heads, as models/ssm.py passes them) there is one
+//       group, so G is built once per (batch, chunk), not once per head;
+//       otherwise a group is a head. Tiles go to a scratch (B, nc, groups,
+//       nrt * nrt, 64, 64) (tile (i, j) at i * nrt + j, stored [j][i]).
+//     * a cum block scans 8 cells, one a warp: each lane adds its run of
+//       rows in order in fp64, a shuffle scan adds the lanes' sums, and
+//       each prefix is rounded once to fp32 (within half an ulp of the
+//       exact sum, whatever the order of the fp64 adds: ref.ssd_cumsum).
+//       It writes the cell's cum, dt and decay exp(cum_{Q-1} - cum) to a
+//       scratch (B, nc, H, 3, Q), contiguous for the main blocks, and
+//       total = exp(cum_{Q-1}).
+//  2. ssd_intra_chunk_main<PD>, PD threads a block (P padded to PD in
+//     {32, 64, 128}), one block per (cell, 64-row tile): a Y block for row
+//     tile i, or a state block for 64 rows of N. A block streams 32-row
+//     k-slices (of its G tiles j <= i, or of B over the chunk) and the
+//     matching x rows through a two-stage cp.async ring (float4 copies
+//     where x's and B's rows allow), so the next slice loads while this
+//     one is used. In place it turns a G slice into W = G exp(cum_i -
+//     cum_j) (masked pairs are set to 0, never exp'd: above the diagonal
+//     exp can overflow) and x into x dt (Y) or x dt decay (state), then
+//     accumulates Y_i += W (x dt) or S += B^T (x dt decay) in 8 x 8
+//     register tiles (thread (ty, tx): rows 8 ty .. 8 ty + 7, columns
+//     4 tx .. 4 tx + 3 and PD/2 + 4 tx .. + 3; float4 reads, no bank
+//     conflicts). On the diagonal a warp stops after its last row: W is 0
+//     beyond it. A (batch, chunk)'s blocks run together (its x stays in
+//     L2), the heaviest first: the last Y row tile and the state blocks
+//     (nrt tiles of work each), then the Y row tiles nrt-2 .. 0. 36 KB of
+//     shared memory and 167 registers a thread at PD = 64: six blocks an SM.
+// No atomics and no sum split across blocks: every output of Y and S is one
+// fmaf chain in index order, so a call gives the same bits every time. It
+// sums in another order than cuBLAS and its cum may differ by an ulp where
+// an fp64 sum straddles an fp32 rounding boundary, so it agrees with the
+// plain version to a rounding bound (u (4 max|cum| + 2 (N + Q) + 16) of the
+// magnitude sum), not bitwise. Offsets are 64-bit.
 //
 // Bound on an H100: operations. At the serve prefill's shape (B = 4,
-// S = 2048, H = 64, P = 64, N = 128, Q = 256; 2048 cells) the causal half
-// of the three products is 34.4 GFLOP, >= 0.51 ms at the 67 TFLOP/s of fp32
-// outside the tensor cores; the bytes (x, Y, S_chunk, dt and B/C read once
-// at (B, S, 1, N)) are about 0.35 GB, 0.10 ms at 3.35 TB/s. This kernel
-// computes whole 64 x 64 diagonal tiles, runs on the CUDA cores and keeps
-// TF32 off; wgmma, TMA staging and one block per cell are later work.
+// S = 2048, H = 64, P = 64, N = 128, Q = 256, one B/C group) the inputs
+// need 17.5 GFLOP (G once per (batch, chunk); per cell the causal half of
+// (G * L) x dt and the chunk state): >= 0.26 ms at the 67 TFLOP/s of fp32
+// outside the tensor cores; the bytes are about 0.35 GB, 0.10 ms at
+// 3.35 TB/s (ssd_scan.work). fp32 on the CUDA cores, TF32 off; 3xTF32 or
+// wgmma are later work.
+#include <atomic>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "smem_once.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int T = 64;            // rows of a tile (chunk rows, N rows)
-constexpr int NS = 32;           // N-slice of the G product
-constexpr int PT = T + 4;        // pitch of the transposed / B tiles
+constexpr int T = 64;                       // rows and columns of a tile
+constexpr int TT = T * T;
+constexpr int BK = 32;                      // chunk rows of a k-slice
+constexpr int PT = T + 4;                   // pitch of the G block's C/B
 constexpr int QMAX = 256;
+constexpr int PREP_THREADS = 256;
+constexpr int CUM_CELLS = PREP_THREADS / 32;  // cells of a cum block
+constexpr unsigned FULL = 0xffffffffu;
 
 struct Args {
   const float* x;
@@ -71,227 +90,362 @@ struct Args {
   float* y;
   float* s;
   float* tot;
+  float* g;                            // G tiles (scratch)
+  float* cellbuf;                      // [cum | dt | decay] of every cell
   int64_t xs[4], ds[3], bs[4], cs[4];  // element strides (b, s, head, ·)
   int64_t as;
-  int64_t nc;
+  int64_t nc, cells, g_blocks;
   int H, P, N, Q;
-  int nrt;                             // row tiles of the chunk
+  int nrt, nst, npairs, groups;
+  int xvec, bvec;  // x / B rows in aligned float4s (stride 1, P / N % 4 = 0)
 };
 
-// cum of the block's cell into s_cum, dt into s_dt (all Q rows)
-__device__ __forceinline__ void cell_cum(const Args& a, int64_t b, int64_t c,
-                                         int h, float* s_dt, float* s_cum) {
-  const float Ah = a.A[h * a.as];
-  for (int q = threadIdx.x; q < a.Q; q += THREADS) {
-    const float d = a.dt[b * a.ds[0] + (c * a.Q + q) * a.ds[1] + h * a.ds[2]];
-    s_dt[q] = d;
-    s_cum[q] = __fmul_rn(d, Ah);
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    double acc = 0.0;
-#pragma unroll 8
-    for (int q = 0; q < a.Q; ++q) {
-      acc = __dadd_rn(acc, (double)s_cum[q]);
-      s_cum[q] = __double2float_rn(acc);
-    }
-  }
-  __syncthreads();
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
 }
 
-template <int DP>
-__global__ void __launch_bounds__(THREADS)
-    ssd_intra_chunk_kernel(const Args a) {
-  constexpr int OC = DP / 16;    // output columns per thread
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* s_dt = smem;            // QMAX
-  float* s_cum = s_dt + QMAX;    // QMAX
-  float* xs = s_cum + QMAX;      // T x DP: x * dt (Y) or x * dt * decay (S)
-  float* t1 = xs + T * DP;       // T x PT: W^T (Y) or B tile (S)
-  float* cs = t1 + T * PT;       // NS x PT: C slice, transposed (Y)
-  float* bsl = cs + NS * PT;     // NS x PT: B slice, transposed (Y)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
 
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// ------------------------------ launch 1 ---------------------------------
+
+// G tile (ti, tj) of group gid = (b * nc + c) * groups + grp, stored [j][i]
+__device__ void g_tile(const Args& a, int64_t id, float* smem) {
+  float* cs = smem;                 // N x PT: C rows i0.., transposed
+  float* bsm = cs + a.N * PT;       // N x PT: B rows j0.., transposed
   const int t = threadIdx.x, tx = t % 16, ty = t / 16;
-  const int64_t cell = blockIdx.x;
-  const int h = (int)(cell % a.H);
-  const int64_t c = (cell / a.H) % a.nc;
-  const int64_t b = cell / (a.H * a.nc);
-  const int64_t row0 = c * a.Q;  // first sequence row of the chunk
-
-  cell_cum(a, b, c, h, s_dt, s_cum);
-  const float* xb = a.x + b * a.xs[0] + h * a.xs[2];
-  const float* Bb = a.Bm + b * a.bs[0] + h * a.bs[2];
-
-  float acc[4][OC];
+  const int64_t gid = id / a.npairs;
+  int tj = (int)(id % a.npairs), ti = 0;
+  while (tj > ti) {                 // pair index -> (ti, tj), tj <= ti
+    tj -= ti + 1;
+    ++ti;
+  }
+  const int grp = (int)(gid % a.groups);
+  const int64_t c = (gid / a.groups) % a.nc;
+  const int64_t b = gid / ((int64_t)a.groups * a.nc);
+  const int64_t row0 = c * a.Q;
+  const int i0 = ti * T, j0 = tj * T;
+  const float* Cb = a.Cm + b * a.cs[0] + grp * a.cs[2];
+  const float* Bb = a.Bm + b * a.bs[0] + grp * a.bs[2];
+  for (int e = t; e < T * a.N; e += PREP_THREADS) {
+    const int n = e % a.N, r = e / a.N;
+    if (i0 + r < a.Q)
+      cp_async4(cs + n * PT + r, Cb + (row0 + i0 + r) * a.cs[1] + n * a.cs[3]);
+    else
+      cs[n * PT + r] = 0.0f;
+    if (j0 + r < a.Q)
+      cp_async4(bsm + n * PT + r, Bb + (row0 + j0 + r) * a.bs[1] + n * a.bs[3]);
+    else
+      bsm[n * PT + r] = 0.0f;
+  }
+  cp_commit();
+  cp_wait_all();
+  __syncthreads();
+  float g[4][4];
 #pragma unroll
   for (int r = 0; r < 4; ++r)
 #pragma unroll
-    for (int k = 0; k < OC; ++k) acc[r][k] = 0.0f;
-
-  if ((int)blockIdx.y < a.nrt) {
-    // ---------------------------- Y block --------------------------------
-    const int i0 = (a.nrt - 1 - (int)blockIdx.y) * T;  // heaviest first
-    const float* Cb = a.Cm + b * a.cs[0] + h * a.cs[2];
-    for (int j0 = 0; j0 <= i0; j0 += T) {
-      float g[4][4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) g[r][k] = 0.0f;
-      for (int n0 = 0; n0 < a.N; n0 += NS) {
-        __syncthreads();  // the previous slice's readers are done
-        for (int e = t; e < T * NS; e += THREADS) {
-          const int r = e / NS, n = e % NS;
-          float cv = 0.0f, bv = 0.0f;
-          if (n0 + n < a.N) {
-            if (i0 + r < a.Q)
-              cv = Cb[(row0 + i0 + r) * a.cs[1] + (n0 + n) * a.cs[3]];
-            if (j0 + r < a.Q)
-              bv = Bb[(row0 + j0 + r) * a.bs[1] + (n0 + n) * a.bs[3]];
-          }
-          cs[n * PT + r] = cv;
-          bsl[n * PT + r] = bv;
-        }
-        __syncthreads();
-#pragma unroll 8
-        for (int n = 0; n < NS; ++n) {
-          const float4 cv = *reinterpret_cast<const float4*>(cs + n * PT +
-                                                             4 * ty);
-          const float4 bv = *reinterpret_cast<const float4*>(bsl + n * PT +
-                                                             4 * tx);
-          const float cr[4] = {cv.x, cv.y, cv.z, cv.w};
-          const float bk[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int k = 0; k < 4; ++k)
-              g[r][k] = __fmaf_rn(cr[r], bk[k], g[r][k]);
-        }
-      }
-      // W = G * L (0 above the diagonal and past Q), stored W^T; x * dt
-      __syncthreads();  // the previous tile's W^T and xs readers are done
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int col = j0 + 4 * tx + k;
-        float w[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int row = i0 + 4 * ty + r;
-          w[r] = 0.0f;
-          if (row < a.Q && col <= row)
-            w[r] = __fmul_rn(g[r][k],
-                             expf(__fsub_rn(s_cum[row], s_cum[col])));
-        }
-        *reinterpret_cast<float4*>(t1 + (4 * tx + k) * PT + 4 * ty) =
-            make_float4(w[0], w[1], w[2], w[3]);
-      }
-      for (int e = t; e < T * DP; e += THREADS) {
-        const int r = e / DP, p = e % DP;
-        float v = 0.0f;
-        if (j0 + r < a.Q && p < a.P)
-          v = __fmul_rn(xb[(row0 + j0 + r) * a.xs[1] + p * a.xs[3]],
-                        s_dt[j0 + r]);
-        xs[r * DP + p] = v;
-      }
-      __syncthreads();
-      const int ncol = min(T, a.Q - j0);
+    for (int k = 0; k < 4; ++k) g[r][k] = 0.0f;
 #pragma unroll 4
-      for (int col = 0; col < ncol; ++col) {
-        const float4 wv = *reinterpret_cast<const float4*>(t1 + col * PT +
-                                                           4 * ty);
-        const float wr[4] = {wv.x, wv.y, wv.z, wv.w};
+  for (int n = 0; n < a.N; ++n) {
+    const float4 cv = *reinterpret_cast<const float4*>(cs + n * PT + 4 * ty);
+    const float4 bv = *reinterpret_cast<const float4*>(bsm + n * PT + 4 * tx);
+    const float cr[4] = {cv.x, cv.y, cv.z, cv.w};
+    const float bk[4] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
-        for (int k = 0; k < OC; ++k) {
-          const float xv = xs[col * DP + tx + 16 * k];
+    for (int r = 0; r < 4; ++r)
 #pragma unroll
-          for (int r = 0; r < 4; ++r)
-            acc[r][k] = __fmaf_rn(wr[r], xv, acc[r][k]);
-        }
-      }
+      for (int k = 0; k < 4; ++k) g[r][k] = __fmaf_rn(cr[r], bk[k], g[r][k]);
+  }
+  float* gt = a.g + ((gid * a.nrt + ti) * a.nrt + tj) * TT;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    *reinterpret_cast<float4*>(gt + (4 * tx + k) * T + 4 * ty) =
+        make_float4(g[0][k], g[1][k], g[2][k], g[3][k]);
+}
+
+// cum and total of cells id * CUM_CELLS .. + CUM_CELLS - 1, one a warp
+__device__ void cum_cells(const Args& a, int64_t id) {
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int64_t cell = id * CUM_CELLS + w;
+  if (cell >= a.cells) return;      // the whole warp
+  const int h = (int)(cell % a.H);
+  const int64_t c = (cell / a.H) % a.nc;
+  const int64_t b = cell / ((int64_t)a.H * a.nc);
+  const float Ah = a.A[h * a.as];
+  const float* d = a.dt + b * a.ds[0] + c * a.Q * a.ds[1] + h * a.ds[2];
+  const int L = (a.Q + 31) / 32;    // rows of a lane: lane * L .. + L - 1
+  double part[QMAX / 32];
+  float dv[QMAX / 32];
+  double run = 0.0;
+#pragma unroll
+  for (int u = 0; u < QMAX / 32; ++u) {
+    const int q = lane * L + u;
+    dv[u] = u < L && q < a.Q ? d[q * a.ds[1]] : 0.0f;
+  }
+#pragma unroll
+  for (int u = 0; u < QMAX / 32; ++u) {
+    run = __dadd_rn(run, (double)__fmul_rn(dv[u], Ah));
+    part[u] = run;
+  }
+  double incl = run;                // inclusive scan of the lanes' sums
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const double v = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl = __dadd_rn(incl, v);
+  }
+  double excl = __shfl_up_sync(FULL, incl, 1);
+  if (lane == 0) excl = 0.0;
+  float cq[QMAX / 32];
+#pragma unroll
+  for (int u = 0; u < QMAX / 32; ++u)
+    cq[u] = __double2float_rn(__dadd_rn(excl, part[u]));
+  float mine = 0.0f;                // cum_{Q-1}, from the lane that has it
+#pragma unroll
+  for (int u = 0; u < QMAX / 32; ++u)
+    if (lane * L + u == a.Q - 1) mine = cq[u];
+  const float last = __shfl_sync(FULL, mine, (a.Q - 1) / L);
+  float* out = a.cellbuf + cell * 3 * a.Q;  // [cum | dt | decay] of the cell
+#pragma unroll
+  for (int u = 0; u < QMAX / 32; ++u) {
+    const int q = lane * L + u;
+    if (u < L && q < a.Q) {
+      out[q] = cq[u];
+      out[a.Q + q] = dv[u];
+      out[2 * a.Q + q] = expf(__fsub_rn(last, cq[u]));
     }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = i0 + 4 * ty + r;
-      if (row >= a.Q) continue;
-      float* yrow = a.y + ((b * a.nc * a.Q + row0 + row) * a.H + h) *
-                              (int64_t)a.P;
-#pragma unroll
-      for (int k = 0; k < OC; ++k) {
-        const int p = tx + 16 * k;
-        if (p < a.P) yrow[p] = acc[r][k];
+  }
+  if (lane == 0) a.tot[cell] = expf(last);
+}
+
+__global__ void __launch_bounds__(PREP_THREADS)
+    ssd_intra_chunk_prep(const Args a) {
+  extern __shared__ float4 prep_smem4[];
+  if ((int64_t)blockIdx.x < a.g_blocks)
+    g_tile(a, blockIdx.x, reinterpret_cast<float*>(prep_smem4));
+  else
+    cum_cells(a, (int64_t)blockIdx.x - a.g_blocks);
+}
+
+// ------------------------------ launch 2 ---------------------------------
+
+// Start the copies of k-slice `it` (chunk rows it * BK ..) into ring slot
+// (tb, xd): the BK x 64 A slice (rows of a G tile [j][i] for a Y block, B
+// rows [q][n] for a state block) and the BK x PD x slice [row][p]; zeros
+// past Q, N and P.
+template <int PD>
+__device__ __forceinline__ void load_slice(const Args& a, bool state,
+                                           const float* gtile,
+                                           const float* bb, const float* xb,
+                                           int64_t row0, int m0, int it,
+                                           float* tb, float* xd) {
+  constexpr int TPR = PD < T ? PD : T;   // threads along a 64-wide row
+  constexpr int RPP = PD / TPR;          // rows a pass covers
+  const int t = threadIdx.x;
+  const int k0 = it * BK;
+  if (state && a.bvec) {
+    for (int k = t / (T / 4); k < BK; k += PD / (T / 4)) {
+      const int n = 4 * (t % (T / 4));
+      if (k0 + k < a.Q && m0 + n < a.N)
+        cp_async16(tb + k * T + n, bb + (row0 + k0 + k) * a.bs[1] + m0 + n);
+      else
+        *reinterpret_cast<float4*>(tb + k * T + n) = make_float4(0, 0, 0, 0);
+    }
+  } else if (state) {
+    for (int k = t / TPR; k < BK; k += RPP)
+      for (int n = t % TPR; n < T; n += TPR) {
+        if (k0 + k < a.Q && m0 + n < a.N)
+          cp_async4(tb + k * T + n,
+                    bb + (row0 + k0 + k) * a.bs[1] + (m0 + n) * a.bs[3]);
+        else
+          tb[k * T + n] = 0.0f;
       }
+  } else {  // slice it of the row tile's G tiles, tile j = it / (T / BK)
+    const float* src = gtile + (int64_t)k0 * T;
+    for (int e = 4 * t; e < BK * T; e += 4 * PD) cp_async16(tb + e, src + e);
+  }
+  if (a.xvec) {
+    for (int k = t / (PD / 4); k < BK; k += 4) {
+      const int p = 4 * (t % (PD / 4));
+      if (k0 + k < a.Q && p < a.P)
+        cp_async16(xd + k * PD + p, xb + (row0 + k0 + k) * a.xs[1] + p);
+      else
+        *reinterpret_cast<float4*>(xd + k * PD + p) = make_float4(0, 0, 0, 0);
     }
   } else {
-    // --------------------------- state block -----------------------------
-    const int m0 = ((int)blockIdx.y - a.nrt) * T;  // first N row
-    const float last = s_cum[a.Q - 1];
-    for (int q0 = 0; q0 < a.Q; q0 += T) {
-      __syncthreads();  // the previous tile's readers are done
-      for (int e = t; e < T * T; e += THREADS) {
-        const int q = e / T, n = e % T;
-        float v = 0.0f;
-        if (q0 + q < a.Q && m0 + n < a.N)
-          v = Bb[(row0 + q0 + q) * a.bs[1] + (m0 + n) * a.bs[3]];
-        t1[q * PT + n] = v;
+    const float* xr = xb + (row0 + k0) * a.xs[1] + (int64_t)t * a.xs[3];
+    const bool pin = t < a.P;
+    for (int k = 0; k < BK; ++k) {
+      if (pin && k0 + k < a.Q)
+        cp_async4(xd + k * PD + t, xr + k * a.xs[1]);
+      else
+        xd[k * PD + t] = 0.0f;
+    }
+  }
+  cp_commit();
+}
+
+template <int PD>
+constexpr size_t main_smem_bytes() {
+  return sizeof(float) * (2 * (size_t)BK * T + 2 * (size_t)BK * PD +
+                          3 * QMAX);
+}
+
+template <int PD>
+__global__ void __launch_bounds__(PD) ssd_intra_chunk_main(const Args a) {
+  constexpr int TX = PD / 8;       // threads along P
+  constexpr int WROWS = 256 / TX;  // tile rows of one warp (8 ty a row)
+  extern __shared__ float4 main_smem4[];
+  float* smem = reinterpret_cast<float*>(main_smem4);
+  float* tiles = smem;             // 2 x BK x T: W (Y) or B (state)
+  float* xs = tiles + 2 * BK * T;  // 2 x BK x PD: x dt (Y), x dt decay (S)
+  float* cum = xs + 2 * BK * PD;   // QMAX
+  float* dts = cum + QMAX;         // QMAX
+  float* dec = dts + QMAX;         // QMAX: exp(cum_{Q-1} - cum) (state)
+
+  const int t = threadIdx.x, tx = t % TX, ty = t / TX, warp = t / 32;
+  // block = ((b * nc + c) * (nrt + nst) + slot) * H + h: the blocks of one
+  // (batch, chunk) run together, so its x stays in L2 between them
+  const int h = (int)(blockIdx.x % a.H);
+  const int64_t rest = blockIdx.x / a.H;
+  const int slot = (int)(rest % (a.nrt + a.nst));
+  const int64_t bc = rest / (a.nrt + a.nst);
+  const int64_t c = bc % a.nc, b = bc / a.nc;
+  const int64_t cell = bc * a.H + h;
+  const int64_t row0 = c * a.Q;
+  // slot 0: Y row tile nrt - 1; 1 .. nst: state N tiles; then Y row tiles
+  // nrt - 2 .. 0 (the heaviest blocks of a chunk first)
+  const bool state = slot >= 1 && slot <= a.nst;
+  const int ti = slot == 0 ? a.nrt - 1
+                           : (state ? slot - 1 : a.nrt - 1 - (slot - a.nst));
+  const int i0 = ti * T;           // first chunk row (Y) or N row (state)
+  // k-slices: the whole chunk (state) or its rows up to the row tile's end
+  const int nslices = (min(state ? a.Q : i0 + T, a.Q) + BK - 1) / BK;
+  const int grp = a.groups == 1 ? 0 : h;
+  const float* gtile =
+      a.g + ((((b * a.nc + c) * a.groups + grp) * a.nrt + ti) * a.nrt) * TT;
+  const float* bb = a.Bm + b * a.bs[0] + h * a.bs[2];
+  const float* xb = a.x + b * a.xs[0] + h * a.xs[2];
+
+  const float* cb = a.cellbuf + cell * 3 * a.Q;  // cum, dt, decay: contiguous
+  for (int q = t; q < 3 * a.Q; q += PD)
+    cp_async4(cum + q / a.Q * QMAX + q % a.Q, cb + q);
+  load_slice<PD>(a, state, gtile, bb, xb, row0, i0, 0, tiles, xs);
+
+  float acc[8][8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc[r][k] = 0.0f;
+
+  for (int it = 0; it < nslices; ++it) {
+    const int buf = it & 1;
+    float* tb = tiles + buf * BK * T;
+    float* xd = xs + buf * BK * PD;
+    const int k0 = it * BK;
+    cp_wait_all();
+    __syncthreads();  // slice it landed; every reader of the other slot done
+    if (it + 1 < nslices)
+      load_slice<PD>(a, state, gtile, bb, xb, row0, i0, it + 1,
+                     tiles + (buf ^ 1) * BK * T, xs + (buf ^ 1) * BK * PD);
+    if (state) {
+      if (t < a.P) {
+#pragma unroll 8
+        for (int k = 0; k < BK; ++k)
+          if (k0 + k < a.Q)
+            xd[k * PD + t] = __fmul_rn(__fmul_rn(xd[k * PD + t],
+                                                 dts[k0 + k]), dec[k0 + k]);
       }
-      for (int e = t; e < T * DP; e += THREADS) {
-        const int q = e / DP, p = e % DP;
-        float v = 0.0f;
-        if (q0 + q < a.Q && p < a.P) {
-          const float xdt = __fmul_rn(
-              xb[(row0 + q0 + q) * a.xs[1] + p * a.xs[3]], s_dt[q0 + q]);
-          v = __fmul_rn(xdt, expf(__fsub_rn(last, s_cum[q0 + q])));
-        }
-        xs[q * DP + p] = v;
+    } else {
+      // element (k, r) = t + m * PD of the slice: W[k][r] for row i0 + r
+#pragma unroll 8
+      for (int m = 0; m < BK * T / PD; ++m) {
+        const int e = t + m * PD, k = e / T, r = e % T;
+        const int row = i0 + r;
+        float w = 0.0f;
+        if (row < a.Q && k0 + k <= row)
+          w = __fmul_rn(tb[e], expf(__fsub_rn(cum[row], cum[k0 + k])));
+        tb[e] = w;
       }
-      __syncthreads();
-      const int nq = min(T, a.Q - q0);
+      if (t < a.P) {
+#pragma unroll 8
+        for (int k = 0; k < BK; ++k)
+          if (k0 + k < a.Q) xd[k * PD + t] = __fmul_rn(xd[k * PD + t],
+                                                       dts[k0 + k]);
+      }
+    }
+    __syncthreads();
+    // rows past Q are 0; on the diagonal a warp stops after its last row
+    // (W is 0 beyond it)
+    int kend = min(BK, a.Q - k0);
+    if (!state) kend = min(kend, i0 + (warp + 1) * WROWS - k0);
+    const float4* a4 = reinterpret_cast<const float4*>(tb);
+    const float4* b4 = reinterpret_cast<const float4*>(xd);
 #pragma unroll 4
-      for (int q = 0; q < nq; ++q) {
-        const float4 bv = *reinterpret_cast<const float4*>(t1 + q * PT +
-                                                           4 * ty);
-        const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+    for (int k = 0; k < kend; ++k) {
+      const float4 a0 = a4[k * (T / 4) + 2 * ty];
+      const float4 a1 = a4[k * (T / 4) + 2 * ty + 1];
+      const float4 b0 = b4[k * (PD / 4) + tx];
+      const float4 b1 = b4[k * (PD / 4) + TX + tx];
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-        for (int k = 0; k < OC; ++k) {
-          const float xv = xs[q * DP + tx + 16 * k];
+      for (int r = 0; r < 8; ++r)
 #pragma unroll
-          for (int r = 0; r < 4; ++r)
-            acc[r][k] = __fmaf_rn(br[r], xv, acc[r][k]);
-        }
+        for (int j = 0; j < 8; ++j)
+          acc[r][j] = __fmaf_rn(av[r], bv[j], acc[r][j]);
+    }
+  }
+
+  const int rmax = state ? a.N : a.Q;
+  float* out = state ? a.s + cell * a.N * a.P
+                     : a.y + ((b * a.nc * a.Q + row0) * a.H + h) * a.P;
+  const int64_t pitch = state ? a.P : (int64_t)a.H * a.P;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int row = i0 + 8 * ty + r;
+    if (row >= rmax) continue;
+    if ((a.P & 3) == 0) {          // float4 stores
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int p = half * (PD / 2) + 4 * tx;
+        if (p < a.P)
+          *reinterpret_cast<float4*>(out + row * pitch + p) =
+              make_float4(acc[r][4 * half], acc[r][4 * half + 1],
+                          acc[r][4 * half + 2], acc[r][4 * half + 3]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int p = j < 4 ? 4 * tx + j : PD / 2 + 4 * tx + j - 4;
+        if (p < a.P) out[row * pitch + p] = acc[r][j];
       }
     }
-    float* sb = a.s + (cell * (int64_t)a.N) * a.P;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int n = m0 + 4 * ty + r;
-      if (n >= a.N) continue;
-#pragma unroll
-      for (int k = 0; k < OC; ++k) {
-        const int p = tx + 16 * k;
-        if (p < a.P) sb[(int64_t)n * a.P + p] = acc[r][k];
-      }
-    }
-    if (m0 == 0 && t == 0) a.tot[cell] = expf(last);
   }
 }
 
-template <int DP>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * ((size_t)2 * QMAX + (size_t)T * DP +
-                          (size_t)T * PT + (size_t)2 * NS * PT);
-}
-
-template <int DP>
-int launch(const Args& a, int64_t cells, cudaStream_t stream) {
-  const size_t smem = smem_bytes<DP>();
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_intra_chunk_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+template <int PD>
+int launch_main(const Args& a, int64_t blocks, cudaStream_t stream) {
+  static std::atomic<int> done[SMEM_MAX_DEVICES];
+  const size_t smem = main_smem_bytes<PD>();
+  cudaError_t err = allow_smem(ssd_intra_chunk_main<PD>, done, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int nst = (a.N + T - 1) / T;
-  dim3 grid((unsigned)cells, (unsigned)(a.nrt + nst));
-  ssd_intra_chunk_kernel<DP><<<grid, THREADS, smem, stream>>>(a);
+  ssd_intra_chunk_main<PD><<<(unsigned)blocks, PD, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -300,17 +454,19 @@ int launch(const Args& a, int64_t cells, cudaStream_t stream) {
 // x, dt, A, Bm, Cm: device pointers to fp32 inputs; *_st: their element
 // strides (x, B, C: b, s, head, last; dt: b, s, head; A: head). y
 // (B, S, H, P), s (B, nc, H, N, P), tot (B, nc, H): contiguous fp32
-// outputs. Q <= 256 divides S; N <= 128; P <= 128. Returns the CUDA error
-// of the launch (0 = none).
-extern "C" int ssd_intra_chunk_f32(const float* x, const float* dt,
-                                   const float* A, const float* Bm,
-                                   const float* Cm, float* y, float* s,
-                                   float* tot, long long B, long long S,
-                                   int H, int P, int N, int Q,
-                                   const long long* x_st,
-                                   const long long* dt_st, long long a_st,
-                                   const long long* b_st,
-                                   const long long* c_st, void* stream) {
+// outputs. g (B, nc, groups, nrt * nrt, 64, 64) and cum (B, nc, H, Q):
+// fp32 scratch. groups is 1 (B and C one group over the heads) or H; the
+// grids are ssd_scan.plan's (prep_blocks = g_blocks + ceil(cells / 8),
+// main_blocks = cells * (nrt + nst)), checked here against the geometry.
+// Q <= 256 divides S; N <= 128; P <= 128. Returns the CUDA error of the
+// launches (0 = none).
+extern "C" int ssd_intra_chunk_f32(
+    const float* x, const float* dt, const float* A, const float* Bm,
+    const float* Cm, float* y, float* s, float* tot, float* g, float* cellbuf,
+    long long B, long long S, int H, int P, int N, int Q, int groups,
+    int xvec, int bvec, long long g_blocks, long long prep_blocks, long long main_blocks,
+    const long long* x_st, const long long* dt_st, long long a_st,
+    const long long* b_st, const long long* c_st, void* stream) {
   Args a;
   a.x = x;
   a.dt = dt;
@@ -320,6 +476,8 @@ extern "C" int ssd_intra_chunk_f32(const float* x, const float* dt,
   a.y = y;
   a.s = s;
   a.tot = tot;
+  a.g = g;
+  a.cellbuf = cellbuf;
   for (int i = 0; i < 4; ++i) {
     a.xs[i] = x_st[i];
     a.bs[i] = b_st[i];
@@ -328,14 +486,33 @@ extern "C" int ssd_intra_chunk_f32(const float* x, const float* dt,
   for (int i = 0; i < 3; ++i) a.ds[i] = dt_st[i];
   a.as = a_st;
   a.nc = S / Q;
+  a.cells = B * a.nc * H;
   a.H = H;
   a.P = P;
   a.N = N;
   a.Q = Q;
   a.nrt = (Q + T - 1) / T;
-  const int64_t cells = B * a.nc * H;
+  a.nst = (N + T - 1) / T;
+  a.npairs = a.nrt * (a.nrt + 1) / 2;
+  a.groups = groups;
+  a.g_blocks = g_blocks;
+  a.xvec = xvec;
+  a.bvec = bvec;
+  if (Q > QMAX || (groups != 1 && groups != H) ||
+      g_blocks != B * a.nc * groups * a.npairs ||
+      prep_blocks != g_blocks + (a.cells + CUM_CELLS - 1) / CUM_CELLS ||
+      main_blocks != a.cells * (a.nrt + a.nst))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (P <= 32) return launch<32>(a, cells, st);
-  if (P <= 64) return launch<64>(a, cells, st);
-  return launch<128>(a, cells, st);
+  static std::atomic<int> done[SMEM_MAX_DEVICES];
+  const int prep_smem = (int)(sizeof(float) * 2 * N * PT);
+  cudaError_t err = allow_smem(ssd_intra_chunk_prep, done, prep_smem);
+  if (err != cudaSuccess) return (int)err;
+  ssd_intra_chunk_prep<<<(unsigned)prep_blocks, PREP_THREADS, prep_smem,
+                         st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (P <= 32) return launch_main<32>(a, main_blocks, st);
+  if (P <= 64) return launch_main<64>(a, main_blocks, st);
+  return launch_main<128>(a, main_blocks, st);
 }

@@ -12,16 +12,20 @@ SSD quantities:
 
 * Replaces ``repro/kernels/ssd_scan.py::ssd_intra_chunk`` (``pl.pallas_call``
   at ssd_scan.py:71).
-* Kernel: ``csrc/ssd_intra_chunk.cu``: per cell, one block per 64-row tile
-  of the chunk (the column tiles j <= i walked in a loop, the 64 × 64 tile
-  of C·Bᵀ built from N-slices in shared memory) and one block per 64 rows
-  of N for the chunk state; fp32 on the CUDA cores; cum accumulated in
-  fp64 and rounded once (``ref.ssd_cumsum``). Limits: chunk Q <= 256
-  dividing S, N <= 128, P <= 128; B and C read through any strides (a head
-  stride of 0 for one group repeated over the heads).
-* Bound on an H100: operations. At the serve prefill's shape (B=4, S=2048,
-  H=64, P=64, N=128, Q=256) the causal half of the products is 34.4 GFLOP,
-  >= 0.51 ms at 67 TFLOP/s; about 0.35 GB to move, 0.10 ms.
+* Kernel: ``csrc/ssd_intra_chunk.cu``, two launches a call, from ``plan``:
+  a prep launch builds G = C·Bᵀ once per (batch, chunk, group), only its
+  causal 64 × 64 tiles (one group when B and C both have a head stride of
+  0, as ``models/ssm.py`` passes them; else one a head), and scans cum
+  once per cell (fp64, each prefix rounded once: ``ref.ssd_cumsum``) into
+  scratch beside the cell's dt and decay; the main launch has one block
+  per (cell, 64-row tile), a Y block per row tile of the chunk and a state
+  block per 64 rows of N, streaming 32-row slices through a two-stage
+  cp.async ring into 8 × 8 register tiles. fp32 on the CUDA cores.
+  Limits: chunk Q <= 256 dividing S, N <= 128, P <= 128; x, dt, B and C
+  read through any strides.
+* Bound on an H100: operations (``work``). At the serve prefill's shape
+  (B=4, S=2048, H=64, P=64, N=128, Q=256, one group) the inputs need
+  17.48 GFLOP, >= 0.261 ms at 67 TFLOP/s; 0.35 GB to move, 0.10 ms.
 * Forward only, as the TPU kernel is: the wrapper raises for an input that
   requires grad.
 
@@ -29,15 +33,20 @@ SSD quantities:
 the intra-chunk term, then the inter-chunk recurrence (a Python loop over
 the chunks) and the ``Y_off`` contraction in plain torch.
 
-Plain version: ``kernels/ref.py::ssd_intra_chunk_ref``. The kernel launches
-on PyTorch's current stream and is checked with ``cudaGetLastError`` right
-after the launch; it sums its products in another order than cuBLAS, so it
-agrees with the plain version to rounding, not bitwise.
+Plain version: ``kernels/ref.py::ssd_intra_chunk_ref``. The kernels launch
+on PyTorch's current stream and are checked with ``cudaGetLastError`` right
+after each launch. Every output is one fmaf chain in index order (no
+atomics, no sum split across blocks), so a call gives the same bits every
+time; it sums in another order than cuBLAS, so it agrees with the plain
+version to a rounding bound (``tests/test_torch_cuda.py::k7_bounds``), not
+bitwise.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+import math
 
 import torch
 
@@ -76,14 +85,140 @@ def check_args(xh, dt, A, Bm, Cm, chunk):
                          f"P={P}")
 
 
+TILE = 64            # rows and columns of a tile (csrc T)
+CUM_CELLS = 8        # cells a cum block scans, one a warp
+
+
+def work(B, S, H, P, N, Q, groups):
+    """(flops, bytes) K7's inputs need: G = C·Bᵀ once per (batch, chunk,
+    group), its causal half (2N per pair i >= j); per cell (G⊙L)·(x·dt)
+    over the causal pairs (2P each) and the chunk state (2QNP); x, dt, A
+    and B/C (``groups`` of (B, S, N) each) read once, Y, S_chunk and total
+    written once, fp32."""
+    nc = S // Q
+    cells = B * nc * H
+    pairs = Q * (Q + 1) // 2
+    flops = B * nc * groups * pairs * 2 * N \
+        + cells * (pairs * 2 * P + 2 * Q * N * P)
+    nbytes = 4 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * groups * N
+                  + cells * N * P + cells)
+    return flops, nbytes
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """K7's launches for one call (``plan``)."""
+    B: int
+    nc: int
+    H: int
+    Q: int
+    groups: int       # 1 (B and C one group over the heads) or H
+    pd: int           # P padded to 32, 64 or 128: the main block's threads
+    nrt: int          # 64-row tiles of a chunk
+    nst: int          # 64-row tiles of N
+    hg = 1            # heads a main block computes (G reaches them via L2)
+
+    @property
+    def cells(self):
+        """(batch, chunk, head) cells."""
+        return self.B * self.nc * self.H
+
+    @property
+    def npairs(self):
+        """Causal tile pairs (i, j), j <= i, of a chunk."""
+        return self.nrt * (self.nrt + 1) // 2
+
+    @property
+    def g_blocks(self):
+        """Prep blocks that build G tiles; the rest scan cum."""
+        return self.B * self.nc * self.groups * self.npairs
+
+    @property
+    def prep_grid(self):
+        return self.g_blocks + -(-self.cells // CUM_CELLS)
+
+    @property
+    def main_grid(self):
+        return self.cells * (self.nrt + self.nst)
+
+    @property
+    def g_shape(self):
+        """G scratch: tile (i, j) of a (batch, chunk, group) at i·nrt + j,
+        stored [j][i] (only the causal tiles are written)."""
+        return (self.B, self.nc, self.groups, self.nrt * self.nrt, TILE,
+                TILE)
+
+    @property
+    def cell_shape(self):
+        """Per-cell scratch: cum, dt and exp(cum_{Q-1} - cum), contiguous."""
+        return (self.B, self.nc, self.H, 3, self.Q)
+
+    @property
+    def scratch_bytes(self):
+        return {"g": 4 * math.prod(self.g_shape),
+                "cell": 4 * math.prod(self.cell_shape)}
+
+
+def plan(B, S, H, P, N, Q, b_strides, c_strides):
+    """K7's launches for xh (B, S, H, P), B/C (B, S, H, N) of the given
+    strides and chunk Q: one G group when B and C both have a head stride
+    of 0, else one a head; a prep grid of the causal G tiles of every
+    (batch, chunk, group) and the cum blocks; a main grid of
+    cells·(nrt + nst) blocks (``main_block``)."""
+    return Plan(B=B, nc=S // Q, H=H, Q=Q,
+                groups=1 if b_strides[2] == 0 and c_strides[2] == 0 else H,
+                pd=32 if P <= 32 else 64 if P <= 64 else 128,
+                nrt=-(-Q // TILE), nst=-(-N // TILE))
+
+
+def prep_block(p, blk):
+    """What block ``blk`` of the prep launch computes, as the kernel decodes
+    it: ("g", b, c, group, i, j) for G tile (i, j), j <= i, or ("cum",
+    cells) for the cells whose cum it scans."""
+    if blk < p.g_blocks:
+        gid, j = divmod(blk, p.npairs)
+        i = 0
+        while j > i:
+            j -= i + 1
+            i += 1
+        return ("g", gid // (p.groups * p.nc), (gid // p.groups) % p.nc,
+                gid % p.groups, i, j)
+    first = (blk - p.g_blocks) * CUM_CELLS
+    return ("cum", tuple(range(first, min(first + CUM_CELLS, p.cells))))
+
+
+def main_block(p, blk):
+    """What block ``blk`` of the main launch computes, as the kernel decodes
+    it: ("y", b, c, h, row tile) or ("state", b, c, h, N tile). Block
+    ((b·nc + c)·(nrt + nst) + slot)·H + h: the blocks of a (batch, chunk)
+    run together (its x stays in L2); slot 0 is the last row tile, slots
+    1..nst the state tiles, then row tiles nrt - 2 .. 0, the heaviest
+    first."""
+    rest, h = divmod(blk, p.H)
+    bc, slot = divmod(rest, p.nrt + p.nst)
+    b, c = divmod(bc, p.nc)
+    if 1 <= slot <= p.nst:
+        return ("state", b, c, h, slot - 1)
+    return ("y", b, c, h, p.nrt - 1 if slot == 0 else p.nrt - 1
+            - (slot - p.nst))
+
+
+def _rows_in_float4s(t):
+    """1 when every row of t (B, S, H, W) is aligned float4s: unit last
+    stride, W and the other strides multiples of 4, a 16-byte base."""
+    st = t.stride()
+    return int(st[3] == 1 and t.shape[3] % 4 == 0
+               and all(v % 4 == 0 for v in st[:3]) and t.data_ptr() % 16 == 0)
+
+
 @functools.cache
 def _lib():
     from repro_torch.kernels import build
     fn = build.load("ssd_intra_chunk.cu").ssd_intra_chunk_f32
     vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     st = ctypes.POINTER(ctypes.c_longlong)
-    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, cll, cll, ci, ci, ci, ci,
-                   st, st, cll, st, st, vp]
+    fn.argtypes = [vp] * 10 + [cll, cll] + [ci] * 7 + [cll, cll, cll, st,
+                                                       st, cll, st, st, vp]
     fn.restype = ci
     return fn
 
@@ -91,7 +226,8 @@ def _lib():
 def ssd_intra_chunk(xh, dt, A, Bm, Cm, chunk):
     """K7 on CUDA tensors: xh (B, S, H, P), dt (B, S, H), A (H,), Bm/Cm
     (B, S, H, N), fp32, any strides -> new contiguous (Y_diag (B, S, H, P),
-    S_chunk (B, nc, H, N, P), total (B, nc, H)), nc = S / chunk."""
+    S_chunk (B, nc, H, N, P), total (B, nc, H)), nc = S / chunk. Two
+    launches (``plan``); ``launches`` counts calls."""
     check_args(xh, dt, A, Bm, Cm, chunk)
     if xh.device.type != "cuda":
         raise ValueError(f"ssd_intra_chunk launches on CUDA tensors; got "
@@ -100,21 +236,27 @@ def ssd_intra_chunk(xh, dt, A, Bm, Cm, chunk):
     B, S, H, P = xh.shape
     N = Bm.shape[3]
     Q = int(chunk)
-    nc = S // Q
-    if B * nc * H > GRID_X_MAX:
-        raise ValueError(f"B·nc·H = {B * nc * H} exceeds K7's grid")
+    pl = plan(B, S, H, P, N, Q, Bm.stride(), Cm.stride())
+    if max(pl.prep_grid, pl.main_grid) > GRID_X_MAX:
+        raise ValueError(f"K7's grids ({pl.prep_grid}, {pl.main_grid} "
+                         f"blocks) exceed {GRID_X_MAX}")
     dev = xh.device
-    y = torch.empty((B, S, H, P), dtype=torch.float32, device=dev)
-    s = torch.empty((B, nc, H, N, P), dtype=torch.float32, device=dev)
-    tot = torch.empty((B, nc, H), dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    y = torch.empty((B, S, H, P), **f32)
+    s = torch.empty((B, pl.nc, H, N, P), **f32)
+    tot = torch.empty((B, pl.nc, H), **f32)
+    g = torch.empty(pl.g_shape, **f32)
+    cellbuf = torch.empty(pl.cell_shape, **f32)
     x_st, dt_st, b_st, c_st = ((ctypes.c_longlong * t.dim())(*t.stride())
                                for t in (xh, dt, Bm, Cm))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib()(xh.data_ptr(), dt.data_ptr(), A.data_ptr(),
                      Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(),
-                     s.data_ptr(), tot.data_ptr(), B, S, H, P, N, Q, x_st,
-                     dt_st, A.stride(0), b_st, c_st, stream)
+                     s.data_ptr(), tot.data_ptr(), g.data_ptr(),
+                     cellbuf.data_ptr(), B, S, H, P, N, Q, pl.groups,
+                     _rows_in_float4s(xh), _rows_in_float4s(Bm), pl.g_blocks, pl.prep_grid, pl.main_grid, x_st, dt_st,
+                     A.stride(0), b_st, c_st, stream)
     if err != 0:
         raise RuntimeError(f"ssd_intra_chunk_f32 launch failed: CUDA error "
                            f"{err}")
@@ -122,7 +264,7 @@ def ssd_intra_chunk(xh, dt, A, Bm, Cm, chunk):
     return y, s, tot
 
 
-ssd_intra_chunk.launches = 0    # kernel launches since the count was reset
+ssd_intra_chunk.launches = 0    # wrapper calls (2 launches each) since reset
 
 
 def ssd_kernel_forward(xh, dt, A, Bm, Cm, chunk, h0=None,

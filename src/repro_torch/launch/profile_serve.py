@@ -7,7 +7,8 @@ under ``torch.profiler``, runs ``--untraced`` greedy decode steps (each
 timed between device synchronizations), then ``--traced`` more under the
 profiler, and prints: the prefill time and the traced prefill's device time
 split into K4 (flash attention, with ``--flash-kernel``), K7 (the SSD
-intra-chunk term, with ``--ssd-kernel``), GEMMs and the rest; the untraced
+intra-chunk term, with ``--ssd-kernel``: its prep and main kernels, two
+launches a layer), GEMMs and the rest; the untraced
 steps' wall times and their median, the device-busy time per traced step
 (summed kernel time) as a share of the traced step and of the untraced
 median, the device time and launches of K5 (decode attention: its split
@@ -44,7 +45,7 @@ from repro_torch.utils import rng
 KERNELS = {"k5": ("decode_split", "decode_merge"),
            "k6": ("decode_sample_blocks", "decode_sample_reduce")}
 PREFILL_KERNELS = {"k4": ("flash_attention_kernel",),
-                   "k7": ("ssd_intra_chunk_kernel",)}
+                   "k7": ("ssd_intra_chunk_prep", "ssd_intra_chunk_main")}
 GEMM = ("gemm", "cutlass", "xmma")    # cuBLAS's kernels, by name (lower case)
 TOP = 12
 

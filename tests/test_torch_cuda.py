@@ -410,7 +410,8 @@ def test_k4_rejects_grad_and_mixed_devices(dev):
 # (B, S, H, P, N, Q, A, shared B/C): the serve prefill's shape with one
 # B/C group over the heads (head stride 0), per-head B/C, Q 64/128 with N
 # 16/64 and P 32/128, one chunk (the continuous-batching prefill), A = -16
-# (max|cum| in the thousands), and ragged P, N and Q
+# (max|cum| in the thousands), ragged P, N and Q, B with head stride 0 beside
+# a per-head C ("B": the per-head G path), and the one chunk with A = -16
 K7_CASES = [(4, 2048, 64, 64, 128, 256, None, True),
             (2, 1024, 16, 64, 128, 256, None, False),
             (2, 512, 8, 32, 16, 64, None, False),
@@ -419,7 +420,9 @@ K7_CASES = [(4, 2048, 64, 64, 128, 256, None, True),
             (2, 512, 8, 32, 64, 128, None, True),
             (1, 256, 64, 64, 128, 256, None, True),
             (2, 1024, 8, 64, 128, 256, -16.0, True),
-            (1, 144, 3, 30, 20, 48, None, False)]
+            (1, 144, 3, 30, 20, 48, None, False),
+            (2, 512, 8, 64, 64, 128, None, "B"),
+            (1, 256, 64, 64, 128, 256, -16.0, True)]
 
 
 def _k7_inputs(B, S, H, P, N, dev, a=None, shared=False, seed=0):
@@ -428,11 +431,9 @@ def _k7_inputs(B, S, H, P, N, dev, a=None, shared=False, seed=0):
     x = f(B, S, H, P)
     dt = torch.nn.functional.softplus(f(B, S, H))
     A = torch.full((H,), a, device=dev) if a is not None else -torch.exp(f(H))
-    if shared:
-        Bm, Cm = f(B, S, 1, N).expand(B, S, H, N), \
-            f(B, S, 1, N).expand(B, S, H, N)
-    else:
-        Bm, Cm = f(B, S, H, N), f(B, S, H, N)
+    Bm = f(B, S, 1, N).expand(B, S, H, N) if shared else f(B, S, H, N)
+    Cm = f(B, S, 1, N).expand(B, S, H, N) if shared is True \
+        else f(B, S, H, N)
     return x, dt, A, Bm, Cm
 
 
@@ -465,6 +466,18 @@ def test_k7_vs_plain(dev, B, S, H, P, N, Q, a, shared):
             float(((g - w).abs() / bd.clamp_min(1e-30)).max())
     if a is not None:
         assert cmax > 2000.0
+
+
+@pytest.mark.cuda
+def test_k7_is_deterministic(dev):
+    """No atomics, no sum split across blocks: two calls on the same inputs
+    give the same bits in all three outputs."""
+    B, S, H, P, N, Q = 4, 2048, 64, 64, 128, 256
+    x, dt, A, Bm, Cm = _k7_inputs(B, S, H, P, N, dev, shared=True)
+    first = ssd.ssd_intra_chunk(x, dt, A, Bm, Cm, Q)
+    second = ssd.ssd_intra_chunk(x, dt, A, Bm, Cm, Q)
+    for u, v in zip(first, second):
+        assert torch.equal(u, v)
 
 
 @pytest.mark.cuda
