@@ -8,11 +8,17 @@ ragged n, misaligned views and two launches past 2^31 elements), drives the
 port's paths through ``repro_torch.launch.train.main`` at the full width of
 qwen2-0.5b (the SAVIC round; local-adam; SAVIC with int8-stochastic
 compression and error feedback; SAVIC with OASIS and half the clients
-sampled), runs the pre-refactor round's per-leaf step (the momentum pass,
+sampled; then the round's knobs at H = 4: per-client H_m from lognormal
+step times with a depth-2 staleness FIFO beside the uniform round, the
+adaptive controller with topk and error feedback, its knobs replayed by
+``tests/_reference_controller.py``, and local-adam with the consistency
+objective on half-labeled sequences and a client-resident final norm),
+runs the pre-refactor round's per-leaf step (the momentum pass,
 then ``ops.scaled_update_tree``: K2 once a leaf) on the Fig. 1 MLP, on the
 reference kernels_fused bench's leaves and on full-width qwen2-0.5b, held
 against the tree step and timed beside K1, holds the fused client loop
-against the tree loop, runs the paper's experiments through
+against the tree loop (also under H_m with the FIFO, and under the
+controller), runs the paper's experiments through
 ``repro_torch.launch.paper`` (Fig. 1 at main_frac 0.5 for its five methods
 on the tree and fused loops, Theorem 1's transient, §5.2's six points),
 then drives the serving path through ``repro_torch.launch.serve`` at full
@@ -36,6 +42,7 @@ times are one per-leaf step over full-width qwen2-0.5b's 14 leaves at M =
 4) and the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -57,7 +64,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import PrecondConfig, engine  # noqa: E402
 from repro_torch.core import preconditioner as PC  # noqa: E402
 from repro_torch.data import (LMRoundLoader, TokenStream,  # noqa: E402
-                              main_class_partition)
+                              federated, main_class_partition)
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import decode_step as ds  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -78,6 +85,11 @@ from repro_torch.utils.flatten import FlatLayout  # noqa: E402
 from repro_torch.utils.tree import tree_map, tree_paths, tree_size  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
+# the controller's numpy oracle (numpy only), beside the tests
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "tests"))
+import _reference_controller as ref_ctrl  # noqa: E402
+
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
 FP32_FLOP_PER_S = 67e12            # fp32 outside the tensor cores
 DEV = torch.device("cuda", 0)
@@ -90,6 +102,19 @@ EMBED = (4, 137_625_600)           # the embed.table leaf at M=4, full width
 N_LEAVES = 14                      # parameter leaves of qwen2-0.5b
 INT8_EF = ["--compression", "int8-stochastic", "--error-feedback"]
 OASIS_HALF = ["--preconditioner", "oasis", "--participation", "0.5"]
+# the round's knobs at full width, H = 4: lognormal step times at seed 0
+# give H_m = (3, 4, 2, 3) (stragglers freeze mid-round) and a spread of 1.59
+# (the controller's b_eff = 2, and at H_t = 1 three clients sit out)
+H_KNOBS = 4
+HET_ASYNC = ["--h-local", str(H_KNOBS), "--het-model", "lognormal",
+             "--het-seed", "0", "--async-buffer", "2", "--staleness-weight",
+             "polynomial"]
+CONTROLLER = ["--h-local", str(H_KNOBS), "--controller", "--async-buffer",
+              "2", "--het-model", "lognormal", "--het-seed", "0",
+              "--compression", "topk", "--compression-k", "0.1",
+              "--error-feedback"]
+SEMI_PERSONAL = ["--objective", "consistency", "--labeled-frac", "0.5",
+                 "--personalize", "final_norm"]
 # serving: batch 8, prompt 512, 64 tokens (63 decode steps) at full width
 SERVE = dict(batch=8, prompt_len=512, gen_len=64)
 K5_MAIN = (8, 576, 2, 7, 64)       # B, C, Hk, rep, D of the decode steps
@@ -1474,7 +1499,9 @@ def finite(v):
 def main_path(argv, expect_k1, expect_k3=0):
     """Drive ``train.main(argv)`` with the kernels' counts set to 0 just
     before and read just after; returns (log, K1 launches, K3 launches,
-    peak GiB)."""
+    peak GiB). ``expect_k1`` is a count, or a function of the log (the
+    launches the realized H_m need: one a local step in which any client is
+    active, Σ_r max_m H_m,r)."""
     su.fused_step_flat.launches = 0
     qu.quantize_update_flat.launches = 0
     torch.cuda.empty_cache()
@@ -1485,11 +1512,20 @@ def main_path(argv, expect_k1, expect_k3=0):
     for rec in log:
         extra = (f" comp_err {rec['compression_err']:.4e}"
                  if "compression_err" in rec else "")
+        extra += (f" staleness {rec['staleness']:.4f}"
+                  if "staleness" in rec else "")
+        extra += (f" H_m {rec['ctrl_h_m']} H_t {rec['ctrl_h_t']} k "
+                  f"{rec['ctrl_k']} b_eff {rec['ctrl_b_eff']}"
+                  if "ctrl_h_m" in rec else "")
         print(f"[chip_smoke]   round {rec['round']} loss {rec['loss']:.5f} "
               f"drift {rec['drift']:.4e}{extra} tokens/s "
               f"{rec['tokens_per_s']} wall {rec['wall_s']} s", flush=True)
         check(all(finite(v) for v in rec.values() if isinstance(v, float)),
               f"non-finite record {rec}")
+        check("staleness" not in rec or rec["staleness"] >= 0.0,
+              f"staleness {rec.get('staleness')}")
+    if callable(expect_k1):
+        expect_k1 = expect_k1(log)
     check(k1 == expect_k1, f"K1 launched {k1} times, expected {expect_k1}")
     check(k3 == expect_k3, f"K3 launched {k3} times, expected {expect_k3}")
     print(f"[chip_smoke]   launches K1 {k1}, K3 {k3}; peak memory "
@@ -1497,18 +1533,19 @@ def main_path(argv, expect_k1, expect_k3=0):
     return log, k1, k3, peak
 
 
-def fused_vs_tree(name, rounds=1, flips=False, **method_kw):
+def fused_vs_tree(name, rounds=1, flips=False, H=2, **method_kw):
     """``rounds`` rounds at full width and 2 layers: fused client loop
     against the tree loop from the same start, same batches, same rng
     streams. Every float leaf must agree to 1e-5 of its scale (the EF
-    residual's scale is the matching params leaf's: u − C(u) cancels to ulps
-    of the params). ``flips`` (int8 rounds): where the two loops' deltas
+    residual's and the staleness FIFO's scale is the matching params leaf's:
+    u − C(u) and the averaged deltas x̄ − x_t cancel to ulps of the params). ``flips`` (int8 rounds): where the two loops' deltas
     differ in the last bits at an integer boundary, floor(v + u) flips q by
     one; up to 1e-4 of a leaf's elements may then differ by up to 2e-4 of
-    its scale. Returns (worst relative difference, flipped elements)."""
+    its scale. Returns (worst relative difference, flipped elements, K1
+    launches of the fused run)."""
     cfg = get_config("qwen2-0.5b").replace(n_layers=2)
     model = build_model(cfg, ModelCallConfig(dtype=torch.float32))
-    M, H, b, S = 4, 2, 8, 128
+    M, b, S = 4, 8, 128
     loader = LMRoundLoader(TokenStream(cfg.vocab_size, seed=0), M, b)
     root = rng.TorchStream(1)
     out = {}
@@ -1518,10 +1555,18 @@ def fused_vs_tree(name, rounds=1, flips=False, **method_kw):
         gen = torch.Generator(device=DEV).manual_seed(0)
         state = engine.init_state(gen, model.init, spec, M)
         step = engine.build_round_step(model.loss, spec)
+        su.fused_step_flat.launches, need = 0, 0
         for r in range(rounds):
             batch = {k: torch.from_numpy(v).to(DEV, torch.long)
                      for k, v in loader.round_batch(r, H, S).items()}
             state, met = step(state, batch, root.fold(r))
+            # one launch a local step in which any client is active
+            need += max(met["ctrl_h_m"].tolist()) if "ctrl_h_m" in met \
+                else max(spec.client.local_steps or (H,))
+        if fused:
+            k1 = su.fused_step_flat.launches
+            check(k1 == need, f"{name}: K1 launched {k1} times, the "
+                  f"realized H_m need {need}")
         out[fused] = (state, float(met["loss"]))
         del state, met
     (sf, lf), (st, lt) = out[True], out[False]
@@ -1531,7 +1576,9 @@ def fused_vs_tree(name, rounds=1, flips=False, **method_kw):
         if not a.is_floating_point():
             check(torch.equal(a, c), f"{name}: {k} differs")
             continue
-        ref_leaf = tree["params/" + k[3:]] if k.startswith("ef/") else c
+        head = k.split("/")[0]
+        ref_leaf = tree["params/" + k[len(head) + 1:]] \
+            if head in ("ef", "buffer") else c
         scale = float(ref_leaf.abs().max()) or 1.0
         diff = (a - c).abs()
         if flips:
@@ -1547,12 +1594,153 @@ def fused_vs_tree(name, rounds=1, flips=False, **method_kw):
     torch.cuda.empty_cache()
     print(f"[chip_smoke] fused vs tree ({name}, 2 layers, {rounds} rounds): "
           f"loss {lf:.6f} vs {lt:.6f}, worst state diff {worst:.3e} of leaf "
-          f"scale" + (f", {n_flips} int8 boundary flips" if flips else ""),
-          flush=True)
+          f"scale" + (f", {n_flips} int8 boundary flips" if flips else "")
+          + f"; K1 launches {k1}", flush=True)
     check(abs(lf - lt) <= 1e-5 * abs(lt), f"{name}: fused and tree losses "
           f"differ")
     check(worst <= 1e-5, f"{name}: fused and tree states differ beyond 1e-5")
-    return worst, n_flips
+    return worst, n_flips, k1
+
+
+def launches_for_hm(log):
+    """K1 launches the logged rounds need: max_m H_m a round."""
+    return sum(max(rec["ctrl_h_m"]) for rec in log)
+
+
+def het_phase():
+    """8a: per-client H_m from lognormal step times and a depth-2 staleness
+    FIFO (polynomial weights), beside the uniform H = 4 round."""
+    hm = [int(h) for h in federated.local_steps_from_times(
+        federated.sample_step_times("lognormal", 4, seed=0), H_KNOBS)]
+    check(len(set(hm)) > 1, f"H_m {hm} is uniform")
+    argv = main_argv("savic", 2, ["--h-local", str(H_KNOBS)])
+    print("[chip_smoke] 8a uniform H=4: train.main " + " ".join(argv),
+          flush=True)
+    ulog, _, _, upeak = main_path(argv, 2 * H_KNOBS)
+    argv = main_argv("savic", 2, HET_ASYNC)
+    print(f"[chip_smoke] 8a heterogeneity + async (H_m {hm}, --het-seed 0):"
+          f" train.main " + " ".join(argv), flush=True)
+    log, k1, _, peak = main_path(argv, 2 * max(hm))
+    check(all(finite(rec["staleness"]) for rec in log), "staleness")
+    check(log[1]["staleness"] > 0.0, "the FIFO's second round has no stale "
+          "slot")
+    print(f"[chip_smoke]   8a round wall {[r['wall_s'] for r in log]} s "
+          f"(uniform H=4: {[r['wall_s'] for r in ulog]} s); launches K1 {k1} "
+          f"= Σ_r max H_m; peak {peak:.2f} GiB (uniform H=4 {upeak:.2f} GiB)",
+          flush=True)
+    return {"hm": hm, "walls": [r["wall_s"] for r in log], "peak": peak,
+            "uniform_walls": [r["wall_s"] for r in ulog],
+            "uniform_peak": upeak, "k1": k1}
+
+
+def controller_phase():
+    """8b: the controller (H_m from the straggler trace, H_t growth, the
+    EF-guarded k on topk, b_eff) at full width; the logged observations
+    replayed through tests/_reference_controller.py."""
+    argv = main_argv("savic", 3, CONTROLLER)
+    print("[chip_smoke] 8b controller: train.main " + " ".join(argv),
+          flush=True)
+    log, k1, _, peak = main_path(argv, launches_for_hm)
+    ctrl = train._resolve_spec(train._parser().parse_args(argv), 4)[0] \
+        .controller
+    s = ref_ctrl.init_ctrl_state(ctrl, 4)
+    for rec in log:
+        want = (s["h_m"].tolist(), int(s["h_t"]), int(s["b_eff"]),
+                round(float(s["k"]), 6))
+        got = (rec["ctrl_h_m"], rec["ctrl_h_t"], rec["ctrl_b_eff"],
+               rec["ctrl_k"])
+        check(got == want, f"round {rec['round']} knobs {got}, oracle "
+              f"{want}")
+        s, _ = ref_ctrl.controller_step(ctrl, s, {
+            "delta_sq_mean": rec["delta_sq_mean"],
+            "delta_sq_avg": rec["delta_sq_avg"],
+            "payload_sq": rec["payload_sq"],
+            "resid_sq": rec["compression_err"]})
+        check(rec["ctrl_gns_ema"] == round(float(s["gns_ema"]), 6),
+              f"round {rec['round']} gns_ema {rec['ctrl_gns_ema']}")
+    print(f"[chip_smoke]   8b knobs replayed by the numpy oracle: H_m "
+          f"{[r['ctrl_h_m'] for r in log]}, H_t "
+          f"{[r['ctrl_h_t'] for r in log]}, k {[r['ctrl_k'] for r in log]}, "
+          f"b_eff {log[0]['ctrl_b_eff']}; launches K1 {k1}; round wall "
+          f"{[r['wall_s'] for r in log]} s; peak {peak:.2f} GiB", flush=True)
+    return {"log": log, "k1": k1, "peak": peak,
+            "walls": [r["wall_s"] for r in log]}
+
+
+def topk_embed():
+    """The controller's topk at the embed.table leaf (4, 137,625,600), k =
+    0.1: one ``_compress_leaf`` call (the stable sort), its time and the
+    memory it adds above its input."""
+    x = torch.randn(EMBED, device=DEV, generator=torch.Generator(
+        device=DEV).manual_seed(3))
+    spec = engine.CompressionSpec(op="topk", k=0.1)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: engine._compress_leaf(spec, x, None, k_frac=0.1), 3)
+    extra = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    c = engine._compress_leaf(spec, x, None, k_frac=0.1)
+    kc = engine._kept_count(spec, EMBED[1], 0.1)[0]
+    check(bool((torch.count_nonzero(c, dim=1) == kc).all()),
+          "topk kept another count")
+    del x, c
+    torch.cuda.empty_cache()
+    print(f"[chip_smoke]   8b topk at the embed.table leaf {EMBED}, k 0.1 "
+          f"({kc} kept a row): {ms:.2f} ms a call, {extra:.2f} GiB above its "
+          f"input", flush=True)
+    return ms, extra
+
+
+def personal_phase(rounds=2):
+    """8c: local-adam with the consistency objective on half-labeled
+    sequences and the final norm client-resident, through ``train.setup``
+    and its round step; after each round the personal leaf differs across
+    clients and every synced leaf is one value."""
+    argv = main_argv("local-adam", rounds, SEMI_PERSONAL)
+    print("[chip_smoke] 8c objective + personalization: train.setup + "
+          "round_step " + " ".join(argv), flush=True)
+    su.fused_step_flat.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run = train.setup(argv)
+    state, run.state = run.state, None
+    walls = []
+    for r in range(rounds):
+        batch = train.round_batch(run.loader, run.args, r, DEV)
+        check("labeled" in batch, "no labeled leaf")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = run.round_step(state, batch, run.stream(r))
+        loss = float(met["loss"])
+        walls.append(time.perf_counter() - t0)
+        check(finite(loss), f"round {r} loss {loss}")
+        for k, p in tree_paths(state["params"]):
+            same = bool((p == p[:1]).all())
+            if "final_norm" in k:
+                check(not same, f"round {r}: personal {k} equal across "
+                      f"clients")
+            else:
+                check(same, f"round {r}: synced {k} differs across clients")
+        print(f"[chip_smoke]   round {r} loss {loss:.5f} wall "
+              f"{walls[-1]:.4f} s; final_norm/scale differs across clients, "
+              f"{len(tree_paths(state['params'])) - 1} synced leaves equal",
+              flush=True)
+        del batch, met
+    k1 = su.fused_step_flat.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(k1 == rounds * H_LOCAL, f"K1 launched {k1} times")
+    full = engine.bytes_on_wire(dataclasses.replace(
+        run.spec, sync=dataclasses.replace(run.spec.sync, personal=())),
+        engine.average_params(state))
+    n_pers = state["params"]["final_norm"]["scale"][0].numel()
+    check(run.wire["delta_bytes"] == full["delta_bytes"] - 4 * n_pers,
+          f"delta bytes {run.wire['delta_bytes']} vs {full['delta_bytes']}")
+    del state
+    torch.cuda.empty_cache()
+    print(f"[chip_smoke]   8c delta bytes {run.wire['delta_bytes']} = "
+          f"{full['delta_bytes']} − 4 × {n_pers}; launches K1 {k1}; peak "
+          f"{peak:.2f} GiB", flush=True)
+    return {"k1": k1, "peak": peak, "walls": walls}
 
 
 def ptxas_summary(log):
@@ -1775,6 +1963,25 @@ def main():
     fused_vs_tree("savic int8 + EF", rounds=2, flips=True,
                   compression="int8-stochastic", error_feedback=True)
     fused_vs_tree("savic local OASIS", pc_kind="oasis", scaling="local")
+
+    # ---- 8a-8d. the round's knobs at full width, H = 4 ---------------------
+    het = het_phase()
+    ctl = controller_phase()
+    topk_ms, topk_gib = topk_embed()
+    pers = personal_phase()
+    _, _, k1_8d_hm = fused_vs_tree(
+        "savic H_m (4, 3, 2, 1) + async 2", rounds=2, H=H_KNOBS,
+        local_steps=(4, 3, 2, 1), async_buffer=2,
+        staleness_weight="polynomial")
+    # randk: its kept set comes from the stream, not from the deltas, so no
+    # rank at the selection's edge can differ between the two loops
+    _, _, k1_8d_ctrl = fused_vs_tree(
+        "savic controller + randk EF + async 2", rounds=3, H=H_KNOBS,
+        async_buffer=2, compression="randk", compression_k=0.1,
+        error_feedback=True, controller=engine.ControllerSpec(
+            enabled=True, h_max=H_KNOBS, noise_target=1e-3, buffer_max=2,
+            step_times=tuple(federated.sample_step_times("lognormal", 4,
+                                                         seed=0))))
 
     # ---- 7b. the paper's experiments: fig1, thm1 transient, sec52 ---------
     paper_phase()
@@ -2070,7 +2277,14 @@ def main():
     print(f"[chip_smoke] peak memory: savic {peak:.2f} GiB, savic int8 + EF "
           f"{cpeak:.2f} GiB, savic OASIS + participation 0.5 {rpeak:.2f} GiB, "
           f"serve {speak:.2f} GiB, long-prompt serve {lpeak:.2f} GiB, "
-          f"mamba2 serve {mpeak:.2f} GiB", flush=True)
+          f"mamba2 serve {mpeak:.2f} GiB; 8a H_m + async {het['peak']:.2f} "
+          f"GiB (uniform H=4 {het['uniform_peak']:.2f}), 8b controller "
+          f"{ctl['peak']:.2f} GiB (topk at embed.table {topk_ms:.2f} ms, "
+          f"+{topk_gib:.2f} GiB), 8c objective + personal "
+          f"{pers['peak']:.2f} GiB", flush=True)
+    print(f"[chip_smoke] K1 launches on the knob paths: 8a {het['k1']}, 8b "
+          f"{ctl['k1']}, 8c {pers['k1']}, 8d {k1_8d_hm} (H_m) and "
+          f"{k1_8d_ctrl} (controller)", flush=True)
     print(f"[chip_smoke] total {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -34,7 +34,7 @@ class FedOptConfig:
     tau: float = 1e-3              # adaptivity floor τ
     v_init: float = None           # v_{-1}; default τ²
     client_momentum: float = 0.0
-    local_steps: tuple = None      # per-client H_m (not ported)
+    local_steps: tuple = None      # per-client H_m (None = uniform)
     participation: float = 1.0     # fraction of clients in the sync average
     # sync delta compression; its EF residual needs the engine's per-client
     # state, which this single-replica layout has no slot for

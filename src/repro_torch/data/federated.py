@@ -5,10 +5,10 @@ systems-heterogeneity models of the training CLI: numpy copies of
 Statistical heterogeneity: the main-class fraction partitioner (client m's
 "main" class is m % n_classes; ``main_frac`` of its samples come from it,
 the rest evenly from the other classes), the label-Dirichlet(α) partitioner
-and an iid partitioner for the identical-data regime of Theorem 1. The
-reference's ``labeled_mask`` (client objectives) and
-``local_steps_from_times`` / ``sample_local_steps`` (per-client H_m) are
-not ported yet.
+and an iid partitioner for the identical-data regime of Theorem 1. Systems
+heterogeneity: per-client step times, the per-client local steps H_m they
+buy under a wall-clock budget, and the simulated round time. Label scarcity:
+``labeled_mask`` for the semi-supervised client objectives.
 """
 from __future__ import annotations
 
@@ -39,6 +39,25 @@ def sample_step_times(model: str, n_clients: int, seed: int = 0, *,
         return t / tiers.min()
     raise ValueError(f"systems model {model!r}; expected one of "
                      f"{SYSTEMS_MODELS}")
+
+
+def local_steps_from_times(step_times: np.ndarray, h_max: int, *,
+                           time_budget: float = None) -> np.ndarray:
+    """Per-client local steps H_m under a fixed wall-clock budget (default
+    ``h_max`` × the fastest step time): the fastest client runs all
+    ``h_max`` steps, a client 2× slower about half, everyone at least 1."""
+    step_times = np.asarray(step_times, dtype=np.float64)
+    if time_budget is None:
+        time_budget = h_max * float(step_times.min())
+    h = np.floor(time_budget / step_times + 1e-9).astype(np.int64)
+    return np.clip(h, 1, h_max)
+
+
+def sample_local_steps(model: str, n_clients: int, h_max: int, seed: int = 0,
+                       **kw) -> np.ndarray:
+    """H_m from a systems model: step times -> budgeted local steps."""
+    return local_steps_from_times(
+        sample_step_times(model, n_clients, seed=seed, **kw), h_max)
 
 
 def simulated_round_time(step_times: np.ndarray, local_steps, *,
@@ -179,6 +198,30 @@ def iid_partition(n: int, n_clients: int, seed: int = 0):
     idx = rng.permutation(n)
     per = n // n_clients
     return [idx[m * per:(m + 1) * per] for m in range(n_clients)]
+
+
+def labeled_mask(labels: np.ndarray, labeled_frac: float,
+                 seed: int = 0) -> np.ndarray:
+    """float32 0/1 mask over ``labels`` of the examples that keep their label
+    (the semi-supervised objectives treat the rest as unlabeled). Stratified
+    per class with largest-remainder rounding, at least 1 per class when
+    labeled_frac > 0; labeled_frac >= 1 gives all ones, <= 0 all zeros."""
+    n = len(labels)
+    if labeled_frac >= 1.0:
+        return np.ones(n, dtype=np.float32)
+    if labeled_frac <= 0.0:
+        return np.zeros(n, dtype=np.float32)
+    rng = np.random.default_rng(seed)
+    mask = np.zeros(n, dtype=np.float32)
+    classes = np.unique(labels)
+    counts = np.array([(labels == c).sum() for c in classes])
+    quota = _largest_remainder(counts * labeled_frac,
+                               int(round(n * labeled_frac)))
+    quota = np.maximum(quota, 1)
+    for c, q in zip(classes, quota):
+        idx = np.where(labels == c)[0]
+        mask[rng.permutation(idx)[:min(int(q), len(idx))]] = 1.0
+    return mask
 
 
 def heterogeneity_score(labels: np.ndarray, parts) -> float:

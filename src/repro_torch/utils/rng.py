@@ -1,15 +1,20 @@
 """The port's rng interface: every random draw of a round goes through a
 *stream* (counterpart of the reference's ``jax.random`` key discipline).
 
-A stream is an address, not a state. It has six methods:
+A stream is an address, not a state. It has eight methods:
 
   ``fold(c)``                  the stream for one named purpose (a constant);
   ``split(n)``                 n independent child streams, as a list;
   ``uniform(shape, device)``   fp32 draws in [0, 1);
+  ``normal(shape, device)``    fp32 standard normal draws;
   ``rademacher(shape, device)`` fp32 draws of ±1;
+  ``randint(shape, lo, hi, device)`` int64 draws in [lo, hi);
   ``permutation(n, device)``   an int64 permutation of range(n);
   ``gumbel(shape, device)``    fp32 standard Gumbel draws (as
                                ``jax.random.gumbel``).
+
+A Bernoulli(p) draw is ``uniform(shape, device) < p``, as
+``jax.random.bernoulli`` draws it.
 
 Drawing twice from one stream gives the same numbers, as reusing a JAX key
 does; a caller folds or splits first. The engine's draws use the reference's
@@ -36,7 +41,7 @@ import torch
 # fold constants of the reference round (repro/core/engine.py)
 PARTICIPATION_FOLD = 3     # participation_weights: the sampled subset
 HUTCHINSON_FOLD = 7        # the sync-time Hutchinson probe (global D)
-OBJECTIVE_FOLD = 11        # client objectives' noise (no draw ported yet)
+OBJECTIVE_FOLD = 11        # client objectives' noise, per local step
 COMPRESSION_FOLD = 17      # compress_tree: one split per leaf
 
 
@@ -64,10 +69,19 @@ class TorchStream:
         return torch.rand(tuple(shape), generator=self._generator(device),
                           device=device, dtype=torch.float32)
 
+    def normal(self, shape, device) -> torch.Tensor:
+        return torch.randn(tuple(shape), generator=self._generator(device),
+                           device=device, dtype=torch.float32)
+
     def rademacher(self, shape, device) -> torch.Tensor:
         out = torch.empty(tuple(shape), device=device, dtype=torch.float32)
         return out.bernoulli_(0.5, generator=self._generator(device)) \
             .mul_(2.0).sub_(1.0)
+
+    def randint(self, shape, lo: int, hi: int, device) -> torch.Tensor:
+        return torch.randint(int(lo), int(hi), tuple(shape),
+                             generator=self._generator(device),
+                             device=device, dtype=torch.int64)
 
     def permutation(self, n: int, device="cpu") -> torch.Tensor:
         return torch.randperm(int(n), generator=self._generator(device),

@@ -5,6 +5,10 @@ round keys ``PRNGKey(r)`` replayed into the port through ``JaxStream``.
 The tolerances are stated and argued in tests/test_torch_engine.py;
 ``compression_err`` (a sum of squared residuals, summed sequentially in fp32
 by XLA's CPU ``vdot``) is held at 1e-3 relative.
+
+The Section-5 quadratic harness (``quad_*``) runs the reference's round
+tests' problem (d = 24, M = 4) on both packages the same way, with the
+reference's key chain ``key, k = split(key)`` from ``PRNGKey(1)``.
 """
 import functools
 
@@ -17,6 +21,7 @@ from _torch_rng_replay import JaxStream
 from repro.configs import get_config as jget_config
 from repro.core import engine as jeng
 from repro.data import LMRoundLoader as JLoader
+from repro.data import QuadraticLoader, QuadraticProblem
 from repro.data import TokenStream as JStream
 from repro.models import ModelCallConfig as JCall
 from repro.models import build as jbuild
@@ -139,3 +144,122 @@ def assert_metrics_close(got, want, tol=1e-5, err_tol=1e-3):
             np.testing.assert_allclose(float(g["compression_err"]),
                                        float(w["compression_err"]),
                                        rtol=err_tol)
+
+
+# --------------------------------------------------------------------------- #
+# The Section-5 quadratic on both packages
+# --------------------------------------------------------------------------- #
+
+QUAD_KW = dict(gamma=0.01, alpha=1e-2, eta_l=0.01, eta=0.05)
+
+
+@functools.lru_cache(maxsize=None)
+def quad_problem():
+    return QuadraticProblem.make(d=24, M=4, mu=0.5, L=5.0, sigma=0.3, seed=0)
+
+
+def quad_losses(problem=None):
+    """(reference loss, port loss) of f_0(x) + z·x; a ``head`` leaf, where
+    the params have one, enters with zero gradient (so only a sync could
+    change it)."""
+    problem = problem or quad_problem()
+    Qj, bj = (jnp.asarray(problem.Q, jnp.float32),
+              jnp.asarray(problem.b, jnp.float32))
+    Qt, bt = (torch.tensor(problem.Q, dtype=torch.float32),
+              torch.tensor(problem.b, dtype=torch.float32))
+
+    def jloss(params, micro):
+        x = params["x"]
+        out = 0.5 * (x - bj[0]) @ Qj[0] @ (x - bj[0]) + micro["z"] @ x
+        return out + 0.0 * jnp.sum(params["head"]) if "head" in params \
+            else out
+
+    def tloss(params, micro):
+        x = params["x"]
+        out = 0.5 * (x - bt[0]) @ Qt[0] @ (x - bt[0]) + micro["z"] @ x
+        return out + 0.0 * params["head"].sum() if "head" in params else out
+
+    return jloss, tloss
+
+
+def quad_init(params=None):
+    """A reference init function of fixed params (default x = 0)."""
+    params = params or {"x": np.zeros(24, np.float32)}
+    return lambda key: {k: jnp.asarray(v) for k, v in params.items()}
+
+
+def quad_batches(rounds, H, seed=0):
+    """(numpy round batches, reference round keys)."""
+    loader = QuadraticLoader(quad_problem(), seed=seed)
+    key, out = jax.random.PRNGKey(seed + 1), []
+    for _ in range(rounds):
+        key, k = jax.random.split(key)
+        out.append(({n: np.asarray(v) for n, v in
+                     loader.round_batch(H).items()}, k))
+    return out
+
+
+def quad_torch_batch(nb):
+    return {k: torch.from_numpy(v) for k, v in nb.items()}
+
+
+def quad_run_jax(jspec, rounds=4, H=3, init=None, objective=None,
+                 edit=None):
+    """The reference's rounds (its tree path unless ``jspec`` fuses):
+    (initial state, final state, per-round metrics), numpy. ``edit(state)``
+    changes the initial state in place (e.g. per-client personal values)."""
+    jloss = objective.base_loss if objective is not None else \
+        quad_losses()[0]
+    state = jeng.init_state(jax.random.PRNGKey(0), init or quad_init(),
+                            jspec, 4)
+    if edit is not None:
+        edit(state)
+    init_np = jax.device_get(state)
+    kw = {"objective": objective} if objective is not None else {}
+    step = jax.jit(jeng.build_round_step(jloss, jspec, **kw))
+    mets = []
+    for nb, k in quad_batches(rounds, H):
+        state, met = step(state, jax.tree.map(jnp.asarray, nb), k)
+        mets.append(jax.device_get(met))
+    return init_np, jax.device_get(state), mets
+
+
+def quad_port_state(spec, params=None):
+    """The port's own initial state of ``params`` (default x = 0), M = 4."""
+    params = params or {"x": torch.zeros(24)}
+    return engine.init_state(torch.Generator(), lambda g: {
+        k: v.clone() for k, v in params.items()}, spec, 4)
+
+
+def quad_run_port(spec, init_np=None, rounds=4, H=3, objective=None):
+    """The port's rounds from the reference's initial state (default: the
+    port's own, x = 0), on the reference's batches and replayed keys:
+    (final state, metrics)."""
+    tloss = objective.base_loss if objective is not None else \
+        quad_losses()[1]
+    state = state_from_jax(init_np, "cpu") if init_np is not None else \
+        quad_port_state(spec)
+    step = engine.build_round_step(tloss, spec, objective=objective)
+    mets = []
+    for nb, k in quad_batches(rounds, H):
+        state, met = step(state, quad_torch_batch(nb), JaxStream(k))
+        mets.append(met)
+    return state, mets
+
+
+def assert_quad_metrics(got, want, keys=("loss", "loss_per_client",
+                                         "client_drift", "staleness",
+                                         "step_norm", "compression_err"),
+                        rtol=1e-5):
+    """Float metrics to ``rtol`` (client drift and step norm, built from
+    differences of nearly equal params, to 10× and 100×); present in both
+    or in neither."""
+    scale = {"client_drift": 10, "step_norm": 100}
+    for g, w in zip(got, want):
+        for k in keys:
+            assert (k in g) == (k in w), k
+            if k in w:
+                np.testing.assert_allclose(
+                    np.asarray(g[k], dtype=np.float64),
+                    np.asarray(w[k], dtype=np.float64),
+                    rtol=rtol * scale.get(k, 1), atol=1e-7, err_msg=k)

@@ -24,6 +24,7 @@ gradients differ in the last bits and the optimizer carries that forward):
 """
 import dataclasses
 import functools
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -32,9 +33,11 @@ import pytest
 import torch
 
 from _torch_parity import (M, assert_metrics_close, assert_state_close,
-                           batches, models, run_jax, run_port)
+                           batches, models, quad_losses, run_jax, run_port)
 from _torch_rng_replay import JaxStream
+from repro.core import controller as jctrl
 from repro.core import engine as jeng
+from repro.core import objectives as jobj
 from repro.core import fedopt as jfedopt
 from repro.core import savic as jsavic
 from repro.core.preconditioner import PrecondConfig as JPrecond
@@ -43,7 +46,7 @@ from repro.data import TokenStream as JStream
 from repro.utils.flatten import FlatLayout as JFlatLayout
 from repro.utils.tree import tree_paths as jtree_paths
 from repro_torch.bridge import params_from_jax, state_from_jax
-from repro_torch.core import engine, fedopt, savic
+from repro_torch.core import engine, fedopt, objectives, savic
 from repro_torch.core.preconditioner import PrecondConfig
 from repro_torch.data import LMRoundLoader, TokenStream
 from repro_torch.utils.flatten import FlatLayout
@@ -222,27 +225,42 @@ def test_flat_layout_matches_reference():
     assert float(tree_paths(back)[0][1].reshape(M, -1)[0, 0]) == 123.0
 
 
+# the knobs this port once refused at build time
 UNPORTED = {
     "async": dict(async_buffer=2),
     "local_steps": dict(local_steps=(1, 2)),
-    "controller": dict(controller=object()),
+    "controller": dict(controller=engine.ControllerSpec(enabled=True,
+                                                        h_max=2)),
     "personal": dict(personal=("final_norm",), scaling="local"),
 }
 
 
 @pytest.mark.parametrize("name", list(UNPORTED))
 def test_unported_features_raise_at_build(name):
+    """Each knob the port once refused now builds and runs a round on
+    reduced qwen2-0.5b: nothing is refused as unported any more."""
     _, _, tm = models()
-    spec = engine.method_spec("savic", **UNPORTED[name])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        engine.build_round_step(tm.loss, spec)
+    spec = engine.method_spec("savic", **KW, **UNPORTED[name])
+    gen = torch.Generator().manual_seed(0)
+    state = engine.init_state(gen, tm.init, spec, M)
+    _, met = engine.build_round_step(tm.loss, spec)(
+        state, {k: torch.from_numpy(v).long()
+                for k, v in batches()[0].items()},
+        JaxStream(jax.random.PRNGKey(0)))
+    assert np.isfinite(float(met["loss"]))
 
 
 def test_objective_raises_at_build():
+    """A client objective builds (the objectives are ported); only what the
+    reference refuses at build time raises, with a ValueError."""
     _, _, tm = models()
-    with pytest.raises(NotImplementedError, match="objectives"):
-        engine.build_round_step(tm.loss, engine.method_spec("savic"),
-                                objective=object())
+    obj = objectives.lm_objective(objectives.ObjectiveSpec(
+        kind="pseudo-label"), tm)
+    engine.build_round_step(tm.loss, engine.method_spec("savic"),
+                            objective=obj)
+    with pytest.raises(ValueError, match="personal"):
+        engine.build_round_step(tm.loss, engine.method_spec(
+            "savic", personal=("final_norm",)), objective=obj)
 
 
 @pytest.mark.parametrize("bad", [
@@ -376,3 +394,43 @@ def test_randomized_round_matches_reference(name, fused):
     got, gmets = run_port(spec, init)
     assert_state_close(got, want)
     assert_metrics_close(gmets, wmets)
+
+
+@pytest.mark.parametrize("method,kw", [
+    ("savic", {}), ("savic", dict(scaling="local")), ("fedavg", {}),
+    ("fedadam", dict(compression="topk", compression_k=0.5,
+                     error_feedback=True)),
+], ids=["savic-global", "savic-local", "fedavg", "fedadam-topk-ef"])
+def test_every_spec_the_reference_builds_builds(method, kw):
+    """Every combination of H_m, the FIFO, the controller, an objective and
+    a personal mask: the port builds exactly what the reference builds and
+    refuses the rest with a ValueError, as the reference does (nothing is
+    refused as unported)."""
+    jloss, tloss = quad_losses()
+    jobjective = jobj.ClientObjective(jobj.ObjectiveSpec(kind="pseudo-label"),
+                                      lambda p, mc, k: jloss(p, mc), jloss)
+    tobjective = objectives.ClientObjective(
+        objectives.ObjectiveSpec(kind="pseudo-label"),
+        lambda p, mc, s: tloss(p, mc), tloss)
+    ctrls = [None, dict(enabled=True, h_max=2),
+             dict(enabled=True, h_max=2, buffer_max=2)]
+    seen = set()
+    for hm, buf, c, obj, pers in itertools.product(
+            [None, (1, 2, 2, 1)], [0, 2], ctrls, [False, True],
+            [(), ("x",)]):
+        knobs = dict(kw, local_steps=hm, async_buffer=buf, personal=pers)
+        outcome = []
+        for eng, ctrl_mod, loss, o in (
+                (jeng, jctrl, jloss, jobjective),
+                (engine, engine, tloss, tobjective)):
+            spec = eng.method_spec(method, controller=(
+                ctrl_mod.ControllerSpec(**c) if c else None), **knobs)
+            try:
+                eng.build_round_step(loss, spec,
+                                     objective=o if obj else None)
+                outcome.append("built")
+            except ValueError as e:
+                outcome.append(str(e).split(":")[0])
+        assert outcome[0] == outcome[1], (knobs, c, obj, outcome)
+        seen.add(outcome[0] == "built")
+    assert seen == {True, False}

@@ -116,10 +116,17 @@ def test_loaders_give_the_reference_batches(seed):
 
 
 def test_federated_loader_refuses_labeled_masks():
+    """The loader no longer refuses a labeled mask (the objectives are
+    ported): it attaches the reference's "labeled" leaf, byte for byte."""
     data = jsyn.ClassificationData.make(n=100)
-    with pytest.raises(NotImplementedError, match="labeled"):
-        loader.FederatedLoader(data.x, data.y, [np.arange(100)], 4,
-                               labeled=np.ones(100, np.float32))
+    lab = jfed.labeled_mask(data.y, 0.3, seed=1)
+    got = loader.FederatedLoader(data.x, data.y, [np.arange(100)], 4,
+                                 labeled=lab).round_batch(2)
+    want = jloader.FederatedLoader(data.x, data.y, [np.arange(100)], 4,
+                                   labeled=lab).round_batch(2)
+    assert got.keys() == want.keys() == {"x", "y", "labeled"}
+    for k in want:
+        assert got[k].tobytes() == want[k].tobytes()
 
 
 @pytest.mark.filterwarnings("ignore:main_class_partition")
