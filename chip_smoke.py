@@ -30,7 +30,14 @@ recurrent state, 63 decode steps on K6, and continuous batching of 16
 requests on 8 slots), holds K6 at heads wider than 2048 (d = 2560, 8192),
 holds the kernel paths against the plain ones teacher-forced (the K4
 prefill against the chunked ``models/flash.py`` one, the K7 prefill against
-``models.ssm.ssd_chunked``), and checks what comes out.
+``models.ssm.ssd_chunked``), and checks what comes out. Phase 9 holds
+checkpoint and resume through ``train.main --ckpt``: full-width savic
+through K1, 3 rounds against 2 + restore + 1 (9a); two full-width 2-layer
+cases with every optional state group between them, 4 rounds against
+2 + 2 (9b, K3 in one); the final checkpoints byte for byte equal, save and
+restore times and the host's memory printed; then ``launch/train_lm.py``'s
+six methods and full-width savic (9c). It writes its checkpoints under
+``.chip_smoke_ckpt/`` beside this file and removes the directory.
 Any failed phase raises and the script exits non-zero. Without a CUDA
 device, or without the rest of the repository beside it, it exits non-zero
 before printing any result.
@@ -42,12 +49,18 @@ times are one per-leaf step over full-width qwen2-0.5b's 14 leaves at M =
 4) and the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``.
 """
+import contextlib
 import dataclasses
+import hashlib
 import json
 import os
+import resource
+import shutil
 import subprocess
 import sys
+import threading
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -58,8 +71,10 @@ if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device is available", file=sys.stderr)
     sys.exit(2)
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                "src"))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+from repro_torch import checkpoint as ckpt_lib  # noqa: E402
+from repro_torch import configs  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import PrecondConfig, engine  # noqa: E402
 from repro_torch.core import preconditioner as PC  # noqa: E402
@@ -75,6 +90,7 @@ from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.launch import paper  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
+from repro_torch.launch import train_lm  # noqa: E402
 from repro_torch.models import (ModelCallConfig, sample_batch,  # noqa: E402
                                 sample_ids)
 from repro_torch.models import build as build_model  # noqa: E402
@@ -86,8 +102,7 @@ from repro_torch.utils.tree import tree_map, tree_paths, tree_size  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 # the controller's numpy oracle (numpy only), beside the tests
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                "tests"))
+sys.path.insert(0, os.path.join(ROOT, "tests"))
 import _reference_controller as ref_ctrl  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
@@ -1743,6 +1758,277 @@ def personal_phase(rounds=2):
     return {"k1": k1, "peak": peak, "walls": walls}
 
 
+# --------------------------------------------------------------------------- #
+# phase 9: checkpoint and bitwise resume
+# --------------------------------------------------------------------------- #
+
+CKPT_ROOT = os.path.join(ROOT, ".chip_smoke_ckpt")   # on disk, git-ignored
+MEASURED = ("wall_s", "tokens_per_s")
+ARCH_2L = "qwen2-0.5b-2l"                 # full width, 2 layers (as 8d)
+FIFO_INT8_PERSONAL = ["--method", "fedadam", "--compression",
+                      "int8-stochastic", "--error-feedback", "--async-buffer",
+                      "2", "--personalize", "final_norm"]
+CTRL_TOPK_HM = ["--h-local", str(H_KNOBS), "--controller", "--async-buffer",
+                "2", "--het-model", "lognormal", "--het-seed", "0",
+                "--compression", "topk", "--compression-k", "0.1",
+                "--error-feedback", "--ctrl-noise-target", "1e-3"]
+
+
+def det(rec):
+    return {k: v for k, v in rec.items() if k not in MEASURED}
+
+
+def sha256_file(path, chunk=1 << 26):
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(chunk), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def step_files(d, step):
+    """(sha256 of data.bin, state.msgpack's bytes, data.bin's size)."""
+    path = os.path.join(d, f"step_{step:08d}")
+    with open(os.path.join(path, "state.msgpack"), "rb") as f:
+        manifest = f.read()
+    data = os.path.join(path, "data.bin")
+    return sha256_file(data), manifest, os.path.getsize(data)
+
+
+def rss_bytes():
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+class CkptIO:
+    """Times every ``checkpoint.save`` and ``checkpoint.restore`` that
+    ``train.main`` makes while it is entered (it swaps the package's two
+    functions and puts them back on exit), and samples the host's resident
+    memory every 2 ms during a restore, beside ``getrusage``'s peak of the
+    process so far."""
+
+    def __init__(self):
+        self.saves, self.restores = [], []
+
+    def __enter__(self):
+        self._save, self._restore = ckpt_lib.save, ckpt_lib.restore
+
+        def save(d, step, state, keep=3):
+            t0 = time.perf_counter()
+            path = self._save(d, step, state, keep)
+            self.saves.append({"step": step, "s": time.perf_counter() - t0,
+                               "bytes": os.path.getsize(
+                                   os.path.join(path, "data.bin"))})
+            return path
+
+        def restore(d, template, step=None):
+            before = rss_bytes()
+            peak, done = [before], threading.Event()
+
+            def sample():
+                while not done.wait(0.002):
+                    peak[0] = max(peak[0], rss_bytes())
+            th = threading.Thread(target=sample)
+            th.start()
+            t0 = time.perf_counter()
+            try:
+                out = self._restore(d, template, step)
+                torch.cuda.synchronize()
+            finally:
+                done.set()
+                th.join()
+            sec = time.perf_counter() - t0
+            peak[0] = max(peak[0], rss_bytes())
+            self.restores.append({
+                "step": out[1], "s": sec, "rss_before": before,
+                "rss_peak_sampled": peak[0],
+                "ru_maxrss": resource.getrusage(
+                    resource.RUSAGE_SELF).ru_maxrss * 1024,
+                "bytes": os.path.getsize(os.path.join(
+                    d, f"step_{out[1]:08d}", "data.bin"))})
+            return out
+
+        ckpt_lib.save, ckpt_lib.restore = save, restore
+        return self
+
+    def __exit__(self, *exc):
+        ckpt_lib.save, ckpt_lib.restore = self._save, self._restore
+        return False
+
+
+class Tee:
+    """stdout for a run: printed as usual and kept for checking."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def io_line(io):
+    out = []
+    for s in io.saves:
+        out.append(f"save step {s['step']} {s['bytes']} B in {s['s']:.2f} s "
+                   f"({s['bytes'] / s['s'] / 1e9:.2f} GB/s)")
+    for r in io.restores:
+        out.append(f"restore step {r['step']} {r['bytes']} B in "
+                   f"{r['s']:.2f} s ({r['bytes'] / r['s'] / 1e9:.2f} GB/s); "
+                   f"host RSS {r['rss_before'] / 2 ** 30:.2f} GiB before, "
+                   f"peak {r['rss_peak_sampled'] / 2 ** 30:.2f} GiB sampled"
+                   f", ru_maxrss {r['ru_maxrss'] / 2 ** 30:.2f} GiB (the "
+                   f"process's peak so far)")
+    return "; ".join(out)
+
+
+def resume_case(label, argv, t, T, d, expect_k1, expect_k3=0):
+    """train(T) against train(t) + restore + train(T − t) through
+    ``train.main`` with ``--ckpt``: the resumed run prints the restore and
+    logs only rounds t..T-1, equal in every deterministic field; the final
+    checkpoints are byte for byte equal (data.bin by sha256, as the first
+    run's is deleted before the second writes). ``expect_k1(rounds, log)``
+    gives the K1 launches a run needs. Returns what it measured."""
+    da, db = os.path.join(d, "a"), os.path.join(d, "b")
+    t0 = time.perf_counter()
+    with CkptIO() as io_a:
+        log_a, k1_a, k3_a, peak_a = main_path(
+            argv + ["--rounds", str(T), "--ckpt", da, "--ckpt-every",
+                    str(T)], expect_k1, expect_k3 * T)
+    th = time.perf_counter()
+    sha_a, man_a, size = step_files(da, T)
+    hash_s = time.perf_counter() - th
+    shutil.rmtree(da)
+    with CkptIO() as io_b:
+        log_b1, k1_b1, k3_b1, _ = main_path(
+            argv + ["--rounds", str(t), "--ckpt", db, "--ckpt-every",
+                    str(t)], expect_k1, expect_k3 * t)
+        tee = Tee(sys.stdout)
+        with contextlib.redirect_stdout(tee):
+            log_b2, k1_b2, k3_b2, peak_b = main_path(
+                argv + ["--rounds", str(T), "--ckpt", db, "--ckpt-every",
+                        str(t)], expect_k1, expect_k3 * (T - t))
+    check(any(s.startswith(f"[train] restored round {t} ")
+              for s in "".join(tee.text).splitlines()),
+          f"{label}: the resumed run printed no restore of round {t}")
+    check([r["round"] for r in log_b1] == list(range(t)), f"{label}: first "
+          f"half logged rounds {[r['round'] for r in log_b1]}")
+    check([r["round"] for r in log_b2] == list(range(t, T)),
+          f"{label}: resumed run logged rounds "
+          f"{[r['round'] for r in log_b2]}")
+    for ra, rb in zip(log_a, log_b1 + log_b2):
+        check(det(ra) == det(rb), f"{label}: round {ra['round']} differs "
+              f"after the restore: {det(ra)} vs {det(rb)}")
+    # the restore frees the initial state first and shares the replicated
+    # leaves again, so the resumed run needs no more memory than the first
+    check(peak_b <= peak_a, f"{label}: the resumed run peaks at "
+          f"{peak_b:.2f} GiB, the uninterrupted one at {peak_a:.2f}")
+    sha_b, man_b, _ = step_files(db, T)
+    check(man_a == man_b, f"{label}: state.msgpack differs")
+    check(sha_a == sha_b, f"{label}: data.bin differs ({sha_a} vs {sha_b})")
+    shutil.rmtree(db)
+    torch.cuda.empty_cache()
+    print(f"[chip_smoke]   {label}: {T} rounds straight vs {t} + restore + "
+          f"{T - t}: rounds {list(range(t, T))} equal in every "
+          f"deterministic field, step {T} data.bin sha256 {sha_a[:16]}… "
+          f"equal ({size} B), state.msgpack equal ({len(man_a)} B); K1 "
+          f"{k1_a} vs {k1_b1} + {k1_b2}, K3 {k3_a} vs {k3_b1} + {k3_b2}; "
+          f"peak {peak_a:.2f} GiB vs {peak_b:.2f} GiB resumed; "
+          f"straight: {io_line(io_a)}; split: {io_line(io_b)}; sha256 of "
+          f"one data.bin {hash_s:.2f} s; case {time.perf_counter() - t0:.1f}"
+          f" s", flush=True)
+    return {"size": size, "io_a": io_a, "io_b": io_b, "k1": (k1_a, k1_b1,
+                                                               k1_b2),
+            "k3": (k3_a, k3_b1, k3_b2), "peak": (peak_a, peak_b),
+            "walls": [r["wall_s"] for r in log_a]}
+
+
+def register_2l():
+    """Full-width qwen2-0.5b cut to 2 layers, registered as ``ARCH_2L`` so
+    that ``train.main`` (and its checkpoints) drive it."""
+    mod = types.ModuleType("repro_torch.configs.qwen2_0p5b_2l")
+    mod.CONFIG = mod.REDUCED = get_config("qwen2-0.5b").replace(n_layers=2)
+    sys.modules[mod.__name__] = mod
+    configs.register(ARCH_2L, "qwen2_0p5b_2l")
+
+
+def resume_phase(n, shapes):
+    """9a: full-width qwen2-0.5b savic through K1, 3 rounds straight
+    against 2 + restore + 1 (M = 2 where the disk cannot hold two M = 4
+    checkpoints); 9b: two 2-layer cases, 4 rounds against 2 + 2. ``n`` is
+    the model's parameter count, ``shapes`` its {path: shape}."""
+    os.makedirs(CKPT_ROOT, exist_ok=True)
+    usage = shutil.disk_usage(CKPT_ROOT)
+    fs = subprocess.run(["df", "-hT", CKPT_ROOT], capture_output=True,
+                        text=True).stdout.strip().splitlines()[-1]
+    need = lambda M: 2 * (2 * M + 1) * n * 4
+    M = 4 if usage.free > need(4) + (4 << 30) else 2
+    print(f"[chip_smoke] 9a checkpoint dir {CKPT_ROOT}: {usage.free} B free "
+          f"of {usage.total} ({fs}); two savic checkpoints at M = 4 need "
+          f"{need(4)} B: running at M = {M}", flush=True)
+    check(usage.free > need(M) + (1 << 30), f"{usage.free} B free: too few "
+          f"for two M = {M} checkpoints")
+    argv = main_argv("savic", 3) + ["--clients", str(M)]
+    print("[chip_smoke] 9a resume, full width: train.main " + " ".join(argv)
+          + " --ckpt ...", flush=True)
+    a = resume_case("9a savic", argv, 2, 3, os.path.join(CKPT_ROOT, "9a"),
+                    lambda log: len(log) * H_LOCAL)
+    # params and momentum (M, n) each, global D (n), fp32; then the int32
+    # scalars (the round, D's step count)
+    expect = 4 * (2 * M + 1) * n
+    check(0 <= a["size"] - expect <= 64, f"9a data.bin {a['size']} B, "
+          f"expected (2M + 1)·n·4 = {expect} + a few scalars")
+    print(f"[chip_smoke]   9a data.bin {a['size']} B = (2M + 1)·n·4 + "
+          f"{a['size'] - expect} B of scalars", flush=True)
+    register_2l()
+    n_synced = sum("final_norm" not in p for p in shapes)  # K3 a round
+    b = []
+    for label, flags, k1, k3 in (
+            ("9b fedadam int8 + EF + FIFO 2 + personal final_norm",
+             FIFO_INT8_PERSONAL, lambda log: len(log) * H_LOCAL, n_synced),
+            ("9b savic controller + topk 0.1 + EF + lognormal H_m",
+             CTRL_TOPK_HM, launches_for_hm, 0)):
+        argv = ["--arch", ARCH_2L, "--use-fused-kernel", "--h-local",
+                str(H_LOCAL), "--clients", "4", "--batch", "8", "--seq",
+                "128", "--device", "cuda"] + flags
+        print(f"[chip_smoke] {label}: train.main " + " ".join(argv)
+              + " --ckpt ...", flush=True)
+        b.append(resume_case(label, argv, 2, 4,
+                             os.path.join(CKPT_ROOT, "9b"), k1, k3))
+    return {"M": M, "n": n, "free": usage.free, "a": a, "b": b}
+
+
+def train_lm_phase():
+    """9c: launch/train_lm.py's six methods at the bench's point (reduced
+    qwen2-0.5b, M = 4, H = 8, b = 4, S = 64, 10 rounds), then savic at
+    full width for 3 rounds; K1 counted over each."""
+    F_ = train_lm.FIXED
+    t0 = time.perf_counter()
+    su.fused_step_flat.launches = 0
+    rows = [train_lm.run_method(m, device="cuda")
+            for m in train_lm.TRAIN_LM_OVERRIDES]
+    k1 = su.fused_step_flat.launches
+    check(k1 == len(rows) * F_["rounds"] * F_["h_local"], f"9c K1 {k1}")
+    su.fused_step_flat.launches = 0
+    full = train_lm.run_method("savic", device="cuda", full=True, rounds=3)
+    k1_full = su.fused_step_flat.launches
+    check(k1_full == 3 * F_["h_local"], f"9c full-width K1 {k1_full}")
+    for r in rows + [full]:
+        check(all(finite(v) for v in r["info"]["loss_curve"]),
+              f"9c {r['coords']} non-finite loss {r['info']['loss_curve']}")
+        print("[chip_smoke]   9c " + json.dumps(r), flush=True)
+    print(f"[chip_smoke]   9c summary (reduced) "
+          f"{json.dumps(dict(train_lm.summary(rows)))}; full-width savic "
+          f"{json.dumps(dict(train_lm.summary([full])))}; K1 {k1} (reduced, "
+          f"{len(rows)} × {F_['rounds']} × {F_['h_local']}), {k1_full} (full "
+          f"width); {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    return {"rows": rows, "full": full, "k1": k1, "k1_full": k1_full}
+
+
 def ptxas_summary(log):
     """One line per kernel of a ``-Xptxas -v`` log: its (mangled) name,
     registers, spill stores and loads, shared memory."""
@@ -2221,6 +2507,13 @@ def main():
           f"max/now (MHz) {smi_line('clocks.max.sm,clocks.sm')}",
           flush=True)
 
+    # ---- phase 9. checkpoint and bitwise resume; the train_lm runner ------
+    try:
+        res = resume_phase(n_main, qwen_shapes)
+        tlm = train_lm_phase()
+    finally:
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+
     kernels = [{
         "name": "fused_step_flat", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_step.cu",
@@ -2285,6 +2578,12 @@ def main():
     print(f"[chip_smoke] K1 launches on the knob paths: 8a {het['k1']}, 8b "
           f"{ctl['k1']}, 8c {pers['k1']}, 8d {k1_8d_hm} (H_m) and "
           f"{k1_8d_ctrl} (controller)", flush=True)
+    a = res["a"]
+    print(f"[chip_smoke] phase 9: 9a savic M = {res['M']} checkpoint "
+          f"{a['size']} B (n = {res['n']}), {io_line(a['io_b'])}; K1 "
+          f"{a['k1'][0]} vs {a['k1'][1]} + {a['k1'][2]}; 9b K1 "
+          f"{[b['k1'] for b in res['b']]}, K3 {[b['k3'] for b in res['b']]};"
+          f" 9c K1 {tlm['k1']} + {tlm['k1_full']}", flush=True)
     print(f"[chip_smoke] total {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

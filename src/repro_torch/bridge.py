@@ -17,7 +17,9 @@ from repro_torch.utils.tree import tree_map
 def _to_torch(x, device):
     a = np.asarray(x)
     if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        # (ascontiguousarray gives a 0-d array one dimension: reshape back)
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16)
+                             .reshape(a.shape).copy())
         return t.view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 

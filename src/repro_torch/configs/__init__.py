@@ -1,10 +1,12 @@
 """Architecture configs (counterpart of ``repro/configs/__init__.py``).
 
-The port's own copy of ``SSMConfig``, ``ModelConfig`` and ``get_config``.
-Only the dense and ssm families' fields are carried, and only ``qwen2-0.5b``
-and ``mamba2-1.3b`` (each full and ``REDUCED``) are registered; the
-reference's other architectures (hybrid, MoE, MLA, audio, vlm) raise until
-their model family is ported.
+The port's own copy of ``SSMConfig``, ``ModelConfig`` (with
+``param_count``), ``get_config``, ``register`` and ``list_archs``. Only the
+dense and ssm families' fields are carried, and only ``qwen2-0.5b`` and
+``mamba2-1.3b`` (each full and ``REDUCED``) are registered with the package;
+``register`` adds a module of the caller's (``examples/train_lm_torch.py``
+registers its ``lm-100m``). The reference's other architectures (hybrid,
+MoE, MLA, audio, vlm) raise until their model family is ported.
 """
 from __future__ import annotations
 
@@ -59,12 +61,47 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    def param_count(self) -> int:
+        """Analytic parameter count, the reference's formula for the dense
+        and ssm families (it leaves out the qkv biases)."""
+        d, L, V = self.d_model, self.n_layers, self.vocab_size
+        n = V * d if self.tie_embeddings else 2 * V * d
+        if self.family == "ssm":
+            s = self.ssm
+            d_in = s.expand * d
+            nheads = d_in // s.head_dim
+            # in_proj (z, x, B, C, dt) + conv + out_proj + A, D, dt_bias
+            # + norms
+            conv_dim = d_in + 2 * s.ngroups * s.d_state
+            per_layer = (d * (2 * d_in + 2 * s.ngroups * s.d_state + nheads)
+                         + conv_dim * s.d_conv + d_in * d + 3 * nheads
+                         + 2 * d)
+        elif self.family == "dense":
+            hd = self.head_dim
+            per_layer = (d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
+                         + self.n_heads * hd * d + 3 * d * self.d_ff + 2 * d)
+        else:
+            raise NotImplementedError(
+                f"family {self.family!r} is not ported to repro_torch yet")
+        return n + per_layer * L + d       # + the final norm
+
 
 _MODULE_FOR = {"qwen2-0.5b": "qwen2_0p5b", "mamba2-1.3b": "mamba2_1p3b"}
 
 
+def register(arch_id: str, module_name: str) -> None:
+    """Make ``arch_id`` name the module ``repro_torch.configs.<module_name>``
+    (its ``CONFIG`` and ``REDUCED``); the caller may put that module into
+    ``sys.modules`` itself."""
+    _MODULE_FOR[arch_id] = module_name
+
+
+def list_archs():
+    return list(_MODULE_FOR)
+
+
 def get_config(arch: str, reduced: bool = False) -> ModelConfig:
-    """Look up a ported architecture by its dashed id."""
+    """Look up a ported or registered architecture by its dashed id."""
     if arch not in _MODULE_FOR:
         raise NotImplementedError(
             f"arch {arch!r} is not ported to repro_torch yet; ported: "

@@ -417,6 +417,30 @@ def _merge_personal(stripped, full, merge_fn):
     return full.clone() if stripped is None else merge_fn(stripped, full)
 
 
+_SAME_SIZE_INT = {8: torch.int64, 4: torch.int32, 2: torch.int16,
+                  1: torch.uint8}
+
+
+def share_replicas(state):
+    """``state`` with every (M, ...) leaf of ``params`` and ``mom`` whose
+    M rows are bitwise equal held as one replica expanded to M rows, as a
+    sync leaves them (``_broadcast_back``). A state restored from a
+    checkpoint holds each row apart (M-fold the memory); this puts it back
+    in the round's own layout without changing a bit of it."""
+    def one(x):
+        if x.dim() == 0 or x.shape[0] < 2 or x.stride(0) == 0:
+            return x
+        bits = x.view(_SAME_SIZE_INT[x.element_size()])
+        if not torch.equal(bits, bits[:1].expand_as(bits)):
+            return x
+        return _replicate(x[0].clone(), x.shape[0])
+
+    out = dict(state)
+    for k in ("params", "mom"):
+        out[k] = tree_map(one, state[k])
+    return out
+
+
 def average_params(state):
     """The server/averaged point x̂ (clients are identical post-sync)."""
     return tree_map(lambda p: p[0], state["params"])

@@ -7,13 +7,16 @@ systems heterogeneity (``--het-model`` draws per-client step times and so
 the per-client local steps H_m), the staleness buffer (``--async-buffer``),
 the adaptive controller (``--controller``, which owns H_m and takes the
 step times as its straggler trace), client objectives (``--objective``,
-``--labeled-frac``) and personalization (``--personalize``). The flags for
-features the port has not reached raise ``NotImplementedError``: meshes and
-checkpoints.
+``--labeled-frac``), personalization (``--personalize``) and checkpoints
+(``--ckpt``, ``--ckpt-every``; the reference's on-disk format). ``--mesh``
+is not ported and raises ``NotImplementedError``.
 
 Round r draws from the stream ``TorchStream(seed + 1).fold(r)``
 (``repro_torch.utils.rng``), as the reference keys round r with
-``fold_in(PRNGKey(seed + 1), r)``.
+``fold_in(PRNGKey(seed + 1), r)``, and its data from the round-addressable
+loader: a run that restores round t from ``--ckpt`` and runs on to T logs
+rounds t..T-1 and ends in the state of an uninterrupted run of T rounds,
+bitwise (every log field but ``wall_s`` and ``tokens_per_s``).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
@@ -33,6 +36,11 @@ Examples:
       --labeled-frac 0.5 --personalize final_norm --rounds 2
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
       --reduced --device cpu --rounds 2 --clients 2 --batch 2 --seq 32
+  # resume: save every round, then rerun with a larger --rounds
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
+      --reduced --device cpu --rounds 2 --ckpt /tmp/ck --ckpt-every 1
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
+      --reduced --device cpu --rounds 4 --ckpt /tmp/ck --ckpt-every 1
 """
 from __future__ import annotations
 
@@ -43,6 +51,7 @@ import time
 
 import torch
 
+from repro_torch import checkpoint as ckpt_lib
 from repro_torch.configs import get_config
 from repro_torch.core import (PrecondConfig, SavicConfig, engine, objectives,
                               savic)
@@ -51,6 +60,7 @@ from repro_torch.data import federated
 from repro_torch.models import ModelCallConfig, build
 from repro_torch.utils import rng
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.tree import tree_map, tree_paths
 
 
 def _parser():
@@ -147,8 +157,6 @@ def _unported_flags(args) -> list:
     out = []
     if args.mesh != "none":
         out.append("--mesh")
-    if args.ckpt:
-        out.append("--ckpt")
     return out
 
 
@@ -275,23 +283,57 @@ def round_batch(loader, args, r, device):
         for k, v in nb.items()}
 
 
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _nbytes(state) -> int:
+    return sum(leaf.numel() * leaf.element_size()
+               for _, leaf in tree_paths(state))
+
+
+def _save(ckpt, step, state) -> int:
+    ts = time.perf_counter()
+    ckpt_lib.save(ckpt, step, state)
+    dt = time.perf_counter() - ts
+    print(f"[train] saved round {step} ({_nbytes(state) / 1e9:.3f} GB in "
+          f"{dt:.2f} s)", flush=True)
+    return step
+
+
 def main(argv=None, init_params=None, root_stream=None):
     """Run the rounds; returns the per-round log records (loss, drift,
     [step_norm], [compression_err, wire_bytes], [staleness], [ctrl_h_m,
     ctrl_h_t, ctrl_k, ctrl_b_eff, ctrl_gns_ema, delta_sq_mean, delta_sq_avg,
     payload_sq, sim_round_time | sim_time], delta_bytes, compression_x,
-    wall_s, tokens_per_s). See ``setup`` for
-    ``init_params`` and ``root_stream``."""
+    wall_s, tokens_per_s) of the rounds this call ran: from the round
+    ``--ckpt`` restores, if it holds a checkpoint, to ``--rounds``. It
+    saves every ``--ckpt-every`` rounds and the final state. See ``setup``
+    for ``init_params`` and ``root_stream``."""
     run = setup(argv, init_params, root_stream)
     args, device, state = run.args, run.device, run.state
     run.state = None                   # the loop below owns the state
+    start_round, saved = 0, None
+    if args.ckpt and ckpt_lib.latest_step(args.ckpt) is not None:
+        tr = time.perf_counter()
+        # the template needs shapes and devices only: free the initial
+        # state first, then hold the replicated leaves as a sync does
+        template = tree_map(lambda t: t.new_empty(()).expand(t.shape), state)
+        del state
+        state, start_round = ckpt_lib.restore(args.ckpt, template)
+        state = engine.share_replicas(state)
+        saved = start_round
+        _sync(device)
+        print(f"[train] restored round {start_round} "
+              f"({_nbytes(state) / 1e9:.3f} GB in "
+              f"{time.perf_counter() - tr:.2f} s)", flush=True)
     tokens_round = args.clients * args.h_local * args.batch * args.seq
     log = []
     t0 = time.time()
-    for r in range(args.rounds):
+    for r in range(start_round, args.rounds):
         batch = round_batch(run.loader, args, r, device)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        _sync(device)
         tw = time.perf_counter()
         state, metrics = run.round_step(state, batch, run.stream(r))
         loss = float(metrics["loss"])          # waits for the round
@@ -337,6 +379,11 @@ def main(argv=None, init_params=None, root_stream=None):
         del batch, metrics
         print(f"[train] round {r:4d} loss {loss:.4f} drift {drift:.3e}"
               f"{extra} ({time.time()-t0:.1f}s)", flush=True)
+        if args.ckpt and (r + 1) % args.ckpt_every == 0:
+            saved = _save(args.ckpt, r + 1, state)
+    # the final state, unless it was just written
+    if args.ckpt and saved != args.rounds:
+        _save(args.ckpt, args.rounds, state)
     if args.log:
         with open(args.log, "w") as f:
             json.dump(log, f)

@@ -45,6 +45,21 @@ def tree_map(f, tree, *rest):
     return f(tree, *rest)
 
 
+def tree_from_paths(tree, fn, prefix: str = ""):
+    """Map ``fn(path, leaf) -> new leaf`` over ``tree``, keeping its
+    structure and dict order; paths as ``tree_paths`` gives them, ``None``
+    subtrees stay ``None``."""
+    sub = lambda k: f"{prefix}/{k}" if prefix else str(k)
+    if isinstance(tree, dict):
+        return {k: tree_from_paths(v, fn, sub(k)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_from_paths(v, fn, sub(i))
+                          for i, v in enumerate(tree))
+    if tree is None:
+        return None
+    return fn(prefix, tree)
+
+
 def _rebuild(node, it):
     if isinstance(node, dict):
         return {k: _rebuild(node[k], it) for k in sorted(node)}

@@ -175,11 +175,11 @@ def test_train_main_own_init_runs_finite(tmp_path):
     ["--objective", "consistency"], ["--personalize", "final_norm"],
 ])
 def test_unported_flags_raise(flag):
-    """Only --mesh and --ckpt are outside the port, and raise; every other
-    flag the port once refused is no longer listed."""
+    """Only --mesh is outside the port, and raises; every other flag the
+    port once refused (--ckpt among them) is no longer listed."""
     argv = BASE + ["--device", "cpu"] + flag
     listed = train._unported_flags(train._parser().parse_args(argv))
-    if flag[0] in ("--mesh", "--ckpt"):
+    if flag[0] == "--mesh":
         assert listed == [flag[0]]
         with pytest.raises(NotImplementedError, match="not ported"):
             train.main(argv)
@@ -235,3 +235,16 @@ def test_port_sources_name_no_jax_or_reference_module():
             for i, line in enumerate(open(p).read().splitlines(), 1)
             if pat.search(line)]
     assert not hits, hits
+
+
+def test_port_imports_neither_msgpack_nor_ml_dtypes():
+    """The card's machine has neither package: repro_torch and
+    chip_smoke.py import neither (the checkpoint's manifest goes through
+    repro_torch.utils.msgpack, bf16 moves as its 16-bit pattern)."""
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "src", "repro_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    for path in files:
+        for mod in _imports(path):
+            assert mod.split(".")[0] not in ("msgpack", "ml_dtypes"), \
+                (path, mod)
