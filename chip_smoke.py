@@ -37,7 +37,18 @@ cases with every optional state group between them, 4 rounds against
 2 + 2 (9b, K3 in one); the final checkpoints byte for byte equal, save and
 restore times and the host's memory printed; then ``launch/train_lm.py``'s
 six methods and full-width savic (9c). It writes its checkpoints under
-``.chip_smoke_ckpt/`` beside this file and removes the directory.
+``.chip_smoke_ckpt/`` beside this file and removes the directory. Phase
+10 drives the hybrid and qwen3-4b at full width and depth: zamba2-2.7b
+served at batch 4 from a 2048-token prompt through K7 (its 54 mamba
+layers), K4 (the 9 applications of its weight-tied attention block, d_head
+80), K5 and K6, its prefill's device time split by kernel, the kernel
+prefill held against the plain one and the K5/K6 decode against the plain
+decode (10a); continuous batching of 16 requests on 8 slots, three held
+against solo serving (10b); qwen3-4b served at batch 8 from a 512-token
+prompt through K4, K5 and K6, held the same way (10c); savic on zamba2 cut
+to 12 layers through ``train.main`` on K1, and fused against tree at 6
+(10d); then K4-K7 against their plain versions and timed at these
+shapes.
 Any failed phase raises and the script exits non-zero. Without a CUDA
 device, or without the rest of the repository beside it, it exits non-zero
 before printing any result.
@@ -88,6 +99,7 @@ from repro_torch.kernels import scaled_update as su  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.launch import paper  # noqa: E402
+from repro_torch.launch import profile_serve  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch import train_lm  # noqa: E402
@@ -99,6 +111,7 @@ from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 from repro_torch.utils import rng  # noqa: E402
 from repro_torch.utils.flatten import FlatLayout  # noqa: E402
 from repro_torch.utils.tree import tree_map, tree_paths, tree_size  # noqa: E402
+from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 # the controller's numpy oracle (numpy only), beside the tests
@@ -181,6 +194,26 @@ K7_CASES = [(*K7_MAIN, None, True), (*K7_MAIN, None, False),
             (2, 512, 8, 64, 64, 128, None, "B"),
             (*K7_ONE, -16.0, True)]
 U = 2.0 ** -24
+# phase 10: the hybrid zamba2-2.7b (54 mamba2 layers, one weight-tied
+# attention + MLP block after every 6th: 9 applications, d_head 80, 32 kv
+# heads) and qwen3-4b (36 layers, GQA 32/8, d_head 128, qk-norm) at full
+# width and depth
+ZAMBA = dict(batch=4, prompt_len=2048, gen_len=64)
+N_ZAMBA_LAYERS, N_ZAMBA_APPS = 54, 9
+ZTRACE = dict(slots=8, n_requests=16, prompt_len=256, gen_len=64,
+              arrival_rate=0.5, seed=0)
+QWEN3 = dict(batch=8, prompt_len=512, gen_len=64)
+N_QWEN3_LAYERS = 36
+K4_ZAMBA = (4, 2048, 32, 32, 80)        # B, S, H, Hk, D: the shared block's
+K4_QWEN3 = (8, 512, 32, 8, 128)
+K5_ZAMBA = (4, 2112, 32, 1, 80)         # B, C, Hk, rep, D of the decode
+K5_QWEN3 = (8, 576, 8, 4, 128)
+K7_ZAMBA = (4, 2048, 80, 64, 64, 256)   # B, S, H, P, N, Q of the prefill
+K7_ZAMBA_ONE = (1, 256, 80, 64, 64, 256)
+# 10d: zamba2 training at full width, depth cut to 12 layers (two
+# applications of the shared block; below 6 it would never run) and to 6
+# for fused against tree (one application)
+ARCH_Z12 = "zamba2-2.7b-12l"
 # K2 against its plain version: n of every residue mod 4 around the float4
 # width and at 2^20; one launch with n > 2^31 on aligned tensors (float4
 # with a masked tail) and on views one float in (the scalar path)
@@ -978,13 +1011,13 @@ def k4_work(B, S, H, Hk, D):
     return 4 * D * pairs, 4 * (2 * B * S * H * D + 2 * B * S * Hk * D)
 
 
-def time_k4(gen):
-    """K4 at the prefill's shape: CUDA-event times of the kernel wrapper,
+def time_k4(gen, shape=K4_MAIN):
+    """K4 at a prefill's shape: CUDA-event times of the kernel wrapper,
     its plain version (row by row), the port's chunked ``models/flash.py``
     forward (KV repeated to H heads beforehand, blocks of 1024, as the
     model's plain route runs it) and SDPA (fp32, causal, GQA), and its
-    bound."""
-    B, S, H, Hk, D = K4_MAIN
+    bound, counted on the true D (a D of 80 pads to the 128-wide tile)."""
+    B, S, H, Hk, D = shape
     q, k, v = k4_inputs(B, S, H, Hk, D, torch.float32, gen)
     out = fa.flash_attention(q, k, v)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -996,6 +1029,8 @@ def time_k4(gen):
     del lib, out
     torch.cuda.empty_cache()
     t = {"ms": cuda_ms(lambda: fa.flash_attention(q, k, v), 10),
+         "device_ms": graph_ms(lambda: fa.flash_attention(q, k, v),
+                               calls=5, replays=4),
          "plain_ms": cuda_ms(lambda: k4_plain(q, k, v), 2),
          "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
              qt, kt, vt, is_causal=True, enable_gqa=True), 5)}
@@ -1109,41 +1144,122 @@ def time_k7(gen, shape=K7_MAIN):
 # --------------------------------------------------------------------------- #
 
 
-def serve_params():
-    """The weights ``serve`` makes for seed 0 at full width."""
-    cfg = get_config("qwen2-0.5b")
+def reset_counts():
+    for fn in (fa.flash_attention, ds.decode_attention, ds.decode_sample,
+               ssd.ssd_intra_chunk, su.fused_step_flat):
+        fn.launches = 0
+
+
+def read_counts():
+    return {"k4": fa.flash_attention.launches,
+            "k5": ds.decode_attention.launches,
+            "k6": ds.decode_sample.launches,
+            "k7": ssd.ssd_intra_chunk.launches}
+
+
+def full_params(arch):
+    """The weights ``serve`` makes for seed 0 at ``arch``'s full width."""
+    cfg = get_config(arch)
     return cfg, build_model(cfg).init(
         torch.Generator(device=DEV).manual_seed(0))
 
 
-def serve_main_path():
-    """``serve`` at full width with K5 and K6, counts set to 0 just before
-    and read just after. Returns (result, K5 launches, K6 launches, peak
-    GiB)."""
-    ds.decode_attention.launches = 0
-    ds.decode_sample.launches = 0
+def serve_path(arch, kw, want, **flags):
+    """``serve`` of ``arch`` at full width and depth with the kernel
+    ``flags``, counts set to 0 just before and read just after; checks the
+    counts against ``want`` and the ids against the real vocabulary.
+    Returns (result, counts, peak GiB)."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    res = serve_mod.serve("qwen2-0.5b", reduced=False, use_decode_kernel=True,
-                          device="cuda", verbose=False, **SERVE)
-    k5, k6 = ds.decode_attention.launches, ds.decode_sample.launches
+    reset_counts()
+    res = serve_mod.serve(arch, reduced=False, device="cuda", verbose=False,
+                          **flags, **kw)
+    counts = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    steps = SERVE["gen_len"] - 1
+    steps = kw["gen_len"] - 1
     t = res.timings
-    print(f"[chip_smoke]   TTFT (prefill, B={SERVE['batch']}, S="
-          f"{SERVE['prompt_len']}) {t['prefill_s'] * 1e3:.3f} ms; decode "
+    print(f"[chip_smoke]   TTFT (prefill, B={kw['batch']}, S="
+          f"{kw['prompt_len']}) {t['prefill_s'] * 1e3:.3f} ms; decode "
           f"{steps} steps {t['decode_s']:.4f} s, median step "
           f"{float(np.median(res.per_token_s)) * 1e3:.3f} ms; "
-          f"{t['tok_per_s']:.1f} tokens/s; peak memory {peak:.2f} GiB; "
-          f"launches K5 {k5}, K6 {k6}", flush=True)
-    check(res.tokens.shape == (SERVE["batch"], SERVE["gen_len"]),
-          f"tokens {res.tokens.shape}")
-    check(0 <= int(res.tokens.min()) and int(res.tokens.max()) < V_REAL,
-          "an id outside the real vocabulary")
-    check(k5 == K5_PER_CALL * 24 * steps,
-          f"K5 launched {k5} times, expected {K5_PER_CALL * 24 * steps}")
-    check(k6 == steps, f"K6 launched {k6} times, expected {steps}")
-    return res, k5, k6, peak
+          f"{t['tok_per_s']:.2f} tokens/s; peak memory {peak:.2f} GiB; "
+          f"launches {counts}", flush=True)
+    v_real = get_config(arch).vocab_size
+    check(res.tokens.shape == (kw["batch"], kw["gen_len"]),
+          f"{arch} tokens {res.tokens.shape}")
+    check(0 <= int(res.tokens.min()) and int(res.tokens.max()) < v_real,
+          f"{arch}: an id outside the real vocabulary")
+    check(counts == want, f"{arch} launches {counts}, expected {want}")
+    return res, counts, peak
+
+
+def continuous_check(arch, params, trace, flags, solo_flags,
+                     prefill_calls, k5_calls):
+    """``serve_continuous`` of ``arch`` at full width with the kernel
+    ``flags`` on the weights ``params``, counts set to 0 just before and
+    read just after, and held: ``prefill_calls`` ({kernel: calls}) for each
+    admitted request, ``k5_calls`` K5 calls and one K6 launch a decode step.
+    Then three of its requests held against solo serving (``solo_flags``),
+    teacher-forced on the ring's tokens under the near-tie rule (a B=1
+    decode runs other cuBLAS kernels than the ring's B=8 one); each
+    admission's B=1 prefill cache tree went into its slot through
+    ``insert_slot``. Returns (result, counts, exceptions, ids compared)."""
+    cfg = get_config(arch)
+    reset_counts()
+    res = serve_mod.serve_continuous(arch, reduced=False, device="cuda",
+                                     verbose=False, params=params, **flags,
+                                     **trace)
+    counts = read_counts()
+    m = res.metrics
+    n = trace["n_requests"]
+    print(f"[chip_smoke]   {m['n_requests']} requests / {m['slots']} slots: "
+          f"{m['total_tokens']} tokens in {m['makespan_steps']} steps "
+          f"({m['tok_per_step']:.3f} tokens/step), {m['decode_steps']} "
+          f"decode steps, p50 step {m['p50_step_s'] * 1e3:.3f} ms, p99 "
+          f"{m['p99_step_s'] * 1e3:.3f} ms, wall {m['wall_s']:.3f} s "
+          f"({m['wall_tok_per_s']:.1f} tokens/s), prefill "
+          f"{m['prefill_s']:.3f} s, mean queue delay "
+          f"{m['mean_queue_delay_steps']:.3f} steps; launches {counts}",
+          flush=True)
+    check(all(rq["finish"] is not None for rq in res.requests.values()),
+          f"{arch}: a request did not finish")
+    _, gens = serve_mod.poisson_trace(n, trace["arrival_rate"], trace["seed"],
+                                      trace["gen_len"])
+    check([len(res.tokens[r]) for r in range(n)] == [int(g) for g in gens],
+          f"{arch}: a request got the wrong token count")
+    steps = m["decode_steps"]
+    want = {"k4": 0, "k7": 0, **{k: c * n for k, c in prefill_calls.items()},
+            "k5": K5_PER_CALL * k5_calls * steps, "k6": steps}
+    check(counts == want, f"{arch} continuous launches {counts}, expected "
+          f"{want}")
+    check(all(int(t.max()) < cfg.vocab_size for t in res.tokens.values()),
+          f"{arch}: an id outside the real vocabulary")
+    S, G = trace["prompt_len"], trace["gen_len"]
+    kern = build_model(cfg, ModelCallConfig(dtype=torch.float32,
+                                            **solo_flags))
+    ties = compared = 0
+    with torch.inference_mode():
+        for r in (0, 7, 15):
+            ring = torch.from_numpy(res.tokens[r]).to(DEV)
+            prompt = serve_mod.request_prompt(cfg, trace["seed"], r, S, DEV)
+            logits, cache = kern.prefill_cache(params, prompt, S + G)
+            first = sample_ids(logits, 0.0, cfg.vocab_size)
+            check(int(first[0]) == int(ring[0]),
+                  f"{arch} request {r}: first token differs from solo")
+            for g in range(1, len(ring)):
+                lg, cache = kern.decode(params, cache, ring[g - 1:g],
+                                        S + g - 1)
+                want_id = sample_ids(lg, 0.0, cfg.vocab_size)
+                t, bad = ref.near_tie_check(lg, ring[g:g + 1], want_id,
+                                            cfg.vocab_size)
+                check(bad == 0, f"{arch} request {r} step {g}: ring token "
+                      f"breaks the near-tie rule against solo serving")
+                ties += t
+                compared += 1
+    print(f"[chip_smoke]   ring tokens vs solo serving (requests 0, 7, 15, "
+          f"teacher-forced): {compared} ids, near-tie exceptions {ties}",
+          flush=True)
+    return res, counts, ties, compared
 
 
 def teacher_forced(cfg, params):
@@ -1174,97 +1290,6 @@ def teacher_forced(cfg, params):
             ties += t
             tok = want
     return ties, B * (G - 1)
-
-
-def continuous_path(cfg, params):
-    """``serve_continuous`` at full width with K5 and K6 (counts set to 0
-    just before), then three of its requests held against solo serving,
-    teacher-forced on the ring's tokens under the near-tie rule (a B=1
-    decode runs other cuBLAS kernels than the ring's B=8 one). Returns
-    (result, K5 launches, K6 launches, exceptions, ids compared)."""
-    ds.decode_attention.launches = 0
-    ds.decode_sample.launches = 0
-    res = serve_mod.serve_continuous("qwen2-0.5b", reduced=False,
-                                     use_decode_kernel=True, device="cuda",
-                                     verbose=False, **TRACE)
-    k5, k6 = ds.decode_attention.launches, ds.decode_sample.launches
-    m = res.metrics
-    print(f"[chip_smoke]   {m['n_requests']} requests / {m['slots']} slots: "
-          f"{m['total_tokens']} tokens in {m['makespan_steps']} steps "
-          f"({m['tok_per_step']:.3f} tokens/step), {m['decode_steps']} "
-          f"decode steps, p50 step {m['p50_step_s'] * 1e3:.3f} ms, p99 "
-          f"{m['p99_step_s'] * 1e3:.3f} ms, wall {m['wall_s']:.3f} s "
-          f"({m['wall_tok_per_s']:.1f} tokens/s), prefill "
-          f"{m['prefill_s']:.3f} s, mean queue delay "
-          f"{m['mean_queue_delay_steps']:.3f} steps; launches K5 {k5}, K6 "
-          f"{k6}", flush=True)
-    check(all(rq["finish"] is not None for rq in res.requests.values()),
-          "a request did not finish")
-    _, gens = serve_mod.poisson_trace(TRACE["n_requests"],
-                                      TRACE["arrival_rate"], TRACE["seed"],
-                                      TRACE["gen_len"])
-    check([len(res.tokens[r]) for r in range(TRACE["n_requests"])]
-          == [int(g) for g in gens], "a request got the wrong token count")
-    check(k5 == K5_PER_CALL * 24 * m["decode_steps"]
-          and k6 == m["decode_steps"],
-          f"launches K5 {k5}, K6 {k6} for {m['decode_steps']} steps")
-    S, G = TRACE["prompt_len"], TRACE["gen_len"]
-    kern = build_model(cfg, ModelCallConfig(dtype=torch.float32,
-                                            use_decode_kernel=True))
-    ties = compared = 0
-    with torch.inference_mode():
-        for r in (0, 7, 15):
-            ring = torch.from_numpy(res.tokens[r]).to(DEV)
-            prompt = serve_mod.request_prompt(cfg, TRACE["seed"], r, S, DEV)
-            logits, cache = kern.prefill_cache(params, prompt, S + G)
-            first = sample_ids(logits, 0.0, cfg.vocab_size)
-            check(int(first[0]) == int(ring[0]),
-                  f"request {r}: first token differs from solo prefill")
-            for g in range(1, len(ring)):
-                lg, cache = kern.decode(params, cache, ring[g - 1:g],
-                                        S + g - 1)
-                want = sample_ids(lg, 0.0, cfg.vocab_size)
-                t, bad = ref.near_tie_check(lg, ring[g:g + 1], want,
-                                            cfg.vocab_size)
-                check(bad == 0, f"request {r} step {g}: ring token breaks "
-                      f"the near-tie rule against solo serving")
-                ties += t
-                compared += 1
-    return res, k5, k6, ties, compared
-
-
-def long_serve_path():
-    """``serve`` at full width on an 8192-token prompt with K4 in the
-    prefill and K5/K6 in decode, counts set to 0 just before and read just
-    after. Returns (result, K4, K5, K6 launches, peak GiB)."""
-    fa.flash_attention.launches = 0
-    ds.decode_attention.launches = 0
-    ds.decode_sample.launches = 0
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    res = serve_mod.serve("qwen2-0.5b", reduced=False, use_flash_kernel=True,
-                          use_decode_kernel=True, device="cuda",
-                          verbose=False, **LONG)
-    k4 = fa.flash_attention.launches
-    k5, k6 = ds.decode_attention.launches, ds.decode_sample.launches
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    steps = LONG["gen_len"] - 1
-    t = res.timings
-    print(f"[chip_smoke]   TTFT (prefill, B={LONG['batch']}, S="
-          f"{LONG['prompt_len']}) {t['prefill_s'] * 1e3:.3f} ms; decode "
-          f"{steps} steps {t['decode_s']:.4f} s, median step "
-          f"{float(np.median(res.per_token_s)) * 1e3:.3f} ms; "
-          f"{t['tok_per_s']:.2f} tokens/s; peak memory {peak:.2f} GiB; "
-          f"launches K4 {k4}, K5 {k5}, K6 {k6}", flush=True)
-    check(res.tokens.shape == (LONG["batch"], LONG["gen_len"]),
-          f"tokens {res.tokens.shape}")
-    check(0 <= int(res.tokens.min()) and int(res.tokens.max()) < V_REAL,
-          "an id outside the real vocabulary")
-    check(k4 == 24, f"K4 launched {k4} times, expected 24")
-    check(k5 == K5_PER_CALL * 24 * steps,
-          f"K5 launched {k5} times, expected {K5_PER_CALL * 24 * steps}")
-    check(k6 == steps, f"K6 launched {k6} times, expected {steps}")
-    return res, k4, k5, k6, peak
 
 
 def long_teacher_forced(cfg, params):
@@ -1319,50 +1344,6 @@ def long_teacher_forced(cfg, params):
     del cache_p, cache_k
     torch.cuda.empty_cache()
     return lerr, lbound, cerr, cratio, ties, B * G
-
-
-def mamba_params():
-    """The weights ``serve`` makes for seed 0 at mamba2-1.3b's full width."""
-    cfg = get_config("mamba2-1.3b")
-    return cfg, build_model(cfg).init(
-        torch.Generator(device=DEV).manual_seed(0))
-
-
-def mamba_serve_path():
-    """``serve`` of full-width mamba2-1.3b with K7 in the prefill and K6 in
-    decode, counts set to 0 just before and read just after. Returns
-    (result, K7, K6 launches, peak GiB)."""
-    ssd.ssd_intra_chunk.launches = 0
-    ds.decode_attention.launches = 0
-    ds.decode_sample.launches = 0
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated() / 2 ** 30
-    res = serve_mod.serve("mamba2-1.3b", reduced=False, use_ssd_kernel=True,
-                          use_decode_kernel=True, device="cuda",
-                          verbose=False, **MAMBA)
-    k7, k6 = ssd.ssd_intra_chunk.launches, ds.decode_sample.launches
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    steps = MAMBA["gen_len"] - 1
-    t = res.timings
-    print(f"[chip_smoke]   TTFT (prefill, B={MAMBA['batch']}, S="
-          f"{MAMBA['prompt_len']}) {t['prefill_s'] * 1e3:.3f} ms; decode "
-          f"{steps} steps {t['decode_s']:.4f} s, median step "
-          f"{float(np.median(res.per_token_s)) * 1e3:.3f} ms; "
-          f"{t['tok_per_s']:.2f} tokens/s; peak memory {peak:.2f} GiB "
-          f"({held:.2f} GiB held by the script before the phase); "
-          f"launches K7 {k7}, K6 {k6}, K5 {ds.decode_attention.launches}",
-          flush=True)
-    check(res.tokens.shape == (MAMBA["batch"], MAMBA["gen_len"]),
-          f"tokens {res.tokens.shape}")
-    check(0 <= int(res.tokens.min()) and int(res.tokens.max())
-          < MAMBA_HEAD[1], "an id outside mamba2's real vocabulary")
-    check(k7 == N_MAMBA_LAYERS, f"K7 launched {k7} times, expected "
-          f"{N_MAMBA_LAYERS}")
-    check(k6 == steps, f"K6 launched {k6} times, expected {steps}")
-    check(ds.decode_attention.launches == 0, "K5 ran in an attention-free "
-          "model")
-    return res, k7, k6, peak
 
 
 class CumRecorder:
@@ -1443,63 +1424,352 @@ def mamba_teacher_forced(cfg, params):
     return lerr, lbound, cratio, ties, B * G, rec.max
 
 
-def mamba_continuous(cfg, params):
-    """``serve_continuous`` of full-width mamba2-1.3b with K7 and K6 (counts
-    set to 0 just before), then three of its requests held against solo
-    serving, teacher-forced on the ring's tokens under the near-tie rule.
-    Each admission's B=1 prefill cache tree goes into its slot through
-    ``insert_slot``. Returns (result, K7, K6 launches, exceptions, ids
-    compared)."""
-    ssd.ssd_intra_chunk.launches = 0
-    ds.decode_sample.launches = 0
-    res = serve_mod.serve_continuous("mamba2-1.3b", reduced=False,
-                                     use_ssd_kernel=True,
-                                     use_decode_kernel=True, device="cuda",
-                                     verbose=False, **MTRACE)
-    k7, k6 = ssd.ssd_intra_chunk.launches, ds.decode_sample.launches
-    m = res.metrics
-    print(f"[chip_smoke]   {m['n_requests']} requests / {m['slots']} slots: "
-          f"{m['total_tokens']} tokens in {m['makespan_steps']} steps "
-          f"({m['tok_per_step']:.3f} tokens/step), {m['decode_steps']} "
-          f"decode steps, p50 step {m['p50_step_s'] * 1e3:.3f} ms, p99 "
-          f"{m['p99_step_s'] * 1e3:.3f} ms, wall {m['wall_s']:.3f} s "
-          f"({m['wall_tok_per_s']:.1f} tokens/s), prefill "
-          f"{m['prefill_s']:.3f} s; launches K7 {k7}, K6 {k6}", flush=True)
-    n = MTRACE["n_requests"]
-    check(all(rq["finish"] is not None for rq in res.requests.values()),
-          "a request did not finish")
-    _, gens = serve_mod.poisson_trace(n, MTRACE["arrival_rate"],
-                                      MTRACE["seed"], MTRACE["gen_len"])
-    check([len(res.tokens[r]) for r in range(n)] == [int(g) for g in gens],
-          "a request got the wrong token count")
-    check(k7 == N_MAMBA_LAYERS * n and k6 == m["decode_steps"],
-          f"launches K7 {k7}, K6 {k6} for {n} prefills and "
-          f"{m['decode_steps']} steps")
-    check(all(int(t.max()) < MAMBA_HEAD[1] for t in res.tokens.values()),
-          "an id outside mamba2's real vocabulary")
-    S, G = MTRACE["prompt_len"], MTRACE["gen_len"]
-    kern = build_model(cfg, ModelCallConfig(dtype=torch.float32,
-                                            use_ssd_kernel=True))
-    ties = compared = 0
+# --------------------------------------------------------------------------- #
+# phase 10: the hybrid (zamba2-2.7b) and qwen3-4b at full width
+# --------------------------------------------------------------------------- #
+
+
+def prefill_profile(cfg, params, kw, **flags):
+    """Device time of one kernel-route prefill at ``kw``'s shape, split by
+    ``profile_serve.prefill_breakdown`` (K4, K7, GEMMs, the rest)."""
+    model = build_model(cfg, ModelCallConfig(dtype=torch.float32, **flags))
+    B, S = kw["batch"], kw["prompt_len"]
     with torch.inference_mode():
-        for r in (0, 7, 15):
-            ring = torch.from_numpy(res.tokens[r]).to(DEV)
-            prompt = serve_mod.request_prompt(cfg, MTRACE["seed"], r, S, DEV)
-            logits, cache = kern.prefill_cache(params, prompt, S + G)
-            first = sample_ids(logits, 0.0, cfg.vocab_size)
-            check(int(first[0]) == int(ring[0]),
-                  f"mamba2 request {r}: first token differs from solo")
-            for g in range(1, len(ring)):
-                lg, cache = kern.decode(params, cache, ring[g - 1:g],
-                                        S + g - 1)
-                want = sample_ids(lg, 0.0, cfg.vocab_size)
-                t, bad = ref.near_tie_check(lg, ring[g:g + 1], want,
-                                            cfg.vocab_size)
-                check(bad == 0, f"mamba2 request {r} step {g}: ring token "
-                      f"breaks the near-tie rule against solo serving")
-                ties += t
-                compared += 1
-    return res, k7, k6, ties, compared
+        prompt = sample_batch(cfg, rng.TorchStream(1), B, S, DEV)
+        model.prefill_cache(params, prompt, S + kw["gen_len"])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model.prefill_cache(params, prompt, S + kw["gen_len"])
+            torch.cuda.synchronize()
+    out = profile_serve.prefill_breakdown(prof)
+    top = out["prefill_top_kernels"][:5]
+    del prof
+    torch.cuda.empty_cache()
+    print(f"[chip_smoke]   {cfg.name} prefill device time "
+          f"{out['prefill_device_ms']:.2f} ms: K7 "
+          f"{out['prefill_k7_ms']:.2f} ms ({out['prefill_k7_launches']} "
+          f"launches), K4 {out['prefill_k4_ms']:.2f} ms "
+          f"({out['prefill_k4_launches']}), GEMMs "
+          f"{out['prefill_gemm_ms']:.2f} ms, rest "
+          f"{out['prefill_other_ms']:.2f} ms; top "
+          f"{[(e['name'][:40], round(e['ms'], 2)) for e in top]}",
+          flush=True)
+    return out
+
+
+def decode_same_cache(cfg, params, cache, tok, S, G, kern, plain, what):
+    """K5/K6 decode against the plain decode, each from its own clone of
+    one prefill cache, teacher-forced on the plain route's greedy tokens;
+    ids under the near-tie rule. Returns (exceptions, ids compared)."""
+    clone = lambda c: tree_map(lambda t: t.clone(), c)
+    cache_p, cache_k = clone(cache), clone(cache)
+    head = kern.sample_head(params)
+    ties = 0
+    with torch.inference_mode():
+        for g in range(G - 1):
+            lg, cache_p = plain.decode(params, cache_p, tok, S + g)
+            zeros = torch.zeros_like(lg)
+            ids, cache_k = kern.decode_sample(params, cache_k, tok, S + g,
+                                              zeros, head)
+            want = sample_ids(lg, 0.0, cfg.vocab_size)
+            t, bad = ref.near_tie_check(lg, ids, want, cfg.vocab_size)
+            check(bad == 0, f"{what} teacher-forced step {g}: K5/K6 ids "
+                  f"break the near-tie rule")
+            ties += t
+            tok = want
+    del cache_p, cache_k, head
+    return ties, tok.shape[0] * (G - 1)
+
+
+def hold_prefill(cfg, params, kw, kern_flags, cache_tol, what, rec=None):
+    """The kernel-route prefill against the plain route's at full width on
+    one prompt: last logits within tol·max|logit|, every fp32 cache leaf
+    within tol of its largest value, every bf16 leaf within tol plus one
+    bf16 ulp at the top binade (2^-7·max), the first ids under the
+    near-tie rule. ``cache_tol()`` gives tol after the kernel prefill (the
+    SSD's eps needs its max|cum|, recorded by ``rec``). Returns (logit
+    error, its bound, worst ratio of a cache leaf's error to its bound,
+    near-tie exceptions, the plain cache, the plain greedy ids)."""
+    B, S, G = kw["batch"], kw["prompt_len"], kw["gen_len"]
+    plain = build_model(cfg, ModelCallConfig(dtype=torch.float32))
+    kern = build_model(cfg, ModelCallConfig(dtype=torch.float32,
+                                            **kern_flags))
+    with torch.inference_mode():
+        prompt = sample_batch(cfg, rng.TorchStream(1), B, S, DEV)
+        lg_p, cache_p = plain.prefill_cache(params, prompt, S + G)
+        if rec is not None:
+            kops.ssd = rec
+        try:
+            lg_k, cache_k = kern.prefill_cache(params, prompt, S + G)
+        finally:
+            if rec is not None:
+                kops.ssd = rec.real
+        tol = cache_tol()
+        lerr = float((lg_k - lg_p).abs().max())
+        lbound = tol * float(lg_p.abs().max())
+        check(lerr <= lbound, f"{what} prefill logits differ by {lerr:.3e} "
+              f"(bound {lbound:.3e})")
+        cratio = 0.0
+        for (path, a), (_, b) in zip(tree_paths(cache_k),
+                                     tree_paths(cache_p)):
+            for i in range(a.shape[0]):      # layer by layer
+                x, y = a[i].float(), b[i].float()
+                top = float(y.abs().max())
+                bound = tol * top + (2.0 ** -7 * top if b.dtype ==
+                                     torch.bfloat16 else 0.0)
+                e = float((x - y).abs().max())
+                check(e <= bound, f"{what} prefill cache {path}[{i}]: "
+                      f"differs by {e:.3e} (bound {bound:.3e})")
+                cratio = max(cratio, e / bound if bound else 0.0)
+        want = sample_ids(lg_p, 0.0, cfg.vocab_size)
+        ties, bad = ref.near_tie_check(lg_p, sample_ids(lg_k, 0.0,
+                                                        cfg.vocab_size),
+                                       want, cfg.vocab_size)
+        check(bad == 0, f"{what} prefill: the kernel route's first ids "
+              f"break the near-tie rule")
+    del cache_k, lg_k
+    torch.cuda.empty_cache()
+    return lerr, lbound, cratio, ties, cache_p, want, plain
+
+
+def zamba_phase():
+    """10a: zamba2-2.7b served at full width and depth through K7, K4, K5
+    and K6; its prefill's device time by kernel; the kernel prefill held
+    against the plain one (``ssd_chunked`` + dense attention) and the K5/K6
+    decode against the plain decode, teacher-forced. 10b: continuous
+    batching on 8 slots, three requests held against solo serving."""
+    steps = ZAMBA["gen_len"] - 1
+    flags = dict(use_ssd_kernel=True, use_flash_kernel=True,
+                 use_decode_kernel=True)
+    print("[chip_smoke] 10a zamba2 serve path: serve('zamba2-2.7b', "
+          f"reduced=False, {flags}, {ZAMBA})", flush=True)
+    res, counts, peak = serve_path(
+        "zamba2-2.7b", ZAMBA,
+        {"k4": N_ZAMBA_APPS, "k5": K5_PER_CALL * N_ZAMBA_APPS * steps,
+         "k6": steps, "k7": N_ZAMBA_LAYERS}, **flags)
+    del res
+    cfg, params = full_params("zamba2-2.7b")
+    prof = prefill_profile(cfg, params, ZAMBA, use_ssd_kernel=True,
+                           use_flash_kernel=True)
+    check(prof["prefill_k7_launches"] == 2 * N_ZAMBA_LAYERS
+          and prof["prefill_k4_launches"] == N_ZAMBA_APPS,
+          f"profiled prefill launches K7 {prof['prefill_k7_launches']}, "
+          f"K4 {prof['prefill_k4_launches']}")
+    s = cfg.ssm
+    S = ZAMBA["prompt_len"]
+    rec = CumRecorder()
+    # K7 as mamba_teacher_forced's eps; K4 within 2e-5·max|v| of its plain
+    # version, which the shared block's MLP and later layers carry to the
+    # logits: 1e-4 of their largest, as the long-prompt K4 path is held
+    tol = lambda: U * (4 * rec.max + s.d_state + s.chunk + 2 * (S // s.chunk)
+                       + 8) + 1e-4
+    lerr, lbound, cratio, ties, cache_p, tok, plain = hold_prefill(
+        cfg, params, ZAMBA, dict(use_ssd_kernel=True, use_flash_kernel=True),
+        tol, "zamba2", rec)
+    kern = build_model(cfg, ModelCallConfig(dtype=torch.float32,
+                                            use_decode_kernel=True))
+    dties, n_ids = decode_same_cache(cfg, params, cache_p, tok, S,
+                                     ZAMBA["gen_len"], kern, plain,
+                                     "zamba2")
+    del cache_p
+    torch.cuda.empty_cache()
+    print(f"[chip_smoke] 10a K7 + K4 prefill vs ssd_chunked + dense prefill, "
+          f"full width: last logits max abs {lerr:.3e} (bound {lbound:.3e},"
+          f" max|cum| {rec.max:.1f}), cache leaves at {cratio:.3f} of their "
+          f"bounds at worst, first ids near-tie exceptions {ties}; K5/K6 "
+          f"decode vs plain from one cache: {n_ids} ids, near-tie "
+          f"exceptions {dties}", flush=True)
+    print(f"[chip_smoke] 10b serve_continuous('zamba2-2.7b', reduced=False, "
+          f"{flags}, {ZTRACE})", flush=True)
+    _, ccounts, _, _ = continuous_check(
+        "zamba2-2.7b", params, ZTRACE, flags, flags,
+        {"k7": N_ZAMBA_LAYERS, "k4": N_ZAMBA_APPS}, N_ZAMBA_APPS)
+    del params, kern, plain
+    torch.cuda.empty_cache()
+    return {"counts": counts, "ccounts": ccounts, "peak": peak,
+            "prefill": prof}
+
+
+def qwen3_phase():
+    """10c: qwen3-4b served at full width and depth through K4, K5 and K6;
+    its prefill's device time by kernel; the K4 prefill held against the
+    plain (dense) one, and the K5/K6 decode against the plain decode,
+    teacher-forced."""
+    steps = QWEN3["gen_len"] - 1
+    flags = dict(use_flash_kernel=True, use_decode_kernel=True)
+    print("[chip_smoke] 10c qwen3 serve path: serve('qwen3-4b', "
+          f"reduced=False, {flags}, {QWEN3})", flush=True)
+    res, counts, peak = serve_path(
+        "qwen3-4b", QWEN3,
+        {"k4": N_QWEN3_LAYERS, "k5": K5_PER_CALL * N_QWEN3_LAYERS * steps,
+         "k6": steps, "k7": 0}, **flags)
+    del res
+    cfg, params = full_params("qwen3-4b")
+    prof = prefill_profile(cfg, params, QWEN3, use_flash_kernel=True)
+    check(prof["prefill_k4_launches"] == N_QWEN3_LAYERS,
+          f"profiled prefill launches K4 {prof['prefill_k4_launches']}")
+    # as the long-prompt K4 path: 1e-4 of the largest logit
+    lerr, lbound, cratio, ties, cache_p, tok, plain = hold_prefill(
+        cfg, params, QWEN3, dict(use_flash_kernel=True), lambda: 1e-4,
+        "qwen3")
+    kern = build_model(cfg, ModelCallConfig(dtype=torch.float32,
+                                            use_decode_kernel=True))
+    dties, n_ids = decode_same_cache(cfg, params, cache_p, tok,
+                                     QWEN3["prompt_len"], QWEN3["gen_len"],
+                                     kern, plain, "qwen3")
+    print(f"[chip_smoke] 10c K4 prefill vs dense prefill, full width: last "
+          f"logits max abs {lerr:.3e} (bound {lbound:.3e}), cache leaves at "
+          f"{cratio:.3f} of their bounds at worst, first ids near-tie "
+          f"exceptions {ties}; K5/K6 decode vs plain from one cache: "
+          f"{n_ids} ids, near-tie exceptions {dties}", flush=True)
+    del params, cache_p, kern, plain
+    torch.cuda.empty_cache()
+    return {"counts": counts, "peak": peak, "prefill": prof}
+
+
+def register_z12():
+    """Full-width zamba2-2.7b cut to 12 layers, registered as ``ARCH_Z12``
+    so that ``train.main`` drives it."""
+    mod = types.ModuleType("repro_torch.configs.zamba2_2p7b_12l")
+    mod.CONFIG = mod.REDUCED = get_config("zamba2-2.7b").replace(
+        n_layers=12)
+    sys.modules[mod.__name__] = mod
+    configs.register(ARCH_Z12, "zamba2_2p7b_12l")
+
+
+def zamba_train_phase():
+    """10d: savic on full-width zamba2-2.7b cut to 12 layers (two
+    applications of the shared block), M = 4, H = 2, b = 8, S = 128, 2
+    rounds through ``train.main`` on the fused loop (K1 once a local step),
+    on the plain SSD and attention routes; then fused against tree at 6
+    layers (one application)."""
+    register_z12()
+    argv = ["--arch", ARCH_Z12, "--method", "savic", "--use-fused-kernel",
+            "--rounds", "2", "--h-local", str(H_LOCAL), "--clients", "4",
+            "--batch", "8", "--seq", "128", "--device", "cuda"]
+    cfg = get_config(ARCH_Z12)
+    with FakeTensorMode():              # the tree's size, with no storage
+        n = tree_size(build_model(cfg).init(torch.Generator()))
+    print(f"[chip_smoke] 10d zamba2 training, full width, 12 layers (n = "
+          f"{n} in the tree; param_count() {cfg.param_count()}): "
+          f"train.main " + " ".join(argv), flush=True)
+    log, k1, _, peak = main_path(argv, 2 * H_LOCAL)
+    check(all(finite(rec["loss"]) for rec in log), "zamba2 loss not finite")
+    worst, _, k1_6 = fused_vs_tree(
+        "zamba2 savic", cfg=get_config("zamba2-2.7b").replace(n_layers=6))
+    return {"k1": k1, "n": n, "peak": peak,
+            "walls": [r["wall_s"] for r in log],
+            "tokens_per_s": [r["tokens_per_s"] for r in log],
+            "fused_vs_tree": worst, "k1_6": k1_6}
+
+
+def new_shape_kernels(gen):
+    """K4, K5, K6 and K7 held against their plain versions at the shapes
+    zamba2's and qwen3's serves give them, and timed there. Returns the
+    per-kernel errors and timing dicts."""
+    out = {"k4_err": 0.0, "k5_err": 0.0, "k6_err": 0.0, "k7_err": 0.0}
+    for shape in (K4_ZAMBA, K4_QWEN3, (1, 256, 32, 32, 80),
+                  (1, 1000, 32, 32, 80)):
+        err, bound = k4_case(*shape, 0, 0.0, torch.float32, gen)
+        out["k4_err"] = max(out["k4_err"], err)
+        print(f"[chip_smoke] K4 B,S,H,Hk,D={shape}: max abs {err:.3e} "
+              f"(bound {bound:.1e})", flush=True)
+        check(err <= bound, f"K4 differs from its plain version at {shape}")
+    for B_, C_, Hk_, rep_, D_ in (K5_ZAMBA, K5_QWEN3, (8, 320, 32, 1, 80),
+                                  (1, 4099, 32, 1, 80)):
+        for cap in (0.0, 30.0):
+            err, bound = k5_case(B_, C_, Hk_, rep_, D_, cap, gen)
+            out["k5_err"] = max(out["k5_err"], err)
+            print(f"[chip_smoke] K5 B={B_} C={C_} Hk={Hk_} rep={rep_} "
+                  f"D={D_} softcap={cap} plan "
+                  f"{ds.attention_plan(B_, Hk_, C_)}: max abs {err:.3e} "
+                  f"(bound {bound:.1e})", flush=True)
+            check(err <= bound, "K5 differs from its plain version")
+    for name, B_ in (("zamba2-2.7b", ZAMBA["batch"]),
+                     ("zamba2-2.7b", ZTRACE["slots"]),
+                     ("qwen3-4b", QWEN3["batch"])):
+        for greedy in (True, False):
+            ties, bad, err = k6_case(B_, greedy, gen, head=WIDE_HEADS[name])
+            out["k6_err"] = max(out["k6_err"], err)
+            print(f"[chip_smoke] K6 {name} head B={B_} "
+                  f"{'greedy' if greedy else 'gumbel'}: near-tie exceptions"
+                  f" {ties}, violations {bad}, winning logit max abs "
+                  f"{err:.3e}", flush=True)
+            check(bad == 0, f"K6 breaks the near-tie rule at {name}'s head")
+    for shape, a in ((K7_ZAMBA, None), (K7_ZAMBA_ONE, None),
+                     (K7_ZAMBA_ONE, -16.0)):
+        err, ratio, eps, cmax, groups = k7_case(*shape, a, True, gen)
+        out["k7_err"] = max(out["k7_err"], err)
+        print(f"[chip_smoke] K7 B,S,H,P,N,Q={shape} A="
+              f"{'-linspace(1, 16)' if a is None else a} B/C head stride 0 "
+              f"({groups} G group): max abs {err:.3e}, worst error at "
+              f"{ratio:.3f} of its bound (eps {eps:.2e}, max|cum| "
+              f"{cmax:.1f})", flush=True)
+        check(ratio <= 1.0, f"K7 differs from its plain version at {shape}")
+    out["k4"] = {"zamba2": time_k4(gen, K4_ZAMBA),
+                 "qwen3": time_k4(gen, K4_QWEN3)}
+    out["k5"] = {"zamba2": time_k5(K5_ZAMBA, gen),
+                 "qwen3": time_k5(K5_QWEN3, gen)}
+    out["k6"] = {name: time_k6(gen, B_, WIDE_HEADS[name]) for name, B_ in
+                 (("zamba2-2.7b", ZAMBA["batch"]),
+                  ("qwen3-4b", QWEN3["batch"]))}
+    out["k7"] = {"zamba2": time_k7(gen, K7_ZAMBA),
+                 "zamba2_one": time_k7(gen, K7_ZAMBA_ONE)}
+    for key, t in out["k4"].items():
+        print(f"[chip_smoke] K4 at {key}'s prefill shape "
+              f"{K4_ZAMBA if key == 'zamba2' else K4_QWEN3}: "
+              f"{t['ms']:.3f} ms/launch (device {t['device_ms']:.3f} ms), "
+              f"plain {t['plain_ms']:.3f} ms, chunked "
+              f"{t['chunked_ms']:.3f} ms, SDPA {t['library_ms']:.3f} ms, "
+              f"bound {t['bound_ms']:.3f} ms (operations on the true D: "
+              f"{t['flops'] / 1e9:.2f} GFLOP), achieved "
+              f"{t['flops'] / t['ms'] / 1e9:.2f} TFLOP/s", flush=True)
+    for key, t in out["k5"].items():
+        print(f"[chip_smoke] K5 at {key}'s decode shape "
+              f"{K5_ZAMBA if key == 'zamba2' else K5_QWEN3}: "
+              f"{t['ms'] * 1e3:.2f} us/call back to back, device "
+              f"{t['device_ms'] * 1e3:.2f} us, plain "
+              f"{t['plain_ms'] * 1e3:.2f} us (device "
+              f"{t['plain_device_ms'] * 1e3:.2f}), SDPA "
+              f"{t['library_ms'] * 1e3:.2f} us (device "
+              f"{t['library_device_ms'] * 1e3:.2f}), bound "
+              f"{t['bound_ms'] * 1e3:.3f} us ({t['bytes']} B), plan split "
+              f"{t['plan']}", flush=True)
+    for key, t in out["k6"].items():
+        print(f"[chip_smoke] K6 at {key}'s head: {t['ms'] * 1e3:.2f} "
+              f"us/call, plain {t['plain_ms'] * 1e3:.2f} us, matmul + argmax "
+              f"{t['library_ms'] * 1e3:.2f} us, bound "
+              f"{t['bound_ms'] * 1e3:.3f} us ({t['bytes']} B)", flush=True)
+    for key, t in out["k7"].items():
+        print(f"[chip_smoke] K7 at {key} "
+              f"{K7_ZAMBA if key == 'zamba2' else K7_ZAMBA_ONE}: "
+              f"{t['ms'] * 1e3:.2f} us/call back to back, device "
+              f"{t['device_ms'] * 1e3:.2f} us, plain "
+              f"{t['plain_ms'] * 1e3:.2f} us, whole ssd_chunked "
+              f"{t['chunked_ms'] * 1e3:.2f} us, K7 route "
+              f"{t['route_ms'] * 1e3:.2f} us, bound "
+              f"{t['bound_ms'] * 1e3:.3f} us ({t['flops'] / 1e9:.3f} GFLOP), "
+              f"{t['bound_ms'] / t['device_ms'] * 100:.1f} % of the bound on "
+              f"device time", flush=True)
+    return out
+
+
+def phase10(gen):
+    """Phase 10 in the order 10a-10d, then the kernels at the new shapes;
+    returns what the kernels line and the summary need."""
+    t0 = time.perf_counter()
+    z = zamba_phase()
+    q = qwen3_phase()
+    tr = zamba_train_phase()
+    ks = new_shape_kernels(gen)
+    print(f"[chip_smoke] phase 10: {time.perf_counter() - t0:.1f} s; peaks "
+          f"zamba2 serve {z['peak']:.2f} GiB, qwen3 serve {q['peak']:.2f} "
+          f"GiB, zamba2 12-layer savic {tr['peak']:.2f} GiB (K1 "
+          f"{tr['k1']}, rounds {tr['walls']} s, {tr['tokens_per_s']} "
+          f"tokens/s; fused vs tree at 6 layers {tr['fused_vs_tree']:.3e}, "
+          f"K1 {tr['k1_6']})", flush=True)
+    return {"zamba": z, "qwen3": q, "train": tr, "kernels": ks}
 
 
 # --------------------------------------------------------------------------- #
@@ -1548,8 +1818,9 @@ def main_path(argv, expect_k1, expect_k3=0):
     return log, k1, k3, peak
 
 
-def fused_vs_tree(name, rounds=1, flips=False, H=2, **method_kw):
-    """``rounds`` rounds at full width and 2 layers: fused client loop
+def fused_vs_tree(name, rounds=1, flips=False, H=2, cfg=None, **method_kw):
+    """``rounds`` rounds at full width and 2 layers (or ``cfg``, a
+    full-width config cut in depth): fused client loop
     against the tree loop from the same start, same batches, same rng
     streams. Every float leaf must agree to 1e-5 of its scale (the EF
     residual's and the staleness FIFO's scale is the matching params leaf's:
@@ -1558,7 +1829,7 @@ def fused_vs_tree(name, rounds=1, flips=False, H=2, **method_kw):
     one; up to 1e-4 of a leaf's elements may then differ by up to 2e-4 of
     its scale. Returns (worst relative difference, flipped elements, K1
     launches of the fused run)."""
-    cfg = get_config("qwen2-0.5b").replace(n_layers=2)
+    cfg = cfg or get_config("qwen2-0.5b").replace(n_layers=2)
     model = build_model(cfg, ModelCallConfig(dtype=torch.float32))
     M, b, S = 4, 8, 128
     loader = LMRoundLoader(TokenStream(cfg.vocab_size, seed=0), M, b)
@@ -1607,7 +1878,8 @@ def fused_vs_tree(name, rounds=1, flips=False, H=2, **method_kw):
         worst = max(worst, float(diff.max()) / scale)
     del out, sf, st, tree
     torch.cuda.empty_cache()
-    print(f"[chip_smoke] fused vs tree ({name}, 2 layers, {rounds} rounds): "
+    print(f"[chip_smoke] fused vs tree ({name}, {cfg.n_layers} layers, "
+          f"{rounds} rounds): "
           f"loss {lf:.6f} vs {lt:.6f}, worst state diff {worst:.3e} of leaf "
           f"scale" + (f", {n_flips} int8 boundary flips" if flips else "")
           + f"; K1 launches {k1}", flush=True)
@@ -2344,10 +2616,14 @@ def main():
         check(err <= bound, "K4 differs from its plain version")
 
     # ---- 9. serving main path: prefill reuse + 63 decode steps -------------
+    steps = SERVE["gen_len"] - 1
     print("[chip_smoke] serve main path: serve('qwen2-0.5b', reduced=False, "
           f"use_decode_kernel=True, {SERVE})", flush=True)
-    _, k5_launches, k6_launches, speak = serve_main_path()
-    cfg_full, sparams = serve_params()
+    _, counts, speak = serve_path(
+        "qwen2-0.5b", SERVE, {"k4": 0, "k5": K5_PER_CALL * 24 * steps,
+                              "k6": steps, "k7": 0}, use_decode_kernel=True)
+    k5_launches, k6_launches = counts["k5"], counts["k6"]
+    cfg_full, sparams = full_params("qwen2-0.5b")
     ties, n_ids = teacher_forced(cfg_full, sparams)
     print(f"[chip_smoke] kernel vs plain decode, teacher-forced, full width: "
           f"{n_ids} ids, near-tie exceptions {ties}", flush=True)
@@ -2355,15 +2631,18 @@ def main():
     # ---- 10. continuous batching at full width -----------------------------
     print(f"[chip_smoke] serve_continuous('qwen2-0.5b', reduced=False, "
           f"use_decode_kernel=True, {TRACE})", flush=True)
-    _, _, _, cties, ccompared = continuous_path(cfg_full, sparams)
-    print(f"[chip_smoke]   ring tokens vs solo serving (requests 0, 7, 15, "
-          f"teacher-forced): {ccompared} ids, near-tie exceptions {cties}",
-          flush=True)
+    flags = dict(use_decode_kernel=True)
+    continuous_check("qwen2-0.5b", sparams, TRACE, flags, flags, {}, 24)
     # ---- 10b. long-prompt serve: K4 prefill, K5/K6 decode at C = 8224 -----
+    steps = LONG["gen_len"] - 1
     print("[chip_smoke] long-prompt serve path: serve('qwen2-0.5b', "
           f"reduced=False, use_flash_kernel=True, use_decode_kernel=True, "
           f"{LONG})", flush=True)
-    _, k4_launches, _, _, lpeak = long_serve_path()
+    _, counts, lpeak = serve_path(
+        "qwen2-0.5b", LONG, {"k4": 24, "k5": K5_PER_CALL * 24 * steps,
+                             "k6": steps, "k7": 0},
+        use_flash_kernel=True, use_decode_kernel=True)
+    k4_launches = counts["k4"]
     lerr, lbound, cerr, cratio, lties, l_ids = long_teacher_forced(cfg_full,
                                                                    sparams)
     print(f"[chip_smoke] K4 path vs chunked plain path, teacher-forced, "
@@ -2420,11 +2699,15 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- 13. mamba2-1.3b serve: K7 prefill, K6 decode ----------------------
+    steps = MAMBA["gen_len"] - 1
+    flags = dict(use_ssd_kernel=True, use_decode_kernel=True)
     print("[chip_smoke] mamba2 serve path: serve('mamba2-1.3b', "
-          f"reduced=False, use_ssd_kernel=True, use_decode_kernel=True, "
-          f"{MAMBA})", flush=True)
-    _, k7_launches, _, mpeak = mamba_serve_path()
-    mcfg, mparams = mamba_params()
+          f"reduced=False, {flags}, {MAMBA})", flush=True)
+    _, counts, mpeak = serve_path(
+        "mamba2-1.3b", MAMBA, {"k4": 0, "k5": 0, "k6": steps,
+                               "k7": N_MAMBA_LAYERS}, **flags)
+    k7_launches = counts["k7"]
+    mcfg, mparams = full_params("mamba2-1.3b")
     lerr, lbound, cratio, mties, m_ids, cmax = mamba_teacher_forced(mcfg,
                                                                     mparams)
     print(f"[chip_smoke] K7 route vs ssd_chunked route, teacher-forced, full "
@@ -2435,12 +2718,9 @@ def main():
 
     # ---- 13b. mamba2 continuous batching at full width ---------------------
     print(f"[chip_smoke] serve_continuous('mamba2-1.3b', reduced=False, "
-          f"use_ssd_kernel=True, use_decode_kernel=True, {MTRACE})",
-          flush=True)
-    _, _, _, mcties, mcompared = mamba_continuous(mcfg, mparams)
-    print(f"[chip_smoke]   ring tokens vs solo serving (requests 0, 7, 15, "
-          f"teacher-forced): {mcompared} ids, near-tie exceptions {mcties}",
-          flush=True)
+          f"{flags}, {MTRACE})", flush=True)
+    continuous_check("mamba2-1.3b", mparams, MTRACE, flags,
+                     dict(use_ssd_kernel=True), {"k7": N_MAMBA_LAYERS}, 0)
     del mparams
     torch.cuda.empty_cache()
 
@@ -2507,6 +2787,9 @@ def main():
           f"max/now (MHz) {smi_line('clocks.max.sm,clocks.sm')}",
           flush=True)
 
+    # ---- 10. the hybrid (zamba2-2.7b) and qwen3-4b at full width ---------
+    p10 = phase10(gen)
+
     # ---- phase 9. checkpoint and bitwise resume; the train_lm runner ------
     try:
         res = resume_phase(n_main, qwen_shapes)
@@ -2514,11 +2797,36 @@ def main():
     finally:
         shutil.rmtree(CKPT_ROOT, ignore_errors=True)
 
+    z, q3, ztr, ks = (p10["zamba"], p10["qwen3"], p10["train"],
+                      p10["kernels"])
+    by_path = {
+        "k1": {"qwen2-0.5b savic": launches,
+               "zamba2-2.7b 12-layer savic": ztr["k1"]},
+        "k4": {"qwen2-0.5b long prompt": k4_launches,
+               "zamba2-2.7b serve": z["counts"]["k4"],
+               "zamba2-2.7b continuous": z["ccounts"]["k4"],
+               "qwen3-4b serve": q3["counts"]["k4"]},
+        "k5": {"qwen2-0.5b serve": k5_launches,
+               "zamba2-2.7b serve": z["counts"]["k5"],
+               "zamba2-2.7b continuous": z["ccounts"]["k5"],
+               "qwen3-4b serve": q3["counts"]["k5"]},
+        "k6": {"qwen2-0.5b serve": k6_launches,
+               "zamba2-2.7b serve": z["counts"]["k6"],
+               "zamba2-2.7b continuous": z["ccounts"]["k6"],
+               "qwen3-4b serve": q3["counts"]["k6"]},
+        "k7": {"mamba2-1.3b serve": k7_launches,
+               "zamba2-2.7b serve": z["counts"]["k7"],
+               "zamba2-2.7b continuous": z["ccounts"]["k7"]}}
+    shape_times = lambda ts, shapes, keys=("ms", "plain_ms", "bound_ms",
+                                           "library_ms", "device_ms"): [
+        {"at": name, "shape": list(shapes[name]),
+         **{k: t[k] for k in keys if k in t}} for name, t in ts.items()]
     kernels = [{
         "name": "fused_step_flat", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_step.cu",
         "replaces": "src/repro/kernels/scaled_update.py:201",
-        "launches": launches, "max_abs_err": max_err, "ms": ms,
+        "launches": sum(by_path["k1"].values()),
+        "launches_by_path": by_path["k1"], "max_abs_err": max_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
         "library_ms": None,
     }, {
@@ -2540,32 +2848,49 @@ def main():
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_step.py:71",
-        "launches": k5_launches, "max_abs_err": k5_err, "ms": k5t["ms"],
+        "launches": sum(by_path["k5"].values()),
+        "launches_by_path": by_path["k5"],
+        "max_abs_err": max(k5_err, ks["k5_err"]), "ms": k5t["ms"],
         "plain_ms": k5t["plain_ms"], "bound_ms": k5t["bound_ms"],
         "bound_by": "bytes", "library_ms": k5t["library_ms"],
         "device_ms": k5t["device_ms"],
+        "at_shapes": shape_times(ks["k5"], {"zamba2": K5_ZAMBA,
+                                            "qwen3": K5_QWEN3}),
     }, {
         "name": "decode_sample", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_sample.cu",
         "replaces": "src/repro/kernels/decode_step.py:133",
-        "launches": k6_launches, "max_abs_err": k6_err, "ms": k6t["ms"],
+        "launches": sum(by_path["k6"].values()),
+        "launches_by_path": by_path["k6"],
+        "max_abs_err": max(k6_err, ks["k6_err"]), "ms": k6t["ms"],
         "plain_ms": k6t["plain_ms"], "bound_ms": k6t["bound_ms"],
         "bound_by": "bytes", "library_ms": k6t["library_ms"],
+        "at_shapes": shape_times(ks["k6"], {
+            "zamba2-2.7b": (ZAMBA["batch"], *WIDE_HEADS["zamba2-2.7b"][:3]),
+            "qwen3-4b": (QWEN3["batch"], *WIDE_HEADS["qwen3-4b"][:3])}),
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:76",
-        "launches": k4_launches, "max_abs_err": k4_err, "ms": k4t["ms"],
+        "launches": sum(by_path["k4"].values()),
+        "launches_by_path": by_path["k4"],
+        "max_abs_err": max(k4_err, ks["k4_err"]), "ms": k4t["ms"],
         "plain_ms": k4t["plain_ms"], "bound_ms": k4t["bound_ms"],
         "bound_by": "operations", "library_ms": k4t["library_ms"],
+        "at_shapes": shape_times(ks["k4"], {"zamba2": K4_ZAMBA,
+                                            "qwen3": K4_QWEN3}),
     }, {
         "name": "ssd_intra_chunk", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_intra_chunk.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:52",
-        "launches": k7_launches, "max_abs_err": k7_err, "ms": k7t["ms"],
+        "launches": sum(by_path["k7"].values()),
+        "launches_by_path": by_path["k7"],
+        "max_abs_err": max(k7_err, ks["k7_err"]), "ms": k7t["ms"],
         "plain_ms": k7t["plain_ms"], "bound_ms": k7t["bound_ms"],
         "bound_by": "operations", "library_ms": None,
         "device_ms": k7t["device_ms"],
+        "at_shapes": shape_times(ks["k7"], {"zamba2": K7_ZAMBA,
+                                            "zamba2_one": K7_ZAMBA_ONE}),
     }]
     print(f"[chip_smoke] peak memory: savic {peak:.2f} GiB, savic int8 + EF "
           f"{cpeak:.2f} GiB, savic OASIS + participation 0.5 {rpeak:.2f} GiB, "

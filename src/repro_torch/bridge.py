@@ -36,6 +36,8 @@ def state_from_jax(np_state, device):
 
 
 def cache_from_jax(np_cache, device):
-    """Decode cache (numpy leaves: bf16 k/v (L, B, C, Hk, hd)) -> the port's
-    cache dict, bf16 tensors with the same bits."""
+    """Decode cache (numpy leaves: the dense family's bf16 k/v (L, B, C,
+    Hk, hd); the ssm and hybrid families' fp32 ``mamba`` tree, and the
+    hybrid's bf16 ``shared_k`` / ``shared_v``) -> the port's cache dict,
+    bf16 tensors with the same bits."""
     return tree_map(lambda x: _to_torch(x, device), np_cache)

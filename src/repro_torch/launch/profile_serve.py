@@ -12,10 +12,10 @@ launches a layer), GEMMs and the rest; the untraced
 steps' wall times and their median, the device-busy time per traced step
 (summed kernel time) as a share of the traced step and of the untraced
 median, the device time and launches of K5 (decode attention: its split
-pass and its merge, two launches a layer) and K6
-(unembed + argmax) and the rest of a step's device time, the kernels that
-took the most device time, the
-host ops that took the most host time (self time), and the peak device
+pass and its merge, two launches a layer) and K6 (unembed + argmax; its
+sliced kernel at heads wider than 2048) and the rest of a step's device
+time, the kernels that took the most device time, the host ops that took
+the most host time (self time), and the peak device
 memory. CUDA only. The profiler's own cost inflates the host times and the
 traced steps' wall time.
 
@@ -27,6 +27,13 @@ traced steps' wall time.
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
       --arch mamba2-1.3b --full --ssd-kernel --decode-kernel --batch 4 \\
       --prompt-len 2048
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+      --arch zamba2-2.7b --full --ssd-kernel --flash-kernel \\
+      --decode-kernel --batch 4 --prompt-len 2048
+
+A hybrid (zamba2) prefill is split into K7 (its mamba layers), K4 (its
+shared block's attention, one launch an application), GEMMs and the rest;
+its decode step into K5 (one call an application), K6 and the rest.
 """
 from __future__ import annotations
 
@@ -43,7 +50,8 @@ from repro_torch.utils import rng
 
 # the port's kernels by the names of their CUDA functions
 KERNELS = {"k5": ("decode_split", "decode_merge"),
-           "k6": ("decode_sample_blocks", "decode_sample_reduce")}
+           "k6": ("decode_sample_blocks", "decode_sample_sliced",
+                  "decode_sample_reduce")}
 PREFILL_KERNELS = {"k4": ("flash_attention_kernel",),
                    "k7": ("ssd_intra_chunk_prep", "ssd_intra_chunk_main")}
 GEMM = ("gemm", "cutlass", "xmma")    # cuBLAS's kernels, by name (lower case)

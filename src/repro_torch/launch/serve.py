@@ -1,5 +1,6 @@
 """Batched serving driver: prefill once, reuse the cache, decode (counterpart
-of ``repro/launch/serve.py``, dense and ssm families, single device).
+of ``repro/launch/serve.py``, dense, ssm and hybrid families, single
+device).
 
 Four entry points, as in the reference:
 
@@ -48,6 +49,15 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
       --full --ssd-kernel --decode-kernel --batch 4 --prompt-len 2048 \\
       --gen-len 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
+      --full --ssd-kernel --flash-kernel --decode-kernel --batch 4 \\
+      --prompt-len 2048 --gen-len 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\
+      --full --flash-kernel --decode-kernel --batch 8 --prompt-len 512 \\
+      --gen-len 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
+      --device cpu --mode continuous --ssd-kernel --flash-kernel \\
+      --decode-kernel                                   # reduced zamba2
 """
 from __future__ import annotations
 
@@ -174,7 +184,8 @@ def serve(arch: str, *, reduced=True, batch=4, prompt_len=32, gen_len=32,
     ``stream`` is the noise stream (default ``TorchStream(seed + 2)``).
     ``use_flash_kernel`` runs the prefill's attention on kernel K4 (the
     reference's ``ModelCallConfig`` knob, passed through);
-    ``use_ssd_kernel`` runs an ssm model's prefill SSD on kernel K7.
+    ``use_ssd_kernel`` runs the prefill SSD of an ssm or hybrid model
+    (mamba2, zamba2) on kernel K7.
     """
     cfg, model, params, device = _setup(
         arch, reduced=reduced, dtype=dtype, decode_window=decode_window,
@@ -499,7 +510,8 @@ def main(argv=None):
     ap.add_argument("--flash-kernel", action="store_true",
                     help="prefill attention on K4")
     ap.add_argument("--ssd-kernel", action="store_true",
-                    help="ssm prefill SSD on K7")
+                    help="the prefill SSD of ssm and hybrid models "
+                         "(mamba2, zamba2) on K7")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--arrival-rate", type=float, default=0.5,
                     help="Poisson arrivals per decode step (trace modes)")

@@ -11,6 +11,11 @@ step times as its straggler trace), client objectives (``--objective``,
 (``--ckpt``, ``--ckpt-every``; the reference's on-disk format). ``--mesh``
 is not ported and raises ``NotImplementedError``.
 
+Every ported arch trains (dense qwen2 / qwen3, ssm mamba2, hybrid
+zamba2), on the plain attention and SSD routes: the K4 and K7 kernels are
+forward-only, as their TPU kernels are, so ``loss`` raises if asked to
+differentiate through them.
+
 Round r draws from the stream ``TorchStream(seed + 1).fold(r)``
 (``repro_torch.utils.rng``), as the reference keys round r with
 ``fold_in(PRNGKey(seed + 1), r)``, and its data from the round-addressable
@@ -36,6 +41,9 @@ Examples:
       --labeled-frac 0.5 --personalize final_norm --rounds 2
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
       --reduced --device cpu --rounds 2 --clients 2 --batch 2 --seq 32
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \
+      --reduced --device cpu --use-fused-kernel --rounds 2 --clients 2 \
+      --batch 2 --seq 32
   # resume: save every round, then rerun with a larger --rounds
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
       --reduced --device cpu --rounds 2 --ckpt /tmp/ck --ckpt-every 1

@@ -172,7 +172,7 @@ class AttnCall:
     use_flash_kernel: bool = False  # K4 (flash attention) when no window
     use_decode_kernel: bool = False  # K5, single-query decode attention
     force_window: int = 0
-    use_ssd_kernel: bool = False    # K7 in the SSM family's blocks
+    use_ssd_kernel: bool = False    # K7 in the ssm and hybrid mamba blocks
 
 
 def attention(p, cfg: ModelConfig, x, positions, call: AttnCall, dtype):

@@ -32,7 +32,7 @@ class ModelCallConfig:
     decode_window: int = 0          # ring-buffer decode cache of this size
     use_decode_kernel: bool = False  # K5 decode attention + K6 sampling
     softcap: float = 0.0
-    use_ssd_kernel: bool = False    # ssm family: the SSD on K7 (forward only)
+    use_ssd_kernel: bool = False    # ssm/hybrid: the SSD on K7 (forward only)
 
 
 @dataclasses.dataclass

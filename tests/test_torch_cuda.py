@@ -664,3 +664,77 @@ def test_fig1_short_run_on_cuda(dev):
         loss = f["metrics"]["loss"]
         assert loss == loss and abs(loss) < float("inf")
         assert abs(loss - t["metrics"]["loss"]) <= 1e-5 * abs(loss)
+
+
+# --------------------------------------------------------------------------- #
+# the hybrid's (zamba2-2.7b) and qwen3-4b's shapes: K4 and K5 at D = 80 with
+# rep 1 (32 kv heads) and at D = 128 with rep 4, K6 at both heads, K7 at
+# zamba2's (H 80, P 64, N 64, Q 256), each against its plain version
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Hk,D", [(2, 512, 32, 32, 80),
+                                        (1, 300, 32, 32, 80),
+                                        (2, 512, 32, 8, 128)])
+def test_k4_at_the_hybrid_and_qwen3_heads(dev, B, S, H, Hk, D):
+    """D = 80 pads to the 128-wide tile (zamba2's shared block, rep 1);
+    D = 128, rep 4 (qwen3); S cut from the serves' 2048 and 512."""
+    q, k, v = _k4_inputs(B, S, H, Hk, D, torch.float32, dev)
+    want = ref.flash_attention_ref(q, k, v)
+    got = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert got.shape == (B, S, H, D)
+    assert float((got - want).abs().max()) <= _k4_bound(v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+@pytest.mark.parametrize("B,C,Hk,rep,D", [(4, 2112, 32, 1, 80),
+                                          (8, 576, 8, 4, 128),
+                                          (1, 4099, 32, 1, 80)])
+def test_k5_at_the_hybrid_and_qwen3_heads(dev, B, C, Hk, rep, D, cap):
+    """zamba2's decode (Hk 32, rep 1, D 80, C = 2048 + 64) and qwen3's
+    (Hk 8, rep 4, D 128, C = 512 + 64); two launches a call."""
+    q, k, v, bias = _k5_inputs(B, C, Hk, rep, D, dev)
+    want = ref.decode_attention_ref(q, k, v, bias, softcap=cap)
+    before = ds.decode_attention.launches
+    got = ops.decode_attention(q, k, v, bias, softcap=cap)
+    torch.cuda.synchronize()
+    assert ds.decode_attention.launches == before + 2
+    assert float((got - want).abs().max()) <= \
+        1e-5 * float(v.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("greedy", [True, False])
+@pytest.mark.parametrize("B,V,v_real,d", [(4, 32768, 32000, 2560),
+                                          (8, 32768, 32000, 2560),
+                                          (8, 153600, 151936, 2560)])
+def test_k6_at_the_hybrid_and_qwen3_heads(dev, B, V, v_real, d, greedy):
+    y, table, noise = _k6_inputs(B, V, d, dev, greedy)
+    scale = d ** -0.5
+    logits = ref.decode_sample_logits(y, table, noise, scale=scale,
+                                      v_real=v_real)
+    want = ref.decode_sample_ref(y, table, noise, scale=scale, v_real=v_real)
+    got = ops.decode_sample(y, table, noise, scale=scale, v_real=v_real)
+    torch.cuda.synchronize()
+    ties, bad = ref.near_tie_check(logits, got, want, v_real)
+    assert bad == 0 and ties <= 1, (ties, bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,a", [(4, 2048, None), (1, 256, None),
+                                   (2, 512, -16.0)])
+def test_k7_at_the_hybrid_shape(dev, B, S, a):
+    """zamba2's SSD: 80 heads of P = 64, N = 64, Q = 256, one B/C group
+    (head stride 0); the serve's prefill, one chunk, and A = -16."""
+    H, P, N, Q = 80, 64, 64, 256
+    x, dt, A, Bm, Cm = _k7_inputs(B, S, H, P, N, dev, a, True)
+    want = ref.ssd_intra_chunk_ref(x, dt, A, Bm, Cm, Q)
+    got = ssd.ssd_intra_chunk(x, dt, A, Bm, Cm, Q)
+    torch.cuda.synchronize()
+    bounds, _ = k7_bounds(x, dt, A, Bm, Cm, Q)
+    for g, w, bd in zip(got, want, bounds):
+        assert bool(((g - w).abs() <= bd).all()), \
+            float(((g - w).abs() / bd.clamp_min(1e-30)).max())

@@ -57,7 +57,7 @@ def test_config_matches_reference():
                   "rope_theta", "norm_eps", "act", "qk_norm"):
             assert getattr(t, f) == getattr(j, f), f
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("zamba2-2.7b")
+        get_config("gemma3-4b")
 
 
 def test_init_tree_matches_reference_layout(setup):
