@@ -48,7 +48,14 @@ against solo serving (10b); qwen3-4b served at batch 8 from a 512-token
 prompt through K4, K5 and K6, held the same way (10c); savic on zamba2 cut
 to 12 layers through ``train.main`` on K1, and fused against tree at 6
 (10d); then K4-K7 against their plain versions and timed at these
-shapes.
+shapes. Phase 11 drives gemma3-4b at full width and depth: served at
+batch 2 from a 4096-token prompt through K4 at d_head 256 (its 34 layers:
+29 with the 1024 window, 5 global), K5 (the window in each local layer's
+bias) and K6 on the tied table (11a), the K4 prefill held against the
+chunked plain one with the same per-layer windows and the K5/K6 decode
+against the plain decode (11b), then K4 (global and windowed), K5 and K6
+against their plain versions at its shapes and timed, SDPA beside K4 and
+K5 with the backend it took (11c).
 Any failed phase raises and the script exits non-zero. Without a CUDA
 device, or without the rest of the repository beside it, it exits non-zero
 before printing any result.
@@ -106,6 +113,7 @@ from repro_torch.launch import train_lm  # noqa: E402
 from repro_torch.models import (ModelCallConfig, sample_batch,  # noqa: E402
                                 sample_ids)
 from repro_torch.models import build as build_model  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.flash import flash_attention_bshd  # noqa: E402
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 from repro_torch.utils import rng  # noqa: E402
@@ -172,7 +180,14 @@ K4_CASES = [(*K4_MAIN, 0, 0.0, torch.float32),
             (2, 8191, 14, 2, 64, 0, 0.0, torch.float32),
             (1, 2049, 14, 2, 128, 300, 30.0, torch.float32),
             (1, 1025, 14, 2, 32, 0, 0.0, torch.float32),
-            (1, 4097, 14, 2, 64, 0, 0.0, torch.bfloat16)]
+            (1, 4097, 14, 2, 64, 0, 0.0, torch.bfloat16),
+            # D = 256 (gemma3's 256-thread, 32-key-tile instance): S not a
+            # multiple of the tile, its window with softcap, bf16, and a D
+            # of 160 that pads to 256
+            (1, 4097, 8, 4, 256, 0, 0.0, torch.float32),
+            (1, 2049, 8, 4, 256, 1024, 30.0, torch.float32),
+            (1, 2049, 8, 4, 256, 0, 0.0, torch.bfloat16),
+            (2, 2048, 8, 4, 160, 300, 0.0, torch.float32)]
 # mamba2-1.3b serving: batch 4, prompt 2048, 64 tokens (63 decode steps)
 MAMBA = dict(batch=4, prompt_len=2048, gen_len=64)
 K7_MAIN = (4, 2048, 64, 64, 128, 256)   # B, S, H, P, N, Q of the prefill's K7
@@ -210,6 +225,15 @@ K5_ZAMBA = (4, 2112, 32, 1, 80)         # B, C, Hk, rep, D of the decode
 K5_QWEN3 = (8, 576, 8, 4, 128)
 K7_ZAMBA = (4, 2048, 80, 64, 64, 256)   # B, S, H, P, N, Q of the prefill
 K7_ZAMBA_ONE = (1, 256, 80, 64, 64, 256)
+# phase 11: gemma3-4b (34 layers: 29 local with a sliding window of 1024, 5
+# global at 5, 11, 17, 23, 29; GQA 8/4 at d_head 256, qk-norm, GeGLU; a
+# tied 262,144-row head scaled by 2560^-1/2) at full width and depth; its
+# 4096-token prompt makes the window mask three quarters of a late row's
+# keys, in the prefill and in every decode step
+GEMMA = dict(batch=2, prompt_len=4096, gen_len=64)
+N_GEMMA_LAYERS, GEMMA_GLOBAL, GEMMA_WINDOW = 34, (5, 11, 17, 23, 29), 1024
+K4_GEMMA = (2, 4096, 8, 4, 256)         # B, S, H, Hk, D of the prefill's K4
+K5_GEMMA = (2, 4160, 4, 2, 256)         # B, C, Hk, rep, D of the decode
 # 10d: zamba2 training at full width, depth cut to 12 layers (two
 # applications of the shared block; below 6 it would never run) and to 6
 # for fused against tree (one application)
@@ -813,22 +837,26 @@ def paper_phase():
 # --------------------------------------------------------------------------- #
 
 
-def k5_inputs(B, C, Hk, rep, D, gen, one_valid=False):
+def k5_inputs(B, C, Hk, rep, D, gen, one_valid=False, window=0):
     """q fp32, k/v bf16 cache, and a causal bias at a random position per
-    row (``one_valid``: every position but that one masked)."""
+    row (``one_valid``: every position but that one masked; ``window``: and
+    every position ``window`` or more before it, as a local layer's)."""
     q = torch.randn((B, Hk * rep, D), generator=gen, device=DEV)
     k = torch.randn((B, C, Hk, D), generator=gen, device=DEV).bfloat16()
     v = torch.randn((B, C, Hk, D), generator=gen, device=DEV).bfloat16()
     pos = torch.randint(0, C, (B,), generator=gen, device=DEV)
     idx = torch.arange(C, device=DEV)
     ok = idx[None] == pos[:, None] if one_valid else idx[None] <= pos[:, None]
+    if window:
+        ok &= pos[:, None] - idx[None] < window
     return q, k, v, torch.where(ok, 0.0, -1e30).float().contiguous()
 
 
-def k5_case(B, C, Hk, rep, D, cap, gen, one_valid=False, at=None):
+def k5_case(B, C, Hk, rep, D, cap, gen, one_valid=False, at=None,
+            window=0):
     """(max abs error, its bound 1e-5·max|v|) of K5 against its plain
     version. ``at``: every position but ``at`` masked in every row."""
-    q, k, v, bias = k5_inputs(B, C, Hk, rep, D, gen, one_valid)
+    q, k, v, bias = k5_inputs(B, C, Hk, rep, D, gen, one_valid, window)
     if at is not None:
         bias.fill_(-1e30)
         bias[:, at] = 0.0
@@ -899,6 +927,30 @@ def k6_bytes(B, v_real=V_REAL, d=D_MODEL):
     return 4 * (v_real * d + B * v_real + B * d + B)
 
 
+def sdpa_backend(fn, calls=3):
+    """(backend, name of its longest CUDA kernel) of ``calls`` traced calls
+    of ``fn``, an SDPA call: "flash", "efficient" (the memory-efficient
+    kernel), "cudnn" or "math" (GEMMs and a softmax), by that name; "not
+    traced" where the profiler recorded no kernel."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    evs = sorted(profile_serve._device_events(prof),
+                 key=lambda e: -e.self_device_time_total)
+    names = " ".join(e.key.lower() for e in evs)
+    del prof
+    if not evs:
+        return "not traced", ""
+    kind = ("cudnn" if "cudnn" in names else "flash" if "flash" in names
+            else "efficient" if "fmha" in names or "efficient" in names
+            else "math")
+    return kind, evs[0].key[:70]
+
+
 def time_k5(shape, gen, splits=()):
     """K5 at ``shape`` (B, C, Hk, rep, D): CUDA-event times of the kernel
     wrapper (its two launches), its plain version and SDPA (the bias as
@@ -935,6 +987,7 @@ def time_k5(shape, gen, splits=()):
                                      graph_ms(fns[""][0]))
     finally:
         ds.attention_plan = plan
+    k5["library_backend"] = sdpa_backend(fns["library_"][0])
     k5["bytes"] = k5_bytes(B, C, Hk, rep, D)
     k5["bound_ms"] = k5["bytes"] / HBM_BYTES_PER_S * 1e3
     del q, k, v, bias, kf, vf, lib
@@ -1004,45 +1057,58 @@ def k4_case(B, S, H, Hk, D, window, cap, dtype, gen):
     return err, bound
 
 
-def k4_work(B, S, H, Hk, D):
-    """(flops, bytes) K4 must do at a causal shape without a window: two
-    D-long dots per causal pair; read q, k, v once, write out."""
-    pairs = B * H * S * (S + 1) // 2
+def k4_work(B, S, H, Hk, D, window=0):
+    """(flops, bytes) K4 must do at a causal shape: two D-long dots per
+    pair that the causal mask (and ``window``, where positive) keeps; read
+    q, k, v once, write out."""
+    w = window if window and window < S else S
+    pairs = B * H * (w * (w + 1) // 2 + (S - w) * w)
     return 4 * D * pairs, 4 * (2 * B * S * H * D + 2 * B * S * Hk * D)
 
 
-def time_k4(gen, shape=K4_MAIN):
-    """K4 at a prefill's shape: CUDA-event times of the kernel wrapper,
-    its plain version (row by row), the port's chunked ``models/flash.py``
-    forward (KV repeated to H heads beforehand, blocks of 1024, as the
-    model's plain route runs it) and SDPA (fp32, causal, GQA), and its
-    bound, counted on the true D (a D of 80 pads to the 128-wide tile)."""
+def time_k4(gen, shape=K4_MAIN, window=0):
+    """K4 at a prefill's shape (with ``window`` where positive): CUDA-event
+    times of the kernel wrapper, its plain version (row by row), the
+    port's chunked ``models/flash.py`` forward (KV repeated to H heads
+    beforehand, blocks of 1024, as the model's plain route runs it) and
+    SDPA (fp32, GQA; causal, or a boolean mask of the window) with the
+    backend it took, and its bound, counted on the true D (a D of 80 pads
+    to the 128-wide tile) and the pairs the mask keeps."""
     B, S, H, Hk, D = shape
     q, k, v = k4_inputs(B, S, H, Hk, D, torch.float32, gen)
-    out = fa.flash_attention(q, k, v)
+    out = fa.flash_attention(q, k, v, window=window)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                         enable_gqa=True).transpose(1, 2)
+    i = torch.arange(S, device=DEV)
+    mask = (i[None] <= i[:, None]) & (i[:, None] - i[None] < window) \
+        if window else None
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+            enable_gqa=True)
+
+    lib = sdpa().transpose(1, 2)
     err = float((lib - out).abs().max())
     check(err <= 1e-4 * float(v.abs().max()),
           f"SDPA does not compute K4's function ({err:.3e})")
     del lib, out
     torch.cuda.empty_cache()
-    t = {"ms": cuda_ms(lambda: fa.flash_attention(q, k, v), 10),
-         "device_ms": graph_ms(lambda: fa.flash_attention(q, k, v),
-                               calls=5, replays=4),
-         "plain_ms": cuda_ms(lambda: k4_plain(q, k, v), 2),
-         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-             qt, kt, vt, is_causal=True, enable_gqa=True), 5)}
+    kern = lambda: fa.flash_attention(q, k, v, window=window)
+    t = {"ms": cuda_ms(kern, 10),
+         "device_ms": graph_ms(kern, calls=5, replays=4),
+         "plain_ms": cuda_ms(lambda: k4_plain(q, k, v, window), 2),
+         "library_ms": cuda_ms(sdpa, 5),
+         "library_backend": sdpa_backend(sdpa)}
     pos = torch.arange(S, device=DEV)
     kr, vr = (torch.repeat_interleave(x, H // Hk, dim=2) for x in (k, v))
     with torch.no_grad():
         t["chunked_ms"] = cuda_ms(lambda: flash_attention_bshd(
-            q, kr, vr, pos, pos, bq=1024, bk=1024), 2)
-    t["flops"], t["bytes"] = k4_work(B, S, H, Hk, D)
+            q, kr, vr, pos, pos, window=window or None, bq=1024, bk=1024),
+            2)
+    t["flops"], t["bytes"] = k4_work(B, S, H, Hk, D, window)
     t["bound_ms"] = max(t["bytes"] / HBM_BYTES_PER_S,
                         t["flops"] / FP32_FLOP_PER_S) * 1e3
-    del q, k, v, qt, kt, vt, kr, vr
+    del q, k, v, qt, kt, vt, kr, vr, mask
     torch.cuda.empty_cache()
     return t
 
@@ -1770,6 +1836,145 @@ def phase10(gen):
           f"tokens/s; fused vs tree at 6 layers {tr['fused_vs_tree']:.3e}, "
           f"K1 {tr['k1_6']})", flush=True)
     return {"zamba": z, "qwen3": q, "train": tr, "kernels": ks}
+
+
+# --------------------------------------------------------------------------- #
+# phase 11: gemma3-4b at full width and depth
+# --------------------------------------------------------------------------- #
+
+
+def gemma3_phase():
+    """11a: gemma3-4b served at full width and depth through K4 (each of its
+    34 layers: 29 with the 1024 window, 5 global), K5 (the window in each
+    local layer's bias) and K6 (on the tied table itself); its prefill's
+    device time by kernel. 11b: the K4 prefill held against the plain one
+    (the chunked ``models/flash.py`` with the same per-layer windows) and
+    the K5/K6 decode against the plain decode, teacher-forced from one
+    cache."""
+    cfg = get_config("gemma3-4b")
+    wins = transformer.layer_windows(cfg, cfg.n_layers)
+    check(cfg.n_layers == N_GEMMA_LAYERS and cfg.head_dim == K4_GEMMA[4]
+          and tuple(i for i, w in enumerate(wins) if w != GEMMA_WINDOW)
+          == GEMMA_GLOBAL, f"gemma3-4b's windows {wins}")
+    steps = GEMMA["gen_len"] - 1
+    flags = dict(use_flash_kernel=True, use_decode_kernel=True)
+    print("[chip_smoke] 11a gemma3 serve path: serve('gemma3-4b', "
+          f"reduced=False, {flags}, {GEMMA}); global layers {GEMMA_GLOBAL}, "
+          f"the other {N_GEMMA_LAYERS - len(GEMMA_GLOBAL)} at window "
+          f"{GEMMA_WINDOW}", flush=True)
+    res, counts, peak = serve_path(
+        "gemma3-4b", GEMMA,
+        {"k4": N_GEMMA_LAYERS, "k5": K5_PER_CALL * N_GEMMA_LAYERS * steps,
+         "k6": steps, "k7": 0}, **flags)
+    step_ms = float(np.median(res.per_token_s)) * 1e3
+    ttft_ms = res.timings["prefill_s"] * 1e3
+    del res
+    cfg, params = full_params("gemma3-4b")
+    kern = build_model(cfg, ModelCallConfig(dtype=torch.float32,
+                                            use_decode_kernel=True))
+    check(kern.sample_head(params)[0].data_ptr()
+          == params["embed"]["table"].data_ptr(),
+          "K6's head is a copy of gemma3's tied table")
+    prof = prefill_profile(cfg, params, GEMMA, use_flash_kernel=True)
+    check(prof["prefill_k4_launches"] == N_GEMMA_LAYERS,
+          f"profiled prefill launches K4 {prof['prefill_k4_launches']}")
+    # as the long-prompt K4 path: 1e-4 of the largest logit
+    lerr, lbound, cratio, ties, cache_p, tok, plain = hold_prefill(
+        cfg, params, GEMMA, dict(use_flash_kernel=True), lambda: 1e-4,
+        "gemma3")
+    dties, n_ids = decode_same_cache(cfg, params, cache_p, tok,
+                                     GEMMA["prompt_len"], GEMMA["gen_len"],
+                                     kern, plain, "gemma3")
+    print(f"[chip_smoke] 11b K4 prefill (per-layer windows) vs chunked "
+          f"plain prefill, full width: last logits max abs {lerr:.3e} "
+          f"(bound {lbound:.3e}), cache leaves at {cratio:.3f} of their "
+          f"bounds at worst, first ids near-tie exceptions {ties}; K5/K6 "
+          f"decode vs plain from one cache: {n_ids} ids, near-tie "
+          f"exceptions {dties}", flush=True)
+    del params, cache_p, kern, plain
+    torch.cuda.empty_cache()
+    return {"counts": counts, "peak": peak, "prefill": prof,
+            "step_ms": step_ms, "ttft_ms": ttft_ms, "lerr": lerr,
+            "lbound": lbound, "ties": ties, "dties": dties}
+
+
+def gemma3_kernels(gen):
+    """11c: K4 at gemma3's prefill shape, global and at its window, K5 at
+    its decode shape (causal, and with the window in the bias) and K6 at
+    its head, held against their plain versions and timed, SDPA beside K4
+    and K5 with the backend it took."""
+    out = {"k4_err": 0.0, "k5_err": 0.0, "k6_err": 0.0}
+    for win in (0, GEMMA_WINDOW):
+        err, bound = k4_case(*K4_GEMMA, win, 0.0, torch.float32, gen)
+        out["k4_err"] = max(out["k4_err"], err)
+        print(f"[chip_smoke] K4 B,S,H,Hk,D={K4_GEMMA} window={win}: max abs "
+              f"{err:.3e} (bound {bound:.1e})", flush=True)
+        check(err <= bound, f"K4 differs from its plain version at "
+              f"{K4_GEMMA}, window {win}")
+    for win in (0, GEMMA_WINDOW):
+        for cap in (0.0, 30.0):
+            err, bound = k5_case(*K5_GEMMA, cap, gen, window=win)
+            out["k5_err"] = max(out["k5_err"], err)
+            print(f"[chip_smoke] K5 B,C,Hk,rep,D={K5_GEMMA} window={win} "
+                  f"softcap={cap} plan "
+                  f"{ds.attention_plan(K5_GEMMA[0], K5_GEMMA[2], K5_GEMMA[1])}"
+                  f": max abs {err:.3e} (bound {bound:.1e})", flush=True)
+            check(err <= bound, "K5 differs from its plain version at "
+                  f"{K5_GEMMA}")
+    head = WIDE_HEADS["gemma3-4b"]
+    for greedy in (True, False):
+        ties, bad, err = k6_case(GEMMA["batch"], greedy, gen, head=head)
+        out["k6_err"] = max(out["k6_err"], err)
+        print(f"[chip_smoke] K6 gemma3-4b head B={GEMMA['batch']} "
+              f"{'greedy' if greedy else 'gumbel'}: near-tie exceptions "
+              f"{ties}, violations {bad}, winning logit max abs {err:.3e}",
+              flush=True)
+        check(bad == 0, "K6 breaks the near-tie rule at gemma3's head")
+    out["k4"] = {"global": time_k4(gen, K4_GEMMA),
+                 "window": time_k4(gen, K4_GEMMA, GEMMA_WINDOW)}
+    out["k5"] = time_k5(K5_GEMMA, gen)
+    out["k6"] = time_k6(gen, GEMMA["batch"], head)
+    for key, t in out["k4"].items():
+        print(f"[chip_smoke] K4 at gemma3's prefill shape {K4_GEMMA} {key}: "
+              f"{t['ms']:.3f} ms/launch (device {t['device_ms']:.3f} ms), "
+              f"plain {t['plain_ms']:.3f} ms, chunked "
+              f"{t['chunked_ms']:.3f} ms, SDPA {t['library_ms']:.3f} ms "
+              f"({t['library_backend']}), bound {t['bound_ms']:.3f} ms "
+              f"({t['flops'] / 1e9:.2f} GFLOP), achieved "
+              f"{t['flops'] / t['ms'] / 1e9:.2f} TFLOP/s, "
+              f"{t['bound_ms'] / t['device_ms'] * 100:.1f} % of the bound "
+              f"on device time", flush=True)
+    t = out["k5"]
+    print(f"[chip_smoke] K5 at gemma3's decode shape {K5_GEMMA}: "
+          f"{t['ms'] * 1e3:.2f} us/call back to back, device "
+          f"{t['device_ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} "
+          f"us (device {t['plain_device_ms'] * 1e3:.2f}), SDPA "
+          f"{t['library_ms'] * 1e3:.2f} us (device "
+          f"{t['library_device_ms'] * 1e3:.2f}; {t['library_backend']}), "
+          f"bound {t['bound_ms'] * 1e3:.3f} us ({t['bytes']} B), plan split "
+          f"{t['plan']}", flush=True)
+    t = out["k6"]
+    print(f"[chip_smoke] K6 at gemma3's head (B={GEMMA['batch']}): "
+          f"{t['ms'] * 1e3:.2f} us/call, plain {t['plain_ms'] * 1e3:.2f} us, "
+          f"matmul + argmax {t['library_ms'] * 1e3:.2f} us, bound "
+          f"{t['bound_ms'] * 1e3:.3f} us ({t['bytes']} B)", flush=True)
+    return out
+
+
+def phase11(gen):
+    """Phase 11: 11a-11b, then the kernels at gemma3's shapes (11c)."""
+    t0 = time.perf_counter()
+    g = gemma3_phase()
+    ks = gemma3_kernels(gen)
+    n_glob = len(GEMMA_GLOBAL)
+    bound = (n_glob * ks["k4"]["global"]["bound_ms"]
+             + (N_GEMMA_LAYERS - n_glob) * ks["k4"]["window"]["bound_ms"])
+    print(f"[chip_smoke] phase 11: {time.perf_counter() - t0:.1f} s; gemma3 "
+          f"serve peak {g['peak']:.2f} GiB, TTFT {g['ttft_ms']:.1f} ms, "
+          f"median step {g['step_ms']:.2f} ms; the prefill's K4 "
+          f"{g['prefill']['prefill_k4_ms']:.2f} ms against a bound of "
+          f"{bound:.2f} ms", flush=True)
+    return {"gemma3": g, "kernels": ks}
 
 
 # --------------------------------------------------------------------------- #
@@ -2790,6 +2995,9 @@ def main():
     # ---- 10. the hybrid (zamba2-2.7b) and qwen3-4b at full width ---------
     p10 = phase10(gen)
 
+    # ---- 11. gemma3-4b at full width and depth ----------------------------
+    p11 = phase11(gen)
+
     # ---- phase 9. checkpoint and bitwise resume; the train_lm runner ------
     try:
         res = resume_phase(n_main, qwen_shapes)
@@ -2799,26 +3007,31 @@ def main():
 
     z, q3, ztr, ks = (p10["zamba"], p10["qwen3"], p10["train"],
                       p10["kernels"])
+    g3, gks = p11["gemma3"], p11["kernels"]
     by_path = {
         "k1": {"qwen2-0.5b savic": launches,
                "zamba2-2.7b 12-layer savic": ztr["k1"]},
         "k4": {"qwen2-0.5b long prompt": k4_launches,
                "zamba2-2.7b serve": z["counts"]["k4"],
                "zamba2-2.7b continuous": z["ccounts"]["k4"],
-               "qwen3-4b serve": q3["counts"]["k4"]},
+               "qwen3-4b serve": q3["counts"]["k4"],
+               "gemma3-4b serve": g3["counts"]["k4"]},
         "k5": {"qwen2-0.5b serve": k5_launches,
                "zamba2-2.7b serve": z["counts"]["k5"],
                "zamba2-2.7b continuous": z["ccounts"]["k5"],
-               "qwen3-4b serve": q3["counts"]["k5"]},
+               "qwen3-4b serve": q3["counts"]["k5"],
+               "gemma3-4b serve": g3["counts"]["k5"]},
         "k6": {"qwen2-0.5b serve": k6_launches,
                "zamba2-2.7b serve": z["counts"]["k6"],
                "zamba2-2.7b continuous": z["ccounts"]["k6"],
-               "qwen3-4b serve": q3["counts"]["k6"]},
+               "qwen3-4b serve": q3["counts"]["k6"],
+               "gemma3-4b serve": g3["counts"]["k6"]},
         "k7": {"mamba2-1.3b serve": k7_launches,
                "zamba2-2.7b serve": z["counts"]["k7"],
                "zamba2-2.7b continuous": z["ccounts"]["k7"]}}
     shape_times = lambda ts, shapes, keys=("ms", "plain_ms", "bound_ms",
-                                           "library_ms", "device_ms"): [
+                                           "library_ms", "library_backend",
+                                           "device_ms"): [
         {"at": name, "shape": list(shapes[name]),
          **{k: t[k] for k in keys if k in t}} for name, t in ts.items()]
     kernels = [{
@@ -2850,35 +3063,43 @@ def main():
         "replaces": "src/repro/kernels/decode_step.py:71",
         "launches": sum(by_path["k5"].values()),
         "launches_by_path": by_path["k5"],
-        "max_abs_err": max(k5_err, ks["k5_err"]), "ms": k5t["ms"],
+        "max_abs_err": max(k5_err, ks["k5_err"], gks["k5_err"]),
+        "ms": k5t["ms"],
         "plain_ms": k5t["plain_ms"], "bound_ms": k5t["bound_ms"],
         "bound_by": "bytes", "library_ms": k5t["library_ms"],
         "device_ms": k5t["device_ms"],
-        "at_shapes": shape_times(ks["k5"], {"zamba2": K5_ZAMBA,
-                                            "qwen3": K5_QWEN3}),
+        "at_shapes": shape_times({**ks["k5"], "gemma3": gks["k5"]},
+                                 {"zamba2": K5_ZAMBA, "qwen3": K5_QWEN3,
+                                  "gemma3": K5_GEMMA}),
     }, {
         "name": "decode_sample", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_sample.cu",
         "replaces": "src/repro/kernels/decode_step.py:133",
         "launches": sum(by_path["k6"].values()),
         "launches_by_path": by_path["k6"],
-        "max_abs_err": max(k6_err, ks["k6_err"]), "ms": k6t["ms"],
+        "max_abs_err": max(k6_err, ks["k6_err"], gks["k6_err"]),
+        "ms": k6t["ms"],
         "plain_ms": k6t["plain_ms"], "bound_ms": k6t["bound_ms"],
         "bound_by": "bytes", "library_ms": k6t["library_ms"],
-        "at_shapes": shape_times(ks["k6"], {
+        "at_shapes": shape_times({**ks["k6"], "gemma3-4b": gks["k6"]}, {
             "zamba2-2.7b": (ZAMBA["batch"], *WIDE_HEADS["zamba2-2.7b"][:3]),
-            "qwen3-4b": (QWEN3["batch"], *WIDE_HEADS["qwen3-4b"][:3])}),
+            "qwen3-4b": (QWEN3["batch"], *WIDE_HEADS["qwen3-4b"][:3]),
+            "gemma3-4b": (GEMMA["batch"], *WIDE_HEADS["gemma3-4b"][:3])}),
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:76",
         "launches": sum(by_path["k4"].values()),
         "launches_by_path": by_path["k4"],
-        "max_abs_err": max(k4_err, ks["k4_err"]), "ms": k4t["ms"],
+        "max_abs_err": max(k4_err, ks["k4_err"], gks["k4_err"]),
+        "ms": k4t["ms"],
         "plain_ms": k4t["plain_ms"], "bound_ms": k4t["bound_ms"],
         "bound_by": "operations", "library_ms": k4t["library_ms"],
-        "at_shapes": shape_times(ks["k4"], {"zamba2": K4_ZAMBA,
-                                            "qwen3": K4_QWEN3}),
+        "at_shapes": shape_times(
+            {**ks["k4"], "gemma3_global": gks["k4"]["global"],
+             "gemma3_window1024": gks["k4"]["window"]},
+            {"zamba2": K4_ZAMBA, "qwen3": K4_QWEN3,
+             "gemma3_global": K4_GEMMA, "gemma3_window1024": K4_GEMMA}),
     }, {
         "name": "ssd_intra_chunk", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_intra_chunk.cu",

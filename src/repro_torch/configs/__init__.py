@@ -4,13 +4,15 @@ The port's own copy of ``SSMConfig``, ``ModelConfig`` (with
 ``param_count``), ``get_config``, ``register`` and ``list_archs``. The
 dense, ssm and hybrid families' fields are carried. Registered with the
 package (each full and ``REDUCED``): ``qwen2-0.5b``, ``qwen3-4b``,
+``gemma3-4b`` (dense, ``local_global_ratio`` local layers with a sliding
+window to one global layer, GeGLU, a tied head scaled by d^-½),
 ``mamba2-1.3b`` and ``zamba2-2.7b`` (mamba2 layers with one weight-tied
 attention + MLP block after every ``hybrid_attn_every``-th), and, as in
 the reference's ``_VARIANTS``, ``qwen3-4b-swa`` (``CONFIG_SWA``: a sliding
 window of 8192). ``register`` adds a module of the caller's
 (``examples/train_lm_torch.py`` registers its ``lm-100m``). The
-reference's other architectures (MoE, MLA, gemma3's local:global windows,
-audio, vlm) raise until their model family is ported.
+reference's other architectures (MoE, MLA, audio, vlm) raise until their
+model family is ported.
 """
 from __future__ import annotations
 
@@ -45,6 +47,8 @@ class ModelConfig:
     qkv_bias: bool = False
     rope_theta: float = 10_000.0
     sliding_window: int = 0         # 0 = full attention
+    # gemma3: N local layers per 1 global (0 = all global)
+    local_global_ratio: int = 0
     logit_softcap: float = 0.0
     norm_eps: float = 1e-6
     act: str = "silu"               # silu (SwiGLU) | gelu (GeGLU)
@@ -102,7 +106,8 @@ class ModelConfig:
 
 
 _MODULE_FOR = {"zamba2-2.7b": "zamba2_2p7b", "qwen3-4b": "qwen3_4b",
-               "qwen2-0.5b": "qwen2_0p5b", "mamba2-1.3b": "mamba2_1p3b"}
+               "gemma3-4b": "gemma3_4b", "qwen2-0.5b": "qwen2_0p5b",
+               "mamba2-1.3b": "mamba2_1p3b"}
 # beyond-assignment variants (selectable, as in the reference)
 _VARIANTS = {"qwen3-4b-swa": ("qwen3_4b", "CONFIG_SWA")}
 

@@ -22,11 +22,15 @@
 // puts about two blocks on every SM of the card.
 //
 // Pass 1, decode_split: one block of 128 threads per (g, b, split). The
-// split's k, v and bias rows stream through a ring of 4 shared-memory
+// split's k, v and bias rows stream through a ring of NST shared-memory
 // stages of 32 positions with cp.async (16-byte copies of bf16, zero-filled
-// past the split's end and past D), so three tiles load while one is used.
-// A group of G lanes (a power of two, at least 8) takes two positions at a
-// time: each lane holds VW consecutive head dims of every query head's
+// past the split's end and past D), so NST - 1 tiles load while one is
+// used. NST is 4 for rows of W <= 128 values (66 KB); at W = 256 (gemma3's
+// d_head) four stages would take 131.6 KB and only one block would fit on
+// an SM where the plan counts two, so the ring has 3 stages there (98.7 KB,
+// two blocks an SM). A group of G lanes (a power of two, at least 8, at
+// most 32: one warp, so the butterflies stay inside it) takes two positions
+// at a time: each lane holds VW consecutive head dims of every query head's
 // pre-scaled q in registers (no shared load per FMA), reads its VW k values
 // of each position with one 16- or 8-byte shared load, and the group sums
 // the rep dot products with G-lane butterflies (every lane gets the same
@@ -56,7 +60,8 @@
 // Bound on an H100: bytes. The work reads q, k, v and bias once and writes
 // out: 2,435,072 B at the serve path's shape (B=8, C=576, Hk=2, rep=7,
 // D=Dv=64), >= 0.73 us at 3.35 TB/s; 8,501,504 B at the long prompt's
-// (B=2, C=8224), >= 2.54 us. Both are below a launch's latency: the design
+// (B=2, C=8224), >= 2.54 us; 34,144,768 B at gemma3-4b's (B=2, C=4160,
+// Hk=4, rep=2, D=256), >= 10.19 us. Both are below a launch's latency: the design
 // aims at filling the card and overlapping the loads, not at bandwidth.
 #include <atomic>
 #include <cuda_bf16.h>
@@ -70,7 +75,6 @@ namespace {
 
 constexpr int THREADS = 128;        // pass 1
 constexpr int TILE = 32;            // cache positions per stage
-constexpr int NST = 4;              // stages in the ring
 constexpr int MERGE_THREADS = 256;  // pass 2
 constexpr int MAX_SPLITS = 1024;    // pass 2 keeps a weight per split
 
@@ -129,8 +133,8 @@ struct Args {
 
 // Pass 1. RB: the rep heads rounded up to a power of two (registers per
 // lane are sized for it, heads r >= rep are skipped); VW: head dims a lane
-// holds.
-template <int RB, int VW>
+// holds; NST: stages in the ring.
+template <int RB, int VW, int NST>
 __global__ void __launch_bounds__(THREADS, 2) decode_split(const Args a) {
   extern __shared__ float4 smem4[];
   // NST stages of k (TILE x W), then of v, then of the bias (TILE)
@@ -396,7 +400,7 @@ __global__ void __launch_bounds__(MERGE_THREADS)
   }
 }
 
-template <int RB>
+template <int RB, int NST>
 size_t split_smem(const Args& a) {
   const size_t stages = 2 * sizeof(__nv_bfloat16) * NST * TILE * a.W +
                         sizeof(float) * NST * TILE;
@@ -405,22 +409,29 @@ size_t split_smem(const Args& a) {
   return stages > merge ? stages : merge;
 }
 
+template <int RB, int VW, int NST>
+int launch_split(const Args& a, long long B, cudaStream_t stream) {
+  static std::atomic<int> done[SMEM_MAX_DEVICES];
+  const size_t smem = split_smem<RB, NST>(a);
+  cudaError_t err = allow_smem(decode_split<RB, VW, NST>, done, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((unsigned)a.Hk, (unsigned)B, (unsigned)a.splits);
+  decode_split<RB, VW, NST><<<grid, THREADS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// G: the lanes a position needs for max(D, Dv), one warp at most (the
+// wrapper's contract: max(D, Dv) <= 32 VW)
 template <int RB, int VW>
 int launch(Args a, long long B, cudaStream_t stream) {
-  static std::atomic<int> done[SMEM_MAX_DEVICES];
   const int dmax = a.D > a.Dv ? a.D : a.Dv;
   int G = 8;
   while (G * VW < dmax) G <<= 1;
+  if (G > 32) return (int)cudaErrorInvalidValue;
   a.G = G;
   a.W = G * VW;
-  const size_t smem = split_smem<RB>(a);
-  cudaError_t err = allow_smem(decode_split<RB, VW>, done, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)a.Hk, (unsigned)B, (unsigned)a.splits);
-  decode_split<RB, VW><<<grid, THREADS, smem, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return 0;
+  return a.W > 128 ? launch_split<RB, VW, 3>(a, B, stream)
+                   : launch_split<RB, VW, 4>(a, B, stream);
 }
 
 }  // namespace

@@ -15,26 +15,39 @@
 // (the port's projection layout: no transpose, no repeated KV); out is
 // (B, S, H, D) contiguous. Inputs are fp32 or bf16; all arithmetic is fp32.
 //
-// Design: one block of 128 threads per (b, h, 64-row query tile); the
-// heaviest tiles (last rows, the most keys) are launched first. The block
-// keeps its query tile (pre-scaled) in shared memory and walks the key tiles
-// of 64 rows that hold an unmasked pair, with the online softmax of the TPU
-// kernel: running max m (from -1e30) and sum l per row, corr = exp(m_old -
-// m_new), l = l * corr + sum p, acc = acc * corr + p . v, out = acc /
-// max(l, 1e-30). Key tiles above the diagonal or wholly beyond the window
-// are skipped, not computed and masked. Thread t owns rows t / 8 + 16 i
-// (i < 4; rows 16 apart, so the 4 row groups of a warp read q without bank
-// conflicts); the 8 threads of a row hold its score columns t % 8 + 8 j
-// (j < 8) and an eighth of its output columns, and reduce the row's max
-// and sum with shuffles. The 64 x 64 score tile stays in registers; the
-// weights go through shared memory (transposed) for the p . v product. The
-// head dim is padded to DP in {32, 64, 128} with zeros (which add nothing
-// to a dot), so any D <= 128 works, and rows past S are loaded as zeros: a
-// key past S is also past every real row, so the causal mask hides it.
-// Masked scores are -1e30, not -inf, as in the TPU kernel: a row whose
-// first tile is all masked is rescaled by exp(-1e30 - m) = +0 once it meets
-// a real score, and every real row meets one (its own key) in its diagonal
-// tile.
+// Design: one block per (b, h, 64-row query tile); the heaviest tiles (last
+// rows, the most keys) are launched first. The block keeps its query tile
+// (pre-scaled) in shared memory and walks the key tiles that hold an
+// unmasked pair, with the online softmax of the TPU kernel: running max m
+// (from -1e30) and sum l per row, corr = exp(m_old - m_new), l = l * corr +
+// sum p, acc = acc * corr + p . v, out = acc / max(l, 1e-30). Key tiles
+// above the diagonal or wholly beyond the window are skipped, not computed
+// and masked. Thread t owns rows t / CG + 16 i (i < 4; rows 16 apart, so
+// the row groups of a warp read q without bank conflicts); the CG threads
+// of a row hold its score columns t % CG + CG j and a CG-th of its output
+// columns, and reduce the row's max and sum with shuffles. The score tile
+// stays in registers; the weights go through shared memory (transposed)
+// for the p . v product. The head dim is padded to DP in {32, 64, 128,
+// 256} with zeros (which add nothing to a dot), so any D <= 256 works, and
+// rows past S are loaded as zeros: a key past S is also past every real
+// row, so the causal mask hides it. Masked scores are -1e30, not -inf, as
+// in the TPU kernel: a row whose first tile is all masked is rescaled by
+// exp(-1e30 - m) = +0 once it meets a real score, and every real row meets
+// one (its own key) in the tile that holds its diagonal.
+//
+// Two tilings (struct Tile):
+// * DP <= 128: 128 threads, CG = 8 threads a row, 64-key tiles (8 score
+//   columns a thread), DP / 8 <= 16 output columns a thread for 4 rows.
+// * DP = 256 (gemma3's d_head; a D of 129-256 pads to it): the 128-thread
+//   tiling would hold 32 output columns x 4 rows = 128 accumulators beside
+//   32 scores a thread, and Q + 2 K + V at 64 keys is 265 KB of shared
+//   memory, over the 227 KB a block may have. So CG = 16 (256 threads, 16
+//   output columns x 4 rows = 64 accumulators, 2 score columns a thread)
+//   and 32-key tiles: Q 64 x 260 + 2 K 32 x 260 + V 32 x 256 floats is
+//   162 KB, one block (8 warps) an SM. The query tile stays 64 rows and the
+//   pipeline, masks and tile skipping are the same code; a 64-row query
+//   tile spans two key tiles on the diagonal. Registers and spill:
+//   chip_smoke.py prints ptxas's line for every instance.
 //
 // Pipeline (the Hopper redesign). fp32 inputs with 16-byte rows stream in
 // with cp.async: the next key tile loads into the second of two K buffers
@@ -42,9 +55,9 @@
 // while the next tile's scores run. The transposed weights reuse the
 // current K buffer once every thread has read it, so the shared memory is
 // Q + 2 K + V (68.6 KB at DP = 64) and three blocks (12 warps) fit on an
-// SM; __launch_bounds__(128, 3) holds the registers to 168 a thread (the
-// kernel before this pipeline took 255, and 2 blocks). The accumulator is
-// rescaled
+// SM at DP <= 64; __launch_bounds__(128, 3) holds the registers to 168 a
+// thread (the kernel before this pipeline took 255, and 2 blocks). The
+// accumulator is rescaled
 // before p . v adds into it, so no second (rows x columns) array of
 // partial sums is live. Masks are computed in 32-bit row - column offsets,
 // and only for tiles that reach the diagonal or the window's edge. bf16
@@ -61,7 +74,9 @@
 // H=14, Hk=2, S=8192, D=64, fp32) the causal pairs B*H*S*(S+1)/2 = 939.6 M
 // cost 4 * D = 256 flops each (the two dots), 240.5 GFLOP, >= 3.59 ms at the
 // 67 TFLOP/s of fp32 outside the tensor cores; q, k, v and out are 134 MB,
-// 0.04 ms at 3.35 TB/s. This kernel runs on the CUDA cores in fp32 (the
+// 0.04 ms at 3.35 TB/s. At gemma3-4b's prefill (B=2, H=8, Hk=4, S=4096,
+// D=256) a global layer's 137.5 GFLOP take >= 2.05 ms, a layer with the
+// 1024 window's 60.1 GFLOP >= 0.90 ms. This kernel runs on the CUDA cores in fp32 (the
 // port keeps TF32 off); 3xTF32 on the tensor cores (mma/wgmma), which
 // changes both the bound and the tolerance argument, is its next step.
 #include <atomic>
@@ -74,19 +89,27 @@
 
 namespace {
 
-constexpr int BQ = 64;           // query rows per block
-constexpr int BK = 64;           // keys per tile
-constexpr int RPT = 4;           // query rows per thread
-constexpr int RSTEP = BQ / RPT;  // distance between a thread's rows
-constexpr int CG = 8;            // threads sharing a query row
-constexpr int THREADS = BQ / RPT * CG;
-constexpr int CPT = BK / CG;     // score columns per thread
-constexpr int PT = BQ + 4;       // pitch of the transposed weight tile
 constexpr int LPASS = 4;         // 16-byte loads in flight per thread
 constexpr float NEG = -1e30f;
 
-static_assert(THREADS / CG * RPT == BQ, "thread layout must cover BQ rows");
-static_assert(RPT == 4, "a thread's rows are one float4 of the weights");
+// The tiling of the DP instance (see the header).
+template <int DP>
+struct Tile {
+  static constexpr bool WIDE = DP > 128;
+  static constexpr int BQ = 64;                // query rows per block
+  static constexpr int BK = WIDE ? 32 : 64;    // keys per tile
+  static constexpr int RPT = 4;                // query rows per thread
+  static constexpr int RSTEP = BQ / RPT;       // distance between its rows
+  static constexpr int CG = WIDE ? 16 : 8;     // threads sharing a row
+  static constexpr int THREADS = BQ / RPT * CG;
+  static constexpr int CPT = BK / CG;          // score columns per thread
+  static constexpr int OPT = DP / CG;          // output columns per thread
+  static constexpr int PT = BQ + 4;            // pitch of the weights^T
+  static constexpr int MINB = DP <= 64 ? 3 : 1;  // blocks an SM
+  static_assert(THREADS / CG * RPT == BQ, "thread layout must cover BQ");
+  static_assert(RPT == 4, "a thread's rows are one float4 of the weights");
+  static_assert(OPT % 4 == 0 && CPT >= 1, "float4 output groups");
+};
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -97,6 +120,7 @@ __device__ __forceinline__ void from_f(__nv_bfloat16* o, float x) {
   *o = __float2bfloat16_rn(x);
 }
 
+template <int CG>
 __device__ __forceinline__ float group_max(float x) {
 #pragma unroll
   for (int o = 1; o < CG; o <<= 1)
@@ -104,6 +128,7 @@ __device__ __forceinline__ float group_max(float x) {
   return x;
 }
 
+template <int CG>
 __device__ __forceinline__ float group_sum(float x) {
 #pragma unroll
   for (int o = 1; o < CG; o <<= 1)
@@ -126,20 +151,21 @@ __device__ __forceinline__ void cp_wait1() {
   asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
-// Copy rows [row0, row0 + 64) of one head to dst[r * pitch + d] as fp32
+// Copy rows [row0, row0 + ROWS) of one head to dst[r * pitch + d] as fp32
 // (times qscale when SCALE), zeros past S and for d in [D, DP). vec: unit
 // d stride, 16-byte aligned rows and D a multiple of the 16-byte width, so
 // one load moves W values; LPASS loads per thread are issued before the
 // first is stored.
-template <typename T, int DP, bool SCALE>
+template <typename T, int DP, int ROWS, bool SCALE>
 __device__ __forceinline__ void load_rows(float* dst, int pitch,
                                           const T* __restrict__ src,
                                           int64_t rs, int64_t ds, int64_t row0,
                                           int64_t S, int D, float qscale,
                                           bool vec) {
+  constexpr int THREADS = Tile<DP>::THREADS;
   constexpr int W = 16 / sizeof(T);
   constexpr int CH = DP / W;             // chunks per row
-  constexpr int TOT = BQ * CH;
+  constexpr int TOT = ROWS * CH;
   if (vec) {
 #pragma unroll 1
     for (int base = 0; base < TOT; base += LPASS * THREADS) {
@@ -167,7 +193,7 @@ __device__ __forceinline__ void load_rows(float* dst, int pitch,
       }
     }
   } else {
-    for (int i = threadIdx.x; i < BQ * DP; i += THREADS) {
+    for (int i = threadIdx.x; i < ROWS * DP; i += THREADS) {
       const int r = i / DP, d = i % DP;
       float x = 0.0f;
       if (row0 + r < S && d < D) {
@@ -186,6 +212,7 @@ __device__ __forceinline__ void copy_rows_async(float* dst, int pitch,
                                                 const float* __restrict__ src,
                                                 int64_t rs, int64_t row0,
                                                 int64_t S, int D) {
+  constexpr int BK = Tile<DP>::BK, THREADS = Tile<DP>::THREADS;
   constexpr int CH = DP / 4;
   static_assert(BK * CH % THREADS == 0, "whole passes of the block");
 #pragma unroll
@@ -198,8 +225,9 @@ __device__ __forceinline__ void copy_rows_async(float* dst, int pitch,
 }
 
 // Output column of a thread's j-th accumulator: groups of 4 consecutive
-// columns, the 8 threads of a row side by side, so that one float4 load of
-// v per group covers 128 contiguous bytes across them.
+// columns, the CG threads of a row side by side, so that one float4 load
+// of v per group covers 16 CG contiguous bytes across them.
+template <int CG>
 __device__ __forceinline__ int out_col(int cg, int j) {
   return (j / 4) * (CG * 4) + cg * 4 + j % 4;
 }
@@ -220,19 +248,17 @@ struct Args {
 // floats of one K buffer: a key tile, or the transposed weights after it
 template <int DP>
 __host__ __device__ constexpr int kbuf_floats() {
-  return BK * ((DP + 4) > PT ? (DP + 4) : PT);
-}
-
-template <int DP>
-__host__ __device__ constexpr int min_blocks() {
-  return DP <= 64 ? 3 : 1;
+  return Tile<DP>::BK *
+         ((DP + 4) > Tile<DP>::PT ? (DP + 4) : Tile<DP>::PT);
 }
 
 template <typename T, int DP>
-__global__ void __launch_bounds__(THREADS, min_blocks<DP>())
+__global__ void __launch_bounds__(Tile<DP>::THREADS, Tile<DP>::MINB)
     flash_attention_kernel(const Args a) {
+  using TL = Tile<DP>;
+  constexpr int BQ = TL::BQ, BK = TL::BK, RPT = TL::RPT, RSTEP = TL::RSTEP;
+  constexpr int CG = TL::CG, CPT = TL::CPT, OPT = TL::OPT, PT = TL::PT;
   constexpr int P = DP + 4;      // q/k tile pitch: 16-byte rows, odd banks
-  constexpr int OPT = DP / CG;   // output columns per thread
   constexpr int KB = kbuf_floats<DP>();
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -255,26 +281,33 @@ __global__ void __launch_bounds__(THREADS, min_blocks<DP>())
       copy_rows_async<DP>(dst, P, reinterpret_cast<const float*>(kb),
                           a.ks[1], k0, a.S, a.D);
     else
-      load_rows<T, DP, false>(dst, P, kb, a.ks[1], a.ks[3], k0, a.S, a.D,
-                              1.0f, vec);
+      load_rows<T, DP, BK, false>(dst, P, kb, a.ks[1], a.ks[3], k0, a.S,
+                                  a.D, 1.0f, vec);
   };
   auto stage_v = [&](int64_t k0) {
     if (async)
       copy_rows_async<DP>(vs, DP, reinterpret_cast<const float*>(vb),
                           a.vs[1], k0, a.S, a.D);
     else
-      load_rows<T, DP, false>(vs, DP, vb, a.vs[1], a.vs[3], k0, a.S, a.D,
-                              1.0f, vec);
+      load_rows<T, DP, BK, false>(vs, DP, vb, a.vs[1], a.vs[3], k0, a.S,
+                                  a.D, 1.0f, vec);
   };
 
   // the key tiles that hold an unmasked pair: from the first not wholly
-  // beyond the window (q0 - (k0 + BK - 1) < window) to the diagonal one
+  // beyond the window (q0 - (k0 + BK - 1) < window) to the one holding the
+  // last row's diagonal (q0's own tile where BQ == BK); with BK < BQ that
+  // tile may start past S (a short last query tile), so none past S
   int64_t kt_begin = 0;
   if (a.window > 0) {
     const int64_t lo = q0 - a.window - BK + 2;
     if (lo > 0) kt_begin = (lo + BK - 1) / BK;
   }
-  const int64_t kt_end = q0 / BK + 1;  // BQ == BK: the diagonal tile
+  int64_t kt_end = q0 / BK + 1;
+  if (BK < BQ) {
+    const int64_t kt_s = (a.S + BK - 1) / BK;
+    kt_end = (q0 + BQ - 1) / BK + 1;
+    if (kt_s < kt_end) kt_end = kt_s;
+  }
 
   // cp.async groups, in order: K[kt_begin], V[kt_begin], then per tile
   // K[kt + 1] after the tile's first barrier and V[kt + 1] at its end (an
@@ -285,8 +318,8 @@ __global__ void __launch_bounds__(THREADS, min_blocks<DP>())
   cp_commit();
   stage_v(kt_begin * BK);
   cp_commit();
-  load_rows<T, DP, true>(qs, P, qb, a.qs[1], a.qs[3], q0, a.S, a.D,
-                         a.qscale, vec);
+  load_rows<T, DP, BQ, true>(qs, P, qb, a.qs[1], a.qs[3], q0, a.S, a.D,
+                             a.qscale, vec);
 
   float m[RPT], l[RPT], acc[RPT][OPT];
 #pragma unroll
@@ -353,7 +386,7 @@ __global__ void __launch_bounds__(THREADS, min_blocks<DP>())
         s[i][j] = ok ? x : NEG;
         mx = fmaxf(mx, s[i][j]);
       }
-      const float m_new = fmaxf(m[i], group_max(mx));
+      const float m_new = fmaxf(m[i], group_max<CG>(mx));
       float sum = 0.0f;
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
@@ -361,7 +394,7 @@ __global__ void __launch_bounds__(THREADS, min_blocks<DP>())
         sum = __fadd_rn(sum, s[i][j]);
       }
       const float corr = expf(__fsub_rn(m[i], m_new));
-      l[i] = __fadd_rn(__fmul_rn(l[i], corr), group_sum(sum));
+      l[i] = __fadd_rn(__fmul_rn(l[i], corr), group_sum<CG>(sum));
       m[i] = m_new;
 #pragma unroll
       for (int j = 0; j < OPT; ++j) acc[i][j] = __fmul_rn(acc[i][j], corr);
@@ -385,8 +418,8 @@ __global__ void __launch_bounds__(THREADS, min_blocks<DP>())
       const float pr[RPT] = {p.x, p.y, p.z, p.w};
 #pragma unroll
       for (int j = 0; j < OPT; j += 4) {
-        const float4 vv =
-            *reinterpret_cast<const float4*>(vs + c * DP + out_col(cg, j));
+        const float4 vv = *reinterpret_cast<const float4*>(
+            vs + c * DP + out_col<CG>(cg, j));
 #pragma unroll
         for (int i = 0; i < RPT; ++i) {
           acc[i][j] = __fmaf_rn(pr[i], vv.x, acc[i][j]);
@@ -410,7 +443,7 @@ __global__ void __launch_bounds__(THREADS, min_blocks<DP>())
     T* orow = ob + ((b * a.S + row) * a.H + h) * (int64_t)a.D;
 #pragma unroll
     for (int j = 0; j < OPT; ++j) {
-      const int d = out_col(cg, j);
+      const int d = out_col<CG>(cg, j);
       if (d < a.D) from_f(orow + d, __fdiv_rn(acc[i][j], den));
     }
   }
@@ -418,9 +451,11 @@ __global__ void __launch_bounds__(THREADS, min_blocks<DP>())
 
 template <int DP>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * ((size_t)BQ * (DP + 4) +
-                          2 * (size_t)kbuf_floats<DP>() + (size_t)BK * DP);
+  return sizeof(float) * ((size_t)Tile<DP>::BQ * (DP + 4) +
+                          2 * (size_t)kbuf_floats<DP>() +
+                          (size_t)Tile<DP>::BK * DP);
 }
+static_assert(smem_bytes<256>() <= 232448, "a block's shared memory");
 
 template <typename T, int DP>
 int launch(const Args& a, int64_t B, cudaStream_t stream) {
@@ -428,8 +463,9 @@ int launch(const Args& a, int64_t B, cudaStream_t stream) {
   const size_t smem = smem_bytes<DP>();
   cudaError_t err = allow_smem(flash_attention_kernel<T, DP>, done, (int)smem);
   if (err != cudaSuccess) return (int)err;
+  constexpr int BQ = Tile<DP>::BQ;
   dim3 grid((unsigned)(B * a.H), (unsigned)((a.S + BQ - 1) / BQ));
-  flash_attention_kernel<T, DP><<<grid, THREADS, smem, stream>>>(a);
+  flash_attention_kernel<T, DP><<<grid, Tile<DP>::THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -437,14 +473,15 @@ template <typename T>
 int dispatch(const Args& a, int64_t B, cudaStream_t stream) {
   if (a.D <= 32) return launch<T, 32>(a, B, stream);
   if (a.D <= 64) return launch<T, 64>(a, B, stream);
-  return launch<T, 128>(a, B, stream);
+  if (a.D <= 128) return launch<T, 128>(a, B, stream);
+  return launch<T, 256>(a, B, stream);
 }
 
 }  // namespace
 
 // q, k, v, o: device pointers; *_st: the four element strides (b, s, head,
 // d) of q, k and v; o is (B, S, H, D) contiguous in the inputs' type.
-// bf16 != 0: __nv_bfloat16 inputs and output, else fp32. D <= 128.
+// bf16 != 0: __nv_bfloat16 inputs and output, else fp32. D <= 256.
 // Returns the CUDA error of the launch (0 = none).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, long long B, long long S, int H,

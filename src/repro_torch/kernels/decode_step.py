@@ -12,15 +12,17 @@ that share g,
   (``pl.pallas_call`` at decode_step.py:71).
 * Kernel: ``csrc/decode_attention.cu``, split-C flash-decoding in two
   launches. Pass 1 gives each (kv head, slot, split of C) one block: the
-  split's k/v rows stream through a 4-stage cp.async ring, q sits in
-  registers, and the block writes its split's unnormalised partials (m, l,
-  acc) to an fp32 scratch buffer; pass 2 merges the splits in a fixed
-  order (no atomics). ``attention_plan`` picks the split length so that
-  the grid puts about two blocks on every SM. Any C ≥ 1 fits.
+  split's k/v rows stream through a 4-stage cp.async ring (3 stages at
+  D > 128, so that two blocks still fit on an SM), q sits in registers,
+  and the block writes its split's unnormalised partials (m, l, acc) to an
+  fp32 scratch buffer; pass 2 merges the splits in a fixed order (no
+  atomics). ``attention_plan`` picks the split length so that the grid
+  puts about two blocks on every SM. Any C ≥ 1 fits; D, Dv ≤ 256.
 * Bound on an H100: bytes. At the serve path's shape (B=8, C=576, Hk=2,
   rep=7, D=64) q, k, v, bias and out are 2,435,072 B, ≥ 0.73 µs at
-  3.35 TB/s; at the long prompt's (B=2, C=8224) 8,501,504 B, ≥ 2.54 µs:
-  launch latency and filling the card, not bandwidth, set its time.
+  3.35 TB/s; at the long prompt's (B=2, C=8224) 8,501,504 B, ≥ 2.54 µs;
+  at gemma3-4b's (B=2, C=4160, Hk=4, rep=2, D=256) 34,144,768 B, ≥ 10.19
+  µs: launch latency and filling the card, not bandwidth, set its time.
 
 ``decode_sample`` (K6) is the logits → token tail of a decode step:
 
@@ -51,7 +53,8 @@ import functools
 
 import torch
 
-RMAX, OMAX_ELEMS, HEAD_MAX = 16, 1024, 128   # K5 limits
+RMAX, OMAX_ELEMS, HEAD_MAX = 16, 1024, 256   # K5 limits
+LANES_MAX = 32               # K5: lanes a position may take (one warp)
 SPLIT_GRAIN = 32             # K5 positions a pipeline stage (csrc TILE)
 TARGET_BLOCKS = 264          # two K5 blocks on each of an H100's 132 SMs
 BMAX, SLICE_MAX = 64, 2048                   # K6: rows of y, y floats a slice
@@ -87,9 +90,12 @@ def check_attention_args(q, k, v, bias):
         raise ValueError(f"need C >= 1 and H % Hk == 0 (C={C}, H={H}, "
                          f"Hk={Hk})")
     rep = H // Hk
-    if rep > RMAX or rep * Dv > OMAX_ELEMS or D > HEAD_MAX or Dv > HEAD_MAX:
+    # a lane holds 8 head dims (4 where rep > 8) and a position takes one
+    # warp at most: D, Dv <= 256 (128 where rep > 8)
+    dmax = min(HEAD_MAX, LANES_MAX * (8 if rep <= 8 else 4))
+    if rep > RMAX or rep * Dv > OMAX_ELEMS or D > dmax or Dv > dmax:
         raise ValueError(f"K5 takes rep <= {RMAX}, rep·Dv <= {OMAX_ELEMS}, "
-                         f"D, Dv <= {HEAD_MAX}; got rep={rep}, D={D}, "
+                         f"D, Dv <= {dmax} at rep {rep}; got D={D}, "
                          f"Dv={Dv}")
     if B > 65535:
         raise ValueError(f"B={B} exceeds the grid's y limit of 65535")

@@ -15,13 +15,18 @@ kv head h // (H/Hk),
   tile), an online softmax over 64-key tiles staged in shared memory,
   tiles wholly above the diagonal or beyond the window skipped; fp32
   arithmetic on the CUDA cores, for fp32 or bf16 inputs read through their
-  strides, any S >= 1 (the TPU kernel needs S % 128 == 0) and D <= 128.
-  fp32 key and value tiles with 16-byte rows stream in with ``cp.async``
-  (the next key tile under the current tile's two products, the value tile
-  under the scores), and three blocks fit on an SM.
+  strides, any S >= 1 (the TPU kernel needs S % 128 == 0) and D <= 256
+  (the TPU kernel's head dim is free; gemma3's is 256). fp32 key and value
+  tiles with 16-byte rows stream in with ``cp.async`` (the next key tile
+  under the current tile's two products, the value tile under the
+  scores). D pads to 32, 64 or 128 (128 threads, 64-key tiles; three
+  blocks an SM at D <= 64) or to 256 (256 threads, 16 a query row, 32-key
+  tiles: 162 KB of shared memory, one block an SM).
 * Bound on an H100: operations. At the long-prompt prefill's shape (B=2,
   H=14, Hk=2, S=8192, D=64, fp32) the causal pairs need 240.5 GFLOP,
-  >= 3.59 ms at 67 TFLOP/s (fp32 outside the tensor cores).
+  >= 3.59 ms at 67 TFLOP/s (fp32 outside the tensor cores); at gemma3-4b's
+  (B=2, H=8, Hk=4, S=4096, D=256) a global layer 137.5 GFLOP, >= 2.05 ms,
+  a layer with the 1024 window 60.1 GFLOP, >= 0.90 ms.
 * Forward only, as the TPU kernel is (it has no VJP): the wrapper raises
   for an input that requires grad. Training differentiates through
   ``models/flash.py``.
@@ -38,7 +43,7 @@ import functools
 
 import torch
 
-HEAD_MAX = 128          # the kernel pads D to 32, 64 or 128
+HEAD_MAX = 256          # the kernel pads D to 32, 64, 128 or 256
 BQ = 64                 # query rows per block (csrc constant)
 GRID_Y_MAX = 65535
 _DTYPES = (torch.float32, torch.bfloat16)

@@ -30,6 +30,9 @@ traced steps' wall time.
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
       --arch zamba2-2.7b --full --ssd-kernel --flash-kernel \\
       --decode-kernel --batch 4 --prompt-len 2048
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+      --arch gemma3-4b --full --flash-kernel --decode-kernel --batch 2 \\
+      --prompt-len 4096
 
 A hybrid (zamba2) prefill is split into K7 (its mamba layers), K4 (its
 shared block's attention, one launch an application), GEMMs and the rest;

@@ -55,6 +55,9 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\
       --full --flash-kernel --decode-kernel --batch 8 --prompt-len 512 \\
       --gen-len 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \\
+      --full --flash-kernel --decode-kernel --batch 2 --prompt-len 4096 \\
+      --gen-len 64        # K4 with each layer's window; K6 on the tied table
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
       --device cpu --mode continuous --ssd-kernel --flash-kernel \\
       --decode-kernel                                   # reduced zamba2

@@ -169,7 +169,7 @@ class AttnCall:
     window: int = 0
     softcap: float = 0.0
     chunk: int = 0                  # 0 = dense; else KV-chunked online softmax
-    use_flash_kernel: bool = False  # K4 (flash attention) when no window
+    use_flash_kernel: bool = False  # K4 (flash attention), any window
     use_decode_kernel: bool = False  # K5, single-query decode attention
     force_window: int = 0
     use_ssd_kernel: bool = False    # K7 in the ssm and hybrid mamba blocks
@@ -182,12 +182,16 @@ def attention(p, cfg: ModelConfig, x, positions, call: AttnCall, dtype):
 
     The reference's three routes, in its order: kernel K4
     (``kernels.ops.flash_attention``, forward only) when
-    ``use_flash_kernel`` is set and no window masks, at every S; else the
+    ``use_flash_kernel`` is set, at every S, with the layer's window
+    (gemma3's local layers, qwen3-4b-swa, a ``decode_window``); else the
     KV-chunked online softmax of ``models/flash.py`` when ``chunk`` is set
-    and S > ``chunk``; else dense attention. K4 reads the compact Hk-head
-    K/V (query head h on kv head h // rep, as the TPU kernel's index map
-    does); the other two routes repeat KV to the full head count first, as
-    the reference does."""
+    and S > ``chunk``; else dense attention. (The reference takes K4 only
+    where no window masks: its per-layer windows are traced in its layer
+    scan, so its model never reaches K4. The TPU kernel takes a window, and
+    the port's skips the tiles beyond it.) K4 reads the compact Hk-head K/V
+    (query head h on kv head h // rep, as the TPU kernel's index map does);
+    the other two routes repeat KV to the full head count first, as the
+    reference does."""
     S = x.shape[1]
     h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = _proj_heads(p["wq"], x, dtype)
@@ -201,9 +205,10 @@ def attention(p, cfg: ModelConfig, x, positions, call: AttnCall, dtype):
     k = apply_rope(k, cos, sin).to(dtype)
     cache_kv = (k, v)
     rep = h // hk
-    if call.use_flash_kernel and not _window_on(call.window):
+    if call.use_flash_kernel:
         from repro_torch.kernels import ops as kops
-        out = kops.flash_attention(q, k, v, softcap=call.softcap)
+        win = call.window if _window_on(call.window) else 0
+        out = kops.flash_attention(q, k, v, window=win, softcap=call.softcap)
     elif call.chunk and S > call.chunk:
         win = call.window if _window_on(call.window) else None
         out = flash_attention_bshd(q, *_repeat_kv(k, v, rep), positions,

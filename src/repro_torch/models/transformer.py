@@ -91,11 +91,20 @@ def init_stack(gen, cfg: ModelConfig):
 
 def layer_windows(cfg: ModelConfig, n_layers: int, force_window: int = 0):
     """Per-layer attention window, a list of ints; ``HUGE_WINDOW`` means
-    global. The port's configs carry no local:global pattern (gemma3's is
-    not ported), so every layer gets the same window."""
+    global. The reference's schedule: ``force_window`` everywhere; else
+    global everywhere without a ``sliding_window``; else the window
+    everywhere when ``local_global_ratio`` r is 0; else layer i is global
+    iff i % (r + 1) == r (gemma3's 5:1: layers 5, 11, 17, 23, 29 of
+    34)."""
     if force_window:
         return [int(force_window)] * n_layers
-    return [cfg.sliding_window or HUGE_WINDOW] * n_layers
+    if not cfg.sliding_window:
+        return [HUGE_WINDOW] * n_layers
+    r = cfg.local_global_ratio
+    if not r:
+        return [cfg.sliding_window] * n_layers
+    return [HUGE_WINDOW if i % (r + 1) == r else cfg.sliding_window
+            for i in range(n_layers)]
 
 
 def _layers(stack, n_layers):

@@ -627,7 +627,7 @@ def test_register_and_param_count_of_the_examples_config(tiny, monkeypatch):
     assert "lm-100m" in configs.list_archs()
     assert configs.get_config("lm-100m") is cfg
     with pytest.raises(NotImplementedError, match="not ported"):
-        configs.get_config("gemma3-4b")
+        configs.get_config("qwen2-moe-a2.7b")
 
 
 def test_param_count_refuses_unported_families():

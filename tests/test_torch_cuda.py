@@ -257,6 +257,32 @@ def test_k5_scalar_loads_on_odd_head_dim(dev, C):
         v.float().abs().max())
 
 
+# K5 at D = 256 (gemma3: B 2, C 4160, Hk 4, rep 2), whose lanes take a
+# whole warp and whose ring has 3 stages: the path's shape, C of one tile
+# and across tiles, rep 4, a D of 160 that pads the row to 256 and one of
+# 200 (not a multiple of 8: scalar loads); ``window`` masks all but the
+# last 1024 positions (gemma3's local layers), 0 leaves the causal bias
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 1024])
+@pytest.mark.parametrize("B,C,Hk,rep,D", [(2, 4160, 4, 2, 256),
+                                          (1, 33, 4, 2, 256),
+                                          (3, 129, 2, 4, 256),
+                                          (2, 4160, 4, 2, 160),
+                                          (2, 300, 1, 1, 200)])
+def test_k5_head_dim_256_vs_plain(dev, B, C, Hk, rep, D, window):
+    q, k, v, bias = _k5_inputs(B, C, Hk, rep, D, dev)
+    if window:
+        idx = torch.arange(C, device=dev)
+        last = torch.where(bias == 0, idx, -1).max(dim=1).values
+        bias[(last[:, None] - idx[None]) >= window] = -1e30
+    for cap in (0.0, 30.0):
+        want = ref.decode_attention_ref(q, k, v, bias, softcap=cap)
+        got = ops.decode_attention(q, k, v, bias, softcap=cap)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        assert err <= 1e-5 * float(v.float().abs().max()), (cap, err)
+
+
 @pytest.mark.cuda
 def test_k5_rejects_mixed_devices_and_types(dev):
     q, k, v, bias = _k5_inputs(2, 16, 2, 7, 64, dev)
@@ -371,6 +397,34 @@ K4_CASES = [(2, 1024, 14, 2, 64, 0, 0.0, torch.float32),
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,H,Hk,D,window,cap,dtype", K4_CASES)
 def test_k4_vs_plain(dev, B, S, H, Hk, D, window, cap, dtype):
+    q, k, v = _k4_inputs(B, S, H, Hk, D, dtype, dev)
+    want = ref.flash_attention_ref(q, k, v, window=window, softcap=cap)
+    before = fa.flash_attention.launches
+    got = ops.flash_attention(q, k, v, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == (B, S, H, D)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= _k4_bound(v), err
+
+
+# K4 at D = 256 (the 256-thread, 32-key-tile instance; gemma3's B 2, H 8,
+# Hk 4): full causal and with windows (its local layers' 1024 at S 4096),
+# S not a multiple of the 64-row tile with softcap, S = 1, bf16, a D of 160
+# that pads to 256 and one of 250 (not a multiple of 4: scalar loads)
+K4_WIDE_CASES = [(2, 512, 8, 4, 256, 0, 0.0, torch.float32),
+                 (2, 512, 8, 4, 256, 64, 0.0, torch.float32),
+                 (1, 4096, 8, 4, 256, 1024, 0.0, torch.float32),
+                 (1, 1025, 8, 4, 256, 300, 30.0, torch.float32),
+                 (2, 1, 8, 4, 256, 0, 0.0, torch.float32),
+                 (1, 97, 8, 4, 256, 0, 0.0, torch.bfloat16),
+                 (1, 333, 8, 4, 160, 0, 0.0, torch.float32),
+                 (1, 200, 4, 2, 250, 40, 0.0, torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Hk,D,window,cap,dtype", K4_WIDE_CASES)
+def test_k4_head_dim_256_vs_plain(dev, B, S, H, Hk, D, window, cap, dtype):
     q, k, v = _k4_inputs(B, S, H, Hk, D, dtype, dev)
     want = ref.flash_attention_ref(q, k, v, window=window, softcap=cap)
     before = fa.flash_attention.launches

@@ -81,6 +81,31 @@ def test_k5_plain_matches_reference(B, H, Hk, C, cap):
     np.testing.assert_allclose(got.numpy(), oracle, rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("window", [0, 40])
+@pytest.mark.parametrize("D", [256, 160])
+def test_k5_plain_head_dim_256_matches_reference(D, window):
+    """D up to 256 (gemma3's d_head; rep 2 of GQA 8/4), with a sliding
+    window in the bias where ``window`` > 0: the port's
+    ``ops.decode_attention`` raised ``ValueError`` above 128 before (its
+    contract is shared with the plain version), where the reference's
+    interpret-mode kernel computes."""
+    B, H, Hk, C = 2, 8, 4, 97
+    q, k, v, bias = _k5_inputs(B, H, Hk, C, D, seed=D + window)
+    if window:
+        pos = np.arange(C)
+        last = np.where(bias > -1, pos[None], -1).max(1)   # the query row
+        bias[(last[:, None] - pos[None]) >= window] = -1e30
+    kj, kt = _bf16(k)
+    vj, vt = _bf16(v)
+    got = ops.decode_attention(torch.from_numpy(q), kt, vt,
+                               torch.from_numpy(bias), softcap=30.0)
+    assert got.shape == (B, H, D)
+    interp = np.asarray(jops.decode_attention(jnp.asarray(q), kj, vj,
+                                              jnp.asarray(bias),
+                                              softcap=30.0))
+    np.testing.assert_allclose(got.numpy(), interp, rtol=RTOL, atol=ATOL)
+
+
 def test_k5_masked_positions_weigh_exactly_zero():
     """Whatever k and v hold at masked positions, the output is bitwise the
     same: exp(-1e30 - max) is +0 in fp32."""
@@ -100,7 +125,8 @@ def test_k5_masked_positions_weigh_exactly_zero():
 
 
 @pytest.mark.parametrize("bad", ["q_dtype", "k_dtype", "bias_shape",
-                                 "noncontig", "rep", "mixed"])
+                                 "noncontig", "rep", "mixed", "wide_rep",
+                                 "wide"])
 def test_k5_contract_raises(bad):
     q, k, v, bias = _k5_inputs(2, 4, 2, 8, 64, seed=1)
     q, bias = torch.from_numpy(q), torch.from_numpy(bias)
@@ -117,6 +143,12 @@ def test_k5_contract_raises(bad):
         q = torch.zeros((2, 34, 64))              # rep 17 > 16
     elif bad == "mixed":
         q = q.to("meta")
+    elif bad == "wide_rep":     # rep 9 > 8 holds 4 head dims a lane: D <= 128
+        q = torch.zeros((2, 18, 256))
+        k = torch.zeros((2, 8, 2, 256), dtype=torch.bfloat16)
+    elif bad == "wide":         # D > 256
+        q = torch.zeros((2, 4, 264))
+        k = v = torch.zeros((2, 8, 2, 264), dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         ops.decode_attention(q, k, v, bias)
 

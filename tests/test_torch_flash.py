@@ -172,6 +172,22 @@ def test_k4_plain_window_matches_pallas_kernel(window):
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
 
 
+# gemma3's head dim: D = 256, beside a D of 160 that the kernel pads to it;
+# with and without the window (the local layers' 1024 cut to the test's S)
+@pytest.mark.parametrize("D,window,cap", [(256, 0, 0.0), (256, 64, 0.0),
+                                          (256, 100, 30.0), (160, 0, 0.0),
+                                          (160, 48, 0.0)])
+def test_k4_plain_head_dim_256_matches_pallas_kernel(D, window, cap):
+    """D up to 256, the TPU kernel's free head dim at gemma3's width: the
+    port's ``ops.flash_attention`` (its contract shared with the plain
+    version) raised ``ValueError`` above 128 before, where
+    ``repro.kernels.ops.flash_attention`` computes. GQA 8/4 as gemma3's."""
+    q, k, v = _qkv(D + window, 1, 256, 8, D, Hk=4)
+    got, want = _k4_pair(q, k, v, window=window, softcap=cap)
+    assert got.shape == (1, 256, 8, D)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
 def test_k4_plain_bf16_matches_pallas_kernel():
     q, k, v = _qkv(9, 1, 256, 2, 64)
     qb, kb, vb = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
@@ -219,7 +235,7 @@ def test_k4_wrapper_checks_its_arguments():
                             torch.zeros((1, 4, 3, 8)))
     with pytest.raises(ValueError, match="k and v"):
         ops.flash_attention(q, kv, torch.zeros((1, 5, 2, 8)))
-    with pytest.raises(ValueError, match="D <= 128"):
-        ops.flash_attention(*(torch.zeros((1, 4, 2, 160)) for _ in range(3)))
+    with pytest.raises(ValueError, match="D <= 256"):
+        ops.flash_attention(*(torch.zeros((1, 4, 2, 257)) for _ in range(3)))
     with pytest.raises(ValueError, match="CUDA tensors"):
         fa.flash_attention(q, kv, kv)

@@ -57,7 +57,7 @@ def test_config_matches_reference():
                   "rope_theta", "norm_eps", "act", "qk_norm"):
             assert getattr(t, f) == getattr(j, f), f
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("gemma3-4b")
+        get_config("qwen2-moe-a2.7b")
 
 
 def test_init_tree_matches_reference_layout(setup):
@@ -187,9 +187,11 @@ def routes(monkeypatch):
     return seen
 
 
-# (use_flash_kernel, chunk, window, S, the port's route): the reference's
-# order — K4 whenever its flag is set and no window masks (chunk or not),
-# then the chunked route for S > chunk, then dense
+# (use_flash_kernel, chunk, window, S, the reference's route): its order —
+# K4 whenever its flag is set and no window masks (chunk or not), then the
+# chunked route for S > chunk, then dense. The port's route is K4 whenever
+# its flag is set, with the window where one masks (the TPU kernel takes
+# one), else the reference's.
 ROUTES = [(True, 0, 0, 64, "k4"), (True, 16, 0, 64, "k4"),
           (False, 16, 0, 64, "chunked"), (False, 16, 8, 64, "chunked"),
           (True, 16, 8, 64, "chunked"), (True, 0, 8, 64, "dense"),
@@ -203,8 +205,10 @@ def test_attention_routes_match_reference(setup, routes, flash, chunk,
                                           window, S, route):
     """``layers.attention`` on each route against the reference's
     ``layers.attention`` with the same ``AttnCall`` (its K4 route runs the
-    Pallas kernel in interpret mode), fp32: outputs and the cache K/V to
-    2e-5 of their largest magnitude."""
+    Pallas kernel in interpret mode; with a window and the flag, the port
+    runs K4's plain version where the reference runs its chunked or dense
+    route), fp32: outputs and the cache K/V to 2e-5 of their largest
+    magnitude."""
     jcfg, cfg, jp, _, _ = setup
     rng = np.random.default_rng(S + chunk + window)
     x = rng.normal(size=(2, S, cfg.d_model)).astype(np.float32)
@@ -219,8 +223,9 @@ def test_attention_routes_match_reference(setup, routes, flash, chunk,
         tout, tkv = L.attention(tpa, cfg, torch.from_numpy(x),
                                 torch.from_numpy(pos), L.AttnCall(**kw),
                                 torch.float32)
-    assert routes == {"k4": int(route == "k4"),
-                      "chunked": int(route == "chunked")}
+    port = "k4" if flash else route
+    assert routes == {"k4": int(port == "k4"),
+                      "chunked": int(port == "chunked")}
     for got, want in zip((tout, *tkv), (jout, *jkv)):
         want = np.asarray(want)
         np.testing.assert_allclose(got.numpy(), want, rtol=2e-5,

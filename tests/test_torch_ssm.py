@@ -118,7 +118,7 @@ def test_config_matches_reference():
         for f in ("d_state", "d_conv", "expand", "head_dim", "chunk",
                   "ngroups"):
             assert getattr(c.ssm, f) == getattr(j.ssm, f), f
-    for arch in ("gemma3-4b", "qwen2-moe-a2.7b", "deepseek-v2-236b"):
+    for arch in ("musicgen-large", "qwen2-moe-a2.7b", "deepseek-v2-236b"):
         with pytest.raises(NotImplementedError, match="not ported"):
             get_config(arch)
 
