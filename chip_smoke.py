@@ -55,7 +55,19 @@ bias) and K6 on the tied table (11a), the K4 prefill held against the
 chunked plain one with the same per-layer windows and the K5/K6 decode
 against the plain decode (11b), then K4 (global and windowed), K5 and K6
 against their plain versions at its shapes and timed, SDPA beside K4 and
-K5 with the backend it took (11c).
+K5 with the backend it took (11c). Phase 12 drives qwen2-moe-a2.7b at full
+width and depth (24 layers of 60 routed top-4 experts and a shared MLP;
+53.33 GiB of fp32 weights): served at batch 4 from a 2048-token prompt
+through K4, K5 and K6, each prompt row routed at capacity 176 with the
+overflow dropped, its prefill's device time split by kernel and the
+share of choices dropped per layer printed (12a); K4 held layer by layer
+(the plain route's input to each layer through both routes) and the K4
+prefill end to end, the K5/K6 decode teacher-forced, every layer's routing
+recorded on both routes and every difference held as a near tie (12b);
+continuous batching of 16 requests on 8 slots, three held against solo
+serving (12c); K4, K5 and K6 against their plain versions at its shapes and
+timed (12d). It starts by checking that the earlier phases left under 1
+GiB allocated, and holds one full-width copy of the weights at a time.
 Any failed phase raises and the script exits non-zero. Without a CUDA
 device, or without the rest of the repository beside it, it exits non-zero
 before printing any result.
@@ -113,6 +125,8 @@ from repro_torch.launch import train_lm  # noqa: E402
 from repro_torch.models import (ModelCallConfig, sample_batch,  # noqa: E402
                                 sample_ids)
 from repro_torch.models import build as build_model  # noqa: E402
+from repro_torch.models import layers as Lyr  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.flash import flash_attention_bshd  # noqa: E402
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
@@ -122,9 +136,11 @@ from repro_torch.utils.tree import tree_map, tree_paths, tree_size  # noqa: E402
 from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-# the controller's numpy oracle (numpy only), beside the tests
+# the controller's numpy oracle (numpy only) and the MoE routing records
+# (torch only), beside the tests
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 import _reference_controller as ref_ctrl  # noqa: E402
+from _torch_moe_routing import RouteRecorder, hold_routing  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
 FP32_FLOP_PER_S = 67e12            # fp32 outside the tensor cores
@@ -234,6 +250,23 @@ GEMMA = dict(batch=2, prompt_len=4096, gen_len=64)
 N_GEMMA_LAYERS, GEMMA_GLOBAL, GEMMA_WINDOW = 34, (5, 11, 17, 23, 29), 1024
 K4_GEMMA = (2, 4096, 8, 4, 256)         # B, S, H, Hk, D of the prefill's K4
 K5_GEMMA = (2, 4160, 4, 2, 256)         # B, C, Hk, rep, D of the decode
+# phase 12: qwen2-moe-a2.7b (24 layers, d 2048, MHA 16/16 of d_head 128 with
+# QKV bias; 60 routed experts of width 1408, top 4, and a 5632-wide shared
+# MLP in every layer; capacity factor 1.25; an untied 151,936-row head) at
+# full width and depth: 14,315,587,584 parameters, 53.33 GiB in fp32
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE = dict(batch=4, prompt_len=2048, gen_len=64)
+N_MOE_LAYERS = 24
+MOE_TRACE = dict(slots=8, n_requests=16, prompt_len=256, gen_len=64,
+                 arrival_rate=0.5, seed=0)
+K4_MOE = (4, 2048, 16, 16, 128)         # B, S, H, Hk, D of the prefill's K4
+K5_MOE = (4, 2112, 16, 1, 128)          # B, C, Hk, rep, D of the decode
+K5_MOE_RING = (8, 320, 16, 1, 128)      # the continuous ring's decode
+MOE_HEAD = (153_600, 151_936, 2048, 2048 ** -0.5, 1.0)
+# a token's first routing difference between two routes must have a top-K
+# margin within this many times the largest router-probability difference
+# of the tokens whose routing agreed (tests/_torch_moe_routing.py)
+MOE_FLIP_FACTOR = 4.0
 # 10d: zamba2 training at full width, depth cut to 12 layers (two
 # applications of the shared block; below 6 it would never run) and to 6
 # for fused against tree (one application)
@@ -1978,6 +2011,359 @@ def phase11(gen):
 
 
 # --------------------------------------------------------------------------- #
+# phase 12: qwen2-moe-a2.7b at full width and depth
+# --------------------------------------------------------------------------- #
+
+
+def moe_layer_hold(cfg, params, prompt):
+    """12b, layer by layer: the plain route's input to each of the 24
+    layers goes through the block on both routes (dense attention; K4).
+    K4's output is held against its plain version (``k4_plain``) on the
+    very q, k and v it got, within 2e-5·max|v| (``k4_case``'s bound); the
+    two routings are held under the near-tie rule, layer by layer (each
+    layer's first differences against the probability differences of the
+    tokens that agreed). Returns (worst K4 error / bound, routing
+    differences, their worst margin / bound, the largest router
+    probability difference, the largest block-output difference on tokens
+    whose routing agreed)."""
+    f32 = torch.float32
+    tokens = prompt["tokens"]
+    S = tokens.shape[1]
+    pos = torch.arange(S, dtype=torch.int32, device=DEV)
+    plain_c, k4_c = Lyr.AttnCall(), Lyr.AttnCall(use_flash_kernel=True)
+    K = cfg.moe.top_k
+    real_fa, seen = kops.flash_attention, []
+
+    def spy(q, k, v, **kw):
+        out = real_fa(q, k, v, **kw)
+        seen.append((q, k, v, kw, out))
+        return out
+
+    k4_ratio = worst = eps = xerr = 0.0
+    flips = 0
+    with torch.inference_mode():
+        x = Lyr.embed(params["embed"], tokens, f32)
+        layers = transformer._layers(params["blocks"]["stack"], cfg.n_layers)
+        for i, bp in enumerate(layers):
+            with RouteRecorder(moe_mod) as rp:
+                xp, _, _ = transformer._attn_block(bp, cfg, x, pos,
+                                                   transformer.HUGE_WINDOW,
+                                                   plain_c, f32)
+            kops.flash_attention = spy
+            try:
+                with RouteRecorder(moe_mod) as rk:
+                    xk, _, _ = transformer._attn_block(
+                        bp, cfg, x, pos, transformer.HUGE_WINDOW, k4_c, f32)
+            finally:
+                kops.flash_attention = real_fa
+            q, k, v, kw, out = seen.pop()
+            check(not kw.get("window") and not seen,
+                  f"moe layer {i}: K4 called with {kw}")
+            err = float((out - k4_plain(q, k, v)).abs().max())
+            bound = 2e-5 * float(v.abs().max())
+            check(err <= bound, f"moe layer {i}: K4 differs from its plain "
+                  f"version by {err:.3e} (bound {bound:.3e})")
+            k4_ratio = max(k4_ratio, err / bound)
+            del q, k, v, out
+            try:
+                r = hold_routing(rk.calls, rp.calls, K, MOE_FLIP_FACTOR)
+            except AssertionError as e:
+                raise RuntimeError(f"chip_smoke: moe layer {i}: {e}")
+            flips += r["flips"]
+            worst = max(worst, r["worst"])
+            eps = max(eps, r["eps"][0])
+            same = ~torch.zeros(xp.shape[:2], dtype=torch.bool, device=DEV)
+            if r["flips"]:
+                pk = torch.sort(rk.calls[0]["eidx"], -1).values
+                pp = torch.sort(rp.calls[0]["eidx"], -1).values
+                same = ~(pk != pp).any(-1)
+            xerr = max(xerr, float((xk - xp).abs()[same].max()))
+            x = xp
+            del xk, rp, rk
+    torch.cuda.empty_cache()
+    return k4_ratio, flips, worst, eps, xerr
+
+
+def moe_prefill_hold(cfg, params, prompt, S, G, plain, kern):
+    """12b, end to end: the K4 prefill against the plain (dense) one on the
+    same prompt, every layer's routing recorded on both. Every token's
+    first routing difference is held as a near tie; a batch row in which
+    no token's routing differed is held as ``hold_prefill`` holds one (last
+    logits within 1e-4·max|logit|, first ids under the near-tie rule); the
+    bf16 K/V cache of layer l is held (1e-4 of its largest value plus one
+    bf16 ulp at the top binade) on the rows whose routing agreed in every
+    layer before l. Returns a dict of what it found, the plain cache and
+    the plain greedy ids."""
+    K = cfg.moe.top_k
+    with torch.inference_mode():
+        with RouteRecorder(moe_mod) as rp:
+            lg_p, cache_p = plain.prefill_cache(params, prompt, S + G)
+        with RouteRecorder(moe_mod) as rk:
+            lg_k, cache_k = kern.prefill_cache(params, prompt, S + G)
+        try:
+            r = hold_routing(rk.calls, rp.calls, K, MOE_FLIP_FACTOR)
+        except AssertionError as e:
+            raise RuntimeError(f"chip_smoke: moe prefill routing: {e}")
+        B = lg_p.shape[0]
+        clean = [b for b in range(B) if b not in r["rows"]]
+        lerr = (lg_k - lg_p).abs().amax(-1)
+        lbound = 1e-4 * float(lg_p.abs().max())
+        for b in clean:
+            check(float(lerr[b]) <= lbound, f"moe prefill row {b}: logits "
+                  f"differ by {float(lerr[b]):.3e} (bound {lbound:.3e})")
+        want = sample_ids(lg_p, 0.0, cfg.vocab_size)
+        got = sample_ids(lg_k, 0.0, cfg.vocab_size)
+        ties = 0
+        if clean:
+            ties, bad = ref.near_tie_check(lg_p[clean], got[clean],
+                                           want[clean], cfg.vocab_size)
+            check(bad == 0, "moe prefill: the K4 route's first ids break "
+                  "the near-tie rule")
+        before = torch.zeros(B, dtype=torch.bool, device=DEV)
+        cratio, held = 0.0, 0
+        for i in range(cfg.n_layers):
+            rows = ~before
+            for key in ("k", "v"):
+                a = cache_k[key][i][rows].float()
+                b = cache_p[key][i][rows].float()
+                if not a.numel():
+                    continue
+                top = float(b.abs().max())
+                bound = 1e-4 * top + 2.0 ** -7 * top
+                e = float((a - b).abs().max())
+                check(e <= bound, f"moe prefill cache {key}[{i}]: differs "
+                      f"by {e:.3e} (bound {bound:.3e})")
+                cratio = max(cratio, e / bound)
+            held += int(rows.sum())
+            before |= r["layer_rows"][i]
+        # per MoE layer, the share of routed choices dropped by capacity
+        drops = [float(1.0 - c["keep"].float().mean()) for c in rk.calls]
+    out = {"routing": r, "clean": clean, "lerr": [float(e) for e in lerr],
+           "lbound": lbound, "ties": ties, "cratio": cratio,
+           "cache_rows_held": held, "drops": drops,
+           "ids_equal": int((got == want).sum())}
+    del cache_k, lg_k, rp, rk
+    torch.cuda.empty_cache()
+    return out, cache_p, want
+
+
+def moe_decode_hold(cfg, params, cache, tok, S, G, kern, plain):
+    """12b, decode: K5/K6 against the plain decode, each from its own clone
+    of one prefill cache, teacher-forced on the plain route's greedy
+    tokens, every step's routing recorded on both. A row whose routing
+    differed in a step (a near tie, held as such) parts there and is
+    compared no further; the other rows' ids are held under the near-tie
+    rule. Returns (near-tie exceptions, ids compared, routing differences,
+    {row: step it parted})."""
+    K = cfg.moe.top_k
+    clone = lambda c: tree_map(lambda t: t.clone(), c)
+    cache_p, cache_k = clone(cache), clone(cache)
+    head = kern.sample_head(params)
+    live = torch.ones(tok.shape[0], dtype=torch.bool, device=DEV)
+    ties = compared = flips = 0
+    parted = {}
+    with torch.inference_mode():
+        for g in range(G - 1):
+            with RouteRecorder(moe_mod) as rp:
+                lg, cache_p = plain.decode(params, cache_p, tok, S + g)
+            zeros = torch.zeros_like(lg)
+            with RouteRecorder(moe_mod) as rk:
+                ids, cache_k = kern.decode_sample(params, cache_k, tok,
+                                                  S + g, zeros, head)
+            try:
+                r = hold_routing(rk.calls, rp.calls, K, MOE_FLIP_FACTOR,
+                                 live=live)
+            except AssertionError as e:
+                raise RuntimeError(f"chip_smoke: moe decode step {g}: {e}")
+            flips += r["flips"]
+            for b in r["rows"]:
+                parted[b] = g
+                live[b] = False
+            want = sample_ids(lg, 0.0, cfg.vocab_size)
+            rows = torch.nonzero(live).flatten()
+            if rows.numel():
+                t, bad = ref.near_tie_check(lg[rows], ids[rows], want[rows],
+                                            cfg.vocab_size)
+                check(bad == 0, f"moe teacher-forced step {g}: K5/K6 ids "
+                      f"break the near-tie rule")
+                ties += t
+                compared += int(rows.numel())
+            tok = want
+    del cache_p, cache_k, head
+    return ties, compared, flips, parted
+
+
+def moe_phase():
+    """12a: qwen2-moe-a2.7b served at full width and depth through K4, K5
+    and K6; its prefill's device time by kernel (the routing's sort,
+    scatter and gather kernels listed). 12b: the K4 prefill held layer by
+    layer and end to end, the K5/K6 decode teacher-forced, every routing
+    difference a near tie. 12c: continuous batching on 8 slots, three
+    requests held against solo serving."""
+    check(torch.cuda.memory_allocated() < 2 ** 30, "phase 12 starts with "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    cfg = get_config(MOE_ARCH)
+    check(cfg.n_layers == N_MOE_LAYERS
+          and cfg.param_count() == 14_315_587_584
+          and moe_mod._capacity(MOE["prompt_len"], cfg.moe) == 176,
+          f"{MOE_ARCH}'s config")
+    steps = MOE["gen_len"] - 1
+    flags = dict(use_flash_kernel=True, use_decode_kernel=True)
+    print(f"[chip_smoke] 12a qwen2-moe serve path: serve('{MOE_ARCH}', "
+          f"reduced=False, {flags}, {MOE}); {cfg.param_count()} parameters "
+          f"({cfg.active_param_count()} active a token), capacity "
+          f"{moe_mod._capacity(MOE['prompt_len'], cfg.moe)} a row in the "
+          f"prefill", flush=True)
+    res, counts, peak = serve_path(
+        MOE_ARCH, MOE,
+        {"k4": N_MOE_LAYERS, "k5": K5_PER_CALL * N_MOE_LAYERS * steps,
+         "k6": steps, "k7": 0}, **flags)
+    step_ms = float(np.median(res.per_token_s)) * 1e3
+    ttft_ms = res.timings["prefill_s"] * 1e3
+    tok_s = res.timings["tok_per_s"]
+    del res
+    cfg, params = full_params(MOE_ARCH)
+    prof = prefill_profile(cfg, params, MOE, use_flash_kernel=True)
+    check(prof["prefill_k4_launches"] == N_MOE_LAYERS,
+          f"profiled prefill launches K4 {prof['prefill_k4_launches']}")
+    disp = prof["prefill_dispatch_kernels"]
+    share = prof["prefill_dispatch_ms"] / prof["prefill_device_ms"] * 100
+    print(f"[chip_smoke]   routing's sort / scatter / gather / index "
+          f"kernels: {prof['prefill_dispatch_ms']:.2f} ms ({share:.1f} % of "
+          f"the prefill): "
+          f"{[(e['name'][:40], round(e['ms'], 2)) for e in disp[:6]]}",
+          flush=True)
+    B, S, G = MOE["batch"], MOE["prompt_len"], MOE["gen_len"]
+    prompt = sample_batch(cfg, rng.TorchStream(1), B, S, DEV)
+    k4r, lflips, lworst, leps, xerr = moe_layer_hold(cfg, params, prompt)
+    print(f"[chip_smoke] 12b K4 layer by layer (the plain route's input to "
+          f"each of {N_MOE_LAYERS} layers): K4 at {k4r:.3f} of its bound at "
+          f"worst; routing differences {lflips} (worst margin at "
+          f"{lworst:.3f} of {MOE_FLIP_FACTOR}·eps), router probabilities "
+          f"within {leps:.3e}, block outputs within {xerr:.3e} where the "
+          f"routing agreed", flush=True)
+    plain = build_model(cfg, ModelCallConfig(dtype=torch.float32))
+    kern = build_model(cfg, ModelCallConfig(dtype=torch.float32, **flags))
+    e2e, cache_p, tok = moe_prefill_hold(cfg, params, prompt, S, G, plain,
+                                         kern)
+    r, d = e2e["routing"], e2e["drops"]
+    print(f"[chip_smoke] 12b K4 prefill vs dense prefill end to end: "
+          f"routing differences {r['flips']} token-layers ({r['first']} "
+          f"first differences, margins {[f'{m:.2e}' for m in r['margins']]},"
+          f" worst at {r['worst']:.3f} of {MOE_FLIP_FACTOR}·eps, eps "
+          f"{min(r['eps']):.2e}..{max(r['eps']):.2e} over the layers; "
+          f"{r['keep_diff']} keep flags moved), rows with a difference "
+          f"{r['rows']}; last logits max abs by row "
+          f"{[f'{e:.3e}' for e in e2e['lerr']]} (bound {e2e['lbound']:.3e} "
+          f"held on rows {e2e['clean']}), first ids equal "
+          f"{e2e['ids_equal']}/{B}, near-tie exceptions {e2e['ties']}; "
+          f"cache layers at {e2e['cratio']:.3f} of their bounds "
+          f"({e2e['cache_rows_held']} layer-rows held)", flush=True)
+    print(f"[chip_smoke] 12a routed choices dropped by capacity (C = 176, "
+          f"the serve's prompt and weights, K4 route) per layer: min "
+          f"{min(d) * 100:.2f} %, median {float(np.median(d)) * 100:.2f} %, "
+          f"max {max(d) * 100:.2f} %", flush=True)
+    dkern = build_model(cfg, ModelCallConfig(dtype=torch.float32,
+                                             use_decode_kernel=True))
+    dties, n_ids, dflips, parted = moe_decode_hold(cfg, params, cache_p,
+                                                   tok, S, G, dkern, plain)
+    del cache_p
+    torch.cuda.empty_cache()
+    print(f"[chip_smoke] 12b K5/K6 decode vs plain from one cache, "
+          f"teacher-forced: {n_ids} ids, near-tie exceptions {dties}; "
+          f"routing differences {dflips} (rows parted at a near tie: "
+          f"{parted})", flush=True)
+    print(f"[chip_smoke] 12c serve_continuous('{MOE_ARCH}', reduced=False, "
+          f"{flags}, {MOE_TRACE})", flush=True)
+    cres, ccounts, _, _ = continuous_check(
+        MOE_ARCH, params, MOE_TRACE, flags, flags, {"k4": N_MOE_LAYERS},
+        N_MOE_LAYERS)
+    cm = cres.metrics
+    del params, kern, dkern, plain, cres
+    torch.cuda.empty_cache()
+    return {"counts": counts, "ccounts": ccounts, "peak": peak,
+            "prefill": prof, "step_ms": step_ms, "ttft_ms": ttft_ms,
+            "tok_s": tok_s, "e2e_flips": r["flips"], "drops": d,
+            "layer_flips": lflips, "decode_flips": dflips,
+            "ring_p50_ms": cm["p50_step_s"] * 1e3}
+
+
+def moe_kernels(gen):
+    """12d: K4, K5 and K6 held against their plain versions at the shapes
+    qwen2-moe's serve and ring give them, and timed at the serve's, SDPA
+    and matmul + argmax beside them, with the SDPA backend."""
+    out = {"k4_err": 0.0, "k5_err": 0.0, "k6_err": 0.0}
+    for shape in (K4_MOE, (1, 256, 16, 16, 128)):
+        err, bound = k4_case(*shape, 0, 0.0, torch.float32, gen)
+        out["k4_err"] = max(out["k4_err"], err)
+        print(f"[chip_smoke] K4 B,S,H,Hk,D={shape}: max abs {err:.3e} "
+              f"(bound {bound:.1e})", flush=True)
+        check(err <= bound, f"K4 differs from its plain version at {shape}")
+    for shape in (K5_MOE, K5_MOE_RING):
+        for cap in (0.0, 30.0):
+            err, bound = k5_case(*shape, cap, gen)
+            out["k5_err"] = max(out["k5_err"], err)
+            print(f"[chip_smoke] K5 B,C,Hk,rep,D={shape} softcap={cap} plan "
+                  f"{ds.attention_plan(shape[0], shape[2], shape[1])}: max "
+                  f"abs {err:.3e} (bound {bound:.1e})", flush=True)
+            check(err <= bound, f"K5 differs from its plain version at "
+                  f"{shape}")
+    for B_ in (MOE["batch"], MOE_TRACE["slots"]):
+        for greedy in (True, False):
+            ties, bad, err = k6_case(B_, greedy, gen, head=MOE_HEAD)
+            out["k6_err"] = max(out["k6_err"], err)
+            print(f"[chip_smoke] K6 qwen2-moe head B={B_} "
+                  f"{'greedy' if greedy else 'gumbel'}: near-tie exceptions "
+                  f"{ties}, violations {bad}, winning logit max abs "
+                  f"{err:.3e}", flush=True)
+            check(bad == 0, "K6 breaks the near-tie rule at qwen2-moe's head")
+    out["k4"] = time_k4(gen, K4_MOE)
+    out["k5"] = time_k5(K5_MOE, gen)
+    out["k6"] = time_k6(gen, MOE["batch"], MOE_HEAD)
+    t = out["k4"]
+    print(f"[chip_smoke] K4 at qwen2-moe's prefill shape {K4_MOE}: "
+          f"{t['ms']:.3f} ms/launch (device {t['device_ms']:.3f} ms), plain "
+          f"{t['plain_ms']:.3f} ms, chunked {t['chunked_ms']:.3f} ms, SDPA "
+          f"{t['library_ms']:.3f} ms ({t['library_backend']}), bound "
+          f"{t['bound_ms']:.3f} ms ({t['flops'] / 1e9:.2f} GFLOP), "
+          f"{t['bound_ms'] / t['device_ms'] * 100:.1f} % of the bound on "
+          f"device time", flush=True)
+    t = out["k5"]
+    print(f"[chip_smoke] K5 at qwen2-moe's decode shape {K5_MOE}: "
+          f"{t['ms'] * 1e3:.2f} us/call back to back, device "
+          f"{t['device_ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} "
+          f"us (device {t['plain_device_ms'] * 1e3:.2f}), SDPA "
+          f"{t['library_ms'] * 1e3:.2f} us (device "
+          f"{t['library_device_ms'] * 1e3:.2f}; {t['library_backend']}), "
+          f"bound {t['bound_ms'] * 1e3:.3f} us ({t['bytes']} B), plan split "
+          f"{t['plan']}", flush=True)
+    t = out["k6"]
+    print(f"[chip_smoke] K6 at qwen2-moe's head (B={MOE['batch']}): "
+          f"{t['ms'] * 1e3:.2f} us/call, plain {t['plain_ms'] * 1e3:.2f} us, "
+          f"matmul + argmax {t['library_ms'] * 1e3:.2f} us, bound "
+          f"{t['bound_ms'] * 1e3:.3f} us ({t['bytes']} B)", flush=True)
+    return out
+
+
+def phase12(gen):
+    """Phase 12: 12a-12c, then the kernels at qwen2-moe's shapes (12d)."""
+    t0 = time.perf_counter()
+    m = moe_phase()
+    ks = moe_kernels(gen)
+    p = m["prefill"]
+    print(f"[chip_smoke] phase 12: {time.perf_counter() - t0:.1f} s; "
+          f"qwen2-moe serve peak {m['peak']:.2f} GiB, TTFT "
+          f"{m['ttft_ms']:.1f} ms, median step {m['step_ms']:.2f} ms "
+          f"({m['tok_s']:.2f} tokens/s), ring p50 step "
+          f"{m['ring_p50_ms']:.2f} ms; the prefill's device time "
+          f"{p['prefill_device_ms']:.1f} ms (K4 {p['prefill_k4_ms']:.2f} ms "
+          f"against a bound of {N_MOE_LAYERS * ks['k4']['bound_ms']:.2f} ms, "
+          f"GEMMs {p['prefill_gemm_ms']:.1f}, rest "
+          f"{p['prefill_other_ms']:.1f})", flush=True)
+    return {"moe": m, "kernels": ks}
+
+
+# --------------------------------------------------------------------------- #
 # phases
 # --------------------------------------------------------------------------- #
 
@@ -2998,6 +3384,9 @@ def main():
     # ---- 11. gemma3-4b at full width and depth ----------------------------
     p11 = phase11(gen)
 
+    # ---- 12. qwen2-moe-a2.7b at full width and depth ----------------------
+    p12 = phase12(gen)
+
     # ---- phase 9. checkpoint and bitwise resume; the train_lm runner ------
     try:
         res = resume_phase(n_main, qwen_shapes)
@@ -3008,6 +3397,7 @@ def main():
     z, q3, ztr, ks = (p10["zamba"], p10["qwen3"], p10["train"],
                       p10["kernels"])
     g3, gks = p11["gemma3"], p11["kernels"]
+    mo, mks = p12["moe"], p12["kernels"]
     by_path = {
         "k1": {"qwen2-0.5b savic": launches,
                "zamba2-2.7b 12-layer savic": ztr["k1"]},
@@ -3015,17 +3405,23 @@ def main():
                "zamba2-2.7b serve": z["counts"]["k4"],
                "zamba2-2.7b continuous": z["ccounts"]["k4"],
                "qwen3-4b serve": q3["counts"]["k4"],
-               "gemma3-4b serve": g3["counts"]["k4"]},
+               "gemma3-4b serve": g3["counts"]["k4"],
+               "qwen2-moe-a2.7b serve": mo["counts"]["k4"],
+               "qwen2-moe-a2.7b continuous": mo["ccounts"]["k4"]},
         "k5": {"qwen2-0.5b serve": k5_launches,
                "zamba2-2.7b serve": z["counts"]["k5"],
                "zamba2-2.7b continuous": z["ccounts"]["k5"],
                "qwen3-4b serve": q3["counts"]["k5"],
-               "gemma3-4b serve": g3["counts"]["k5"]},
+               "gemma3-4b serve": g3["counts"]["k5"],
+               "qwen2-moe-a2.7b serve": mo["counts"]["k5"],
+               "qwen2-moe-a2.7b continuous": mo["ccounts"]["k5"]},
         "k6": {"qwen2-0.5b serve": k6_launches,
                "zamba2-2.7b serve": z["counts"]["k6"],
                "zamba2-2.7b continuous": z["ccounts"]["k6"],
                "qwen3-4b serve": q3["counts"]["k6"],
-               "gemma3-4b serve": g3["counts"]["k6"]},
+               "gemma3-4b serve": g3["counts"]["k6"],
+               "qwen2-moe-a2.7b serve": mo["counts"]["k6"],
+               "qwen2-moe-a2.7b continuous": mo["ccounts"]["k6"]},
         "k7": {"mamba2-1.3b serve": k7_launches,
                "zamba2-2.7b serve": z["counts"]["k7"],
                "zamba2-2.7b continuous": z["ccounts"]["k7"]}}
@@ -3063,43 +3459,52 @@ def main():
         "replaces": "src/repro/kernels/decode_step.py:71",
         "launches": sum(by_path["k5"].values()),
         "launches_by_path": by_path["k5"],
-        "max_abs_err": max(k5_err, ks["k5_err"], gks["k5_err"]),
+        "max_abs_err": max(k5_err, ks["k5_err"], gks["k5_err"],
+                           mks["k5_err"]),
         "ms": k5t["ms"],
         "plain_ms": k5t["plain_ms"], "bound_ms": k5t["bound_ms"],
         "bound_by": "bytes", "library_ms": k5t["library_ms"],
         "device_ms": k5t["device_ms"],
-        "at_shapes": shape_times({**ks["k5"], "gemma3": gks["k5"]},
+        "at_shapes": shape_times({**ks["k5"], "gemma3": gks["k5"],
+                                  "qwen2-moe": mks["k5"]},
                                  {"zamba2": K5_ZAMBA, "qwen3": K5_QWEN3,
-                                  "gemma3": K5_GEMMA}),
+                                  "gemma3": K5_GEMMA,
+                                  "qwen2-moe": K5_MOE}),
     }, {
         "name": "decode_sample", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_sample.cu",
         "replaces": "src/repro/kernels/decode_step.py:133",
         "launches": sum(by_path["k6"].values()),
         "launches_by_path": by_path["k6"],
-        "max_abs_err": max(k6_err, ks["k6_err"], gks["k6_err"]),
+        "max_abs_err": max(k6_err, ks["k6_err"], gks["k6_err"],
+                           mks["k6_err"]),
         "ms": k6t["ms"],
         "plain_ms": k6t["plain_ms"], "bound_ms": k6t["bound_ms"],
         "bound_by": "bytes", "library_ms": k6t["library_ms"],
-        "at_shapes": shape_times({**ks["k6"], "gemma3-4b": gks["k6"]}, {
+        "at_shapes": shape_times({**ks["k6"], "gemma3-4b": gks["k6"],
+                                  MOE_ARCH: mks["k6"]}, {
             "zamba2-2.7b": (ZAMBA["batch"], *WIDE_HEADS["zamba2-2.7b"][:3]),
             "qwen3-4b": (QWEN3["batch"], *WIDE_HEADS["qwen3-4b"][:3]),
-            "gemma3-4b": (GEMMA["batch"], *WIDE_HEADS["gemma3-4b"][:3])}),
+            "gemma3-4b": (GEMMA["batch"], *WIDE_HEADS["gemma3-4b"][:3]),
+            MOE_ARCH: (MOE["batch"], *MOE_HEAD[:3])}),
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:76",
         "launches": sum(by_path["k4"].values()),
         "launches_by_path": by_path["k4"],
-        "max_abs_err": max(k4_err, ks["k4_err"], gks["k4_err"]),
+        "max_abs_err": max(k4_err, ks["k4_err"], gks["k4_err"],
+                           mks["k4_err"]),
         "ms": k4t["ms"],
         "plain_ms": k4t["plain_ms"], "bound_ms": k4t["bound_ms"],
         "bound_by": "operations", "library_ms": k4t["library_ms"],
         "at_shapes": shape_times(
             {**ks["k4"], "gemma3_global": gks["k4"]["global"],
-             "gemma3_window1024": gks["k4"]["window"]},
+             "gemma3_window1024": gks["k4"]["window"],
+             "qwen2-moe": mks["k4"]},
             {"zamba2": K4_ZAMBA, "qwen3": K4_QWEN3,
-             "gemma3_global": K4_GEMMA, "gemma3_window1024": K4_GEMMA}),
+             "gemma3_global": K4_GEMMA, "gemma3_window1024": K4_GEMMA,
+             "qwen2-moe": K4_MOE}),
     }, {
         "name": "ssd_intra_chunk", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_intra_chunk.cu",

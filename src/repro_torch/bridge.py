@@ -25,7 +25,9 @@ def _to_torch(x, device):
 
 
 def params_from_jax(np_tree, device):
-    """Parameter tree (numpy leaves) -> the same tree of tensors."""
+    """Parameter tree (numpy leaves) -> the same tree of tensors: lists
+    (a MoE model's dense ``prefix`` blocks) stay lists, and the stacked
+    (L, E, d, f) expert leaves carry over as they are."""
     return tree_map(lambda x: _to_torch(x, device), np_tree)
 
 
@@ -36,8 +38,9 @@ def state_from_jax(np_state, device):
 
 
 def cache_from_jax(np_cache, device):
-    """Decode cache (numpy leaves: the dense family's bf16 k/v (L, B, C,
-    Hk, hd); the ssm and hybrid families' fp32 ``mamba`` tree, and the
-    hybrid's bf16 ``shared_k`` / ``shared_v``) -> the port's cache dict,
-    bf16 tensors with the same bits."""
+    """Decode cache (numpy leaves: the dense and moe families' bf16 k/v
+    (L, B, C, Hk, hd), and ``pk`` / ``pv`` (n_prefix, B, C, Hk, hd) for a
+    MoE model's dense prefix; the ssm and hybrid families' fp32 ``mamba``
+    tree, and the hybrid's bf16 ``shared_k`` / ``shared_v``) -> the port's
+    cache dict, bf16 tensors with the same bits."""
     return tree_map(lambda x: _to_torch(x, device), np_cache)

@@ -33,10 +33,16 @@ traced steps' wall time.
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
       --arch gemma3-4b --full --flash-kernel --decode-kernel --batch 2 \\
       --prompt-len 4096
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+      --arch qwen2-moe-a2.7b --full --flash-kernel --decode-kernel \\
+      --batch 4 --prompt-len 2048
 
 A hybrid (zamba2) prefill is split into K7 (its mamba layers), K4 (its
 shared block's attention, one launch an application), GEMMs and the rest;
-its decode step into K5 (one call an application), K6 and the rest.
+its decode step into K5 (one call an application), K6 and the rest. A MoE
+(qwen2-moe) prefill's expert products are batched GEMMs, counted as GEMMs;
+its routing's sort, scatter and gather kernels are listed apart
+(``prefill_dispatch_kernels``) and stay in the rest.
 """
 from __future__ import annotations
 
@@ -58,6 +64,9 @@ KERNELS = {"k5": ("decode_split", "decode_merge"),
 PREFILL_KERNELS = {"k4": ("flash_attention_kernel",),
                    "k7": ("ssd_intra_chunk_prep", "ssd_intra_chunk_main")}
 GEMM = ("gemm", "cutlass", "xmma")    # cuBLAS's kernels, by name (lower case)
+# a MoE prefill's routing and dispatch: its sorts, the buffer's scatter, the
+# combine's gather (by name, lower case); listed, inside "the rest"
+DISPATCH = ("sort", "scatter", "gather", "index")
 TOP = 12
 
 
@@ -78,7 +87,9 @@ def _tops(kernels, per, key):
 
 def prefill_breakdown(prof):
     """Device time of a traced prefill: total, K4, K7, GEMMs, the rest (ms),
-    K4 and K7 launches and the top kernels."""
+    K4 and K7 launches and the top kernels; and, listed apart (they stay in
+    the rest), the kernels of a MoE layer's routing, dispatch and combine
+    (sort, scatter, gather, index) with their sum."""
     kernels = _device_events(prof)
     out, ours = {}, []
     for name, fns in PREFILL_KERNELS.items():
@@ -89,9 +100,13 @@ def prefill_breakdown(prof):
     gemm = [e for e in kernels if e not in ours
             and any(f in e.key.lower() for f in GEMM)]
     total = _ms(kernels)
+    dispatch = [e for e in kernels if e not in ours and e not in gemm
+                and any(f in e.key.lower() for f in DISPATCH)]
     return {"prefill_device_ms": total, **out,
             "prefill_gemm_ms": _ms(gemm),
             "prefill_other_ms": total - _ms(ours) - _ms(gemm),
+            "prefill_dispatch_ms": _ms(dispatch),
+            "prefill_dispatch_kernels": _tops(dispatch, 1, "ms"),
             "prefill_top_kernels": _tops(kernels, 1, "ms")}
 
 

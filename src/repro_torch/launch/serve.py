@@ -1,5 +1,5 @@
 """Batched serving driver: prefill once, reuse the cache, decode (counterpart
-of ``repro/launch/serve.py``, dense, ssm and hybrid families, single
+of ``repro/launch/serve.py``, dense, moe, ssm and hybrid families, single
 device).
 
 Four entry points, as in the reference:
@@ -25,6 +25,13 @@ reported beside them. Every host-clock reading follows a device
 synchronization. Everything runs under ``torch.inference_mode()``; there is
 no jit, so the reference's ``jit_cache_sizes`` metric has no counterpart
 here and is absent from the metrics.
+
+A MoE model routes each prompt row on its own at capacity
+``moe._capacity(prompt_len)``, so choices past an expert's capacity are
+dropped in the prefill, and each decode row's one token at capacity 8 (no
+drop); ``exact_moe`` (a keyword, as in the reference; no CLI flag) sets
+the capacity to tokens·K everywhere, the setting under which a prefill
+equals the prompt's replay.
 
 The reference's ``warmup`` (a throwaway pass before timing, for its jit)
 is not carried: the timings include first-call set-up. Weights are random,
@@ -61,6 +68,11 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
       --device cpu --mode continuous --ssd-kernel --flash-kernel \\
       --decode-kernel                                   # reduced zamba2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \\
+      --full --flash-kernel --decode-kernel --batch 4 --prompt-len 2048 \\
+      --gen-len 64    # 60 routed experts, capacity 176 a row in the prefill
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \\
+      --device cpu --flash-kernel --decode-kernel       # reduced qwen2-moe
 """
 from __future__ import annotations
 
@@ -99,14 +111,16 @@ def _sync(device):
 
 
 def _setup(arch, *, reduced, dtype, decode_window, use_decode_kernel, seed,
-           device, params, use_flash_kernel=False, use_ssd_kernel=False):
+           device, params, use_flash_kernel=False, use_ssd_kernel=False,
+           exact_moe=False):
     device = resolve_device(device)
     cfg = get_config(arch, reduced=reduced)
     model = build(cfg, ModelCallConfig(dtype=dtype,
                                        decode_window=decode_window,
                                        use_decode_kernel=use_decode_kernel,
                                        use_flash_kernel=use_flash_kernel,
-                                       use_ssd_kernel=use_ssd_kernel))
+                                       use_ssd_kernel=use_ssd_kernel,
+                                       exact_moe=exact_moe))
     if params is None:
         params = model.init(torch.Generator(device=device).manual_seed(seed))
     return cfg, model, params, device
@@ -179,8 +193,8 @@ def _decode_loop(model, params, cache, tok, pos, logits_shape, gen_len,
 def serve(arch: str, *, reduced=True, batch=4, prompt_len=32, gen_len=32,
           decode_window=0, dtype=torch.float32, greedy=True, seed=0,
           use_decode_kernel=False, use_flash_kernel=False,
-          use_ssd_kernel=False, cache_len=None, prompt=None, params=None,
-          stream=None, verbose=True, device=None) -> ServeResult:
+          use_ssd_kernel=False, exact_moe=False, cache_len=None, prompt=None,
+          params=None, stream=None, verbose=True, device=None) -> ServeResult:
     """Prefill once, decode from the returned cache: no prompt replay.
 
     The timings include first-call set-up, as a cold server start does.
@@ -188,13 +202,14 @@ def serve(arch: str, *, reduced=True, batch=4, prompt_len=32, gen_len=32,
     ``use_flash_kernel`` runs the prefill's attention on kernel K4 (the
     reference's ``ModelCallConfig`` knob, passed through);
     ``use_ssd_kernel`` runs the prefill SSD of an ssm or hybrid model
-    (mamba2, zamba2) on kernel K7.
+    (mamba2, zamba2) on kernel K7; ``exact_moe`` gives a MoE model's
+    routing no capacity drops.
     """
     cfg, model, params, device = _setup(
         arch, reduced=reduced, dtype=dtype, decode_window=decode_window,
         use_decode_kernel=use_decode_kernel, seed=seed, device=device,
         params=params, use_flash_kernel=use_flash_kernel,
-        use_ssd_kernel=use_ssd_kernel)
+        use_ssd_kernel=use_ssd_kernel, exact_moe=exact_moe)
     with torch.inference_mode():
         if prompt is None:
             prompt = sample_batch(cfg, rng.TorchStream(seed + 1), batch,
@@ -227,7 +242,7 @@ def serve_replay(arch: str, *, reduced=True, batch=4, prompt_len=32,
                  gen_len=32, decode_window=0, dtype=torch.float32,
                  greedy=True, seed=0, cache_len=None, prompt=None,
                  params=None, stream=None, verbose=True, use_ssd_kernel=False,
-                 device=None) -> ServeResult:
+                 exact_moe=False, device=None) -> ServeResult:
     """Differential baseline: build the decode cache by replaying the prompt
     token by token through ``model.decode`` (no decode kernels; there is no
     prefill, so ``use_ssd_kernel`` only reaches the model's call config).
@@ -235,7 +250,7 @@ def serve_replay(arch: str, *, reduced=True, batch=4, prompt_len=32,
     cfg, model, params, device = _setup(
         arch, reduced=reduced, dtype=dtype, decode_window=decode_window,
         use_decode_kernel=False, seed=seed, device=device, params=params,
-        use_ssd_kernel=use_ssd_kernel)
+        use_ssd_kernel=use_ssd_kernel, exact_moe=exact_moe)
     with torch.inference_mode():
         if prompt is None:
             prompt = sample_batch(cfg, rng.TorchStream(seed + 1), batch,
@@ -295,13 +310,14 @@ def _trace_metrics(mode, slots, n_requests, gens, requests, per_step_s,
 
 
 def _trace_setup(arch, *, reduced, dtype, decode_window, use_decode_kernel,
-                 use_flash_kernel, use_ssd_kernel, seed, device, params,
-                 prompts, n_requests, arrival_rate, prompt_len, gen_len):
+                 use_flash_kernel, use_ssd_kernel, exact_moe, seed, device,
+                 params, prompts, n_requests, arrival_rate, prompt_len,
+                 gen_len):
     cfg, model, params, device = _setup(
         arch, reduced=reduced, dtype=dtype, decode_window=decode_window,
         use_decode_kernel=use_decode_kernel, seed=seed, device=device,
         params=params, use_flash_kernel=use_flash_kernel,
-        use_ssd_kernel=use_ssd_kernel)
+        use_ssd_kernel=use_ssd_kernel, exact_moe=exact_moe)
     arrivals, gens = poisson_trace(n_requests, arrival_rate, seed, gen_len)
     if prompts is None:
         prompts = [request_prompt(cfg, seed, r, prompt_len, device)
@@ -313,8 +329,9 @@ def serve_continuous(arch: str, *, reduced=True, slots=4, n_requests=8,
                      prompt_len=8, gen_len=8, arrival_rate=0.5,
                      decode_window=0, dtype=torch.float32, greedy=True,
                      seed=0, use_decode_kernel=False, use_flash_kernel=False,
-                     use_ssd_kernel=False, params=None, prompts=None,
-                     stream=None, verbose=True, device=None) -> TraceResult:
+                     use_ssd_kernel=False, exact_moe=False, params=None,
+                     prompts=None, stream=None, verbose=True,
+                     device=None) -> TraceResult:
     """Continuous batching: per-slot admission and eviction on a fixed
     decode ring. One decode step with per-slot (B,) positions serves every
     composition of in-flight requests; admission is a B=1 prefill whose
@@ -324,7 +341,7 @@ def serve_continuous(arch: str, *, reduced=True, slots=4, n_requests=8,
         arch, reduced=reduced, dtype=dtype, decode_window=decode_window,
         use_decode_kernel=use_decode_kernel,
         use_flash_kernel=use_flash_kernel, use_ssd_kernel=use_ssd_kernel,
-        seed=seed, device=device,
+        exact_moe=exact_moe, seed=seed, device=device,
         params=params, prompts=prompts, n_requests=n_requests,
         arrival_rate=arrival_rate, prompt_len=prompt_len, gen_len=gen_len)
     cache_len = prompt_len + gen_len
@@ -419,8 +436,9 @@ def serve_static(arch: str, *, reduced=True, slots=4, n_requests=8,
                  prompt_len=8, gen_len=8, arrival_rate=0.5, decode_window=0,
                  dtype=torch.float32, greedy=True, seed=0,
                  use_decode_kernel=False, use_flash_kernel=False,
-                 use_ssd_kernel=False, params=None, prompts=None, stream=None,
-                 verbose=True, device=None) -> TraceResult:
+                 use_ssd_kernel=False, exact_moe=False, params=None,
+                 prompts=None, stream=None, verbose=True,
+                 device=None) -> TraceResult:
     """Static-batching baseline on the SAME Poisson trace as
     ``serve_continuous``: requests are served in arrival-order groups of
     ``slots``; a group starts only when all members have arrived and the
@@ -430,7 +448,7 @@ def serve_static(arch: str, *, reduced=True, slots=4, n_requests=8,
         arch, reduced=reduced, dtype=dtype, decode_window=decode_window,
         use_decode_kernel=use_decode_kernel,
         use_flash_kernel=use_flash_kernel, use_ssd_kernel=use_ssd_kernel,
-        seed=seed, device=device,
+        exact_moe=exact_moe, seed=seed, device=device,
         params=params, prompts=prompts, n_requests=n_requests,
         arrival_rate=arrival_rate, prompt_len=prompt_len, gen_len=gen_len)
     cache_len = prompt_len + gen_len

@@ -1,4 +1,4 @@
-"""Transformer layers, dense subset (counterpart of ``repro/models/layers.py``).
+"""Transformer layers (counterpart of ``repro/models/layers.py``; no MLA).
 
 Parameters are plain dicts of tensors with the reference's tree paths and
 layouts (head-major QKV weights (d, H, hd), output (H, hd, d)); they are
@@ -173,6 +173,7 @@ class AttnCall:
     use_decode_kernel: bool = False  # K5, single-query decode attention
     force_window: int = 0
     use_ssd_kernel: bool = False    # K7 in the ssm and hybrid mamba blocks
+    exact_moe: bool = False         # MoE capacity = tokens·K (no drops)
 
 
 def attention(p, cfg: ModelConfig, x, positions, call: AttnCall, dtype):

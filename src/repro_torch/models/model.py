@@ -4,7 +4,9 @@ the serving functions ``prefill``, ``init_cache``, ``prefill_cache``,
 ``decode``, ``decode_sample`` and ``sample_head``.
 
 Batches are ``{"tokens": (B,S) int, "labels": (B,S) int}``. ``loss`` returns
-the mean next-token cross entropy. The decode cache is the one of
+the mean next-token cross entropy plus the MoE router's load-balance loss
+(summed over the layers; 0 for the other families); ``logits`` and the
+prefills drop it, as the reference's do. The decode cache is the one of
 ``transformer.init_decode_cache``; decode steps update it in place.
 """
 from __future__ import annotations
@@ -33,6 +35,7 @@ class ModelCallConfig:
     use_decode_kernel: bool = False  # K5 decode attention + K6 sampling
     softcap: float = 0.0
     use_ssd_kernel: bool = False    # ssm/hybrid: the SSD on K7 (forward only)
+    exact_moe: bool = False         # no MoE capacity drops (C = tokens·K)
 
 
 @dataclasses.dataclass
@@ -76,7 +79,8 @@ def build(cfg: ModelConfig, call: Optional[ModelCallConfig] = None) -> Model:
         return AttnCall(window=0, softcap=call.softcap, chunk=chunk,
                         use_flash_kernel=call.use_flash_kernel,
                         force_window=call.decode_window,
-                        use_ssd_kernel=call.use_ssd_kernel)
+                        use_ssd_kernel=call.use_ssd_kernel,
+                        exact_moe=call.exact_moe)
 
     def _forward(params, tokens, want_cache, remat):
         x = embed(params["embed"], tokens, dtype)
@@ -86,13 +90,13 @@ def build(cfg: ModelConfig, call: Optional[ModelCallConfig] = None) -> Model:
                          dtype, want_cache=want_cache, remat=remat)
 
     def _forward_logits(params, batch):
-        y, _ = _forward(params, batch["tokens"], False, call.remat)
+        y, _, aux = _forward(params, batch["tokens"], False, call.remat)
         y = rmsnorm(params["final_norm"], y, cfg.norm_eps)
-        return unembed(params["embed"], y, cfg, dtype), batch["labels"]
+        return unembed(params["embed"], y, cfg, dtype), batch["labels"], aux
 
     def loss(params, batch):
-        logits_, labels = _forward_logits(params, batch)
-        return cross_entropy(logits_, labels, cfg.vocab_size)
+        logits_, labels, aux = _forward_logits(params, batch)
+        return cross_entropy(logits_, labels, cfg.vocab_size) + aux
 
     def logits(params, batch):
         return _forward_logits(params, batch)[0].float()
@@ -102,7 +106,7 @@ def build(cfg: ModelConfig, call: Optional[ModelCallConfig] = None) -> Model:
         return unembed(params["embed"], y, cfg, dtype)[:, 0, :]
 
     def prefill(params, batch):
-        y, caches = _forward(params, batch["tokens"], True, False)
+        y, caches, _ = _forward(params, batch["tokens"], True, False)
         return _last_logits(params, y), caches
 
     def init_cache(batch_size, cache_len, device):
@@ -118,7 +122,7 @@ def build(cfg: ModelConfig, call: Optional[ModelCallConfig] = None) -> Model:
         decode continues at pos = prompt_len: no prompt replay."""
         tokens = batch["tokens"]
         B, S = tokens.shape
-        y, caches = _forward(params, tokens, True, False)
+        y, caches, _ = _forward(params, tokens, True, False)
         cache = T.prefill_to_decode_cache(
             cfg, caches, S, init_cache(B, cache_len, tokens.device))
         return _last_logits(params, y), cache
@@ -128,7 +132,8 @@ def build(cfg: ModelConfig, call: Optional[ModelCallConfig] = None) -> Model:
         call_d = AttnCall(window=call.decode_window or 0,
                           softcap=call.softcap,
                           force_window=call.decode_window,
-                          use_decode_kernel=call.use_decode_kernel)
+                          use_decode_kernel=call.use_decode_kernel,
+                          exact_moe=call.exact_moe)
         y, cache = T.decode(params["blocks"], cfg, x, pos, cache, call_d,
                             dtype)
         return rmsnorm(params["final_norm"], y, cfg.norm_eps), cache

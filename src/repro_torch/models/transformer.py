@@ -1,4 +1,4 @@
-"""Decoder stack, dense, ssm and hybrid families (counterpart of
+"""Decoder stack, dense, moe, ssm and hybrid families (counterpart of
 ``repro/models/transformer.py``): the full-sequence forward (training and
 prefill), the decode cache and the one-token decode step.
 
@@ -19,6 +19,14 @@ fp32, leaves stacked over L; the hybrid's is the ssm cache plus
 ``"shared_k"`` and ``"shared_v"``, each (L // every, B, C, Hk, hd) bf16, one
 row per application. All are slot-major with the batch at dim 1; ``decode``
 updates them in place.
+
+The moe family's block is the dense one with a routed MoE FFN
+(``models/moe.py``; its router's load-balance loss is summed over the
+layers as ``forward``'s aux). Its first ``moe.moe_layer_start`` layers are
+dense blocks of FFN width ``moe.d_ff_dense`` (or ``d_ff``), kept unstacked
+in ``params["prefix"]``, a list, and run at full attention; their decode
+cache is ``"pk"`` / ``"pv"``, each (n_prefix, B, C, Hk, hd) bf16, beside
+the stack's ``"k"`` / ``"v"``.
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ModelConfig
 from repro_torch.models import layers as Lyr
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import (HUGE_WINDOW, AttnCall, init_rmsnorm,
                                        mlp, rmsnorm)
@@ -45,15 +54,30 @@ def _is_ssm(cfg: ModelConfig) -> bool:
     return cfg.family in ("ssm", "hybrid")
 
 
+def _n_prefix(cfg: ModelConfig) -> int:
+    """A MoE model's dense prefix layers (0 for the other families)."""
+    return cfg.moe.moe_layer_start if cfg.moe else 0
+
+
 def _init_block(gen, cfg: ModelConfig):
     d = cfg.d_model
     if _is_ssm(cfg):               # mamba block: a single pre-norm
         return {"norm1": init_rmsnorm(d, gen.device),
                 "mamba": SSM.init_mamba2(gen, cfg)}
+    ffn = MOE.init_moe(gen, cfg) if cfg.family == "moe" \
+        else Lyr.init_mlp(gen, d, cfg.d_ff)
+    return {"norm1": init_rmsnorm(d, gen.device),
+            "norm2": init_rmsnorm(d, gen.device),
+            "attn": Lyr.init_attention(gen, cfg), "ffn": ffn}
+
+
+def _init_dense_block(gen, cfg: ModelConfig, d_ff):
+    """A dense-FFN block: a MoE model's dense prefix layer."""
+    d = cfg.d_model
     return {"norm1": init_rmsnorm(d, gen.device),
             "norm2": init_rmsnorm(d, gen.device),
             "attn": Lyr.init_attention(gen, cfg),
-            "ffn": Lyr.init_mlp(gen, d, cfg.d_ff)}
+            "ffn": Lyr.init_mlp(gen, d, d_ff)}
 
 
 def _init_shared_block(gen, cfg: ModelConfig):
@@ -66,24 +90,31 @@ def _init_shared_block(gen, cfg: ModelConfig):
 
 
 def init_stack(gen, cfg: ModelConfig):
-    """All stack params: per-block leaves stacked with a leading L dim, and
-    the hybrid's shared block (``"shared"``).
+    """All stack params: per-block leaves stacked with a leading L dim, a MoE
+    model's dense prefix blocks (``"prefix"``, a list) and the hybrid's
+    shared block (``"shared"``).
 
     The (L, ...) leaves are allocated once and block i is initialised into
     slice i, in layer order (the draw order of one block after another), so
     at most one block lives beside the stack."""
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(f"model family {cfg.family!r} is not "
                                   f"ported yet")
+    n_prefix = _n_prefix(cfg)
+    Ls = cfg.n_layers - n_prefix
     stack = None
-    for i in range(cfg.n_layers):
+    for i in range(Ls):
         block = _init_block(gen, cfg)
         if stack is None:
-            stack = tree_map(lambda x: x.new_empty((cfg.n_layers,)
-                                                   + tuple(x.shape)), block)
+            stack = tree_map(lambda x: x.new_empty((Ls,) + tuple(x.shape)),
+                             block)
         tree_map(lambda s, x: s[i].copy_(x), stack, block)
         del block
     p = {"stack": stack}
+    if n_prefix:
+        d_ff = cfg.moe.d_ff_dense or cfg.d_ff
+        p["prefix"] = [_init_dense_block(gen, cfg, d_ff)
+                       for _ in range(n_prefix)]
     if cfg.hybrid_attn_every:
         p["shared"] = _init_shared_block(gen, cfg)
     return p
@@ -119,30 +150,42 @@ def _layers(stack, n_layers):
 
 def _block_fwd(bp, cfg, x, positions, window, call: AttnCall, dtype,
                want_cache=True):
-    """One block. Returns (x, cache): the attention's (k, v), or the mamba
-    block's decode cache (``want_cache``; else None)."""
+    """One block. Returns (x, cache, aux): the attention's (k, v), or the
+    mamba block's decode cache (``want_cache``; else None), and the MoE
+    router's load-balance loss (0.0 without a MoE FFN)."""
     if _is_ssm(cfg):
         h_in = rmsnorm(bp["norm1"], x, cfg.norm_eps)
         out = SSM.mamba2_forward(bp["mamba"], cfg, h_in, dtype,
                                  return_cache=want_cache,
                                  use_ssd_kernel=call.use_ssd_kernel)
         h, mc = out if want_cache else (out, None)
-        return x + h, mc
+        return x + h, mc, 0.0
     return _attn_block(bp, cfg, x, positions, window, call, dtype)
 
 
+def _ffn(p, cfg, x, call: AttnCall, dtype):
+    """The block's FFN: the routed MoE where ``p`` has a router (capacity
+    drops unless ``call.exact_moe``), else the gated MLP. Returns (out,
+    aux)."""
+    if "router" in p:
+        return MOE.moe_apply(p, cfg, x, cfg.act, dtype,
+                             no_drop=call.exact_moe)
+    return mlp(p, x, cfg.act, dtype), 0.0
+
+
 def _attn_block(p, cfg, x, positions, window, call: AttnCall, dtype):
-    """An attention + MLP block (the dense family's, and the hybrid's shared
-    one) on the residual stream: norm1, attention (K4 under
-    ``use_flash_kernel``), residual add, norm2, MLP, residual add. Returns
-    (x, (k, v))."""
+    """An attention + FFN block (the dense and moe families', a MoE model's
+    dense prefix, and the hybrid's shared one) on the residual stream:
+    norm1, attention (K4 under ``use_flash_kernel``), residual add, norm2,
+    FFN (MLP or MoE), residual add. Returns (x, (k, v), aux)."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     c = AttnCall(window=window, softcap=call.softcap, chunk=call.chunk,
                  use_flash_kernel=call.use_flash_kernel)
     h, kv = Lyr.attention(p["attn"], cfg, h, positions, c, dtype)
     x = x + h
-    f_in = rmsnorm(p["norm2"], x, cfg.norm_eps)
-    return x + mlp(p["ffn"], f_in, cfg.act, dtype), kv
+    f, aux = _ffn(p["ffn"], cfg, rmsnorm(p["norm2"], x, cfg.norm_eps), call,
+                  dtype)
+    return x + f, kv, aux
 
 
 def _applies_shared(cfg: ModelConfig, i: int) -> bool:
@@ -154,54 +197,69 @@ def _applies_shared(cfg: ModelConfig, i: int) -> bool:
 def _layer_fwd(bp, sp, cfg, x, positions, window, call, dtype, i,
                want_cache=True):
     """Stack layer ``i``, then the shared block where it applies. Returns
-    (x, the block's cache, the shared block's (k, v) or None)."""
-    x, c = _block_fwd(bp, cfg, x, positions, window, call, dtype,
-                      want_cache)
+    (x, the block's cache, the shared block's (k, v) or None, aux)."""
+    x, c, aux = _block_fwd(bp, cfg, x, positions, window, call, dtype,
+                           want_cache)
     skv = None
     if _applies_shared(cfg, i):
-        x, skv = _attn_block(sp, cfg, x, positions, window, call, dtype)
-    return x, c, skv
+        x, skv, _ = _attn_block(sp, cfg, x, positions, window, call, dtype)
+    return x, c, skv, aux
 
 
 def _layer_remat(bp, sp, cfg, x, positions, window, call, dtype, i):
-    return _layer_fwd(bp, sp, cfg, x, positions, window, call, dtype, i,
-                      want_cache=False)[0]
+    x, _, _, aux = _layer_fwd(bp, sp, cfg, x, positions, window, call, dtype,
+                              i, want_cache=False)
+    return x, aux
 
 
 def forward(params, cfg: ModelConfig, x, positions, call: AttnCall, dtype,
             want_cache=False, remat=True):
-    """x (B,S,d) residual stream -> (y (B,S,d), caches). With
+    """x (B,S,d) residual stream -> (y (B,S,d), caches, aux). With
     ``want_cache``, ``caches["stack"]`` holds the per-layer caches stacked
-    over L: ``(k, v)``, each (L,B,S,Hk,hd), for the dense family, the
-    ``mamba2_init_cache`` tree for the ssm family, and for the hybrid
-    ``{"mamba": that tree, "skv": (k, v)}`` with the shared block's K/V of
-    its L // every applications only, each (L // every,B,S,Hk,hd) (the
-    reference's scan emits zeros for the other layers); else ``caches`` is
-    empty. Under ``remat`` the checkpointed unit is the whole layer, the
-    shared block included."""
-    wins = layer_windows(cfg, cfg.n_layers, call.force_window)
+    over the stack's L layers: ``(k, v)``, each (L,B,S,Hk,hd), for the
+    dense and moe families, the ``mamba2_init_cache`` tree for the ssm
+    family, and for the hybrid ``{"mamba": that tree, "skv": (k, v)}`` with
+    the shared block's K/V of its L // every applications only, each
+    (L // every,B,S,Hk,hd) (the reference's scan emits zeros for the other
+    layers); a MoE model's dense prefix block i adds ``caches["prefix{i}"]``,
+    its (k, v); else ``caches`` is empty. ``aux`` is the MoE router loss
+    summed over the layers (0.0 for the other families). The prefix blocks
+    run first, at full attention (``force_window`` does not reach them, as
+    in the reference). Under ``remat`` the checkpointed unit is the whole
+    stack layer, the shared block included; its aux comes out of the
+    checkpoint beside x."""
+    caches, aux_total = {}, 0.0
+    for i, bp in enumerate(params.get("prefix", [])):
+        x, kv, aux = _attn_block(bp, cfg, x, positions, HUGE_WINDOW, call,
+                                 dtype)
+        aux_total = aux_total + aux
+        if want_cache:
+            caches[f"prefix{i}"] = kv
+    Ls = cfg.n_layers - _n_prefix(cfg)
+    wins = layer_windows(cfg, Ls, call.force_window)
     sp = params.get("shared")
     per_layer, shared_kv = [], []
-    for i, (bp, win) in enumerate(zip(_layers(params["stack"],
-                                              cfg.n_layers), wins)):
+    for i, (bp, win) in enumerate(zip(_layers(params["stack"], Ls), wins)):
         if remat and torch.is_grad_enabled() and not want_cache:
-            x = checkpoint(_layer_remat, bp, sp, cfg, x, positions, win,
-                           call, dtype, i, use_reentrant=False,
-                           preserve_rng_state=False)
+            x, aux = checkpoint(_layer_remat, bp, sp, cfg, x, positions, win,
+                                call, dtype, i, use_reentrant=False,
+                                preserve_rng_state=False)
         else:
-            x, c, skv = _layer_fwd(bp, sp, cfg, x, positions, win, call,
-                                   dtype, i, want_cache)
+            x, c, skv, aux = _layer_fwd(bp, sp, cfg, x, positions, win, call,
+                                        dtype, i, want_cache)
             if want_cache:
                 per_layer.append(c)
                 if skv is not None:
                     shared_kv.append(skv)
+        aux_total = aux_total + aux
     if not want_cache:
-        return x, {}
+        return x, caches, aux_total
     stack = tree_map(lambda *xs: torch.stack(xs), *per_layer)
     if cfg.hybrid_attn_every:
         stack = {"mamba": stack,
                  "skv": tree_map(lambda *xs: torch.stack(xs), *shared_kv)}
-    return x, {"stack": stack}
+    caches["stack"] = stack
+    return x, caches, aux_total
 
 
 # --------------------------------------------------------------------------- #
@@ -212,11 +270,12 @@ def forward(params, cfg: ModelConfig, x, positions, call: AttnCall, dtype,
 def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int, device,
                       dtype=torch.bfloat16):
     """An empty decode cache: k and v (L, batch, cache_len, Hk, hd) in
-    ``dtype`` for the dense family; for the ssm family the fp32
-    ``mamba2_init_cache`` leaves stacked over L (``cache_len`` unused: the
-    state does not grow with the context); for the hybrid that tree and
-    ``shared_k`` / ``shared_v``, each (L // every, batch, cache_len, Hk,
-    hd) in ``dtype``."""
+    ``dtype`` for the dense and moe families over the stack's L layers,
+    and ``pk`` / ``pv`` (n_prefix, ...) for a MoE model's dense prefix; for
+    the ssm family the fp32 ``mamba2_init_cache`` leaves stacked over L
+    (``cache_len`` unused: the state does not grow with the context); for
+    the hybrid that tree and ``shared_k`` / ``shared_v``, each (L // every,
+    batch, cache_len, Hk, hd) in ``dtype``."""
     if _is_ssm(cfg):
         one = SSM.mamba2_init_cache(cfg, batch, device)
         c = {"mamba": tree_map(
@@ -227,9 +286,18 @@ def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int, device,
             c["shared_k"] = torch.zeros(shape, dtype=dtype, device=device)
             c["shared_v"] = torch.zeros(shape, dtype=dtype, device=device)
         return c
-    shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    n_prefix = _n_prefix(cfg)
+    shape = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
+    c = {"k": torch.zeros((cfg.n_layers - n_prefix,) + shape, dtype=dtype,
+                          device=device),
+         "v": torch.zeros((cfg.n_layers - n_prefix,) + shape, dtype=dtype,
+                          device=device)}
+    if n_prefix:
+        c["pk"] = torch.zeros((n_prefix,) + shape, dtype=dtype,
+                              device=device)
+        c["pv"] = torch.zeros((n_prefix,) + shape, dtype=dtype,
+                              device=device)
+    return c
 
 
 def _ring_place(src, C, S, axis):
@@ -275,22 +343,32 @@ def prefill_to_decode_cache(cfg: ModelConfig, caches, prompt_len: int,
     new = dict(cache)
     new["k"] = _ring_place(k, C, prompt_len, axis=2).to(cache["k"].dtype)
     new["v"] = _ring_place(v, C, prompt_len, axis=2).to(cache["v"].dtype)
+    if "pk" in cache:
+        n_prefix = cache["pk"].shape[0]
+        for key, j in (("pk", 0), ("pv", 1)):
+            src = torch.stack([caches[f"prefix{i}"][j]
+                               for i in range(n_prefix)])
+            new[key] = _ring_place(src, C, prompt_len, axis=2).to(
+                cache[key].dtype)
     return new
 
 
 def _attn_block_decode(p, cfg, x, pos, kc, vc, window, call: AttnCall,
                        dtype):
-    """One token through an attention + MLP block (``_attn_block``'s
+    """One token through an attention + FFN block (``_attn_block``'s
     decode): its K/V written into ``kc`` / ``vc`` in place; K5 under
-    ``use_decode_kernel``."""
+    ``use_decode_kernel``. A MoE FFN routes each row's one token on its
+    own (capacity 8, or K under ``exact_moe``: never a drop); its aux is
+    dropped, as the reference's decode drops it."""
     h_in = rmsnorm(p["norm1"], x, cfg.norm_eps)
     c = AttnCall(window=window, softcap=call.softcap,
                  use_decode_kernel=call.use_decode_kernel)
     h, _, _ = Lyr.attention_decode(p["attn"], cfg, h_in, pos, kc, vc, c,
                                    dtype)
     x = x + h
-    f_in = rmsnorm(p["norm2"], x, cfg.norm_eps)
-    return x + mlp(p["ffn"], f_in, cfg.act, dtype)
+    f, _ = _ffn(p["ffn"], cfg, rmsnorm(p["norm2"], x, cfg.norm_eps), call,
+                dtype)
+    return x + f
 
 
 def decode(params, cfg: ModelConfig, x, pos, cache, call: AttnCall, dtype):
@@ -298,9 +376,15 @@ def decode(params, cfg: ModelConfig, x, pos, cache, call: AttnCall, dtype):
     cache). The new token's K/V (dense; the hybrid's shared block, in its
     application's row) and the recurrent state and conv tails (ssm and
     hybrid; the mamba step does not read ``pos``) are written into
-    ``cache`` in place, layer by layer; the same dict is returned."""
-    wins = layer_windows(cfg, cfg.n_layers, call.force_window)
-    layers = zip(_layers(params["stack"], cfg.n_layers), wins)
+    ``cache`` in place, layer by layer; the same dict is returned. A MoE
+    model's dense prefix blocks run first on ``pk`` / ``pv`` at
+    ``call.window`` (the reference's)."""
+    for i, bp in enumerate(params.get("prefix", [])):
+        x = _attn_block_decode(bp, cfg, x, pos, cache["pk"][i],
+                               cache["pv"][i], call.window, call, dtype)
+    Ls = cfg.n_layers - _n_prefix(cfg)
+    wins = layer_windows(cfg, Ls, call.force_window)
+    layers = zip(_layers(params["stack"], Ls), wins)
     if not _is_ssm(cfg):
         for i, (bp, win) in enumerate(layers):
             x = _attn_block_decode(bp, cfg, x, pos, cache["k"][i],

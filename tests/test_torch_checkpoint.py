@@ -627,11 +627,11 @@ def test_register_and_param_count_of_the_examples_config(tiny, monkeypatch):
     assert "lm-100m" in configs.list_archs()
     assert configs.get_config("lm-100m") is cfg
     with pytest.raises(NotImplementedError, match="not ported"):
-        configs.get_config("qwen2-moe-a2.7b")
+        configs.get_config("deepseek-v2-236b")
 
 
 def test_param_count_refuses_unported_families():
-    cfg = configs.get_config("qwen2-0.5b", True).replace(family="moe")
+    cfg = configs.get_config("qwen2-0.5b", True).replace(family="audio")
     with pytest.raises(NotImplementedError):
         cfg.param_count()
 
