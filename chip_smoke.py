@@ -68,6 +68,22 @@ continuous batching of 16 requests on 8 slots, three held against solo
 serving (12c); K4, K5 and K6 against their plain versions at its shapes and
 timed (12d). It starts by checking that the earlier phases left under 1
 GiB allocated, and holds one full-width copy of the weights at a time.
+Phase 13 drives multi-head latent attention on deepseek-v2-236b at full
+width cut to 4 of its 60 layers (the dense prefix layer and 3 MoE layers
+of 160 routed top-6 experts; 49.56 GiB of fp32 weights): served at batch
+2 from a 2048-token prompt through K4 (its 4 layers' prefill at q/k width
+192, V padded from 128) and K6 (the untied 102,400-row head), the decode
+in the latent space on tensor ops (the reference's absorbed path), its
+prefill's device time by kernel, the decode step's device and host times
+and the share of choices dropped per MoE layer (13a); K4 held layer by
+layer and end to end against the chunked plain route, the absorbed decode
+against the naive one and K6 against the plain decode, every routing
+difference a near tie (13b); continuous batching of 16 requests on 8
+slots, three held against solo serving (13c); then musicgen-large (frame
+embeddings, 13d) and internvl2-1b (256 patches before the text, the tied
+table, 13e) at full width and depth through K4, K5 and K6, held as 11b;
+K4 at MLA's and musicgen's shapes, K5 at musicgen's and K6 at
+deepseek-v2's head against their plain versions and timed (13f).
 Any failed phase raises and the script exits non-zero. Without a CUDA
 device, or without the rest of the repository beside it, it exits non-zero
 before printing any result.
@@ -267,6 +283,37 @@ MOE_HEAD = (153_600, 151_936, 2048, 2048 ** -0.5, 1.0)
 # margin within this many times the largest router-probability difference
 # of the tokens whose routing agreed (tests/_torch_moe_routing.py)
 MOE_FLIP_FACTOR = 4.0
+# phase 13: deepseek-v2-236b (MLA: q LoRA 1536, a 512-wide latent KV and one
+# shared 64-wide rope key, 128 heads of nope 128 + rope 64, v 128; 160 routed
+# experts of width 1536, top 6, two shared; one dense prefix layer of FFN
+# width 12288; an untied 102,400-row head) at full width cut to 4 of its 60
+# layers (the dense prefix layer and 3 MoE layers: 13,302,903,808
+# parameters, 49.56 GiB in fp32; 60 layers are 878 GiB, 5 would be 64.35
+# GiB, too near the card's 80 GB with the prefill's transients); then
+# musicgen-large (audio: 48 layers, d 2048, MHA 32/32 of d_head 64, GeGLU,
+# frame embeddings in, a 2048-row untied head) and internvl2-1b (vlm:
+# qwen2-0.5b's 24 layers, 256 patch embeddings before the text, a tied
+# 151,655-row table) at full width and depth
+DSV2_ARCH = "deepseek-v2-236b-4l"
+N_DSV2_LAYERS, DSV2_PARAMS = 4, 13_302_903_808
+DSV2 = dict(batch=2, prompt_len=2048, gen_len=64)
+DSV2_TRACE = dict(slots=8, n_requests=16, prompt_len=256, gen_len=64,
+                  arrival_rate=0.5, seed=0)
+DSV2_CAPACITY = 96                      # int(2048 · 6 · 1.25 / 160), a row
+DSV2_NAIVE_STEPS = 8                    # absorbed against naive decode
+K4_MLA = (2, 2048, 128, 128, 192)       # B, S, H, Hk, D: q and k at 192
+MLA_DV = 128                            # V padded from 128 to 192 for K4
+DSV2_HEAD = (102_400, 102_400, 5120, 5120 ** -0.5, 1.0)
+MUSICGEN_ARCH, INTERNVL_ARCH = "musicgen-large", "internvl2-1b"
+MUSICGEN = dict(batch=4, prompt_len=2048, gen_len=64)
+INTERNVL = dict(batch=8, prompt_len=512, gen_len=64)  # 256 patches + 256
+N_MUSICGEN_LAYERS, N_INTERNVL_LAYERS = 48, 24
+K4_MUSICGEN = (4, 2048, 32, 32, 64)
+K4_INTERNVL = (8, 512, 14, 2, 64)
+K5_MUSICGEN = (4, 2112, 32, 1, 64)      # B, C, Hk, rep, D of the decode
+K5_INTERNVL = (8, 576, 2, 7, 64)
+MUSICGEN_HEAD = (2048, 2048, 2048, 2048 ** -0.5, 1.0)
+INTERNVL_HEAD = (153_600, 151_655, 896, 0.02, 896 ** -0.5)
 # 10d: zamba2 training at full width, depth cut to 12 layers (two
 # applications of the shared block; below 6 it would never run) and to 6
 # for fused against tree (one application)
@@ -1090,27 +1137,35 @@ def k4_case(B, S, H, Hk, D, window, cap, dtype, gen):
     return err, bound
 
 
-def k4_work(B, S, H, Hk, D, window=0):
-    """(flops, bytes) K4 must do at a causal shape: two D-long dots per
-    pair that the causal mask (and ``window``, where positive) keeps; read
-    q, k, v once, write out."""
+def k4_work(B, S, H, Hk, D, window=0, dv=None):
+    """(flops, bytes) K4 must do at a causal shape: a D-long and a
+    dv-long dot (dv = D unless given: MLA's value head) per pair that the
+    causal mask (and ``window``, where positive) keeps; read q, k, v once,
+    write out."""
+    dv = dv or D
     w = window if window and window < S else S
     pairs = B * H * (w * (w + 1) // 2 + (S - w) * w)
-    return 4 * D * pairs, 4 * (2 * B * S * H * D + 2 * B * S * Hk * D)
+    return (2 * (D + dv) * pairs,
+            4 * (B * S * H * (D + dv) + B * S * Hk * (D + dv)))
 
 
-def time_k4(gen, shape=K4_MAIN, window=0):
+def time_k4(gen, shape=K4_MAIN, window=0, dv=None):
     """K4 at a prefill's shape (with ``window`` where positive): CUDA-event
     times of the kernel wrapper, its plain version (row by row), the
     port's chunked ``models/flash.py`` forward (KV repeated to H heads
     beforehand, blocks of 1024, as the model's plain route runs it) and
     SDPA (fp32, GQA; causal, or a boolean mask of the window) with the
     backend it took, and its bound, counted on the true D (a D of 80 pads
-    to the 128-wide tile) and the pairs the mask keeps."""
+    to the 128-wide tile) and the pairs the mask keeps. ``dv``: MLA's
+    call, V zero-padded from dv to D as ``models/mla.py`` passes it to K4
+    and the chunked route; SDPA gets the true dv-wide V, and the bound
+    counts the true dims."""
     B, S, H, Hk, D = shape
     q, k, v = k4_inputs(B, S, H, Hk, D, torch.float32, gen)
-    out = fa.flash_attention(q, k, v, window=window)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if dv:
+        v[..., dv:] = 0.0
+    out = fa.flash_attention(q, k, v, window=window)[..., :dv or D]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v[..., :dv or D]))
     i = torch.arange(S, device=DEV)
     mask = (i[None] <= i[:, None]) & (i[:, None] - i[None] < window) \
         if window else None
@@ -1138,7 +1193,7 @@ def time_k4(gen, shape=K4_MAIN, window=0):
         t["chunked_ms"] = cuda_ms(lambda: flash_attention_bshd(
             q, kr, vr, pos, pos, window=window or None, bq=1024, bk=1024),
             2)
-    t["flops"], t["bytes"] = k4_work(B, S, H, Hk, D, window)
+    t["flops"], t["bytes"] = k4_work(B, S, H, Hk, D, window, dv)
     t["bound_ms"] = max(t["bytes"] / HBM_BYTES_PER_S,
                         t["flops"] / FP32_FLOP_PER_S) * 1e3
     del q, k, v, qt, kt, vt, kr, vr, mask
@@ -2015,9 +2070,10 @@ def phase11(gen):
 # --------------------------------------------------------------------------- #
 
 
-def moe_layer_hold(cfg, params, prompt):
-    """12b, layer by layer: the plain route's input to each of the 24
-    layers goes through the block on both routes (dense attention; K4).
+def moe_layer_hold(cfg, params, prompt, plain_c=None):
+    """12b and 13b, layer by layer: the plain route's input to each layer
+    (a dense prefix block's too) goes through the block on both routes
+    (``plain_c``: dense attention unless given; K4).
     K4's output is held against its plain version (``k4_plain``) on the
     very q, k and v it got, within 2e-5·max|v| (``k4_case``'s bound); the
     two routings are held under the near-tie rule, layer by layer (each
@@ -2030,7 +2086,8 @@ def moe_layer_hold(cfg, params, prompt):
     tokens = prompt["tokens"]
     S = tokens.shape[1]
     pos = torch.arange(S, dtype=torch.int32, device=DEV)
-    plain_c, k4_c = Lyr.AttnCall(), Lyr.AttnCall(use_flash_kernel=True)
+    plain_c = plain_c or Lyr.AttnCall()
+    k4_c = Lyr.AttnCall(use_flash_kernel=True)
     K = cfg.moe.top_k
     real_fa, seen = kops.flash_attention, []
 
@@ -2043,7 +2100,10 @@ def moe_layer_hold(cfg, params, prompt):
     flips = 0
     with torch.inference_mode():
         x = Lyr.embed(params["embed"], tokens, f32)
-        layers = transformer._layers(params["blocks"]["stack"], cfg.n_layers)
+        n_prefix = transformer._n_prefix(cfg)
+        layers = list(params["blocks"].get("prefix", [])) + \
+            transformer._layers(params["blocks"]["stack"],
+                                cfg.n_layers - n_prefix)
         for i, bp in enumerate(layers):
             with RouteRecorder(moe_mod) as rp:
                 xp, _, _ = transformer._attn_block(bp, cfg, x, pos,
@@ -2071,7 +2131,7 @@ def moe_layer_hold(cfg, params, prompt):
                 raise RuntimeError(f"chip_smoke: moe layer {i}: {e}")
             flips += r["flips"]
             worst = max(worst, r["worst"])
-            eps = max(eps, r["eps"][0])
+            eps = max([eps] + r["eps"])         # no call in a prefix layer
             same = ~torch.zeros(xp.shape[:2], dtype=torch.bool, device=DEV)
             if r["flips"]:
                 pk = torch.sort(rk.calls[0]["eidx"], -1).values
@@ -2090,10 +2150,11 @@ def moe_prefill_hold(cfg, params, prompt, S, G, plain, kern):
     first routing difference is held as a near tie; a batch row in which
     no token's routing differed is held as ``hold_prefill`` holds one (last
     logits within 1e-4·max|logit|, first ids under the near-tie rule); the
-    bf16 K/V cache of layer l is held (1e-4 of its largest value plus one
-    bf16 ulp at the top binade) on the rows whose routing agreed in every
-    layer before l. Returns a dict of what it found, the plain cache and
-    the plain greedy ids."""
+    bf16 cache (K/V, or MLA's latent) of layer l is held (1e-4 of its
+    largest value plus one bf16 ulp at the top binade) on the rows whose
+    routing agreed in every layer before l (a dense prefix layer's on
+    every row). Returns a dict of what it found, the plain cache and the
+    plain greedy ids."""
     K = cfg.moe.top_k
     with torch.inference_mode():
         with RouteRecorder(moe_mod) as rp:
@@ -2121,9 +2182,13 @@ def moe_prefill_hold(cfg, params, prompt, S, G, plain, kern):
                   "the near-tie rule")
         before = torch.zeros(B, dtype=torch.bool, device=DEV)
         cratio, held = 0.0, 0
-        for i in range(cfg.n_layers):
+        keys, pkeys = transformer._cache_keys(cfg)
+        n_prefix = transformer._n_prefix(cfg)
+        layers = [(pkeys, i, False) for i in range(n_prefix)] + \
+            [(keys, i, True) for i in range(cfg.n_layers - n_prefix)]
+        for names, i, routed in layers:
             rows = ~before
-            for key in ("k", "v"):
+            for key in names:
                 a = cache_k[key][i][rows].float()
                 b = cache_p[key][i][rows].float()
                 if not a.numel():
@@ -2135,7 +2200,8 @@ def moe_prefill_hold(cfg, params, prompt, S, G, plain, kern):
                       f"by {e:.3e} (bound {bound:.3e})")
                 cratio = max(cratio, e / bound)
             held += int(rows.sum())
-            before |= r["layer_rows"][i]
+            if routed:
+                before |= r["layer_rows"][i]
         # per MoE layer, the share of routed choices dropped by capacity
         drops = [float(1.0 - c["keep"].float().mean()) for c in rk.calls]
     out = {"routing": r, "clean": clean, "lerr": [float(e) for e in lerr],
@@ -2361,6 +2427,380 @@ def phase12(gen):
           f"GEMMs {p['prefill_gemm_ms']:.1f}, rest "
           f"{p['prefill_other_ms']:.1f})", flush=True)
     return {"moe": m, "kernels": ks}
+
+
+# --------------------------------------------------------------------------- #
+# phase 13: MLA (deepseek-v2-236b, 4 of 60 layers), musicgen-large and
+# internvl2-1b
+# --------------------------------------------------------------------------- #
+
+
+def register_dsv2():
+    """Full-width deepseek-v2-236b cut to 4 layers, registered as
+    ``DSV2_ARCH`` so that ``serve`` drives it."""
+    mod = types.ModuleType("repro_torch.configs.deepseek_v2_236b_4l")
+    mod.CONFIG = mod.REDUCED = get_config("deepseek-v2-236b").replace(
+        n_layers=N_DSV2_LAYERS)
+    sys.modules[mod.__name__] = mod
+    configs.register(DSV2_ARCH, "deepseek_v2_236b_4l")
+
+
+def decode_profile(cfg, params, kw, untraced=6, traced=4, **flags):
+    """A decode step at ``kw``'s batch after its prompt, with the kernel
+    ``flags``: ``untraced`` greedy steps timed between synchronizations
+    (the host's clock), then ``traced`` under the profiler. Returns the
+    median host ms (the first step left out), the device ms a step, K6's
+    ms a step and the top kernels."""
+    model = build_model(cfg, ModelCallConfig(dtype=torch.float32, **flags))
+    B, S = kw["batch"], kw["prompt_len"]
+    steps = untraced + traced
+    host = []
+    with torch.inference_mode():
+        prompt = sample_batch(cfg, rng.TorchStream(1), B, S, DEV)
+        logits, cache = model.prefill_cache(params, prompt, S + steps + 1)
+        head = model.sample_head(params) if model.call.use_decode_kernel \
+            else None
+        noise = torch.zeros_like(logits)
+        tok = sample_ids(logits, noise, cfg.vocab_size)
+        for g in range(untraced):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tok, cache = model.decode_sample(params, cache, tok, S + g,
+                                             noise, head)
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for g in range(untraced, steps):
+                tok, cache = model.decode_sample(params, cache, tok, S + g,
+                                                 noise, head)
+            torch.cuda.synchronize()
+    kernels = profile_serve._device_events(prof)
+    k6 = [e for e in kernels
+          if any(f in e.key for f in profile_serve.KERNELS["k6"])]
+    out = {"host_ms": float(np.median(host[1:])),
+           "device_ms": profile_serve._ms(kernels) / traced,
+           "k6_ms": profile_serve._ms(k6) / traced,
+           "launches": sum(e.count for e in kernels) / traced,
+           "top": profile_serve._tops(kernels, traced, "ms_per_step")[:5]}
+    del prof, cache, head, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def mla_naive_hold(cfg, params, cache, tok, S, steps):
+    """13b: the reference's two MLA decode paths, absorbed (the default:
+    attention in the latent space) and naive (K and V rebuilt from the
+    latent every step), each from its own clone of one prefill cache,
+    teacher-forced on the absorbed path's greedy tokens, every step's
+    routing recorded on both. A row whose routing differed in a step (a
+    near tie, held as such) parts there; on the other rows the logits are
+    held within 1e-4·max|logit| and the naive path's ids under the
+    near-tie rule. Returns (largest logit error, its bound, near-tie
+    exceptions, ids compared, routing differences, {row: step it
+    parted})."""
+    K = cfg.moe.top_k
+    absorbed = build_model(cfg, ModelCallConfig(dtype=torch.float32))
+    naive = build_model(cfg, ModelCallConfig(dtype=torch.float32,
+                                             mla_absorbed=False))
+    clone = lambda c: tree_map(lambda t: t.clone(), c)
+    cache_a, cache_n = clone(cache), clone(cache)
+    live = torch.ones(tok.shape[0], dtype=torch.bool, device=DEV)
+    lerr = lbound = 0.0
+    ties = compared = flips = 0
+    parted = {}
+    with torch.inference_mode():
+        for g in range(steps):
+            with RouteRecorder(moe_mod) as ra:
+                la, cache_a = absorbed.decode(params, cache_a, tok, S + g)
+            with RouteRecorder(moe_mod) as rn:
+                ln, cache_n = naive.decode(params, cache_n, tok, S + g)
+            try:
+                r = hold_routing(rn.calls, ra.calls, K, MOE_FLIP_FACTOR,
+                                 live=live)
+            except AssertionError as e:
+                raise RuntimeError(f"chip_smoke: MLA naive decode step {g}: "
+                                   f"{e}")
+            flips += r["flips"]
+            for b in r["rows"]:
+                parted[b] = g
+                live[b] = False
+            want = sample_ids(la, 0.0, cfg.vocab_size)
+            rows = torch.nonzero(live).flatten()
+            if rows.numel():
+                e = float((ln[rows] - la[rows]).abs().max())
+                bound = 1e-4 * float(la[rows].abs().max())
+                check(e <= bound, f"MLA naive decode step {g}: logits "
+                      f"differ by {e:.3e} (bound {bound:.3e})")
+                lerr, lbound = max(lerr, e), max(lbound, bound)
+                t, bad = ref.near_tie_check(
+                    la[rows], sample_ids(ln, 0.0, cfg.vocab_size)[rows],
+                    want[rows], cfg.vocab_size)
+                check(bad == 0, f"MLA naive decode step {g}: ids break the "
+                      f"near-tie rule")
+                ties += t
+                compared += int(rows.numel())
+            tok = want
+    del cache_a, cache_n
+    return lerr, lbound, ties, compared, flips, parted
+
+
+def dsv2_phase():
+    """13a: deepseek-v2-236b at full width, 4 layers, served through K4 (its
+    4 layers' prefill, MLA at D = 192 with V padded) and K6 (the untied
+    102,400-row head), the decode absorbed in the latent space on tensor
+    ops; the prefill's device time by kernel, the decode step's device and
+    host times, the share of routed choices dropped per MoE layer. 13b: K4
+    held layer by layer against the chunked plain route and end to end,
+    the absorbed decode against the naive one, the K6 ids against the
+    plain decode's matmul + argmax, teacher-forced; every routing
+    difference a near tie. 13c: continuous batching on 8 slots (MLA's
+    per-slot decode positions), three requests held against solo
+    serving."""
+    check(torch.cuda.memory_allocated() < 2 ** 30, "phase 13 starts with "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    register_dsv2()
+    cfg = get_config(DSV2_ARCH)
+    check(cfg.param_count() == DSV2_PARAMS and transformer._n_prefix(cfg) == 1
+          and moe_mod._capacity(DSV2["prompt_len"], cfg.moe) == DSV2_CAPACITY,
+          f"{DSV2_ARCH}'s config")
+    steps = DSV2["gen_len"] - 1
+    flags = dict(use_flash_kernel=True, use_decode_kernel=True)
+    print(f"[chip_smoke] 13a deepseek-v2 serve path: serve('{DSV2_ARCH}', "
+          f"reduced=False, {flags}, {DSV2}); {cfg.param_count()} parameters "
+          f"({cfg.active_param_count()} active a token; "
+          f"{cfg.param_count() * 4 / 2 ** 30:.2f} GiB), {N_DSV2_LAYERS} of "
+          f"the 60 layers, capacity {DSV2_CAPACITY} a row in the prefill",
+          flush=True)
+    res, counts, peak = serve_path(
+        DSV2_ARCH, DSV2, {"k4": N_DSV2_LAYERS, "k5": 0, "k6": steps,
+                          "k7": 0}, **flags)
+    step_ms = float(np.median(res.per_token_s)) * 1e3
+    ttft_ms = res.timings["prefill_s"] * 1e3
+    tok_s = res.timings["tok_per_s"]
+    del res
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = full_params(DSV2_ARCH)
+    init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[chip_smoke]   the weights' init alone peaks at {init_peak:.2f} "
+          f"GiB (the stack, and one block beside it while it is drawn)",
+          flush=True)
+    prof = prefill_profile(cfg, params, DSV2, use_flash_kernel=True)
+    check(prof["prefill_k4_launches"] == N_DSV2_LAYERS,
+          f"profiled prefill launches K4 {prof['prefill_k4_launches']}")
+    print(f"[chip_smoke]   routing's sort / scatter / gather / index "
+          f"kernels: {prof['prefill_dispatch_ms']:.2f} ms", flush=True)
+    dec = decode_profile(cfg, params, DSV2, **flags)
+    print(f"[chip_smoke]   decode step (B={DSV2['batch']}, C "
+          f"{DSV2['prompt_len']}+): device {dec['device_ms']:.2f} ms (K6 "
+          f"{dec['k6_ms']:.3f} ms, {dec['launches']:.0f} kernels), host "
+          f"median {dec['host_ms']:.2f} ms; top "
+          f"{[(e['name'][:40], round(e['ms_per_step'], 2)) for e in dec['top']]}",
+          flush=True)
+    B, S, G = DSV2["batch"], DSV2["prompt_len"], DSV2["gen_len"]
+    prompt = sample_batch(cfg, rng.TorchStream(1), B, S, DEV)
+    chunked = Lyr.AttnCall(chunk=1024)
+    k4r, lflips, lworst, leps, xerr = moe_layer_hold(cfg, params, prompt,
+                                                     chunked)
+    print(f"[chip_smoke] 13b K4 layer by layer (the chunked plain route's "
+          f"input to each of {N_DSV2_LAYERS} layers): K4 at {k4r:.3f} of its "
+          f"bound at worst; routing differences {lflips} (worst margin at "
+          f"{lworst:.3f} of {MOE_FLIP_FACTOR}·eps), router probabilities "
+          f"within {leps:.3e}, block outputs within {xerr:.3e} where the "
+          f"routing agreed", flush=True)
+    plain = build_model(cfg, ModelCallConfig(dtype=torch.float32,
+                                             attn_chunk=1024,
+                                             dense_attn_max=1024))
+    kern = build_model(cfg, ModelCallConfig(dtype=torch.float32, **flags))
+    e2e, cache_p, tok = moe_prefill_hold(cfg, params, prompt, S, G, plain,
+                                         kern)
+    r, d = e2e["routing"], e2e["drops"]
+    print(f"[chip_smoke] 13b K4 prefill vs chunked prefill end to end: "
+          f"routing differences {r['flips']} token-layers ({r['first']} "
+          f"first differences, margins {[f'{m:.2e}' for m in r['margins']]},"
+          f" worst at {r['worst']:.3f} of {MOE_FLIP_FACTOR}·eps), rows with "
+          f"a difference {r['rows']}; last logits max abs by row "
+          f"{[f'{e:.3e}' for e in e2e['lerr']]} (bound {e2e['lbound']:.3e} "
+          f"held on rows {e2e['clean']}), first ids equal "
+          f"{e2e['ids_equal']}/{B}, near-tie exceptions {e2e['ties']}; "
+          f"cache layers at {e2e['cratio']:.3f} of their bounds "
+          f"({e2e['cache_rows_held']} layer-rows held)", flush=True)
+    print(f"[chip_smoke] 13a routed choices dropped by capacity (C = "
+          f"{DSV2_CAPACITY}, the serve's prompt and weights, K4 route) per "
+          f"MoE layer: {[f'{x * 100:.2f} %' for x in d]}", flush=True)
+    nerr, nbound, nties, n_naive, nflips, nparted = mla_naive_hold(
+        cfg, params, cache_p, tok, S, DSV2_NAIVE_STEPS)
+    print(f"[chip_smoke] 13b MLA absorbed vs naive decode from one cache, "
+          f"teacher-forced {DSV2_NAIVE_STEPS} steps: logits max abs "
+          f"{nerr:.3e} (bound {nbound:.3e}), {n_naive} ids, near-tie "
+          f"exceptions {nties}; routing differences {nflips} (rows parted "
+          f"at a near tie: {nparted})", flush=True)
+    dkern = build_model(cfg, ModelCallConfig(dtype=torch.float32,
+                                             use_decode_kernel=True))
+    dties, n_ids, dflips, parted = moe_decode_hold(cfg, params, cache_p,
+                                                   tok, S, G, dkern, plain)
+    del cache_p
+    torch.cuda.empty_cache()
+    print(f"[chip_smoke] 13b K6 decode vs plain (matmul + argmax) from one "
+          f"cache, teacher-forced: {n_ids} ids, near-tie exceptions "
+          f"{dties}; routing differences {dflips} (rows parted at a near "
+          f"tie: {parted})", flush=True)
+    print(f"[chip_smoke] 13c serve_continuous('{DSV2_ARCH}', reduced=False, "
+          f"{flags}, {DSV2_TRACE})", flush=True)
+    cres, ccounts, _, _ = continuous_check(
+        DSV2_ARCH, params, DSV2_TRACE, flags, flags, {"k4": N_DSV2_LAYERS}, 0)
+    cm = cres.metrics
+    del params, kern, dkern, plain, cres
+    torch.cuda.empty_cache()
+    return {"counts": counts, "ccounts": ccounts, "peak": peak,
+            "init_peak": init_peak, "prefill": prof, "decode": dec,
+            "step_ms": step_ms,
+            "ttft_ms": ttft_ms, "tok_s": tok_s, "drops": d,
+            "e2e_flips": r["flips"], "layer_flips": lflips,
+            "naive_flips": nflips, "decode_flips": dflips,
+            "ring_p50_ms": cm["p50_step_s"] * 1e3}
+
+
+def frontend_phase(arch, kw, n_layers, tag):
+    """13d / 13e: ``arch`` (musicgen-large's frame embeddings, internvl2-1b's
+    patches before the text) served at full width and depth through K4
+    (every layer), K5 and K6; its prefill's device time by kernel; the K4
+    prefill held against the plain one (dense at these prompt lengths) and
+    the K5/K6 decode against the plain decode, teacher-forced from one
+    cache (11b's holds)."""
+    cfg = get_config(arch)
+    check(cfg.n_layers == n_layers, f"{arch}'s config")
+    steps = kw["gen_len"] - 1
+    flags = dict(use_flash_kernel=True, use_decode_kernel=True)
+    print(f"[chip_smoke] {tag} {arch} serve path: serve('{arch}', "
+          f"reduced=False, {flags}, {kw}); family {cfg.family}, "
+          f"{cfg.param_count()} parameters", flush=True)
+    res, counts, peak = serve_path(
+        arch, kw, {"k4": n_layers, "k5": K5_PER_CALL * n_layers * steps,
+                   "k6": steps, "k7": 0}, **flags)
+    step_ms = float(np.median(res.per_token_s)) * 1e3
+    ttft_ms = res.timings["prefill_s"] * 1e3
+    tok_s = res.timings["tok_per_s"]
+    del res
+    cfg, params = full_params(arch)
+    kern = build_model(cfg, ModelCallConfig(dtype=torch.float32,
+                                            use_decode_kernel=True))
+    if cfg.tie_embeddings:
+        check(kern.sample_head(params)[0].data_ptr()
+              == params["embed"]["table"].data_ptr(),
+              f"K6's head is a copy of {arch}'s tied table")
+    prof = prefill_profile(cfg, params, kw, use_flash_kernel=True)
+    check(prof["prefill_k4_launches"] == n_layers,
+          f"profiled prefill launches K4 {prof['prefill_k4_launches']}")
+    # as the long-prompt K4 path: 1e-4 of the largest logit
+    lerr, lbound, cratio, ties, cache_p, tok, plain = hold_prefill(
+        cfg, params, kw, dict(use_flash_kernel=True), lambda: 1e-4, arch)
+    dties, n_ids = decode_same_cache(cfg, params, cache_p, tok,
+                                     kw["prompt_len"], kw["gen_len"], kern,
+                                     plain, arch)
+    print(f"[chip_smoke] {tag} K4 prefill vs dense plain prefill, full "
+          f"width: last logits max abs {lerr:.3e} (bound {lbound:.3e}), "
+          f"cache leaves at {cratio:.3f} of their bounds at worst, first "
+          f"ids near-tie exceptions {ties}; K5/K6 decode vs plain from one "
+          f"cache: {n_ids} ids, near-tie exceptions {dties}", flush=True)
+    del params, cache_p, kern, plain
+    torch.cuda.empty_cache()
+    return {"counts": counts, "peak": peak, "prefill": prof,
+            "step_ms": step_ms, "ttft_ms": ttft_ms, "tok_s": tok_s,
+            "lerr": lerr, "lbound": lbound, "ties": ties, "dties": dties}
+
+
+def phase13_kernels(gen):
+    """13f: K4 at MLA's prefill shape (q and k at D = 192, V padded from
+    128, as ``models/mla.py`` calls it; its bound on the true dims), at
+    musicgen's and internvl2's, K5 at their decode shapes and K6 at
+    deepseek-v2's, musicgen's and internvl2's heads, held against their
+    plain versions; K4 (MLA, musicgen), K5 (musicgen) and K6 (deepseek-v2)
+    timed, SDPA and matmul + argmax beside them."""
+    out = {"k4_err": 0.0, "k5_err": 0.0, "k6_err": 0.0}
+    for shape in (K4_MLA, K4_MUSICGEN, K4_INTERNVL):
+        err, bound = k4_case(*shape, 0, 0.0, torch.float32, gen)
+        out["k4_err"] = max(out["k4_err"], err)
+        print(f"[chip_smoke] K4 B,S,H,Hk,D={shape}: max abs {err:.3e} "
+              f"(bound {bound:.1e})", flush=True)
+        check(err <= bound, f"K4 differs from its plain version at {shape}")
+    for shape in (K5_MUSICGEN, K5_INTERNVL):
+        err, bound = k5_case(*shape, 0.0, gen)
+        out["k5_err"] = max(out["k5_err"], err)
+        print(f"[chip_smoke] K5 B,C,Hk,rep,D={shape} plan "
+              f"{ds.attention_plan(shape[0], shape[2], shape[1])}: max abs "
+              f"{err:.3e} (bound {bound:.1e})", flush=True)
+        check(err <= bound, f"K5 differs from its plain version at {shape}")
+    for name, head, B_ in (("deepseek-v2", DSV2_HEAD, DSV2["batch"]),
+                           ("deepseek-v2 ring", DSV2_HEAD,
+                            DSV2_TRACE["slots"]),
+                           ("musicgen", MUSICGEN_HEAD, MUSICGEN["batch"]),
+                           ("internvl2", INTERNVL_HEAD, INTERNVL["batch"])):
+        for greedy in (True, False):
+            ties, bad, err = k6_case(B_, greedy, gen, head=head)
+            out["k6_err"] = max(out["k6_err"], err)
+            print(f"[chip_smoke] K6 {name} head B={B_} "
+                  f"{'greedy' if greedy else 'gumbel'}: near-tie exceptions "
+                  f"{ties}, violations {bad}, winning logit max abs "
+                  f"{err:.3e}", flush=True)
+            check(bad == 0, f"K6 breaks the near-tie rule at {name}'s head")
+    out["k4"] = {"mla": time_k4(gen, K4_MLA, dv=MLA_DV),
+                 "musicgen": time_k4(gen, K4_MUSICGEN)}
+    out["k5"] = time_k5(K5_MUSICGEN, gen)
+    out["k6"] = time_k6(gen, DSV2["batch"], DSV2_HEAD)
+    for key, t in out["k4"].items():
+        print(f"[chip_smoke] K4 at {key}'s prefill shape: {t['ms']:.3f} "
+              f"ms/launch (device {t['device_ms']:.3f} ms), plain "
+              f"{t['plain_ms']:.3f} ms, chunked {t['chunked_ms']:.3f} ms, "
+              f"SDPA {t['library_ms']:.3f} ms ({t['library_backend']}), "
+              f"bound {t['bound_ms']:.3f} ms ({t['flops'] / 1e9:.2f} GFLOP), "
+              f"{t['bound_ms'] / t['device_ms'] * 100:.1f} % of the bound on "
+              f"device time", flush=True)
+    t = out["k5"]
+    print(f"[chip_smoke] K5 at musicgen's decode shape {K5_MUSICGEN}: "
+          f"{t['ms'] * 1e3:.2f} us/call back to back, device "
+          f"{t['device_ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} "
+          f"us (device {t['plain_device_ms'] * 1e3:.2f}), SDPA "
+          f"{t['library_ms'] * 1e3:.2f} us (device "
+          f"{t['library_device_ms'] * 1e3:.2f}; {t['library_backend']}), "
+          f"bound {t['bound_ms'] * 1e3:.3f} us ({t['bytes']} B)", flush=True)
+    t = out["k6"]
+    print(f"[chip_smoke] K6 at deepseek-v2's head (B={DSV2['batch']}): "
+          f"{t['ms'] * 1e3:.2f} us/call, plain {t['plain_ms'] * 1e3:.2f} us, "
+          f"matmul + argmax {t['library_ms'] * 1e3:.2f} us, bound "
+          f"{t['bound_ms'] * 1e3:.3f} us ({t['bytes']} B)", flush=True)
+    return out
+
+
+def phase13(gen):
+    """Phase 13: 13a-13c (deepseek-v2, 4 layers), 13d (musicgen-large),
+    13e (internvl2-1b), then the kernels at their shapes (13f)."""
+    t0 = time.perf_counter()
+    dsv = dsv2_phase()
+    mus = frontend_phase(MUSICGEN_ARCH, MUSICGEN, N_MUSICGEN_LAYERS, "13d")
+    ivl = frontend_phase(INTERNVL_ARCH, INTERNVL, N_INTERNVL_LAYERS, "13e")
+    ks = phase13_kernels(gen)
+    p = dsv["prefill"]
+    print(f"[chip_smoke] phase 13: {time.perf_counter() - t0:.1f} s; "
+          f"deepseek-v2 (4 layers) serve peak {dsv['peak']:.2f} GiB (its "
+          f"init alone {dsv['init_peak']:.2f}), TTFT "
+          f"{dsv['ttft_ms']:.1f} ms, median step {dsv['step_ms']:.2f} ms "
+          f"({dsv['tok_s']:.2f} tokens/s), ring p50 step "
+          f"{dsv['ring_p50_ms']:.2f} ms; its prefill's device time "
+          f"{p['prefill_device_ms']:.1f} ms (K4 {p['prefill_k4_ms']:.2f} ms "
+          f"against a bound of "
+          f"{N_DSV2_LAYERS * ks['k4']['mla']['bound_ms']:.2f} ms, GEMMs "
+          f"{p['prefill_gemm_ms']:.1f}, routing "
+          f"{p['prefill_dispatch_ms']:.1f}, rest "
+          f"{p['prefill_other_ms'] - p['prefill_dispatch_ms']:.1f}); "
+          f"musicgen peak {mus['peak']:.2f} GiB, TTFT {mus['ttft_ms']:.1f} "
+          f"ms, step {mus['step_ms']:.2f} ms, prefill "
+          f"{mus['prefill']['prefill_device_ms']:.1f} ms of device time; "
+          f"internvl2 peak {ivl['peak']:.2f} GiB, TTFT {ivl['ttft_ms']:.1f} "
+          f"ms, step {ivl['step_ms']:.2f} ms, prefill "
+          f"{ivl['prefill']['prefill_device_ms']:.1f} ms", flush=True)
+    return {"dsv2": dsv, "musicgen": mus, "internvl2": ivl, "kernels": ks}
 
 
 # --------------------------------------------------------------------------- #
@@ -3387,6 +3827,9 @@ def main():
     # ---- 12. qwen2-moe-a2.7b at full width and depth ----------------------
     p12 = phase12(gen)
 
+    # ---- 13. deepseek-v2 (MLA, 4 layers), musicgen-large, internvl2-1b ----
+    p13 = phase13(gen)
+
     # ---- phase 9. checkpoint and bitwise resume; the train_lm runner ------
     try:
         res = resume_phase(n_main, qwen_shapes)
@@ -3398,6 +3841,8 @@ def main():
                       p10["kernels"])
     g3, gks = p11["gemma3"], p11["kernels"]
     mo, mks = p12["moe"], p12["kernels"]
+    dv2, mus, ivl, nks = (p13["dsv2"], p13["musicgen"], p13["internvl2"],
+                          p13["kernels"])
     by_path = {
         "k1": {"qwen2-0.5b savic": launches,
                "zamba2-2.7b 12-layer savic": ztr["k1"]},
@@ -3407,21 +3852,31 @@ def main():
                "qwen3-4b serve": q3["counts"]["k4"],
                "gemma3-4b serve": g3["counts"]["k4"],
                "qwen2-moe-a2.7b serve": mo["counts"]["k4"],
-               "qwen2-moe-a2.7b continuous": mo["ccounts"]["k4"]},
+               "qwen2-moe-a2.7b continuous": mo["ccounts"]["k4"],
+               "deepseek-v2-236b 4-layer serve": dv2["counts"]["k4"],
+               "deepseek-v2-236b 4-layer continuous": dv2["ccounts"]["k4"],
+               "musicgen-large serve": mus["counts"]["k4"],
+               "internvl2-1b serve": ivl["counts"]["k4"]},
         "k5": {"qwen2-0.5b serve": k5_launches,
                "zamba2-2.7b serve": z["counts"]["k5"],
                "zamba2-2.7b continuous": z["ccounts"]["k5"],
                "qwen3-4b serve": q3["counts"]["k5"],
                "gemma3-4b serve": g3["counts"]["k5"],
                "qwen2-moe-a2.7b serve": mo["counts"]["k5"],
-               "qwen2-moe-a2.7b continuous": mo["ccounts"]["k5"]},
+               "qwen2-moe-a2.7b continuous": mo["ccounts"]["k5"],
+               "musicgen-large serve": mus["counts"]["k5"],
+               "internvl2-1b serve": ivl["counts"]["k5"]},
         "k6": {"qwen2-0.5b serve": k6_launches,
                "zamba2-2.7b serve": z["counts"]["k6"],
                "zamba2-2.7b continuous": z["ccounts"]["k6"],
                "qwen3-4b serve": q3["counts"]["k6"],
                "gemma3-4b serve": g3["counts"]["k6"],
                "qwen2-moe-a2.7b serve": mo["counts"]["k6"],
-               "qwen2-moe-a2.7b continuous": mo["ccounts"]["k6"]},
+               "qwen2-moe-a2.7b continuous": mo["ccounts"]["k6"],
+               "deepseek-v2-236b 4-layer serve": dv2["counts"]["k6"],
+               "deepseek-v2-236b 4-layer continuous": dv2["ccounts"]["k6"],
+               "musicgen-large serve": mus["counts"]["k6"],
+               "internvl2-1b serve": ivl["counts"]["k6"]},
         "k7": {"mamba2-1.3b serve": k7_launches,
                "zamba2-2.7b serve": z["counts"]["k7"],
                "zamba2-2.7b continuous": z["ccounts"]["k7"]}}
@@ -3460,16 +3915,18 @@ def main():
         "launches": sum(by_path["k5"].values()),
         "launches_by_path": by_path["k5"],
         "max_abs_err": max(k5_err, ks["k5_err"], gks["k5_err"],
-                           mks["k5_err"]),
+                           mks["k5_err"], nks["k5_err"]),
         "ms": k5t["ms"],
         "plain_ms": k5t["plain_ms"], "bound_ms": k5t["bound_ms"],
         "bound_by": "bytes", "library_ms": k5t["library_ms"],
         "device_ms": k5t["device_ms"],
         "at_shapes": shape_times({**ks["k5"], "gemma3": gks["k5"],
-                                  "qwen2-moe": mks["k5"]},
+                                  "qwen2-moe": mks["k5"],
+                                  "musicgen": nks["k5"]},
                                  {"zamba2": K5_ZAMBA, "qwen3": K5_QWEN3,
                                   "gemma3": K5_GEMMA,
-                                  "qwen2-moe": K5_MOE}),
+                                  "qwen2-moe": K5_MOE,
+                                  "musicgen": K5_MUSICGEN}),
     }, {
         "name": "decode_sample", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_sample.cu",
@@ -3477,16 +3934,18 @@ def main():
         "launches": sum(by_path["k6"].values()),
         "launches_by_path": by_path["k6"],
         "max_abs_err": max(k6_err, ks["k6_err"], gks["k6_err"],
-                           mks["k6_err"]),
+                           mks["k6_err"], nks["k6_err"]),
         "ms": k6t["ms"],
         "plain_ms": k6t["plain_ms"], "bound_ms": k6t["bound_ms"],
         "bound_by": "bytes", "library_ms": k6t["library_ms"],
         "at_shapes": shape_times({**ks["k6"], "gemma3-4b": gks["k6"],
-                                  MOE_ARCH: mks["k6"]}, {
+                                  MOE_ARCH: mks["k6"],
+                                  "deepseek-v2-236b": nks["k6"]}, {
             "zamba2-2.7b": (ZAMBA["batch"], *WIDE_HEADS["zamba2-2.7b"][:3]),
             "qwen3-4b": (QWEN3["batch"], *WIDE_HEADS["qwen3-4b"][:3]),
             "gemma3-4b": (GEMMA["batch"], *WIDE_HEADS["gemma3-4b"][:3]),
-            MOE_ARCH: (MOE["batch"], *MOE_HEAD[:3])}),
+            MOE_ARCH: (MOE["batch"], *MOE_HEAD[:3]),
+            "deepseek-v2-236b": (DSV2["batch"], *DSV2_HEAD[:3])}),
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -3494,17 +3953,19 @@ def main():
         "launches": sum(by_path["k4"].values()),
         "launches_by_path": by_path["k4"],
         "max_abs_err": max(k4_err, ks["k4_err"], gks["k4_err"],
-                           mks["k4_err"]),
+                           mks["k4_err"], nks["k4_err"]),
         "ms": k4t["ms"],
         "plain_ms": k4t["plain_ms"], "bound_ms": k4t["bound_ms"],
         "bound_by": "operations", "library_ms": k4t["library_ms"],
         "at_shapes": shape_times(
             {**ks["k4"], "gemma3_global": gks["k4"]["global"],
              "gemma3_window1024": gks["k4"]["window"],
-             "qwen2-moe": mks["k4"]},
+             "qwen2-moe": mks["k4"], "mla_dv128": nks["k4"]["mla"],
+             "musicgen": nks["k4"]["musicgen"]},
             {"zamba2": K4_ZAMBA, "qwen3": K4_QWEN3,
              "gemma3_global": K4_GEMMA, "gemma3_window1024": K4_GEMMA,
-             "qwen2-moe": K4_MOE}),
+             "qwen2-moe": K4_MOE, "mla_dv128": K4_MLA,
+             "musicgen": K4_MUSICGEN}),
     }, {
         "name": "ssd_intra_chunk", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_intra_chunk.cu",

@@ -27,7 +27,10 @@ def _to_torch(x, device):
 def params_from_jax(np_tree, device):
     """Parameter tree (numpy leaves) -> the same tree of tensors: lists
     (a MoE model's dense ``prefix`` blocks) stay lists, and the stacked
-    (L, E, d, f) expert leaves carry over as they are."""
+    (L, E, d, f) expert leaves and MLA's head-major ``wq_b`` / ``wk_b`` /
+    ``wv_b`` (r, H, n) and ``wo`` (H, v, d) leaves (stacked over L in the
+    stack, one a prefix block) carry over as they are, with the same
+    bits."""
     return tree_map(lambda x: _to_torch(x, device), np_tree)
 
 
@@ -40,7 +43,9 @@ def state_from_jax(np_state, device):
 def cache_from_jax(np_cache, device):
     """Decode cache (numpy leaves: the dense and moe families' bf16 k/v
     (L, B, C, Hk, hd), and ``pk`` / ``pv`` (n_prefix, B, C, Hk, hd) for a
-    MoE model's dense prefix; the ssm and hybrid families' fp32 ``mamba``
-    tree, and the hybrid's bf16 ``shared_k`` / ``shared_v``) -> the port's
-    cache dict, bf16 tensors with the same bits."""
+    MoE model's dense prefix; MLA's latent ``ckv`` (L, B, C, kv_lora) and
+    ``kpe`` (L, B, C, rope), and ``p_ckv`` / ``p_kpe`` (n_prefix, ...) for
+    its dense prefix; the ssm and hybrid families' fp32 ``mamba`` tree, and
+    the hybrid's bf16 ``shared_k`` / ``shared_v``) -> the port's cache
+    dict, bf16 tensors with the same bits."""
     return tree_map(lambda x: _to_torch(x, device), np_cache)

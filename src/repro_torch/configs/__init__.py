@@ -8,13 +8,16 @@ carried. Registered with the package (each full and ``REDUCED``):
 64/8), ``gemma3-4b`` (dense, ``local_global_ratio`` local layers with a
 sliding window to one global layer, GeGLU, a tied head scaled by d^-½),
 ``qwen2-moe-a2.7b`` (moe: 60 routed top-4 experts and a shared MLP in
-every layer), ``mamba2-1.3b`` and ``zamba2-2.7b`` (mamba2 layers with one
+every layer), ``deepseek-v2-236b`` (moe with multi-head latent attention,
+``MLAConfig``: 160 routed top-6 experts, two shared, one dense prefix
+layer), ``mamba2-1.3b`` and ``zamba2-2.7b`` (mamba2 layers with one
 weight-tied attention + MLP block after every ``hybrid_attn_every``-th),
-and, as in the reference's ``_VARIANTS``, ``qwen3-4b-swa``
+``musicgen-large`` (audio: frame embeddings replace the token embeddings)
+and ``internvl2-1b`` (vlm: ``frontend_tokens`` patch embeddings prepended
+to the text), and, as in the reference's ``_VARIANTS``, ``qwen3-4b-swa``
 (``CONFIG_SWA``: a sliding window of 8192). ``register`` adds a module of
 the caller's (``examples/train_lm_torch.py`` registers its ``lm-100m``).
-The reference's other architectures (MLA, audio, vlm) raise until their
-model family is ported.
+Every architecture of the reference's registry has its counterpart.
 """
 from __future__ import annotations
 
@@ -38,6 +41,15 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class MLAConfig:
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 1536
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
 class SSMConfig:
     d_state: int = 64
     d_conv: int = 4
@@ -50,7 +62,7 @@ class SSMConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # "dense" | "moe" | "ssm" | "hybrid"
+    family: str                     # dense | moe | ssm | hybrid | audio | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -69,10 +81,14 @@ class ModelConfig:
     act: str = "silu"               # silu (SwiGLU) | gelu (GeGLU)
     tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
     # hybrid (zamba2): run a shared (weight-tied) attention block every k
     # ssm layers
     hybrid_attn_every: int = 0
+    # modality frontend stub: extra embedding inputs (B, n_frontend, d_model)
+    frontend_tokens: int = 0        # vlm: #patch embeddings; audio: -1 (1:1)
+    frontend_kind: str = ""         # "" | "vision" | "audio"
     source: str = ""
 
     @property
@@ -89,14 +105,12 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     def param_count(self) -> int:
-        """Analytic parameter count, the reference's formula for the dense,
-        moe, ssm and hybrid families (it leaves out the qkv biases, counts
-        the hybrid's shared block once, its MLP as 3d², and a MoE layer's
-        shared experts as ``n_shared`` MLPs of ``d_ff_shared // n_shared``
-        each)."""
-        if self.family not in ("dense", "moe", "ssm", "hybrid"):
-            raise NotImplementedError(
-                f"family {self.family!r} is not ported to repro_torch yet")
+        """Analytic parameter count, the reference's formula (it leaves out
+        the qkv biases and MLA's two RMSNorm scales, counts the hybrid's
+        shared block once, its MLP as 3d², a MoE layer's shared experts as
+        ``n_shared`` MLPs of ``d_ff_shared // n_shared`` each, and the
+        audio and vlm families as dense stacks: their frontends are
+        stubs)."""
         d, L, V = self.d_model, self.n_layers, self.vocab_size
         n = V * d  # embeddings
         if not self.tie_embeddings:
@@ -111,13 +125,24 @@ class ModelConfig:
             conv_dim = d_in + 2 * s.ngroups * s.d_state
             per_layer += d * (2 * d_in + 2 * s.ngroups * s.d_state + nheads)
             per_layer += conv_dim * s.d_conv + d_in * d + 3 * nheads + 2 * d
-        if self.family in ("dense", "moe") or self.hybrid_attn_every:
-            attn = d * self.n_heads * hd  # q
-            attn += 2 * d * self.n_kv_heads * hd + self.n_heads * hd * d
+        if self.family in ("dense", "moe", "audio", "vlm") \
+                or self.hybrid_attn_every:
+            if self.mla:
+                m = self.mla
+                attn = (d * m.q_lora_rank
+                        + m.q_lora_rank * self.n_heads
+                        * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+                        + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                        + m.kv_lora_rank * self.n_heads
+                        * (m.qk_nope_head_dim + m.v_head_dim)
+                        + self.n_heads * m.v_head_dim * d)
+            else:
+                attn = d * self.n_heads * hd  # q
+                attn += 2 * d * self.n_kv_heads * hd + self.n_heads * hd * d
             if self.hybrid_attn_every:  # weight-tied shared block counted once
                 n += attn + 3 * d * d  # incl. shared MLP-ish projections
             per_layer += attn if not self.hybrid_attn_every else 0
-        if self.family == "dense":
+        if self.family in ("dense", "audio", "vlm"):
             per_layer += 3 * d * self.d_ff + 2 * d
         elif self.family == "moe":
             m = self.moe
@@ -145,7 +170,10 @@ class ModelConfig:
 _MODULE_FOR = {"zamba2-2.7b": "zamba2_2p7b", "qwen3-4b": "qwen3_4b",
                "qwen2-moe-a2.7b": "qwen2_moe_a2p7b",
                "gemma3-4b": "gemma3_4b", "qwen2-0.5b": "qwen2_0p5b",
-               "deepseek-67b": "deepseek_67b", "mamba2-1.3b": "mamba2_1p3b"}
+               "deepseek-67b": "deepseek_67b", "mamba2-1.3b": "mamba2_1p3b",
+               "musicgen-large": "musicgen_large",
+               "deepseek-v2-236b": "deepseek_v2_236b",
+               "internvl2-1b": "internvl2_1b"}
 # beyond-assignment variants (selectable, as in the reference)
 _VARIANTS = {"qwen3-4b-swa": ("qwen3_4b", "CONFIG_SWA")}
 
@@ -162,15 +190,15 @@ def list_archs():
 
 
 def get_config(arch: str, reduced: bool = False) -> ModelConfig:
-    """Look up a ported or registered architecture (or a variant of one) by
-    its dashed id."""
+    """Look up an architecture config (or a variant of one, or a
+    registered id) by its dashed id; an unknown id raises KeyError, as in
+    the reference."""
     if arch in _VARIANTS:
         modname, attr = _VARIANTS[arch]
         mod = importlib.import_module(f"repro_torch.configs.{modname}")
         return mod.REDUCED if reduced else getattr(mod, attr)
     if arch not in _MODULE_FOR:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported to repro_torch yet; ported: "
-            f"{sorted(_MODULE_FOR) + sorted(_VARIANTS)}")
+        raise KeyError(f"unknown arch {arch!r}; known: "
+                       f"{sorted(_MODULE_FOR) + sorted(_VARIANTS)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULE_FOR[arch]}")
     return mod.REDUCED if reduced else mod.CONFIG

@@ -485,13 +485,17 @@ def _apply_update(params, mom, grads, pstate, spec: EngineSpec):
 def value_and_grad(loss_fn):
     """``(params, *args) -> (loss, grads)`` of ``loss_fn(params, *args)``
     with torch autograd; the params' tensors are used as they are (detached
-    views, no copies)."""
+    views, no copies). A leaf the loss does not read (the audio family's
+    token table: its frame embeddings replace the tokens) gets a zero
+    gradient, as under ``jax.grad``."""
     def vg(params, *args):
         leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
         with torch.enable_grad():
             loss = loss_fn(tree_unflatten(params, leaves), *args)
-        grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), tree_unflatten(params, list(grads))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g
+                 for x, g in zip(leaves, grads)]
+        return loss.detach(), tree_unflatten(params, grads)
     return vg
 
 

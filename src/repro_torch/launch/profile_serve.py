@@ -36,6 +36,15 @@ traced steps' wall time.
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
       --arch qwen2-moe-a2.7b --full --flash-kernel --decode-kernel \\
       --batch 4 --prompt-len 2048
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+      --arch deepseek-v2-236b --full --layers 4 --flash-kernel \\
+      --decode-kernel --batch 2 --prompt-len 2048
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+      --arch musicgen-large --full --flash-kernel --decode-kernel \\
+      --batch 4 --prompt-len 2048
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+      --arch internvl2-1b --full --flash-kernel --decode-kernel \\
+      --batch 8 --prompt-len 512
 
 A hybrid (zamba2) prefill is split into K7 (its mamba layers), K4 (its
 shared block's attention, one launch an application), GEMMs and the rest;
@@ -43,6 +52,15 @@ its decode step into K5 (one call an application), K6 and the rest. A MoE
 (qwen2-moe) prefill's expert products are batched GEMMs, counted as GEMMs;
 its routing's sort, scatter and gather kernels are listed apart
 (``prefill_dispatch_kernels``) and stay in the rest.
+
+``--layers N`` cuts the depth to N layers at the config's width (the MoE
+dense prefix layers count among them): deepseek-v2-236b's 60 layers take
+878 GiB in fp32, 4 of them (the dense prefix layer and 3 MoE layers)
+49.56 GiB. The cut is the profiler's, not a model knob. An MLA prefill runs
+K4 at D = 192 (q and k; V padded to 192); its decode step runs no K5 (the
+reference's latent-space einsums, counted in the rest). An audio
+(musicgen) prompt is frame embeddings, a vlm (internvl2) prompt 256
+patches and prompt-len - 256 tokens.
 """
 from __future__ import annotations
 
@@ -53,9 +71,11 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.launch import serve
-from repro_torch.models import sample_batch, sample_ids
+from repro_torch.configs import get_config
+from repro_torch.models import (ModelCallConfig, build, sample_batch,
+                                sample_ids)
 from repro_torch.utils import rng
+from repro_torch.utils.device import resolve_device
 
 # the port's kernels by the names of their CUDA functions
 KERNELS = {"k5": ("decode_split", "decode_merge"),
@@ -122,12 +142,18 @@ def main(argv=None):
     ap.add_argument("--flash-kernel", action="store_true")
     ap.add_argument("--ssd-kernel", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0: the "
+                         "config's)")
     args = ap.parse_args(argv)
-    cfg, model, params, device = serve._setup(
-        args.arch, reduced=not args.full, dtype=torch.float32,
-        decode_window=0, use_decode_kernel=args.decode_kernel,
-        use_flash_kernel=args.flash_kernel, use_ssd_kernel=args.ssd_kernel,
-        seed=args.seed, device="cuda", params=None)
+    device = resolve_device("cuda")
+    cfg = get_config(args.arch, reduced=not args.full)
+    if args.layers:
+        cfg = cfg.replace(n_layers=args.layers)
+    model = build(cfg, ModelCallConfig(
+        dtype=torch.float32, use_decode_kernel=args.decode_kernel,
+        use_flash_kernel=args.flash_kernel, use_ssd_kernel=args.ssd_kernel))
+    params = model.init(torch.Generator(device=device).manual_seed(args.seed))
     B, S = args.batch, args.prompt_len
     steps = args.untraced + args.traced
     torch.cuda.reset_peak_memory_stats()
@@ -181,7 +207,8 @@ def main(argv=None):
     host = sorted((e for e in events if e.device_type.name == "CPU"),
                   key=lambda e: -e.self_cpu_time_total)[:TOP]
     summary = {
-        "device": torch.cuda.get_device_name(0), "batch": B,
+        "device": torch.cuda.get_device_name(0), "n_layers": cfg.n_layers,
+        "batch": B,
         "prompt_len": S, "decode_kernel": args.decode_kernel,
         "flash_kernel": args.flash_kernel, "ssd_kernel": args.ssd_kernel,
         "prefill_ms": prefill_ms,

@@ -1,6 +1,5 @@
 """Batched serving driver: prefill once, reuse the cache, decode (counterpart
-of ``repro/launch/serve.py``, dense, moe, ssm and hybrid families, single
-device).
+of ``repro/launch/serve.py``, every family, single device).
 
 Four entry points, as in the reference:
 
@@ -32,6 +31,16 @@ dropped in the prefill, and each decode row's one token at capacity 8 (no
 drop); ``exact_moe`` (a keyword, as in the reference; no CLI flag) sets
 the capacity to tokens·K everywhere, the setting under which a prefill
 equals the prompt's replay.
+
+An MLA model (deepseek-v2) prefills on K4 under ``use_flash_kernel`` and
+decodes against its latent cache in the latent space (the reference's
+absorbed path, on tensor ops; K5 does not run). Prompts come from
+``sample_batch`` in every family: an audio prompt (musicgen) is
+``prompt_len`` frame embeddings, a vlm prompt (internvl2) is
+``frontend_tokens`` patch embeddings followed by ``prompt_len -
+frontend_tokens`` text tokens; decode feeds token ids from position
+``prompt_len`` on. ``serve_replay`` feeds the prompt's ids, so it takes the
+token families only.
 
 The reference's ``warmup`` (a throwaway pass before timing, for its jit)
 is not carried: the timings include first-call set-up. Weights are random,
@@ -73,6 +82,14 @@ Examples:
       --gen-len 64    # 60 routed experts, capacity 176 a row in the prefill
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \\
       --device cpu --flash-kernel --decode-kernel       # reduced qwen2-moe
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-large \\
+      --full --flash-kernel --decode-kernel --batch 4 --prompt-len 2048 \\
+      --gen-len 64        # frame-embedding prompts
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-1b \\
+      --full --flash-kernel --decode-kernel --batch 8 --prompt-len 512 \\
+      --gen-len 64        # 256 patches + 256 text tokens; K6 on the tied table
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b \\
+      --device cpu --flash-kernel --decode-kernel       # reduced deepseek-v2
 """
 from __future__ import annotations
 
@@ -246,7 +263,12 @@ def serve_replay(arch: str, *, reduced=True, batch=4, prompt_len=32,
     """Differential baseline: build the decode cache by replaying the prompt
     token by token through ``model.decode`` (no decode kernels; there is no
     prefill, so ``use_ssd_kernel`` only reaches the model's call config).
-    The replay loop is reported as ``cache_setup_s``, not as prefill."""
+    The replay loop is reported as ``cache_setup_s``, not as prefill. It
+    feeds token ids, so the audio and vlm families (whose prompts carry
+    embeddings) raise ValueError."""
+    if get_config(arch, reduced=reduced).family in ("audio", "vlm"):
+        raise ValueError(f"serve_replay feeds token ids; {arch}'s prompts "
+                         f"carry embeddings")
     cfg, model, params, device = _setup(
         arch, reduced=reduced, dtype=dtype, decode_window=decode_window,
         use_decode_kernel=False, seed=seed, device=device, params=params,

@@ -11,10 +11,12 @@ step times as its straggler trace), client objectives (``--objective``,
 (``--ckpt``, ``--ckpt-every``; the reference's on-disk format). ``--mesh``
 is not ported and raises ``NotImplementedError``.
 
-Every ported arch trains (dense qwen2 / qwen3, ssm mamba2, hybrid
-zamba2), on the plain attention and SSD routes: the K4 and K7 kernels are
+Every arch trains (dense qwen2 / qwen3 / gemma3, moe qwen2-moe and the MLA
+deepseek-v2, ssm mamba2, hybrid zamba2, audio musicgen, vlm internvl2), on
+the plain attention and SSD routes: the K4 and K7 kernels are
 forward-only, as their TPU kernels are, so ``loss`` raises if asked to
-differentiate through them.
+differentiate through them. An audio or vlm round wraps the token batch
+with the reference's seeded embedding stubs (``_wrap_modal``).
 
 Round r draws from the stream ``TorchStream(seed + 1).fold(r)``
 (``repro_torch.utils.rng``), as the reference keys round r with
@@ -57,6 +59,7 @@ import dataclasses
 import json
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import checkpoint as ckpt_lib
@@ -281,14 +284,42 @@ def setup(argv=None, init_params=None, root_stream=None) -> Run:
                sim_t, root, wire)
 
 
+_FLOAT_FIELDS = ("labeled", "embeds", "patches")
+
+
 def round_batch(loader, args, r, device):
     """Round ``r``'s (M, H, b, S) tokens/labels as int64 tensors on
     ``device``, and the (M, H, b) fp32 ``labeled`` mask when the loader
-    draws one."""
+    draws one; for the audio and vlm families wrapped by ``_wrap_modal``
+    (its embeddings fp32)."""
     nb = loader.round_batch(r, args.h_local, args.seq)
+    cfg = get_config(args.arch, reduced=args.reduced)
+    if cfg.family in ("audio", "vlm"):
+        nb = _wrap_modal(cfg, nb, args.seed, r)
     return {k: torch.from_numpy(v).to(
-        device=device, dtype=torch.float32 if k == "labeled" else torch.long)
-        for k, v in nb.items()}
+        device=device, dtype=torch.float32 if k in _FLOAT_FIELDS
+        else torch.long) for k, v in nb.items()}
+
+
+def _wrap_modal(cfg, nb, seed, r):
+    """The reference's embedding stubs around a round's token batch (numpy
+    arrays), the same draws: one ``default_rng((seed, r, 1))`` a round (the
+    trailing 1 keeps it apart from the token stream's), normal values times
+    0.02 in fp32. audio: (M, H, b, S, d) frame embeddings replace the
+    tokens. vlm: (M, H, b, P, d) patches prepended to the first S - P
+    tokens and labels, so the residual stream stays S long."""
+    gen = np.random.default_rng((seed, r, 1))
+    M, H, b, S = nb["tokens"].shape
+    lab = {"labeled": nb["labeled"]} if "labeled" in nb else {}
+    if cfg.family == "audio":
+        emb = gen.normal(size=(M, H, b, S, cfg.d_model)).astype(
+            np.float32) * .02
+        return {"embeds": emb, "labels": nb["labels"], **lab}
+    P = cfg.frontend_tokens
+    patches = gen.normal(size=(M, H, b, P, cfg.d_model)).astype(
+        np.float32) * .02
+    return {"patches": patches, "tokens": nb["tokens"][..., :S - P],
+            "labels": nb["labels"][..., :S - P], **lab}
 
 
 def _sync(device):

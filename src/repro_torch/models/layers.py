@@ -1,4 +1,5 @@
-"""Transformer layers (counterpart of ``repro/models/layers.py``; no MLA).
+"""Transformer layers (counterpart of ``repro/models/layers.py``; MLA is in
+``models/mla.py``).
 
 Parameters are plain dicts of tensors with the reference's tree paths and
 layouts (head-major QKV weights (d, H, hd), output (H, hd, d)); they are
@@ -23,8 +24,10 @@ from repro_torch.models.flash import HUGE_WINDOW, flash_attention_bshd
 
 
 def _normal(gen, shape, scale, dtype=torch.float32):
+    """Normal draws times ``scale``, scaled in place (no second buffer: a
+    deepseek-v2 expert leaf is 5 GB)."""
     return torch.randn(shape, generator=gen, dtype=dtype,
-                       device=gen.device) * scale
+                       device=gen.device).mul_(scale)
 
 
 def _dense_init(gen, d_in, d_out, bias=False, scale=None):
@@ -141,7 +144,8 @@ def _window_on(window) -> bool:
 
 
 def _sdpa_dense(q, k, v, q_pos, k_pos, window, softcap, k_valid=None):
-    """q (B,Sq,H,D), k/v (B,Sk,Hk,D) -> (B,Sq,H,D). fp32 softmax.
+    """q (B,Sq,H,D), k (B,Sk,Hk,D), v (B,Sk,Hk,Dv) -> (B,Sq,H,Dv). fp32
+    softmax; the scale is D^-½ (the value head dim may differ: MLA's).
 
     Positions are (Sq,)/(Sk,) shared across the batch, or (B,Sq)/(B,Sk) for
     per-slot decode positions (continuous batching)."""

@@ -3,7 +3,19 @@
 the serving functions ``prefill``, ``init_cache``, ``prefill_cache``,
 ``decode``, ``decode_sample`` and ``sample_head``.
 
-Batches are ``{"tokens": (B,S) int, "labels": (B,S) int}``. ``loss`` returns
+Batch formats, as in the reference:
+
+* token families (dense, moe, ssm, hybrid):
+  ``{"tokens": (B,S) int, "labels": (B,S) int}``;
+* audio (musicgen; the EnCodec frontend is a stub): frame embeddings
+  replace the token embeddings 1:1,
+  ``{"embeds": (B,S,d) fp32, "labels": (B,S) int}``;
+* vlm (internvl2; the ViT and projector are stubs): P patch embeddings
+  prepended to the text, ``{"patches": (B,P,d) fp32, "tokens": (B,S-P)
+  int, "labels": (B,S-P) int}``; the labels cover the text positions only
+  (-1 over the patches).
+
+Decode consumes one token id a sequence in every family. ``loss`` returns
 the mean next-token cross entropy plus the MoE router's load-balance loss
 (summed over the layers; 0 for the other families); ``logits`` and the
 prefills drop it, as the reference's do. The decode cache is the one of
@@ -36,6 +48,7 @@ class ModelCallConfig:
     softcap: float = 0.0
     use_ssd_kernel: bool = False    # ssm/hybrid: the SSD on K7 (forward only)
     exact_moe: bool = False         # no MoE capacity drops (C = tokens·K)
+    mla_absorbed: bool = True       # MLA decode in the latent space
 
 
 @dataclasses.dataclass
@@ -82,17 +95,36 @@ def build(cfg: ModelConfig, call: Optional[ModelCallConfig] = None) -> Model:
                         use_ssd_kernel=call.use_ssd_kernel,
                         exact_moe=call.exact_moe)
 
-    def _forward(params, tokens, want_cache, remat):
-        x = embed(params["embed"], tokens, dtype)
+    def _residual_input(params, batch):
+        """The family's residual-stream input (B,S,d) and its labels (None
+        where the batch has none)."""
+        labels = batch.get("labels")
+        if cfg.family == "audio":
+            return batch["embeds"].to(dtype), labels
+        if cfg.family == "vlm":
+            tx = embed(params["embed"], batch["tokens"], dtype)
+            patches = batch["patches"]
+            x = torch.cat([patches.to(dtype), tx], dim=1)
+            if labels is not None:
+                pad = torch.full(patches.shape[:2], -1, dtype=labels.dtype,
+                                 device=labels.device)
+                labels = torch.cat([pad, labels], dim=1)
+            return x, labels
+        return embed(params["embed"], batch["tokens"], dtype), labels
+
+    def _forward(params, batch, want_cache, remat):
+        x, labels = _residual_input(params, batch)
         S = x.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
-        return T.forward(params["blocks"], cfg, x, positions, _attncall(S),
-                         dtype, want_cache=want_cache, remat=remat)
+        y, caches, aux = T.forward(params["blocks"], cfg, x, positions,
+                                   _attncall(S), dtype,
+                                   want_cache=want_cache, remat=remat)
+        return y, caches, aux, labels
 
     def _forward_logits(params, batch):
-        y, _, aux = _forward(params, batch["tokens"], False, call.remat)
+        y, _, aux, labels = _forward(params, batch, False, call.remat)
         y = rmsnorm(params["final_norm"], y, cfg.norm_eps)
-        return unembed(params["embed"], y, cfg, dtype), batch["labels"], aux
+        return unembed(params["embed"], y, cfg, dtype), labels, aux
 
     def loss(params, batch):
         logits_, labels, aux = _forward_logits(params, batch)
@@ -106,7 +138,7 @@ def build(cfg: ModelConfig, call: Optional[ModelCallConfig] = None) -> Model:
         return unembed(params["embed"], y, cfg, dtype)[:, 0, :]
 
     def prefill(params, batch):
-        y, caches, _ = _forward(params, batch["tokens"], True, False)
+        y, caches, _, _ = _forward(params, batch, True, False)
         return _last_logits(params, y), caches
 
     def init_cache(batch_size, cache_len, device):
@@ -120,11 +152,10 @@ def build(cfg: ModelConfig, call: Optional[ModelCallConfig] = None) -> Model:
         Unlike ``prefill`` (whose cache is the raw stacked per-layer
         output), the cache here is in ``init_cache`` layout, populated so
         decode continues at pos = prompt_len: no prompt replay."""
-        tokens = batch["tokens"]
-        B, S = tokens.shape
-        y, caches, _ = _forward(params, tokens, True, False)
+        y, caches, _, _ = _forward(params, batch, True, False)
+        B, S = y.shape[:2]
         cache = T.prefill_to_decode_cache(
-            cfg, caches, S, init_cache(B, cache_len, tokens.device))
+            cfg, caches, S, init_cache(B, cache_len, y.device))
         return _last_logits(params, y), cache
 
     def _decode_hidden(params, cache, token, pos):
@@ -135,7 +166,7 @@ def build(cfg: ModelConfig, call: Optional[ModelCallConfig] = None) -> Model:
                           use_decode_kernel=call.use_decode_kernel,
                           exact_moe=call.exact_moe)
         y, cache = T.decode(params["blocks"], cfg, x, pos, cache, call_d,
-                            dtype)
+                            dtype, mla_absorbed=call.mla_absorbed)
         return rmsnorm(params["final_norm"], y, cfg.norm_eps), cache
 
     def decode(params, cache, token, pos):
@@ -188,26 +219,40 @@ def sample_ids(logits, noise, vocab_size):
 
 
 # --------------------------------------------------------------------------- #
-# input specs (token families)
+# input specs
 # --------------------------------------------------------------------------- #
 
 # one fold constant per batch field; the reference folds hash(name), which
 # Python salts per process
-_FIELD_FOLD = {"tokens": 1, "labels": 2}
+_FIELD_FOLD = {"tokens": 1, "labels": 2, "embeds": 3, "patches": 4}
 
 
 def batch_struct(cfg: ModelConfig, batch: int, seq: int):
-    """(shape, dtype) of each field of a training/prefill batch."""
-    return {"tokens": ((batch, seq), torch.int32),
-            "labels": ((batch, seq), torch.int32)}
+    """(shape, dtype) of each field of a training/prefill batch of ``seq``
+    residual positions: the vlm family's P = ``frontend_tokens`` patches
+    take P of them, its text the other seq - P."""
+    i32, f32 = torch.int32, torch.float32
+    if cfg.family == "audio":
+        return {"embeds": ((batch, seq, cfg.d_model), f32),
+                "labels": ((batch, seq), i32)}
+    if cfg.family == "vlm":
+        P = cfg.frontend_tokens
+        return {"patches": ((batch, P, cfg.d_model), f32),
+                "tokens": ((batch, seq - P), i32),
+                "labels": ((batch, seq - P), i32)}
+    return {"tokens": ((batch, seq), i32), "labels": ((batch, seq), i32)}
 
 
 def sample_batch(cfg: ModelConfig, stream, batch: int, seq: int, device):
-    """A random batch matching ``batch_struct``: ids uniform in
-    [0, vocab_size), each field drawn from ``stream.fold(<its constant>)``."""
+    """A random batch matching ``batch_struct``, each field drawn from
+    ``stream.fold(<its constant>)``: ids uniform in [0, vocab_size),
+    embeddings standard normal (as the reference's)."""
     out = {}
-    for name, (shape, _) in batch_struct(cfg, batch, seq).items():
-        u = stream.fold(_FIELD_FOLD[name]).uniform(shape, device)
-        ids = (u * cfg.vocab_size).floor_().to(torch.int32)
-        out[name] = ids.clamp_(max=cfg.vocab_size - 1)
+    for name, (shape, dtype) in batch_struct(cfg, batch, seq).items():
+        s = stream.fold(_FIELD_FOLD[name])
+        if dtype == torch.float32:
+            out[name] = s.normal(shape, device)
+            continue
+        ids = (s.uniform(shape, device) * cfg.vocab_size).floor_()
+        out[name] = ids.to(torch.int32).clamp_(max=cfg.vocab_size - 1)
     return out

@@ -1,6 +1,6 @@
-"""Decoder stack, dense, moe, ssm and hybrid families (counterpart of
-``repro/models/transformer.py``): the full-sequence forward (training and
-prefill), the decode cache and the one-token decode step.
+"""Decoder stack, dense, moe, ssm, hybrid, audio and vlm families
+(counterpart of ``repro/models/transformer.py``): the full-sequence forward
+(training and prefill), the decode cache and the one-token decode step.
 
 Block parameters are stacked with a leading L dim, as in the reference tree
 (``{"stack": {...}}``). Where the reference scans over layers under
@@ -27,6 +27,16 @@ dense blocks of FFN width ``moe.d_ff_dense`` (or ``d_ff``), kept unstacked
 in ``params["prefix"]``, a list, and run at full attention; their decode
 cache is ``"pk"`` / ``"pv"``, each (n_prefix, B, C, Hk, hd) bf16, beside
 the stack's ``"k"`` / ``"v"``.
+
+A model with ``cfg.mla`` (deepseek-v2) runs multi-head latent attention
+(``models/mla.py``) in every block, its dense prefix blocks included; its
+decode cache is the latent one: ``"ckv"`` (L, B, C, kv_lora) and
+``"kpe"`` (L, B, C, rope), bf16, and ``"p_ckv"`` / ``"p_kpe"`` (n_prefix,
+...) for the prefix. It is not a ring: ``prefill_to_decode_cache`` asserts
+that the prompt fits.
+
+The audio (musicgen) and vlm (internvl2) families are dense stacks; their
+frontends are stubs that feed the residual stream (``models/model.py``).
 """
 from __future__ import annotations
 
@@ -42,6 +52,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ModelConfig
 from repro_torch.models import layers as Lyr
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import (HUGE_WINDOW, AttnCall, init_rmsnorm,
@@ -59,6 +70,19 @@ def _n_prefix(cfg: ModelConfig) -> int:
     return cfg.moe.moe_layer_start if cfg.moe else 0
 
 
+def _cache_keys(cfg: ModelConfig):
+    """The decode cache's keys: the stack's pair and the dense prefix's."""
+    if cfg.mla:
+        return ("ckv", "kpe"), ("p_ckv", "p_kpe")
+    return ("k", "v"), ("pk", "pv")
+
+
+def _init_attention(gen, cfg: ModelConfig):
+    """The block's attention: MLA where the config has one."""
+    return MLA.init_mla(gen, cfg) if cfg.mla else Lyr.init_attention(gen,
+                                                                     cfg)
+
+
 def _init_block(gen, cfg: ModelConfig):
     d = cfg.d_model
     if _is_ssm(cfg):               # mamba block: a single pre-norm
@@ -68,7 +92,7 @@ def _init_block(gen, cfg: ModelConfig):
         else Lyr.init_mlp(gen, d, cfg.d_ff)
     return {"norm1": init_rmsnorm(d, gen.device),
             "norm2": init_rmsnorm(d, gen.device),
-            "attn": Lyr.init_attention(gen, cfg), "ffn": ffn}
+            "attn": _init_attention(gen, cfg), "ffn": ffn}
 
 
 def _init_dense_block(gen, cfg: ModelConfig, d_ff):
@@ -76,7 +100,7 @@ def _init_dense_block(gen, cfg: ModelConfig, d_ff):
     d = cfg.d_model
     return {"norm1": init_rmsnorm(d, gen.device),
             "norm2": init_rmsnorm(d, gen.device),
-            "attn": Lyr.init_attention(gen, cfg),
+            "attn": _init_attention(gen, cfg),
             "ffn": Lyr.init_mlp(gen, d, d_ff)}
 
 
@@ -96,10 +120,8 @@ def init_stack(gen, cfg: ModelConfig):
 
     The (L, ...) leaves are allocated once and block i is initialised into
     slice i, in layer order (the draw order of one block after another), so
-    at most one block lives beside the stack."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(f"model family {cfg.family!r} is not "
-                                  f"ported yet")
+    at most one block lives beside the stack. The audio and vlm families
+    are dense stacks."""
     n_prefix = _n_prefix(cfg)
     Ls = cfg.n_layers - n_prefix
     stack = None
@@ -174,14 +196,21 @@ def _ffn(p, cfg, x, call: AttnCall, dtype):
 
 
 def _attn_block(p, cfg, x, positions, window, call: AttnCall, dtype):
-    """An attention + FFN block (the dense and moe families', a MoE model's
-    dense prefix, and the hybrid's shared one) on the residual stream:
-    norm1, attention (K4 under ``use_flash_kernel``), residual add, norm2,
-    FFN (MLP or MoE), residual add. Returns (x, (k, v), aux)."""
+    """An attention + FFN block (the dense, moe, audio and vlm families', a
+    MoE model's dense prefix, and the hybrid's shared one) on the residual
+    stream: norm1, attention (K4 under ``use_flash_kernel``; MLA where the
+    config has it, which takes no window and no softcap, as the
+    reference's), residual add, norm2, FFN (MLP or MoE), residual add.
+    Returns (x, (k, v) or MLA's (c_kv, k_pe), aux)."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    c = AttnCall(window=window, softcap=call.softcap, chunk=call.chunk,
-                 use_flash_kernel=call.use_flash_kernel)
-    h, kv = Lyr.attention(p["attn"], cfg, h, positions, c, dtype)
+    if cfg.mla:
+        h, kv = MLA.mla_attention(p["attn"], cfg, h, positions, dtype,
+                                  chunk=call.chunk,
+                                  use_flash_kernel=call.use_flash_kernel)
+    else:
+        c = AttnCall(window=window, softcap=call.softcap, chunk=call.chunk,
+                     use_flash_kernel=call.use_flash_kernel)
+        h, kv = Lyr.attention(p["attn"], cfg, h, positions, c, dtype)
     x = x + h
     f, aux = _ffn(p["ffn"], cfg, rmsnorm(p["norm2"], x, cfg.norm_eps), call,
                   dtype)
@@ -217,13 +246,15 @@ def forward(params, cfg: ModelConfig, x, positions, call: AttnCall, dtype,
     """x (B,S,d) residual stream -> (y (B,S,d), caches, aux). With
     ``want_cache``, ``caches["stack"]`` holds the per-layer caches stacked
     over the stack's L layers: ``(k, v)``, each (L,B,S,Hk,hd), for the
-    dense and moe families, the ``mamba2_init_cache`` tree for the ssm
+    dense, moe, audio and vlm families (MLA: ``(c_kv, k_pe)``, (L,B,S,
+    kv_lora) and (L,B,S,rope)), the ``mamba2_init_cache`` tree for the ssm
     family, and for the hybrid ``{"mamba": that tree, "skv": (k, v)}`` with
     the shared block's K/V of its L // every applications only, each
     (L // every,B,S,Hk,hd) (the reference's scan emits zeros for the other
     layers); a MoE model's dense prefix block i adds ``caches["prefix{i}"]``,
-    its (k, v); else ``caches`` is empty. ``aux`` is the MoE router loss
-    summed over the layers (0.0 for the other families). The prefix blocks
+    its (k, v) (or (c_kv, k_pe)); else ``caches`` is empty. ``aux`` is the
+    MoE router loss summed over the layers (0.0 for the other families).
+    The prefix blocks
     run first, at full attention (``force_window`` does not reach them, as
     in the reference). Under ``remat`` the checkpointed unit is the whole
     stack layer, the shared block included; its aux comes out of the
@@ -270,9 +301,12 @@ def forward(params, cfg: ModelConfig, x, positions, call: AttnCall, dtype,
 def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int, device,
                       dtype=torch.bfloat16):
     """An empty decode cache: k and v (L, batch, cache_len, Hk, hd) in
-    ``dtype`` for the dense and moe families over the stack's L layers,
-    and ``pk`` / ``pv`` (n_prefix, ...) for a MoE model's dense prefix; for
-    the ssm family the fp32 ``mamba2_init_cache`` leaves stacked over L
+    ``dtype`` for the dense, moe, audio and vlm families over the stack's L
+    layers, and ``pk`` / ``pv`` (n_prefix, ...) for a MoE model's dense
+    prefix; with MLA the latent ``ckv`` (L, batch, cache_len, kv_lora) and
+    ``kpe`` (L, batch, cache_len, rope), and ``p_ckv`` / ``p_kpe``
+    (n_prefix, ...) for the prefix; for the ssm family the fp32
+    ``mamba2_init_cache`` leaves stacked over L
     (``cache_len`` unused: the state does not grow with the context); for
     the hybrid that tree and ``shared_k`` / ``shared_v``, each (L // every,
     batch, cache_len, Hk, hd) in ``dtype``."""
@@ -287,11 +321,22 @@ def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int, device,
             c["shared_v"] = torch.zeros(shape, dtype=dtype, device=device)
         return c
     n_prefix = _n_prefix(cfg)
+    Ls = cfg.n_layers - n_prefix
+    if cfg.mla:
+        m = cfg.mla
+        c = {}
+        for key, width in (("ckv", m.kv_lora_rank),
+                           ("kpe", m.qk_rope_head_dim)):
+            c[key] = torch.zeros((Ls, batch, cache_len, width), dtype=dtype,
+                                 device=device)
+            if n_prefix:
+                c["p_" + key] = torch.zeros(
+                    (n_prefix, batch, cache_len, width), dtype=dtype,
+                    device=device)
+        return c
     shape = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
-    c = {"k": torch.zeros((cfg.n_layers - n_prefix,) + shape, dtype=dtype,
-                          device=device),
-         "v": torch.zeros((cfg.n_layers - n_prefix,) + shape, dtype=dtype,
-                          device=device)}
+    c = {"k": torch.zeros((Ls,) + shape, dtype=dtype, device=device),
+         "v": torch.zeros((Ls,) + shape, dtype=dtype, device=device)}
     if n_prefix:
         c["pk"] = torch.zeros((n_prefix,) + shape, dtype=dtype,
                               device=device)
@@ -325,7 +370,8 @@ def prefill_to_decode_cache(cfg: ModelConfig, caches, prompt_len: int,
     ``cache`` is a fresh ``init_decode_cache`` tree whose leaves fix the
     target shapes and dtype (including the ring size C when
     ``decode_window`` is on); the populated copy is returned, ready for
-    decode at pos = prompt_len."""
+    decode at pos = prompt_len. MLA's latent cache is not a ring: the
+    prompt must fit (``prompt_len`` <= C), as the reference asserts."""
     if _is_ssm(cfg):
         st = caches["stack"]
         mc = st["mamba"] if cfg.hybrid_attn_every else st
@@ -338,14 +384,17 @@ def prefill_to_decode_cache(cfg: ModelConfig, caches, prompt_len: int,
                 new[key] = _ring_place(src, C, prompt_len, axis=2).to(
                     cache[key].dtype)
         return new
-    C = cache["k"].shape[2]
-    k, v = caches["stack"]                           # (L,B,S,Hk,hd)
+    keys, pkeys = _cache_keys(cfg)
+    C = cache[keys[0]].shape[2]
+    if cfg.mla:
+        assert prompt_len <= C, "MLA decode cache is not a ring buffer"
     new = dict(cache)
-    new["k"] = _ring_place(k, C, prompt_len, axis=2).to(cache["k"].dtype)
-    new["v"] = _ring_place(v, C, prompt_len, axis=2).to(cache["v"].dtype)
-    if "pk" in cache:
-        n_prefix = cache["pk"].shape[0]
-        for key, j in (("pk", 0), ("pv", 1)):
+    for key, src in zip(keys, caches["stack"]):      # (L,B,S,...)
+        new[key] = _ring_place(src, C, prompt_len, axis=2).to(
+            cache[key].dtype)
+    if pkeys[0] in cache:
+        n_prefix = cache[pkeys[0]].shape[0]
+        for key, j in zip(pkeys, (0, 1)):
             src = torch.stack([caches[f"prefix{i}"][j]
                                for i in range(n_prefix)])
             new[key] = _ring_place(src, C, prompt_len, axis=2).to(
@@ -354,41 +403,53 @@ def prefill_to_decode_cache(cfg: ModelConfig, caches, prompt_len: int,
 
 
 def _attn_block_decode(p, cfg, x, pos, kc, vc, window, call: AttnCall,
-                       dtype):
+                       dtype, mla_absorbed=True):
     """One token through an attention + FFN block (``_attn_block``'s
     decode): its K/V written into ``kc`` / ``vc`` in place; K5 under
-    ``use_decode_kernel``. A MoE FFN routes each row's one token on its
-    own (capacity 8, or K under ``exact_moe``: never a drop); its aux is
-    dropped, as the reference's decode drops it."""
+    ``use_decode_kernel``. With MLA, ``kc`` / ``vc`` are the latent
+    ``ckv`` / ``kpe`` rows and ``mla_decode`` runs (``mla_absorbed``: in
+    the latent space), on tensor ops, as the reference's. A MoE FFN routes
+    each row's one token on its own (capacity 8, or K under ``exact_moe``:
+    never a drop); its aux is dropped, as the reference's decode drops
+    it."""
     h_in = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    c = AttnCall(window=window, softcap=call.softcap,
-                 use_decode_kernel=call.use_decode_kernel)
-    h, _, _ = Lyr.attention_decode(p["attn"], cfg, h_in, pos, kc, vc, c,
-                                   dtype)
+    if cfg.mla:
+        h, _, _ = MLA.mla_decode(p["attn"], cfg, h_in, pos, kc, vc, dtype,
+                                 absorbed=mla_absorbed)
+    else:
+        c = AttnCall(window=window, softcap=call.softcap,
+                     use_decode_kernel=call.use_decode_kernel)
+        h, _, _ = Lyr.attention_decode(p["attn"], cfg, h_in, pos, kc, vc, c,
+                                       dtype)
     x = x + h
     f, _ = _ffn(p["ffn"], cfg, rmsnorm(p["norm2"], x, cfg.norm_eps), call,
                 dtype)
     return x + f
 
 
-def decode(params, cfg: ModelConfig, x, pos, cache, call: AttnCall, dtype):
+def decode(params, cfg: ModelConfig, x, pos, cache, call: AttnCall, dtype,
+           mla_absorbed=True):
     """x (B,1,d), pos an int or a (B,) per-slot tensor -> (y (B,1,d),
-    cache). The new token's K/V (dense; the hybrid's shared block, in its
-    application's row) and the recurrent state and conv tails (ssm and
-    hybrid; the mamba step does not read ``pos``) are written into
-    ``cache`` in place, layer by layer; the same dict is returned. A MoE
-    model's dense prefix blocks run first on ``pk`` / ``pv`` at
-    ``call.window`` (the reference's)."""
+    cache). The new token's K/V (dense; MLA's latent c_kv and k_pe; the
+    hybrid's shared block, in its application's row) and the recurrent
+    state and conv tails (ssm and hybrid; the mamba step does not read
+    ``pos``) are written into ``cache`` in place, layer by layer; the same
+    dict is returned. A MoE model's dense prefix blocks run first on ``pk``
+    / ``pv`` (MLA: ``p_ckv`` / ``p_kpe``) at ``call.window`` (the
+    reference's). ``mla_absorbed`` picks MLA's decode path."""
+    keys, pkeys = _cache_keys(cfg)
     for i, bp in enumerate(params.get("prefix", [])):
-        x = _attn_block_decode(bp, cfg, x, pos, cache["pk"][i],
-                               cache["pv"][i], call.window, call, dtype)
+        x = _attn_block_decode(bp, cfg, x, pos, cache[pkeys[0]][i],
+                               cache[pkeys[1]][i], call.window, call, dtype,
+                               mla_absorbed)
     Ls = cfg.n_layers - _n_prefix(cfg)
     wins = layer_windows(cfg, Ls, call.force_window)
     layers = zip(_layers(params["stack"], Ls), wins)
     if not _is_ssm(cfg):
         for i, (bp, win) in enumerate(layers):
-            x = _attn_block_decode(bp, cfg, x, pos, cache["k"][i],
-                                   cache["v"][i], win, call, dtype)
+            x = _attn_block_decode(bp, cfg, x, pos, cache[keys[0]][i],
+                                   cache[keys[1]][i], win, call, dtype,
+                                   mla_absorbed)
         return x, cache
     mc, sp = cache["mamba"], params.get("shared")
     for i, (bp, win) in enumerate(layers):

@@ -21,6 +21,7 @@ registry and the ``train_lm`` runner, held against the reference.
   relative (tests/test_torch_train.py's tolerance) plus 1e-4 absolute, the
   unit of the rows' fourth decimal, to which both round.
 """
+import dataclasses
 import functools
 import os
 import sys
@@ -626,14 +627,18 @@ def test_register_and_param_count_of_the_examples_config(tiny, monkeypatch):
     configs.register("lm-100m", "lm_100m")
     assert "lm-100m" in configs.list_archs()
     assert configs.get_config("lm-100m") is cfg
-    with pytest.raises(NotImplementedError, match="not ported"):
-        configs.get_config("deepseek-v2-236b")
+    with pytest.raises(KeyError, match="unknown arch"):
+        configs.get_config("no-such-arch")
 
 
 def test_param_count_refuses_unported_families():
-    cfg = configs.get_config("qwen2-0.5b", True).replace(family="audio")
-    with pytest.raises(NotImplementedError):
-        cfg.param_count()
+    """Every family of the reference is ported now, so ``param_count``
+    refuses none: each gives the reference's count (the audio and vlm
+    families count as dense stacks)."""
+    for family in ("dense", "audio", "vlm"):
+        cfg = configs.get_config("qwen2-0.5b", True).replace(family=family)
+        jcfg = JModelConfig(**dataclasses.asdict(cfg))
+        assert cfg.param_count() == jcfg.param_count() > 0
 
 
 # --------------------------------------------------------------------------- #

@@ -56,8 +56,8 @@ def test_config_matches_reference():
                   "vocab_size", "head_dim", "qkv_bias", "tie_embeddings",
                   "rope_theta", "norm_eps", "act", "qk_norm"):
             assert getattr(t, f) == getattr(j, f), f
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("deepseek-v2-236b")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("no-such-arch")
 
 
 def test_init_tree_matches_reference_layout(setup):
