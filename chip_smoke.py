@@ -83,7 +83,17 @@ slots, three held against solo serving (13c); then musicgen-large (frame
 embeddings, 13d) and internvl2-1b (256 patches before the text, the tied
 table, 13e) at full width and depth through K4, K5 and K6, held as 11b;
 K4 at MLA's and musicgen's shapes, K5 at musicgen's and K6 at
-deepseek-v2's head against their plain versions and timed (13f).
+deepseek-v2's head against their plain versions and timed (13f). Phase 14
+drives the mesh layer through ``train.main --mesh debug --mesh-shape 1x1``
+at full-width qwen2-0.5b (savic, H 2, b 8, S 128, 2 rounds; the plan fixes
+M = 1 and the run starts and destroys a 1-rank NCCL group): ``--mode
+paper`` on the tree loop (14a) and ``--mode plain --use-fused-kernel``,
+per-shard flatten, K1, unflatten on shard axes of extent 1 (14b), each
+held bitwise against ``--mesh none --clients 1`` (losses, drifts, every
+leaf of the final state), K1 launched 4 times on 14b's path; then it runs
+``examples/quickstart_torch.py`` and
+``examples/federated_heterogeneity_torch.py --rounds 3`` on the card (14c),
+their losses finite.
 Any failed phase raises and the script exits non-zero. Without a CUDA
 device, or without the rest of the repository beside it, it exits non-zero
 before printing any result.
@@ -2804,6 +2814,106 @@ def phase13(gen):
 
 
 # --------------------------------------------------------------------------- #
+# phase 14: the mesh layer on a 1×1 card mesh, and the examples
+# --------------------------------------------------------------------------- #
+
+MESH_ARGV = ["--arch", "qwen2-0.5b", "--method", "savic", "--rounds", "2",
+             "--h-local", "2", "--batch", "8", "--seq", "128", "--device",
+             "cuda"]
+
+
+def mesh_case(label, extra, expect_k1):
+    """``train.main --mesh debug --mesh-shape 1x1`` (a 1-rank NCCL group
+    started and destroyed by the run) against ``--mesh none --clients 1``
+    with the same arguments: losses, drifts and every leaf of the final
+    state bitwise (each run's state copied to the host, so that the two
+    peaks are alike). Returns the mesh run's K1 launches, round walls, peak
+    GiB and seconds, and the unsharded run's peak."""
+    out = {}
+    for mesh in (True, False):
+        argv = MESH_ARGV + list(extra) + (
+            ["--mesh", "debug", "--mesh-shape", "1x1"] if mesh
+            else ["--clients", "1"])
+        print(f"[chip_smoke] {label}: train.main " + " ".join(argv),
+              flush=True)
+        reset_counts()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        log, state = train.main(argv, return_state=True)
+        secs = time.perf_counter() - t0
+        k1 = su.fused_step_flat.launches
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(k1 == expect_k1, f"{label}: K1 launched {k1} times, expected "
+              f"{expect_k1}")
+        for rec in log:
+            check(all(finite(v) for v in rec.values()
+                      if isinstance(v, float)), f"non-finite record {rec}")
+        out[mesh] = (log, tree_map(lambda t: t.cpu(), state), k1, peak, secs)
+        del state
+    (lm, sm, k1, peak, secs), (ln, sn, _, peak_n, _) = out[True], out[False]
+    for a, b in zip(lm, ln):
+        check(a["loss"] == b["loss"] and a["drift"] == b["drift"],
+              f"{label}: round {a['round']} differs from --mesh none")
+    pm, pn = tree_paths(sm), tree_paths(sn)
+    same = [pa == pb and torch.equal(a, b)
+            for (pa, a), (pb, b) in zip(pm, pn)]
+    check(len(pm) == len(pn) and all(same),
+          f"{label}: the final state differs from --mesh none")
+    walls = [r["wall_s"] for r in lm]
+    print(f"[chip_smoke] {label}: losses {[r['loss'] for r in lm]} bitwise "
+          f"--mesh none's, {len(same)} state leaves bitwise; K1 {k1}; round "
+          f"walls {walls} s (--mesh none {[r['wall_s'] for r in ln]}); peak "
+          f"{peak:.2f} GiB (--mesh none {peak_n:.2f}); {secs:.1f} s",
+          flush=True)
+    del out, sm, sn, pm, pn
+    torch.cuda.empty_cache()
+    return {"k1": k1, "walls": walls, "peak": peak, "secs": secs,
+            "peak_none": peak_n}
+
+
+def run_example(name, argv):
+    """``examples/<name>.py``'s ``main(argv)`` on the card; its rows."""
+    import importlib.util
+    path = os.path.join(ROOT, "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"_example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    t0 = time.perf_counter()
+    rows = mod.main(argv)
+    print(f"[chip_smoke] 14c {name} {' '.join(argv)}: {len(rows)} rows in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(all(finite(v) for r in rows for v in r if isinstance(v, float)),
+          f"{name}: non-finite rows")
+    return rows
+
+
+def phase14():
+    """Phase 14: the mesh layer on a 1×1 card mesh at full-width qwen2-0.5b
+    (14a paper on the tree loop, 14b plain on K1), then the examples
+    (14c)."""
+    import tempfile
+    t0 = time.perf_counter()
+    a = mesh_case("14a mesh 1x1 paper", ["--mode", "paper"], 0)
+    b = mesh_case("14b mesh 1x1 plain, K1", ["--mode", "plain",
+                                             "--use-fused-kernel"],
+                  2 * H_LOCAL)
+    run_example("quickstart_torch", ["--device", "cuda"])
+    out = tempfile.mkdtemp()
+    try:
+        run_example("federated_heterogeneity_torch",
+                    ["--rounds", "3", "--device", "cuda", "--out",
+                     os.path.join(out, "fig1.csv")])
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    print(f"[chip_smoke] phase 14: {secs:.1f} s; 14a {a['secs']:.1f} s "
+          f"(peak {a['peak']:.2f} GiB), 14b {b['secs']:.1f} s (peak "
+          f"{b['peak']:.2f} GiB, K1 {b['k1']})", flush=True)
+    return {"a": a, "b": b, "secs": secs}
+
+
+# --------------------------------------------------------------------------- #
 # phases
 # --------------------------------------------------------------------------- #
 
@@ -3830,6 +3940,9 @@ def main():
     # ---- 13. deepseek-v2 (MLA, 4 layers), musicgen-large, internvl2-1b ----
     p13 = phase13(gen)
 
+    # ---- 14. the mesh layer on a 1x1 card mesh; the examples --------------
+    p14 = phase14()
+
     # ---- phase 9. checkpoint and bitwise resume; the train_lm runner ------
     try:
         res = resume_phase(n_main, qwen_shapes)
@@ -3845,7 +3958,8 @@ def main():
                           p13["kernels"])
     by_path = {
         "k1": {"qwen2-0.5b savic": launches,
-               "zamba2-2.7b 12-layer savic": ztr["k1"]},
+               "zamba2-2.7b 12-layer savic": ztr["k1"],
+               "qwen2-0.5b 1x1 mesh plain savic": p14["b"]["k1"]},
         "k4": {"qwen2-0.5b long prompt": k4_launches,
                "zamba2-2.7b serve": z["counts"]["k4"],
                "zamba2-2.7b continuous": z["ccounts"]["k4"],

@@ -18,6 +18,12 @@ to the text), and, as in the reference's ``_VARIANTS``, ``qwen3-4b-swa``
 (``CONFIG_SWA``: a sliding window of 8192). ``register`` adds a module of
 the caller's (``examples/train_lm_torch.py`` registers its ``lm-100m``).
 Every architecture of the reference's registry has its counterpart.
+
+The input shapes (``ShapeConfig``, ``INPUT_SHAPES``, ``get_shape``) are
+the reference's, field for field. ``param_shapes(cfg)`` gives a model's
+parameter tree as ``meta`` tensors (shapes and dtypes, no storage), so the
+partitioner can read a full-size tree (deepseek-v2-236b is 878 GiB in
+fp32) without allocating it.
 """
 from __future__ import annotations
 
@@ -176,6 +182,45 @@ _MODULE_FOR = {"zamba2-2.7b": "zamba2_2p7b", "qwen3-4b": "qwen3_4b",
                "internvl2-1b": "internvl2_1b"}
 # beyond-assignment variants (selectable, as in the reference)
 _VARIANTS = {"qwen3-4b-swa": ("qwen3_4b", "CONFIG_SWA")}
+
+
+# --------------------------------------------------------------------------- #
+# Input shapes (the reference's)
+# --------------------------------------------------------------------------- #
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return INPUT_SHAPES[name]
+
+
+def param_shapes(cfg: ModelConfig):
+    """The parameter tree of ``models.build(cfg)`` as ``meta`` tensors:
+    the init runs under ``FakeTensorMode``, so nothing is allocated."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.models import build
+    from repro_torch.utils.tree import tree_map
+    with FakeTensorMode():
+        fake = build(cfg).init(torch.Generator())
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="meta"), fake)
 
 
 def register(arch_id: str, module_name: str) -> None:

@@ -38,6 +38,22 @@ state tensors in place. ``ctrl`` holds the adaptive controller's knobs
 Randomness (participation, Hutchinson probes, objectives, compression) comes
 from the round's rng stream (``repro_torch.utils.rng``), with the
 reference's fold constants, so a test can replay the reference's draws.
+
+On a mesh (``shard_plan``, a ``utils.flatten.ShardedFlatPlan``) the round
+runs in every rank's process: each rank of the client axes runs its own
+client, and each rank of the shard (model / FSDP) axes holds that client's
+leaves as its blocks (``shard_state``). A local step gathers the client's
+params over the shard axes (``DTensor`` to ``Replicate``), runs the forward
+and backward pass on this rank's rows of the microbatch, takes the mean of
+the gradient over the batch axes, clips it (the full gradient, so the norm
+is global) and keeps this rank's blocks; the update then touches the
+blocks alone (the fused loop: one launch of the fused kernel on this
+rank's flat block). The sync's weighted mean is a weighted partial sum and
+an all-reduce over the client axes; global norms and the client drift sum
+every element once over the shard axes. The rng draws are the round's on
+every rank, so a mesh round equals the single-device round up to the order
+of its sums. Compression on model-/FSDP-sharded plans and the controller
+on any mesh raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -446,11 +462,67 @@ def average_params(state):
     return tree_map(lambda p: p[0], state["params"])
 
 
-def client_drift(params_m):
-    """(1/M)Σ‖x^m − x̂‖², the V_t of the analysis (0 right after sync)."""
+def client_drift(params_m, shard_plan=None):
+    """(1/M)Σ‖x^m − x̂‖², the V_t of the analysis (0 right after sync). On a
+    mesh ``params_m`` holds this rank's client and blocks."""
+    if shard_plan is None:
+        def per_leaf(p):
+            return torch.sum((p - p.mean(dim=0, keepdim=True)) ** 2)
+        return sum(per_leaf(p) for p in tree_leaves(params_m))
+    M = shard_plan.client_ranks * tree_leaves(params_m)[0].shape[0]
+
     def per_leaf(p):
-        return torch.sum((p - p.mean(dim=0, keepdim=True)) ** 2)
-    return sum(per_leaf(p) for p in tree_leaves(params_m))
+        mean = shard_plan.sum_clients(p.sum(dim=0, keepdim=True)) / M
+        return torch.sum((p - mean) ** 2)
+    return shard_plan.sum_leaves(per_leaf, params_m, clients=True)
+
+
+def shard_state(state, shard_plan):
+    """This rank's part of a full engine state: its client's rows of the
+    per-client trees, its blocks of every params-shaped leaf (a block
+    smaller than its leaf is copied, so the full leaf can be freed)."""
+    pl = shard_plan
+    out = dict(state)
+    for k in ("params", "mom", "ef"):
+        if k in state:
+            out[k] = pl.local(state[k], lead=1, client_dim=True)
+    pre = dict(state["precond"])
+    if "d" in pre:
+        local = pre["t"].dim() == 1
+        pre["d"] = pl.local(pre["d"], lead=int(local), client_dim=local)
+        if local:
+            pre["t"] = pl.client_rows(pre["t"])
+    out["precond"] = pre
+    if "server" in state:
+        out["server"] = {k: pl.local(v) for k, v in state["server"].items()}
+    if "buffer" in state:
+        out["buffer"] = pl.local(state["buffer"], lead=1)
+    if "ctrl" in state:
+        raise NotImplementedError("the controller on a mesh")
+    return tree_map(lambda x, full: x.clone() if x.numel() < full.numel()
+                    else x, out, state)
+
+
+def gather_state(state, shard_plan):
+    """The full engine state from every rank's part (``shard_state``'s
+    inverse; a collective every rank of the mesh calls)."""
+    pl = shard_plan
+    out = dict(state)
+    for k in ("params", "mom", "ef"):
+        if k in state:
+            out[k] = pl.full(state[k], lead=1, client_dim=True)
+    pre = dict(state["precond"])
+    if "d" in pre:
+        local = pre["t"].dim() == 1
+        pre["d"] = pl.full(pre["d"], lead=int(local), client_dim=local)
+        if local:
+            pre["t"] = pl.gather_clients(pre["t"])
+    out["precond"] = pre
+    if "server" in state:
+        out["server"] = {k: pl.full(v) for k, v in state["server"].items()}
+    if "buffer" in state:
+        out["buffer"] = pl.full(state["buffer"], lead=1)
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -524,12 +596,34 @@ def _local_stat(pc: PrecondConfig, grads):
     return PC.grad_stat(grads)
 
 
-def _step_stat(loss_fn, pc: PrecondConfig, params, micro, grads, stream):
-    """A client's local-scaling D stat: a Hutchinson probe at the step's
-    params on its own step stream, or the gradient stat."""
-    if pc.uses_hutchinson:
-        return PC.hutchinson_diag(loss_fn, params, micro, stream)
-    return _local_stat(pc, grads)
+def _mesh_calls(loss_fn, grad3, shard_plan):
+    """A client's gradient and local Hutchinson stat on a mesh, from this
+    rank's blocks of its params: ``grad(p, micro, st) -> (loss, full
+    gradient)`` and ``hutch(p, micro, st) -> this rank's blocks of the
+    stat``. Both run on the gathered params and this rank's rows of the
+    microbatch, then take the mean over the batch axes; with no mesh they
+    are the plain calls."""
+    if shard_plan is None:
+        return grad3, lambda p, mc, st: PC.hutchinson_diag(loss_fn, p, mc, st)
+    pl = shard_plan
+
+    def grad(p, micro, st):
+        loss, grads = grad3(pl.full(p), pl.batch_rows(micro), st)
+        out = pl.mean_batch({"loss": loss, "grads": grads})
+        return out["loss"], out["grads"]
+
+    def hutch(p, micro, st):
+        stat = PC.hutchinson_diag(loss_fn, pl.full(p), pl.batch_rows(micro),
+                                  st)
+        return pl.local(pl.mean_batch(stat))
+    return grad, hutch
+
+
+def _client_ids(params_m, shard_plan):
+    """The global indices of the clients whose rows ``params_m`` holds."""
+    n = tree_leaves(params_m)[0].shape[0]
+    c0 = shard_plan.client_rank * n if shard_plan is not None else 0
+    return list(range(c0, c0 + n))
 
 
 def _idle_losses(losses, loss3, params_of, batch, steps, h_m):
@@ -543,8 +637,10 @@ def _idle_losses(losses, loss3, params_of, batch, steps, h_m):
                                      steps[0][i] if steps else None)
 
 
-def _client_loop(loss_fn, grad_fn, spec: EngineSpec, objective=None):
-    """H local steps on M clients.
+def _client_loop(loss_fn, grad_fn, spec: EngineSpec, objective=None,
+                 shard_plan=None):
+    """H local steps on M clients (on a mesh: on this rank's client, its
+    blocks of the state in and out).
 
     Returns ``run(params_m, mom_m, pstate, batch, steps, h_m) -> (params_m,
     mom_m, pstate, last_grads, losses)`` with batch leaves (M, H, ...),
@@ -553,16 +649,21 @@ def _client_loop(loss_fn, grad_fn, spec: EngineSpec, objective=None):
     None otherwise) and ``h_m`` the per-client step counts as Python ints.
     Client m runs steps 0 … h_m[m] − 1 and then does nothing more: its
     params, momentum, per-client D and carried gradients keep their values
-    from its last step.
+    from its last step. ``batch``, ``steps`` and ``h_m`` are the whole
+    round's on a mesh too.
     """
     cl, pc = spec.client, spec.precond
     grad3, loss3 = _objective_calls(loss_fn, grad_fn, objective)
     if cl.use_fused_kernel:
-        return _fused_run(loss_fn, grad3, loss3, spec)
+        return _fused_run(loss_fn, grad3, loss3, spec, shard_plan)
     local = cl.scaling == "local" and pc.kind != "identity"
+    grad_at, hutch_at = _mesh_calls(loss_fn, grad3, shard_plan)
+    to_local = shard_plan.local if shard_plan is not None else (lambda t: t)
 
     def run(params_m, mom_m, pstate, batch, steps, h_m):
-        M = tree_leaves(params_m)[0].shape[0]
+        ids = _client_ids(params_m, shard_plan)
+        M = len(ids)
+        h_m = [h_m[c] for c in ids]
         H = tree_leaves(batch)[0].shape[1]
         ps = [tree_map(lambda x: x[i], params_m) for i in range(M)]
         ms = [tree_map(lambda x: x[i], mom_m) for i in range(M)]
@@ -574,16 +675,17 @@ def _client_loop(loss_fn, grad_fn, spec: EngineSpec, objective=None):
         losses = torch.zeros((H, M), dtype=torch.float32,
                              device=tree_leaves(params_m)[0].device)
         for h in range(max(h_m)):
-            for i in range(M):
+            for i, c in enumerate(ids):
                 if h >= h_m[i]:
                     continue
-                micro = _micro(batch, i, h)
-                st = steps[h][i] if steps else None
-                loss, grads = grad3(ps[i], micro, st)
-                grads = _clip(grads, cl.grad_clip)
+                micro = _micro(batch, c, h)
+                st = steps[h][c] if steps else None
+                loss, grads = grad_at(ps[i], micro, st)
+                grads = to_local(_clip(grads, cl.grad_clip))
                 if local:
-                    cps[i] = PC.update(pc, cps[i], _step_stat(
-                        loss_fn, pc, ps[i], micro, grads, st))
+                    stat = hutch_at(ps[i], micro, st) if pc.uses_hutchinson \
+                        else _local_stat(pc, grads)
+                    cps[i] = PC.update(pc, cps[i], stat)
                 ps[i], ms[i] = _apply_update(ps[i], ms[i], grads,
                                              cps[i] if local else pstate,
                                              spec)
@@ -599,7 +701,23 @@ def _client_loop(loss_fn, grad_fn, spec: EngineSpec, objective=None):
     return run
 
 
-def _fused_run(loss_fn, grad3, loss3, spec: EngineSpec):
+def _shard_flat_ops(shard_plan, params_m):
+    """The flat layout of the client state: one ``FlatLayout`` of the
+    whole tree, or on a mesh the plan's ``ShardFlatLayout``, whose
+    ``flatten`` / ``unflatten`` take this rank's blocks. Each rank launches
+    the fused kernel on its own block: the local step makes no collective
+    on the flat buffers."""
+    if shard_plan is None:
+        return FlatLayout.for_tree(params_m, batch_dims=1)
+    lay = shard_plan.layout
+    got = [tuple(x.shape[1:]) for x in tree_leaves(params_m)]
+    if got != list(lay.local.shapes):
+        raise ValueError("the state's blocks do not match the plan's "
+                         "ShardFlatLayout")
+    return lay
+
+
+def _fused_run(loss_fn, grad3, loss3, spec: EngineSpec, shard_plan=None):
     """The flat-buffer fused client loop.
 
     Same contract as the tree ``run``, but the client state rides as
@@ -617,6 +735,9 @@ def _fused_run(loss_fn, grad3, loss3, spec: EngineSpec):
     gradients are not rewritten, and their step counters do not advance. A
     local step in which no client is active is not launched, so a round
     makes max_m H_m launches.
+
+    On a mesh the buffers are this rank's blocks (``_shard_flat_ops``):
+    one launch a local step on its client's ``(1, n_local)`` rows.
     """
     cl, pc = spec.client, spec.precond
     from repro_torch.kernels import ops as kops
@@ -624,15 +745,19 @@ def _fused_run(loss_fn, grad3, loss3, spec: EngineSpec):
     # "local" here = D advances inside the loop (global D updates at sync)
     local = cl.scaling == "local" and has_d
     hutch = local and pc.uses_hutchinson
+    grad_at, hutch_at = _mesh_calls(loss_fn, grad3, shard_plan)
+    to_local = shard_plan.local if shard_plan is not None else (lambda t: t)
 
     def run(params_m, mom_m, pstate, batch, steps, h_m):
         if not (all_float32(params_m) and all_float32(mom_m)
                 and (not has_d or all_float32(pstate["d"]))):
             raise NotImplementedError("the fused client loop takes fp32 "
                                       "client state only")
-        M = tree_leaves(params_m)[0].shape[0]
+        ids = _client_ids(params_m, shard_plan)
+        M = len(ids)
+        h_m = [h_m[c] for c in ids]
         H = tree_leaves(batch)[0].shape[1]
-        layout = FlatLayout.for_tree(params_m, batch_dims=1)
+        layout = _shard_flat_ops(shard_plan, params_m)
         P = layout.flatten(params_m, batch_dims=1)
         Mo = layout.flatten(mom_m, batch_dims=1)
         G = torch.zeros_like(P)                 # carried sync-step grads
@@ -645,22 +770,22 @@ def _fused_run(loss_fn, grad3, loss3, spec: EngineSpec):
         losses = torch.zeros((H, M), dtype=torch.float32, device=P.device)
         for h in range(max(h_m)):
             active = [h < hm for hm in h_m]
-            for i in range(M):
+            for i, c in enumerate(ids):
                 if not active[i]:
                     if i not in frozen:
                         frozen[i] = [buf[i].clone() for buf in rows]
                     continue
-                params_i, micro = layout.unflatten(P[i]), _micro(batch, i, h)
-                st = steps[h][i] if steps else None
-                loss, grads = grad3(params_i, micro, st)
+                params_i, micro = layout.unflatten(P[i]), _micro(batch, c, h)
+                st = steps[h][c] if steps else None
+                loss, grads = grad_at(params_i, micro, st)
                 # tree-level clip, exactly as the tree path: the CLIPPED
                 # grads are what the sync-time D stat reads
-                grads = _clip(grads, cl.grad_clip)
+                grads = to_local(_clip(grads, cl.grad_clip))
                 torch.cat([g.reshape(-1) for g in tree_leaves(grads)],
                           out=G[i])
                 del grads
                 if hutch:
-                    stat = PC.hutchinson_diag(loss_fn, params_i, micro, st)
+                    stat = hutch_at(params_i, micro, st)
                     torch.cat([x.reshape(-1) for x in tree_leaves(stat)],
                               out=Hs[i])
                     del stat
@@ -736,22 +861,30 @@ def _kept_count(spec: CompressionSpec, n: int, k_frac=None):
     return kc, float(f32(n) / f32(kc))
 
 
-def _compress_leaf(spec: CompressionSpec, x, stream, k_frac=None):
+def _compress_leaf(spec: CompressionSpec, x, stream, k_frac=None,
+                   rows=None):
     """Apply one compression operator to a (M, ...) leaf of round deltas.
 
     Per-client semantics throughout: topk/randk keep EXACTLY kc entries per
     client row (``_kept_count``: from ``spec.k``, or from the controller's
     kept fraction ``k_frac``), int8-stochastic uses a per-client absmax/127
     scale. Returns the decoded (server-side) fp32 view of what crossed the
-    wire, same shape as x.
+    wire, same shape as x. ``rows = (first, M)``: ``x`` holds clients
+    ``first, first + 1, …`` of M (a mesh rank's), and the draws are the M
+    clients' rows.
     """
     M = x.shape[0]
     flat = x.reshape(M, -1)
     n = flat.shape[1]
+
+    def uniform():
+        if rows is None:
+            return stream.uniform(flat.shape, flat.device)
+        first, m_all = rows
+        return stream.uniform((m_all, n), flat.device)[first:first + M]
     if spec.op in ("topk", "randk"):
         # randk = topk on uniform scores: same selection code, random ranking
-        scores = flat.abs() if spec.op == "topk" \
-            else stream.uniform(flat.shape, flat.device)
+        scores = flat.abs() if spec.op == "topk" else uniform()
         kc, inv = _kept_count(spec, n, k_frac)
         idx = _top_indices(scores, kc)
         del scores
@@ -762,7 +895,7 @@ def _compress_leaf(spec: CompressionSpec, x, stream, k_frac=None):
         return kept.reshape(x.shape)
     # int8-stochastic: E[floor(v + U[0,1))] = v, an unbiased QDQ
     scale = flat.abs().amax(dim=1) / 127.0
-    u01 = stream.uniform(flat.shape, flat.device)
+    u01 = uniform()
     if spec.use_fused_kernel:
         from repro_torch.kernels import ops as kops
         _, dec = kops.quantize_update(flat, u01, scale)
@@ -892,16 +1025,23 @@ def participation_weights(spec: SyncSpec, stream, n_clients: int, device):
     return torch.full((M,), 1.0 / M, dtype=torch.float32, device=device)
 
 
-def make_sync(spec: SyncSpec, stream, n_clients: int, device):
+def make_sync(spec: SyncSpec, stream, n_clients: int, device,
+              shard_plan=None):
     """The sync average: (M, ...) leaf -> (...) weighted mean, optionally
     reduced in ``sync_dtype`` (quantized averaging; the result stays in that
-    dtype and is cast back to the master dtype at broadcast)."""
+    dtype and is cast back to the master dtype at broadcast). On a mesh the
+    leaf holds this rank's client: its weighted row, summed over the client
+    axes."""
     M = n_clients
     w_part = participation_weights(spec, stream, M, device)
+    if shard_plan is not None:
+        w_part = shard_plan.client_rows(w_part)
 
     def _wmean(p):
-        wb = w_part.reshape((M,) + (1,) * (p.dim() - 1)).to(p.dtype)
-        return (p * wb).sum(dim=0)
+        wb = w_part.reshape((w_part.shape[0],) + (1,) * (p.dim() - 1)).to(
+            p.dtype)
+        out = (p * wb).sum(dim=0)
+        return out if shard_plan is None else shard_plan.sum_clients(out)
 
     if spec.sync_dtype:
         sd = _torch_dtype(spec.sync_dtype)
@@ -943,7 +1083,8 @@ def _ctrl_observations(x_ref, params_m):
 
 
 def _delta_sync(comp: CompressionSpec, avg, x_ref, params_m, ef, buffer,
-                weights, rescale, stream, k_frac, keep_delta: bool):
+                weights, rescale, stream, k_frac, keep_delta: bool,
+                shard_plan=None, n_clients=None):
     """The delta form of the sync, leaf by leaf: u = x_{m,H} − x_t (+ EF),
     c = C(u) (c = u uncompressed), EF′ = u − C(u), Δ̄ = avg(c) (× ``rescale``
     when the controller skipped clients), then with a staleness FIFO
@@ -955,6 +1096,8 @@ def _delta_sync(comp: CompressionSpec, avg, x_ref, params_m, ef, buffer,
     new_buffer | None, compression_err | None, wire_bytes | None,
     payload_sq | None)`` with the error Σ‖u_m − C(u_m)‖², the measured
     per-client payload (M,) and the compressor's input energy Σ‖u_m‖².
+    On a mesh (client-only plans) ``params_m`` holds this rank's client;
+    the draws, the sums and the payload are the round's.
     """
     squeeze = not comp.is_identity()
     p_leaves, x_leaves = tree_leaves(params_m), tree_leaves(x_ref)
@@ -965,6 +1108,8 @@ def _delta_sync(comp: CompressionSpec, avg, x_ref, params_m, ef, buffer,
             rng.COMPRESSION_FOLD).split(len(p_leaves))
     x_avg, d_avg, new_ef, new_buf = [], [], [], []
     err = wire = payload = 0
+    rows = None if shard_plan is None else \
+        (shard_plan.client_rank * p_leaves[0].shape[0], n_clients)
     for i, (p, x) in enumerate(zip(p_leaves, x_leaves)):
         u = p - x.unsqueeze(0)
         if not squeeze:
@@ -973,7 +1118,7 @@ def _delta_sync(comp: CompressionSpec, avg, x_ref, params_m, ef, buffer,
             if ef_leaves is not None:
                 u.add_(ef_leaves[i])
             payload = payload + torch.dot(u.reshape(-1), u.reshape(-1))
-            c = _compress_leaf(comp, u, streams[i], k_frac)
+            c = _compress_leaf(comp, u, streams[i], k_frac, rows)
             wire = wire + _leaf_wire_bytes(comp, c)
             d = avg(c)
             r = u.sub_(c)                   # the residual u − C(u), in place
@@ -994,6 +1139,9 @@ def _delta_sync(comp: CompressionSpec, avg, x_ref, params_m, ef, buffer,
             d_avg.append(d)
         del d
     unflat = lambda leaves: tree_unflatten(x_ref, leaves)
+    if squeeze and shard_plan is not None:
+        err, payload = (shard_plan.sum_clients(v) for v in (err, payload))
+        wire = shard_plan.gather_clients(wire)
     return (unflat(x_avg), unflat(d_avg) if keep_delta else None,
             unflat(new_ef) if ef_leaves is not None else None,
             unflat(new_buf) if b_leaves is not None else None,
@@ -1065,7 +1213,8 @@ def _adaptive_server_update(spec: ServerSpec, server, x_prev, delta):
 # --------------------------------------------------------------------------- #
 
 
-def build_round_step(loss_fn: Callable, spec: EngineSpec, objective=None):
+def build_round_step(loss_fn: Callable, spec: EngineSpec, objective=None,
+                     shard_plan=None):
     """loss_fn(params, microbatch) -> scalar tensor.
 
     Returns ``round_step(state, batch, stream=None) -> (state, metrics)``
@@ -1091,6 +1240,12 @@ def build_round_step(loss_fn: Callable, spec: EngineSpec, objective=None):
     personal leaves' gradients), and a controller beside static
     ``local_steps``, participation < 1, or a ``buffer_max`` other than the
     FIFO's depth.
+
+    With ``shard_plan`` (a ``utils.flatten.ShardedFlatPlan``) the round runs
+    on a mesh, in every rank: ``state`` is this rank's part
+    (``shard_state``), ``batch`` the whole round's, the metrics the
+    round's. Compression on a plan whose shard axes split the params and
+    the controller on any mesh raise ``NotImplementedError``.
     """
     grad_fn = value_and_grad(loss_fn)
     cl, sy, sv, pc = spec.client, spec.sync, spec.server, spec.precond
@@ -1116,14 +1271,23 @@ def build_round_step(loss_fn: Callable, spec: EngineSpec, objective=None):
                 f"controller buffer_max={ctrl.buffer_max} must equal the "
                 f"allocated AsyncSpec.buffer_rounds={asy.buffer_rounds} "
                 f"(b_eff masks within the static FIFO)")
+    if shard_plan is not None:
+        if ctrl.enabled:
+            raise NotImplementedError("the controller on a mesh")
+        if not comp.is_identity() and shard_plan.layout.n_shards > 1:
+            raise NotImplementedError(
+                f"compression {comp.op!r} on a model-/FSDP-sharded mesh plan")
     strip = lambda t: strip_personal(personal, t)
-    client_run = _client_loop(loss_fn, grad_fn, spec, objective)
+    client_run = _client_loop(loss_fn, grad_fn, spec, objective, shard_plan)
+    pl = shard_plan
     semi = objective is not None and not objective.is_identity()
     need_steps = semi or (cl.scaling == "local" and pc.uses_hutchinson)
     manage_depth = ctrl.enabled and ctrl.buffer_max > 0
 
     def round_step(state, batch, stream=None):
         M = tree_leaves(state["params"])[0].shape[0]
+        if pl is not None:
+            M *= pl.client_ranks
         H = tree_leaves(batch)[0].shape[1]
         dev = state["round"].device
 
@@ -1153,7 +1317,9 @@ def build_round_step(loss_fn: Callable, spec: EngineSpec, objective=None):
             if cl.reset_momentum else state["mom"]
         params_m, mom_m, pstate, last_grads, losses = client_run(
             state["params"], mom0, state["precond"], batch, steps, h_m)
-        drift_pre_sync = client_drift(params_m)
+        if pl is not None:
+            losses = pl.gather_clients(losses, dim=1)
+        drift_pre_sync = client_drift(params_m, pl)
 
         # ---- SyncStrategy (synced leaves only) -------------------------------
         # clients start each round at the common broadcast point, so
@@ -1161,7 +1327,7 @@ def build_round_step(loss_fn: Callable, spec: EngineSpec, objective=None):
         x_ref = strip(tree_map(lambda p: p[0], state["params"]))
         ctrl_obs = _ctrl_observations(x_ref, strip(params_m)) \
             if ctrl.enabled else None
-        avg = make_sync(sy, stream, M, dev)
+        avg = make_sync(sy, stream, M, dev, pl)
         new_ef = new_buffer = delta_avg = comp_err = wire = staleness = None
         if comp.is_identity() and asy.is_identity():
             params_avg = tree_map(avg, strip(params_m))
@@ -1182,7 +1348,8 @@ def build_round_step(loss_fn: Callable, spec: EngineSpec, objective=None):
                 payload = _delta_sync(comp, avg, x_ref, strip(params_m),
                                       state.get("ef"), state.get("buffer"),
                                       weights, rescale, stream, k_dyn,
-                                      keep_delta=sv.kind == "adaptive")
+                                      keep_delta=sv.kind == "adaptive",
+                                      shard_plan=pl, n_clients=M)
             if ctrl_obs is not None and comp_err is not None:
                 ctrl_obs["payload_sq"], ctrl_obs["resid_sq"] = payload, \
                     comp_err
@@ -1197,11 +1364,14 @@ def build_round_step(loss_fn: Callable, spec: EngineSpec, objective=None):
             if cl.stat_source == "avg_grad":
                 if pc.uses_hutchinson:
                     # one probe at the averaged point on client 0's last
-                    # microbatch
+                    # microbatch (on a mesh: every rank the same probe)
                     stat = PC.hutchinson_diag(
-                        loss_fn, params_avg, _micro(batch, 0, H - 1),
+                        loss_fn, params_avg if pl is None
+                        else pl.full(params_avg), _micro(batch, 0, H - 1),
                         _needs(stream, "a Hutchinson probe").fold(
                             rng.HUTCHINSON_FOLD))
+                    if pl is not None:
+                        stat = pl.local(stat)
                 else:
                     # participation weights and sync dtype apply to the stat
                     stat = _local_stat(pc, tree_map(avg, last_grads))
@@ -1209,15 +1379,16 @@ def build_round_step(loss_fn: Callable, spec: EngineSpec, objective=None):
                 if pc.uses_hutchinson:
                     hk = _needs(stream, "a Hutchinson probe").fold(
                         rng.HUTCHINSON_FOLD).split(M)
-                    stats = [PC.hutchinson_diag(
-                        loss_fn, tree_map(lambda x: x[i], params_m),
-                        _micro(batch, i, H - 1), hk[i]) for i in range(M)]
-                    stat = tree_map(lambda *xs: torch.stack(xs).mean(dim=0),
-                                    *stats)
+                    _, hutch_at = _mesh_calls(loss_fn, None, pl)
+                    stats = [hutch_at(tree_map(lambda x: x[i], params_m),
+                                      _micro(batch, c, H - 1), hk[c])
+                             for i, c in enumerate(_client_ids(params_m, pl))]
+                    stat = tree_map(lambda *xs: torch.stack(xs), *stats)
                     del stats
                 else:
-                    stat = tree_map(lambda s: s.mean(dim=0),
-                                    _local_stat(pc, last_grads))
+                    stat = _local_stat(pc, last_grads)
+                stat = tree_map(lambda s: s.mean(dim=0) if pl is None
+                                else pl.sum_clients(s.sum(dim=0)) / M, stat)
             pstate = PC.update(pc, pstate, stat)
             del stat
 
@@ -1272,9 +1443,14 @@ def build_round_step(loss_fn: Callable, spec: EngineSpec, objective=None):
                                                     x_prev, delta)
             params_m = _broadcast_back(params_m, x_new)
             new_state["server"] = server
-            metrics["step_norm"] = torch.sqrt(_sqnorm(
-                [a - b for a, b in zip(tree_leaves(x_new),
-                                       tree_leaves(x_prev))]))
+            if pl is None:
+                metrics["step_norm"] = torch.sqrt(_sqnorm(
+                    [a - b for a, b in zip(tree_leaves(x_new),
+                                           tree_leaves(x_prev))]))
+            else:
+                metrics["step_norm"] = torch.sqrt(pl.sum_leaves(
+                    lambda d: torch.dot(d.reshape(-1), d.reshape(-1)),
+                    tree_map(torch.sub, x_new, x_prev)))
         new_state["params"] = params_m
         new_state["mom"] = mom_m
         return new_state, metrics

@@ -1,5 +1,5 @@
 """Training entry point for every engine method (counterpart of
-``repro/launch/train.py``, single-device path ``--mesh none``).
+``repro/launch/train.py``).
 
 Same flags and defaults as the reference, plus ``--device {cuda,cpu}``
 (default cuda; without a card it raises): the methods, compression,
@@ -8,8 +8,19 @@ the per-client local steps H_m), the staleness buffer (``--async-buffer``),
 the adaptive controller (``--controller``, which owns H_m and takes the
 step times as its straggler trace), client objectives (``--objective``,
 ``--labeled-frac``), personalization (``--personalize``) and checkpoints
-(``--ckpt``, ``--ckpt-every``; the reference's on-disk format). ``--mesh``
-is not ported and raises ``NotImplementedError``.
+(``--ckpt``, ``--ckpt-every``; the reference's on-disk format).
+
+Two launch paths share the spec resolution, data, round loop and log:
+
+* ``--mesh none`` (default): one process, one device, ``--clients`` M.
+* ``--mesh debug|production|production-2pod``: ``steps.build_train_step``
+  on a ``DeviceMesh`` (``--mesh-shape`` for debug, e.g. ``1x1`` or
+  ``2x2``; ``--mode`` paper / paper_fsdp / plain / diloco, auto = plain
+  for the big archs, else paper). The plan fixes M from its client axes.
+  Every rank runs this script (``torchrun``, or alone: a group of one rank
+  is started then), builds the same initial state from the seed and keeps
+  its part of it; logs and the ``--log`` file come from rank 0. ``--ckpt``
+  with ``--mesh`` raises ``NotImplementedError``.
 
 Every arch trains (dense qwen2 / qwen3 / gemma3, moe qwen2-moe and the MLA
 deepseek-v2, ssm mamba2, hybrid zamba2, audio musicgen, vlm internvl2), on
@@ -51,6 +62,13 @@ Examples:
       --reduced --device cpu --rounds 2 --ckpt /tmp/ck --ckpt-every 1
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
       --reduced --device cpu --rounds 4 --ckpt /tmp/ck --ckpt-every 1
+  # a mesh: one card, or four CPU ranks
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
+      --mesh debug --mesh-shape 1x1 --mode paper --rounds 2 --h-local 2 \
+      --batch 8 --seq 128
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch qwen2-0.5b --reduced --device cpu --mesh debug --mesh-shape 2x2 \
+      --mode paper --rounds 2 --h-local 2 --batch 2 --seq 32
 """
 from __future__ import annotations
 
@@ -63,7 +81,7 @@ import numpy as np
 import torch
 
 from repro_torch import checkpoint as ckpt_lib
-from repro_torch.configs import get_config
+from repro_torch.configs import ShapeConfig, get_config
 from repro_torch.core import (PrecondConfig, SavicConfig, engine, objectives,
                               savic)
 from repro_torch.data import LMRoundLoader, TokenStream
@@ -166,9 +184,18 @@ def _parser():
 def _unported_flags(args) -> list:
     """CLI features outside the port so far."""
     out = []
-    if args.mesh != "none":
-        out.append("--mesh")
+    if args.mesh != "none" and args.ckpt:
+        out.append("--ckpt with --mesh")
     return out
+
+
+def _make_mesh(args, device_type):
+    from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
+    if args.mesh == "debug":
+        shape = tuple(int(x) for x in args.mesh_shape.split("x"))
+        return make_debug_mesh(shape, device_type=device_type)
+    return make_production_mesh(multi_pod=args.mesh == "production-2pod",
+                                device_type=device_type)
 
 
 def _resolve_spec(args, n_clients):
@@ -232,6 +259,10 @@ class Run:
     sim_t: float                   # simulated time of one round
     root: object                   # the run's rng stream; round r: fold(r)
     wire: dict                     # engine.bytes_on_wire for one client
+    n_clients: int = 0             # M (a mesh plan fixes it)
+    shard_plan: object = None      # the mesh's ShardedFlatPlan, or None
+    started_group: bool = False    # setup started the process group
+    rank0: bool = True             # this process logs
 
     def stream(self, r: int):
         return self.root.fold(r)
@@ -253,35 +284,75 @@ def setup(argv=None, init_params=None, root_stream=None) -> Run:
                                   + ", ".join(missing))
     cfg = get_config(args.arch, reduced=args.reduced)
     call = ModelCallConfig(dtype=getattr(torch, args.dtype))
-    M = args.clients
+    mesh, started, rank0 = None, False, True
+    if args.mesh != "none":
+        import torch.distributed as dist
+        from repro_torch.launch import mesh as mesh_mod, steps
+        t_group = time.perf_counter()
+        started = mesh_mod.ensure_process_group(device.type)
+        mesh = _make_mesh(args, device.type)
+        t_group = time.perf_counter() - t_group
+        if mesh.mesh.numel() != dist.get_world_size():
+            raise RuntimeError(f"--mesh {args.mesh} spans {mesh.mesh.numel()} "
+                               f"ranks of {dist.get_world_size()}")
+        rank0 = dist.get_rank() == 0
+        if started:
+            print(f"[train] started a process group of 1 rank "
+                  f"({dist.get_backend()}) and the mesh in {t_group:.3f} s",
+                  flush=True)
+        plan, plan_mode = steps._train_plan(args.arch, mesh, args.mode)
+        M = plan.clients(mesh) if plan.client else 1
+        if M != args.clients and rank0:
+            print(f"[train] mesh plan '{plan_mode}' fixes M={M} clients "
+                  f"(--clients {args.clients} ignored)", flush=True)
+    else:
+        M = args.clients
+    say = print if rank0 else (lambda *a, **k: None)
     spec, local_steps, step_times = _resolve_spec(args, M)
     model = build(cfg, call)
-    objective = objectives.build_objective(objectives.ObjectiveSpec(
+    objective_spec = objectives.ObjectiveSpec(
         kind=args.objective, unlabeled_weight=args.unlabeled_weight,
-        pseudo_threshold=args.pseudo_threshold), model=model)
-    round_step = engine.build_round_step(model.loss, spec,
-                                         objective=objective)
+        pseudo_threshold=args.pseudo_threshold)
+    shard_plan = None
+    if mesh is not None:
+        built = steps.build_train_step(
+            args.arch, ShapeConfig(f"train_cli_{args.seq}", args.seq,
+                                   M * args.batch, "train"), mesh,
+            mode=args.mode, engine_spec=spec, reduced=args.reduced,
+            h_local=args.h_local, call=call, objective=objective_spec,
+            labeled_frac=args.labeled_frac, seed=args.seed + 1)
+        spec, shard_plan = built.meta["engine_spec"], built.meta["shard_plan"]
+        round_step = built.fn
+        say(f"[train] mesh {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}"
+            f" mode={built.meta['mode']} M={M} b_client={args.batch} "
+            f"devices={mesh.mesh.numel()}", flush=True)
+    else:
+        objective = objectives.build_objective(objective_spec, model=model)
+        round_step = engine.build_round_step(model.loss, spec,
+                                             objective=objective)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     state = engine.init_state(gen, init_params or model.init, spec, M)
     wire = engine.bytes_on_wire(spec, engine.average_params(state))
-    print(f"[train] sync payload/client/round: {wire['total_bytes']/1e6:.3f} "
-          f"MB ({wire['compression_x']}x vs uncompressed)", flush=True)
+    if shard_plan is not None:
+        state = engine.shard_state(state, shard_plan)
+    say(f"[train] sync payload/client/round: {wire['total_bytes']/1e6:.3f} "
+        f"MB ({wire['compression_x']}x vs uncompressed)", flush=True)
     sim_t = federated.simulated_round_time(
         step_times, local_steps or [args.h_local] * M,
         barrier="async" if args.async_buffer else "sync",
         buffer_rounds=args.async_buffer)
     if args.het_model != "uniform" or args.async_buffer:
-        print(f"[train] het={args.het_model} H_m="
-              f"{list(local_steps) if local_steps else 'uniform'} "
-              f"buffer={args.async_buffer} simulated round time {sim_t:.3f} "
-              f"(rel. units)", flush=True)
+        say(f"[train] het={args.het_model} H_m="
+            f"{list(local_steps) if local_steps else 'uniform'} "
+            f"buffer={args.async_buffer} simulated round time {sim_t:.3f} "
+            f"(rel. units)", flush=True)
     loader = LMRoundLoader(TokenStream(cfg.vocab_size, seed=args.seed), M,
                            args.batch, labeled_frac=args.labeled_frac,
                            seed=args.seed)
     root = root_stream if root_stream is not None \
         else rng.TorchStream(args.seed + 1)
     return Run(args, device, spec, round_step, state, loader, step_times,
-               sim_t, root, wire)
+               sim_t, root, wire, M, shard_plan, started, rank0)
 
 
 _FLOAT_FIELDS = ("labeled", "embeds", "patches")
@@ -341,7 +412,8 @@ def _save(ckpt, step, state) -> int:
     return step
 
 
-def main(argv=None, init_params=None, root_stream=None):
+def main(argv=None, init_params=None, root_stream=None,
+         return_state=False):
     """Run the rounds; returns the per-round log records (loss, drift,
     [step_norm], [compression_err, wire_bytes], [staleness], [ctrl_h_m,
     ctrl_h_t, ctrl_k, ctrl_b_eff, ctrl_gns_ema, delta_sq_mean, delta_sq_avg,
@@ -349,9 +421,24 @@ def main(argv=None, init_params=None, root_stream=None):
     wall_s, tokens_per_s) of the rounds this call ran: from the round
     ``--ckpt`` restores, if it holds a checkpoint, to ``--rounds``. It
     saves every ``--ckpt-every`` rounds and the final state. See ``setup``
-    for ``init_params`` and ``root_stream``."""
+    for ``init_params`` and ``root_stream``. With ``return_state`` it
+    returns ``(log, final state)``, the whole state on every rank of a
+    mesh. A group of ranks ``setup`` started is destroyed at the end."""
     run = setup(argv, init_params, root_stream)
+    try:
+        log, state = _rounds(run)
+        if return_state and run.shard_plan is not None:
+            state = engine.gather_state(state, run.shard_plan)
+    finally:
+        if run.started_group:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+    return (log, state) if return_state else log
+
+
+def _rounds(run):
     args, device, state = run.args, run.device, run.state
+    say = print if run.rank0 else (lambda *a, **k: None)
     run.state = None                   # the loop below owns the state
     start_round, saved = 0, None
     if args.ckpt and ckpt_lib.latest_step(args.ckpt) is not None:
@@ -367,7 +454,7 @@ def main(argv=None, init_params=None, root_stream=None):
         print(f"[train] restored round {start_round} "
               f"({_nbytes(state) / 1e9:.3f} GB in "
               f"{time.perf_counter() - tr:.2f} s)", flush=True)
-    tokens_round = args.clients * args.h_local * args.batch * args.seq
+    tokens_round = run.n_clients * args.h_local * args.batch * args.seq
     log = []
     t0 = time.time()
     for r in range(start_round, args.rounds):
@@ -416,17 +503,17 @@ def main(argv=None, init_params=None, root_stream=None):
         rec["tokens_per_s"] = round(tokens_round / wall, 1)
         log.append(rec)
         del batch, metrics
-        print(f"[train] round {r:4d} loss {loss:.4f} drift {drift:.3e}"
-              f"{extra} ({time.time()-t0:.1f}s)", flush=True)
+        say(f"[train] round {r:4d} loss {loss:.4f} drift {drift:.3e}"
+            f"{extra} ({time.time()-t0:.1f}s)", flush=True)
         if args.ckpt and (r + 1) % args.ckpt_every == 0:
             saved = _save(args.ckpt, r + 1, state)
     # the final state, unless it was just written
     if args.ckpt and saved != args.rounds:
         _save(args.ckpt, args.rounds, state)
-    if args.log:
+    if args.log and run.rank0:
         with open(args.log, "w") as f:
             json.dump(log, f)
-    return log
+    return log, state
 
 
 if __name__ == "__main__":

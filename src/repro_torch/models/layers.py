@@ -178,6 +178,7 @@ class AttnCall:
     force_window: int = 0
     use_ssd_kernel: bool = False    # K7 in the ssm and hybrid mamba blocks
     exact_moe: bool = False         # MoE capacity = tokens·K (no drops)
+    moe_shard: object = None        # hook on the MoE buffers (see moe_apply)
 
 
 def attention(p, cfg: ModelConfig, x, positions, call: AttnCall, dtype):

@@ -49,6 +49,12 @@ class ModelCallConfig:
     use_ssd_kernel: bool = False    # ssm/hybrid: the SSD on K7 (forward only)
     exact_moe: bool = False         # no MoE capacity drops (C = tokens·K)
     mla_absorbed: bool = True       # MLA decode in the latent space
+    # optional hook on the (B,S,d) residual input of ``loss``/``logits``,
+    # where the reference pins batch-parallel activations on a mesh
+    act_shard: Any = None
+    # optional hook ``fn(x, where)`` on the MoE's (B,E,C,·) dispatch buffer
+    # and its combine outputs (``where`` "dispatch" | "combine")
+    moe_shard: Any = None
 
 
 @dataclasses.dataclass
@@ -93,7 +99,7 @@ def build(cfg: ModelConfig, call: Optional[ModelCallConfig] = None) -> Model:
                         use_flash_kernel=call.use_flash_kernel,
                         force_window=call.decode_window,
                         use_ssd_kernel=call.use_ssd_kernel,
-                        exact_moe=call.exact_moe)
+                        exact_moe=call.exact_moe, moe_shard=call.moe_shard)
 
     def _residual_input(params, batch):
         """The family's residual-stream input (B,S,d) and its labels (None
@@ -112,8 +118,10 @@ def build(cfg: ModelConfig, call: Optional[ModelCallConfig] = None) -> Model:
             return x, labels
         return embed(params["embed"], batch["tokens"], dtype), labels
 
-    def _forward(params, batch, want_cache, remat):
+    def _forward(params, batch, want_cache, remat, constrain=False):
         x, labels = _residual_input(params, batch)
+        if constrain and call.act_shard is not None:
+            x = call.act_shard(x)
         S = x.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
         y, caches, aux = T.forward(params["blocks"], cfg, x, positions,
@@ -122,7 +130,8 @@ def build(cfg: ModelConfig, call: Optional[ModelCallConfig] = None) -> Model:
         return y, caches, aux, labels
 
     def _forward_logits(params, batch):
-        y, _, aux, labels = _forward(params, batch, False, call.remat)
+        y, _, aux, labels = _forward(params, batch, False, call.remat,
+                                     constrain=True)
         y = rmsnorm(params["final_norm"], y, cfg.norm_eps)
         return unembed(params["embed"], y, cfg, dtype), labels, aux
 
@@ -164,7 +173,7 @@ def build(cfg: ModelConfig, call: Optional[ModelCallConfig] = None) -> Model:
                           softcap=call.softcap,
                           force_window=call.decode_window,
                           use_decode_kernel=call.use_decode_kernel,
-                          exact_moe=call.exact_moe)
+                          exact_moe=call.exact_moe, moe_shard=call.moe_shard)
         y, cache = T.decode(params["blocks"], cfg, x, pos, cache, call_d,
                             dtype, mla_absorbed=call.mla_absorbed)
         return rmsnorm(params["final_norm"], y, cfg.norm_eps), cache

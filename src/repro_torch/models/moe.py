@@ -136,21 +136,31 @@ def _expert_ffn(p, hidden, act, dtype):
 
 
 def moe_apply(p, cfg: ModelConfig, x, act, dtype, capacity=None,
-              no_drop=False, grouped=True):
+              no_drop=False, grouped=True, shard=None):
     """x (B, S, d) -> (y (B, S, d), aux fp32 scalar).
 
     ``grouped``: each batch row routed on its own at capacity
     ``_capacity(S)`` (aux the mean over rows); else the B·S tokens as one
     group at ``_capacity(B·S)``. ``capacity`` overrides C; ``no_drop``
-    sets C = tokens·K (the reference's ``exact_moe``)."""
+    sets C = tokens·K (the reference's ``exact_moe``). ``shard(arr,
+    where)``, when given, is applied where the reference applies its
+    sharding constraint: to the (B, E, C, d) dispatch buffer, the experts'
+    output and the combined (B, S, d) (grouped only)."""
     m = cfg.moe
     B, S, d = x.shape
     xg = x if grouped else x.reshape(1, B * S, d)
     N = xg.shape[1]
     C = N * m.top_k if no_drop else (capacity or _capacity(N, m))
     hidden, slot, keep, w, aux = _dispatch(p, cfg, xg, dtype, C)
+    shard = shard if grouped else None
+    if shard is not None:
+        hidden = shard(hidden, "dispatch")
     out = _expert_ffn(p, hidden, act, dtype)
+    if shard is not None:
+        out = shard(out, "combine")
     y = _combine(out, slot, keep, w, m.top_k).reshape(B, S, d)
+    if shard is not None:
+        y = shard(y, "combine")
     if "shared" in p:
         y = y + mlp(p["shared"], x, act, dtype)
     return y, aux.mean()

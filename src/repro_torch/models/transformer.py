@@ -191,7 +191,7 @@ def _ffn(p, cfg, x, call: AttnCall, dtype):
     aux)."""
     if "router" in p:
         return MOE.moe_apply(p, cfg, x, cfg.act, dtype,
-                             no_drop=call.exact_moe)
+                             no_drop=call.exact_moe, shard=call.moe_shard)
     return mlp(p, x, cfg.act, dtype), 0.0
 
 
