@@ -93,7 +93,15 @@ held bitwise against ``--mesh none --clients 1`` (losses, drifts, every
 leaf of the final state), K1 launched 4 times on 14b's path; then it runs
 ``examples/quickstart_torch.py`` and
 ``examples/federated_heterogeneity_torch.py --rounds 3`` on the card (14c),
-their losses finite.
+their losses finite. Phase 15 holds the dry run's cost model
+(``repro_torch.launch.dryrun``, ``utils/cost.py``) against the card: two
+child processes, each with a fake process group of its own, predict one
+round of the 14a and 14b ``train.main`` runs (15a) while no timed phase
+runs; the same runs then go on the card, once timed (each round's
+arguments' bytes and CUDA-event time read around the round step) and once
+under ``FlopCounterMode`` (15b): the FLOPs, K1's launches and the
+arguments' bytes must equal the prediction's, and the peak and the
+roofline round time are printed beside the measured ones as ratios.
 Any failed phase raises and the script exits non-zero. Without a CUDA
 device, or without the rest of the repository beside it, it exits non-zero
 before printing any result.
@@ -158,7 +166,8 @@ from repro_torch.models.flash import flash_attention_bshd  # noqa: E402
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 from repro_torch.utils import rng  # noqa: E402
 from repro_torch.utils.flatten import FlatLayout  # noqa: E402
-from repro_torch.utils.tree import tree_map, tree_paths, tree_size  # noqa: E402
+from repro_torch.utils.tree import (tree_leaves, tree_map,  # noqa: E402
+                                    tree_paths, tree_size)
 from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
@@ -429,12 +438,7 @@ def k3_bytes(M, n):
     return M * n * (4 + 4 + 1 + 4) + 4 * M
 
 
-def k1_bytes(M, n, d, h, update_d):
-    """Bytes K1 must move: read p, m, g (+ d, + h), write p', m' (+ d')."""
-    n_d = 0 if d is None else (M * n if d == "local" else n)
-    reads = 3 * M * n + n_d + (M * n if h else 0)
-    writes = 2 * M * n + (M * n if update_d else 0)
-    return 4 * (reads + writes)
+k1_bytes = su.k1_bytes    # the one formula, shared with the dry run's cost
 
 
 # --------------------------------------------------------------------------- #
@@ -2914,6 +2918,166 @@ def phase14():
 
 
 # --------------------------------------------------------------------------- #
+# phase 15: the dry run's cost model against the card
+# --------------------------------------------------------------------------- #
+
+DRY_CASES = {"14a": ["--mode", "paper"],
+             "14b": ["--mode", "plain", "--use-fused-kernel"]}
+DRY_OUT = os.path.join(ROOT, ".chip_smoke_dryrun")     # git-ignored
+
+
+def mesh_argv(extra):
+    return MESH_ARGV + list(extra) + ["--mesh", "debug", "--mesh-shape",
+                                      "1x1"]
+
+
+def predict_rounds(timeout=600):
+    """15a: two child processes, each with a fake process group of its own
+    (never beside phase 14's NCCL group), predict one round of each 14a /
+    14b ``train.main`` run (``dryrun --train-argv``). They run while no
+    timed phase runs, and nothing of them outlives this call. Returns their
+    records and wall seconds."""
+    shutil.rmtree(DRY_OUT, ignore_errors=True)
+    os.makedirs(DRY_OUT)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs, out = {}, {}
+    try:
+        for label, extra in DRY_CASES.items():
+            log = open(os.path.join(DRY_OUT, f"{label}.log"), "w")
+            procs[label] = (subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--train-argv", " ".join(mesh_argv(extra)), "--tag", label,
+                 "--out", DRY_OUT], cwd=ROOT, env=env, stdout=log,
+                stderr=subprocess.STDOUT), log, time.perf_counter())
+        for label, (proc, log, t0) in procs.items():
+            try:
+                rc = proc.wait(timeout=max(1.0, timeout - (
+                    time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+            log.close()
+            secs = time.perf_counter() - t0
+            with open(log.name) as f:
+                text = f.read()
+            check(rc == 0, f"dry run {label} exited {rc}:\n{text[-4000:]}")
+            with open(os.path.join(
+                    DRY_OUT,
+                    f"qwen2-0.5b__train_cli_128__1x1__{label}.json")) as f:
+                out[label] = (json.load(f), secs)
+    finally:
+        for proc, log, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    return out
+
+
+def nbytes(tree):
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree)
+               if isinstance(x, torch.Tensor))
+
+
+def card_rounds(label, argv, flops):
+    """``train.main(argv)`` on the card with each round's arguments' bytes
+    and CUDA-event time read around the round step; under
+    ``FlopCounterMode`` when ``flops``. Returns the log, K1 launches, peak
+    bytes, per-round argument bytes and device ms, and the FLOPs."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import steps as steps_mod
+    args_b, dev_ms, orig = [], [], steps_mod.build_train_step
+
+    def build(*a, **k):
+        built = orig(*a, **k)
+        fn = built.fn
+
+        def step(state, batch, stream=None):
+            args_b.append(nbytes((state, batch)))
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(state, batch, stream)
+            e1.record()
+            e1.synchronize()
+            dev_ms.append(e0.elapsed_time(e1))
+            return out
+        built.fn = step
+        return built
+
+    reset_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    steps_mod.build_train_step = build
+    counter = FlopCounterMode(display=False) if flops \
+        else contextlib.nullcontext()
+    try:
+        with counter:
+            log = train.main(argv)
+    finally:
+        steps_mod.build_train_step = orig
+    peak = torch.cuda.max_memory_allocated()
+    total = counter.get_total_flops() if flops else None
+    print(f"[chip_smoke] 15b {label}{' under FlopCounterMode' if flops else ''}"
+          f": losses {[r['loss'] for r in log]}, K1 "
+          f"{su.fused_step_flat.launches}, round walls "
+          f"{[r['wall_s'] for r in log]} s, device {dev_ms} ms", flush=True)
+    return {"log": log, "k1": su.fused_step_flat.launches, "peak": peak,
+            "args": args_b, "dev_ms": dev_ms, "flops": total}
+
+
+def phase15():
+    """Phase 15: the dry run's predictions (15a) against the same rounds on
+    the card (15b): FLOPs, K1 launches and argument bytes equal; the peak
+    and the roofline round time beside the measured ones, as ratios."""
+    t0 = time.perf_counter()
+    preds = predict_rounds()
+    real = {}
+    for label, extra in DRY_CASES.items():
+        argv = mesh_argv(extra)
+        print(f"[chip_smoke] 15b {label}: train.main " + " ".join(argv),
+              flush=True)
+        real[label] = card_rounds(label, argv, flops=False)
+        real[label]["flops"] = card_rounds(label, argv, flops=True)["flops"]
+    out = {}
+    for label in DRY_CASES:
+        (rec, secs), r = preds[label], real[label]
+        rounds = len(r["log"])
+        k1_pred = rec["custom_counts"].get("repro_torch.fused_step_flat", 0)
+        arg_pred = rec["memory"]["argument_size_in_bytes"]
+        bound_s = max(rec["roofline"][k] for k in ("compute_s", "memory_s",
+                                                    "collective_s"))
+        walls = [x["wall_s"] for x in r["log"]]
+        print(f"[chip_smoke] 15 {label}: FLOPs predicted {rounds} × "
+              f"{rec['flops']} = {rounds * rec['flops']}, measured "
+              f"{r['flops']}; K1 predicted {rounds} × {k1_pred}, measured "
+              f"{r['k1']}; argument bytes predicted {arg_pred}, measured "
+              f"{r['args']}; peak predicted {rec['peak_bytes']} B, measured "
+              f"{r['peak']} B (measured / predicted "
+              f"{r['peak'] / rec['peak_bytes']:.4f}); roofline round "
+              f"{bound_s * 1e3:.3f} ms ({rec['roofline']['dominant']}: "
+              f"compute {rec['roofline']['compute_s'] * 1e3:.3f}, memory "
+              f"{rec['roofline']['memory_s'] * 1e3:.3f} ms), device "
+              f"{r['dev_ms']} ms (ratio "
+              f"{[round(d / 1e3 / bound_s, 3) for d in r['dev_ms']]}), wall "
+              f"{walls} s (ratio "
+              f"{[round(w / bound_s, 3) for w in walls]}); predicted in "
+              f"{rec['trace_s']} s of tracing ({secs:.1f} s in its process)",
+              flush=True)
+        check(r["flops"] == rounds * rec["flops"],
+              f"{label}: FLOPs differ from the dry run's")
+        check(r["k1"] == rounds * k1_pred,
+              f"{label}: K1 launches differ from the dry run's")
+        check(r["args"] == [arg_pred] * rounds,
+              f"{label}: argument bytes differ from the dry run's")
+        out[label] = {"pred": rec, "real": r, "bound_s": bound_s}
+    shutil.rmtree(DRY_OUT, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    print(f"[chip_smoke] phase 15: {secs:.1f} s", flush=True)
+    return {"cases": out, "secs": secs}
+
+
+# --------------------------------------------------------------------------- #
 # phases
 # --------------------------------------------------------------------------- #
 
@@ -3943,6 +4107,9 @@ def main():
     # ---- 14. the mesh layer on a 1x1 card mesh; the examples --------------
     p14 = phase14()
 
+    # ---- 15. the dry run's cost model against the card ---------------------
+    p15 = phase15()
+
     # ---- phase 9. checkpoint and bitwise resume; the train_lm runner ------
     try:
         res = resume_phase(n_main, qwen_shapes)
@@ -3959,7 +4126,9 @@ def main():
     by_path = {
         "k1": {"qwen2-0.5b savic": launches,
                "zamba2-2.7b 12-layer savic": ztr["k1"],
-               "qwen2-0.5b 1x1 mesh plain savic": p14["b"]["k1"]},
+               "qwen2-0.5b 1x1 mesh plain savic": p14["b"]["k1"],
+               "qwen2-0.5b 1x1 mesh plain savic (15b)":
+                   p15["cases"]["14b"]["real"]["k1"]},
         "k4": {"qwen2-0.5b long prompt": k4_launches,
                "zamba2-2.7b serve": z["counts"]["k4"],
                "zamba2-2.7b continuous": z["ccounts"]["k4"],

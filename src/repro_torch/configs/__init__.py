@@ -20,7 +20,8 @@ the caller's (``examples/train_lm_torch.py`` registers its ``lm-100m``).
 Every architecture of the reference's registry has its counterpart.
 
 The input shapes (``ShapeConfig``, ``INPUT_SHAPES``, ``get_shape``) are
-the reference's, field for field. ``param_shapes(cfg)`` gives a model's
+the reference's, field for field, and so are ``ARCH_IDS``,
+``LONG_CONTEXT_ARCHS`` and ``pairs_to_run()`` (the dry run's 34 pairs). ``param_shapes(cfg)`` gives a model's
 parameter tree as ``meta`` tensors (shapes and dtypes, no storage), so the
 partitioner can read a full-size tree (deepseek-v2-236b is 878 GiB in
 fp32) without allocating it.
@@ -173,13 +174,11 @@ class ModelConfig:
         return self.param_count() - unused
 
 
-_MODULE_FOR = {"zamba2-2.7b": "zamba2_2p7b", "qwen3-4b": "qwen3_4b",
-               "qwen2-moe-a2.7b": "qwen2_moe_a2p7b",
-               "gemma3-4b": "gemma3_4b", "qwen2-0.5b": "qwen2_0p5b",
-               "deepseek-67b": "deepseek_67b", "mamba2-1.3b": "mamba2_1p3b",
-               "musicgen-large": "musicgen_large",
-               "deepseek-v2-236b": "deepseek_v2_236b",
-               "internvl2-1b": "internvl2_1b"}
+# the assigned architectures, in the reference's order
+ARCH_IDS = ("zamba2-2.7b", "qwen3-4b", "qwen2-moe-a2.7b", "gemma3-4b",
+            "qwen2-0.5b", "deepseek-67b", "mamba2-1.3b", "musicgen-large",
+            "deepseek-v2-236b", "internvl2-1b")
+_MODULE_FOR = {a: a.replace("-", "_").replace(".", "p") for a in ARCH_IDS}
 # beyond-assignment variants (selectable, as in the reference)
 _VARIANTS = {"qwen3-4b-swa": ("qwen3_4b", "CONFIG_SWA")}
 
@@ -205,8 +204,21 @@ INPUT_SHAPES = {
 }
 
 
+# archs allowed to run long_500k (a decode step that does not grow with
+# the context, or a sliding window)
+LONG_CONTEXT_ARCHS = ("mamba2-1.3b", "zamba2-2.7b", "gemma3-4b", "qwen3-4b")
+
+
 def get_shape(name: str) -> ShapeConfig:
     return INPUT_SHAPES[name]
+
+
+def pairs_to_run():
+    """Every (arch, shape) pair of the assignment, in the reference's order:
+    each arch of ``ARCH_IDS`` at each shape, ``long_500k`` only for
+    ``LONG_CONTEXT_ARCHS``."""
+    return [(a, s) for a in ARCH_IDS for s in INPUT_SHAPES
+            if s != "long_500k" or a in LONG_CONTEXT_ARCHS]
 
 
 def param_shapes(cfg: ModelConfig):

@@ -717,6 +717,35 @@ def _shard_flat_ops(shard_plan, params_m):
     return lay
 
 
+def fused_non_fp32(state, spec: EngineSpec) -> str:
+    """Name the first client-state leaf group that is not fp32 and that the
+    fused loop would flatten (params, mom, precond.d), or "". ``state`` may
+    hold real, fake or meta tensors."""
+    for name in ("params", "mom"):
+        if not all_float32(state[name]):
+            return name
+    if "d" in state["precond"] and spec.precond.kind != "identity" \
+            and not all_float32(state["precond"]["d"]):
+        return "precond.d"
+    return ""
+
+
+def fused_route(spec: EngineSpec, state):
+    """Decide once, at build time, which client loop ``use_fused_kernel``
+    gets for this state: ``(spec, reason)``. The flat view is an fp32 buffer
+    by contract, so state that is not fp32 takes the tree loop, as the
+    reference's fused loop does: the returned spec has the flag off and
+    ``reason`` is the reference's ``fused_kernel_fallback`` text, for the
+    caller to record and print. Otherwise ``reason`` is "" and the spec is
+    unchanged. A routing by dtype, not a fallback on a kernel failure."""
+    bad = fused_non_fp32(state, spec) if spec.client.use_fused_kernel else ""
+    if not bad:
+        return spec, ""
+    return (dataclasses.replace(spec, client=dataclasses.replace(
+                spec.client, use_fused_kernel=False)),
+            f"non-fp32 client state ({bad}; flat view is fp32 by contract)")
+
+
 def _fused_run(loss_fn, grad3, loss3, spec: EngineSpec, shard_plan=None):
     """The flat-buffer fused client loop.
 
@@ -726,8 +755,11 @@ def _fused_run(loss_fn, grad3, loss3, spec: EngineSpec, shard_plan=None):
     ``kernels.ops.fused_local_step`` launch covering all M clients and every
     ``PrecondConfig`` kind. The kernel updates the buffers in place. Local
     Hutchinson stats go to the kernel as its external ``h``, one (M, n)
-    buffer filled client by client. The reference quietly falls back to the
-    tree path for non-fp32 state; this port raises instead.
+    buffer filled client by client. The flat view is an fp32 buffer by
+    contract: client state that is not fp32 (params, momentum or D) raises
+    here. The builders route such state to the tree loop once, at build
+    time and on the record (``fused_route``), where the reference's fused
+    loop takes its tree path at trace time.
 
     Under per-client H_m the launch still covers all M rows: the rows of
     clients past their budget are copied aside once (P, momentum and a
@@ -751,8 +783,9 @@ def _fused_run(loss_fn, grad3, loss3, spec: EngineSpec, shard_plan=None):
     def run(params_m, mom_m, pstate, batch, steps, h_m):
         if not (all_float32(params_m) and all_float32(mom_m)
                 and (not has_d or all_float32(pstate["d"]))):
-            raise NotImplementedError("the fused client loop takes fp32 "
-                                      "client state only")
+            raise NotImplementedError(
+                "the fused client loop takes fp32 client state only "
+                "(engine.fused_route sends other state to the tree loop)")
         ids = _client_ids(params_m, shard_plan)
         M = len(ids)
         h_m = [h_m[c] for c in ids]

@@ -74,13 +74,10 @@ def fused_local_step(p, m, g, d=None, h=None, t=None, s=None, *, gamma, beta1,
         raise ValueError(f"no fused_local_step for device {p.device}")
     _su.check_args(p, m, g, d, h, t, s, kind=kind, schedule=schedule,
                    update_d=update_d)
-    p_new, m_new, d_new = ref.fused_step_ref(p, m, g, d, h, t, s, **kw)
-    p.copy_(p_new)
-    m.copy_(m_new)
-    if update_d:
-        d.copy_(d_new)
-        return p, m, d
-    return p, m, None
+    # the operator's CPU kernel is the plain version (a traced round sees
+    # one fused_step_flat on either device)
+    _su.fused_step_op()(p, m, g, d, h, t, s, **kw)
+    return p, m, (d if update_d else None)
 
 
 def quantize_update(x, u, scale):

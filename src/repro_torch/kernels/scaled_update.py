@@ -12,6 +12,13 @@ step, for every ``PrecondConfig`` kind including identity.
 * Kernel: ``csrc/fused_step.cu`` (CUDA C++ for sm_90a, built by
   ``kernels/build.py``, bound with ctypes). It launches on PyTorch's current
   stream and is checked with ``cudaGetLastError`` right after the launch.
+* Operator: ``repro_torch::fused_step_flat`` (``fused_step_op``, a
+  ``torch.library`` custom op that mutates p, m and d): its CUDA kernel is
+  the launch, its CPU kernel the plain version, its fake kernel shapes
+  only, so the dry run (``launch/dryrun.py``) traces a fused round under
+  ``FakeTensorMode`` and counts K1 by name. ``k1_bytes`` is the bytes a
+  launch must move, the bound of ``chip_smoke.py`` and the dry run's
+  price.
 * Plain version: ``kernels/ref.py::fused_step_ref``, which the kernel matches
   bitwise (same fp32 operations in the same order, no FMA contraction).
 * Bound on an H100 (3.35 TB/s): bandwidth. Global D without an update moves
@@ -42,6 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -109,24 +117,19 @@ def _lib():
     return fn
 
 
-def fused_step_flat(p, m, g, d=None, h=None, t=None, s=None, *, gamma, beta1,
-                    weight_decay=0.0, alpha, beta2=0.999, kind, clip="max",
-                    schedule="const", update_d=False):
-    """One fused local step on CUDA per-client flat buffers, in place.
+def k1_bytes(M, n, d, h, update_d):
+    """Bytes K1 must move: read p, m, g (+ d, + h), write p', m' (+ d').
+    ``d`` is None, "local" (an (M, n) D) or "global" (an (n,) D); ``h``
+    whether an external stat is read."""
+    n_d = 0 if d is None else (M * n if d == "local" else n)
+    reads = 3 * M * n + n_d + (M * n if h else 0)
+    writes = 2 * M * n + (M * n if update_d else 0)
+    return 4 * (reads + writes)
 
-    Shapes: ``p/m/g`` (M, n) fp32; ``d`` (M, n) for local scaling, (n,) for
-    global (client-shared D̂), None for identity; ``h`` (M, n) external stat
-    or None for the in-kernel g² stat; ``t`` (M,) int32 per-client step
-    counters (needed by the debias schedule); ``s`` (M,) fp32 per-client
-    grad-clip scales or None. Returns ``(p, m, d | None)``: the same tensors,
-    updated in place (``d`` returned only with ``update_d``).
-    """
-    check_args(p, m, g, d, h, t, s, kind=kind, schedule=schedule,
-               update_d=update_d)
-    if p.device.type != "cuda":
-        raise ValueError(f"fused_step_flat launches on CUDA tensors; got "
-                         f"{p.device} (ops.fused_local_step routes CPU "
-                         f"tensors to the plain version)")
+
+def _k1_launch(p, m, g, d, h, t, s, gamma, beta1, weight_decay, alpha, beta2,
+               kind, clip, schedule, update_d):
+    """The hand-written launch: K1 on CUDA buffers, in place."""
     M, n = p.shape
     if M > 65535:
         raise ValueError(f"M={M} exceeds the grid's y limit of 65535")
@@ -149,6 +152,68 @@ def fused_step_flat(p, m, g, d=None, h=None, t=None, s=None, *, gamma, beta1,
     if err != 0:
         raise RuntimeError(f"fused_step_f32 launch failed: CUDA error {err}")
     fused_step_flat.launches += 1
+
+
+def _k1_plain(p, m, g, d, h, t, s, gamma, beta1, weight_decay, alpha, beta2,
+              kind, clip, schedule, update_d):
+    """The plain version on CPU buffers, written back in place."""
+    from repro_torch.kernels import ref
+    p_new, m_new, d_new = ref.fused_step_ref(
+        p, m, g, d, h, t, s, gamma=gamma, beta1=beta1,
+        weight_decay=weight_decay, alpha=alpha, beta2=beta2, kind=kind,
+        clip=clip, schedule=schedule, update_d=update_d)
+    p.copy_(p_new)
+    m.copy_(m_new)
+    if update_d:
+        d.copy_(d_new)
+
+
+@functools.cache
+def fused_step_op():
+    """K1 as the operator ``repro_torch::fused_step_flat`` (registered at
+    first use): it writes p, m and d in place and returns nothing. Its CUDA
+    kernel is the hand-written launch, its CPU kernel the plain version, and
+    its fake kernel (``FakeTensorMode``, the dry run) only checks shapes, so
+    a traced round counts K1 by name. The op is one dispatch; nothing about
+    the launch changes."""
+    @torch.library.custom_op("repro_torch::fused_step_flat",
+                             mutates_args=("p", "m", "d"))
+    def op(p: torch.Tensor, m: torch.Tensor, g: torch.Tensor,
+           d: Optional[torch.Tensor], h: Optional[torch.Tensor],
+           t: Optional[torch.Tensor], s: Optional[torch.Tensor],
+           gamma: float, beta1: float, weight_decay: float, alpha: float,
+           beta2: float, kind: str, clip: str, schedule: str,
+           update_d: bool) -> None:
+        raise ValueError(f"no fused_step_flat kernel for device {p.device}")
+
+    op.register_kernel("cuda")(_k1_launch)
+    op.register_kernel("cpu")(_k1_plain)
+    op.register_fake(lambda *args, **kwargs: None)
+    return op
+
+
+def fused_step_flat(p, m, g, d=None, h=None, t=None, s=None, *, gamma, beta1,
+                    weight_decay=0.0, alpha, beta2=0.999, kind, clip="max",
+                    schedule="const", update_d=False):
+    """One fused local step on CUDA per-client flat buffers, in place.
+
+    Shapes: ``p/m/g`` (M, n) fp32; ``d`` (M, n) for local scaling, (n,) for
+    global (client-shared D̂), None for identity; ``h`` (M, n) external stat
+    or None for the in-kernel g² stat; ``t`` (M,) int32 per-client step
+    counters (needed by the debias schedule); ``s`` (M,) fp32 per-client
+    grad-clip scales or None. Returns ``(p, m, d | None)``: the same tensors,
+    updated in place (``d`` returned only with ``update_d``).
+    """
+    check_args(p, m, g, d, h, t, s, kind=kind, schedule=schedule,
+               update_d=update_d)
+    if p.device.type != "cuda":
+        raise ValueError(f"fused_step_flat launches on CUDA tensors; got "
+                         f"{p.device} (ops.fused_local_step routes CPU "
+                         f"tensors to the plain version)")
+    fused_step_op()(p, m, g, d, h, t, s, gamma=float(gamma),
+                    beta1=float(beta1), weight_decay=float(weight_decay),
+                    alpha=float(alpha), beta2=float(beta2), kind=kind,
+                    clip=clip, schedule=schedule, update_d=bool(update_d))
     return p, m, (d if update_d else None)
 
 

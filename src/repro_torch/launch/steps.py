@@ -18,9 +18,10 @@ each microbatch; the metrics are the round's on every rank. The serve steps
 take this rank's blocks of the bf16 params (and of the cache) and the whole
 batch: each rank gathers the params (``Replicate``), runs its rows of the
 batch with the cache gathered to its rows, and keeps its blocks of the
-cache. Where the reference quietly takes the tree path for non-fp32 client
-state under ``use_fused_kernel``, this raises, as the engine's fused loop
-does.
+cache. Under ``use_fused_kernel`` a state whose client leaves are not fp32
+takes the tree loop, as the reference's does: ``engine.fused_route`` turns
+the flag off at build time and ``meta["fused_kernel_fallback"]`` names the
+leaf group (a routing by dtype, not a fallback on a kernel failure).
 """
 from __future__ import annotations
 
@@ -40,8 +41,7 @@ from repro_torch.sharding import (AxisPlan, PartitionSpec, batch_pspecs,
                                   plan_for, serve_batch_pspecs, to_placements)
 from repro_torch.sharding.partitioner import _axsize as _ax
 from repro_torch.utils import rng
-from repro_torch.utils.flatten import (FlatLayout, ShardedFlatPlan,
-                                       all_float32)
+from repro_torch.utils.flatten import FlatLayout, ShardedFlatPlan
 from repro_torch.utils.tree import tree_map
 
 P = PartitionSpec
@@ -210,11 +210,9 @@ def build_train_step(arch: str, shape: ShapeConfig, mesh, *,
         micro["labeled"] = torch.empty((M, H, b_client), device="meta")
     batch_shape = micro
 
-    if spec.client.use_fused_kernel:
-        bad = _fused_non_fp32(state_shape, spec)
-        if bad:
-            raise NotImplementedError(
-                f"the fused client loop takes fp32 client state only ({bad})")
+    spec, why = engine.fused_route(spec, state_shape)
+    if why:
+        het_meta["fused_kernel_fallback"] = why
     shard_axes = tuple(plan.model) + (tuple(plan.batch)
                                       if plan.fsdp_params else ())
     params_one = tree_map(lambda s: torch.empty(s.shape[1:], dtype=s.dtype,
@@ -255,18 +253,6 @@ def build_train_step(arch: str, shape: ShapeConfig, mesh, *,
               "engine_spec": spec, "shard_plan": shard_plan,
               "state_spec": state_spec, **het_meta},
     )
-
-
-def _fused_non_fp32(state_shape, spec: engine.EngineSpec) -> str:
-    """Name the first non-fp32 fused-client-state leaf group, or ""."""
-    for name in ("params", "mom"):
-        if not all_float32(state_shape[name]):
-            return name
-    if "d" in state_shape["precond"] \
-            and spec.precond.kind != "identity" \
-            and not all_float32(state_shape["precond"]["d"]):
-        return "precond.d"
-    return ""
 
 
 def _engine_state_spec(cfg, state_shape, mesh, plan, spec: engine.EngineSpec):

@@ -326,12 +326,18 @@ def setup(argv=None, init_params=None, root_stream=None) -> Run:
         say(f"[train] mesh {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}"
             f" mode={built.meta['mode']} M={M} b_client={args.batch} "
             f"devices={mesh.mesh.numel()}", flush=True)
-    else:
+        if "fused_kernel_fallback" in built.meta:
+            say(f"[train] tree loop: {built.meta['fused_kernel_fallback']}",
+                flush=True)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    state = engine.init_state(gen, init_params or model.init, spec, M)
+    if mesh is None:
+        spec, why = engine.fused_route(spec, state)
+        if why:
+            say(f"[train] tree loop: {why}", flush=True)
         objective = objectives.build_objective(objective_spec, model=model)
         round_step = engine.build_round_step(model.loss, spec,
                                              objective=objective)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    state = engine.init_state(gen, init_params or model.init, spec, M)
     wire = engine.bytes_on_wire(spec, engine.average_params(state))
     if shard_plan is not None:
         state = engine.shard_state(state, shard_plan)

@@ -13,9 +13,18 @@ A row has the bench's shape: ``coords.method``; the metrics
 round 0 pays the first call's set-up), ``tokens_per_s``,
 ``tokens_per_s_per_device`` (the run uses one device) and
 ``sim_time_total``; ``info.loss_curve`` and ``info.loss_decreasing_trend``.
-``summary(rows)`` gives ``_sum_train_lm``'s names. The bench's
-``projection:`` rows come from the JAX package's dry-run cost model and
-have no counterpart here.
+``summary(rows)`` gives ``_sum_train_lm``'s names.
+
+The bench's ``projection:`` rows (``_train_lm_projection`` and
+``_post_train_lm``): ``projection_rows()`` reads the ``train`` records of
+``TRAIN_LM_ARCH`` that the port's dry run wrote (``launch/dryrun.py``, in
+``results_torch/dryrun/``) and prices each with the H100 terms of
+``launch/roofline.py``: a row ``projection:<shape>@<mesh>`` with
+``n_devices``, ``tokens_per_round``, ``round_s_roofline`` (the largest
+term), ``tok_s_dev_roofline``, ``tok_s_dev_compute_bound`` and
+``model_flops_utilization``; ``summary`` names each
+``tok_s_dev_proj_<shape>``. They are a cost model's outputs, not a run;
+``main`` appends them after the methods' rows.
 
   PYTHONPATH=src python -m repro_torch.launch.train_lm --device cpu \
       --methods savic,fedavg --rounds 2
@@ -29,12 +38,14 @@ writes ``{"bench", "config", "rows", "summary"}`` to a file.
 from __future__ import annotations
 
 import argparse
+import glob
 import json
+import os
 
 import numpy as np
 import torch
 
-from repro_torch.launch import train
+from repro_torch.launch import roofline, train
 
 TRAIN_LM_OVERRIDES = {
     "savic": ["--gamma", "0.05"],
@@ -46,6 +57,8 @@ TRAIN_LM_OVERRIDES = {
 }
 TRAIN_LM_ARCH = "qwen2-0.5b"
 FIXED = dict(clients=4, h_local=8, batch=4, seq=64, rounds=10)
+DRYRUN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                          "..", "..", "results_torch", "dryrun")
 
 
 def argv_for(method, *, device, full=False, **fixed):
@@ -97,12 +110,60 @@ def run_method(method, *, device, full=False, init_params=None,
                         * f["batch"] * f["seq"])
 
 
+def projection(arch=TRAIN_LM_ARCH, ddir=DRYRUN_DIR):
+    """Full-shape tokens/s a device from the dry run's records of ``arch``
+    (``_train_lm_projection``): the H100 roofline bound over each ``ok``
+    train record's per-rank counts."""
+    proj = []
+    for f in sorted(glob.glob(os.path.join(ddir, f"{arch}__*.json"))):
+        with open(f) as fh:
+            rec = json.load(fh)
+        if rec.get("kind") != "train" or not rec.get("ok"):
+            continue
+        t = roofline.terms(rec)
+        bound_s = max(t["compute_s"], t["memory_s"], t["collective_s"])
+        tokens = rec["global_batch"] * rec["seq_len"] * rec.get("h_local", 8)
+        proj.append({
+            "shape": rec["shape"], "mesh": rec["mesh"], "mode": rec["mode"],
+            "tag": rec.get("tag", ""), "n_devices": rec["n_devices"],
+            "tokens_per_round": tokens,
+            "round_s_roofline": round(bound_s, 6),
+            "dominant_term": t["dominant"],
+            "tok_s_dev_roofline": round(tokens / rec["n_devices"] / bound_s,
+                                        1),
+            "tok_s_dev_compute_bound": round(
+                tokens / rec["n_devices"] / t["compute_s"], 1),
+            "model_flops_utilization": round(t["roofline_frac"], 4),
+        })
+    return proj
+
+
+def projection_rows(arch=TRAIN_LM_ARCH, ddir=DRYRUN_DIR):
+    """The bench's ``projection:<shape>@<mesh>`` rows (``_post_train_lm``)."""
+    return [{
+        "coords": {"method": f"projection:{p['shape']}@{p['mesh']}"},
+        "metrics": {k: p[k] for k in ("n_devices", "tokens_per_round",
+                                      "round_s_roofline",
+                                      "tok_s_dev_roofline",
+                                      "tok_s_dev_compute_bound",
+                                      "model_flops_utilization")},
+        "info": {k: p[k] for k in ("shape", "mesh", "mode", "tag",
+                                   "dominant_term")},
+    } for p in projection(arch, ddir)]
+
+
 def summary(rows):
     """``_sum_train_lm``'s (name, value) pairs: the loss drop and tokens/s
-    per device of each method."""
+    per device of each method, and ``tok_s_dev_proj_<shape>`` of each
+    projection row."""
     out = []
     for r in rows:
-        m, name = r["metrics"], r["coords"]["method"].replace("-", "_")
+        m, method = r["metrics"], r["coords"]["method"]
+        if method.startswith("projection:"):
+            out.append((f"tok_s_dev_proj_{r['info']['shape']}",
+                        m["tok_s_dev_roofline"]))
+            continue
+        name = method.replace("-", "_")
         if "loss_first" in m and "loss_last" in m:
             out.append((f"loss_drop_{name}",
                         round(m["loss_first"] - m["loss_last"], 4)))
@@ -136,6 +197,9 @@ def main(argv=None):
         rows.append(run_method(method, device=args.device, full=args.full,
                                rounds=args.rounds))
         print(json.dumps(rows[-1]), flush=True)
+    for row in projection_rows():
+        rows.append(row)
+        print(json.dumps(row), flush=True)
     summ = summary(rows)
     kind = torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu"
     print(json.dumps({"summary": dict(summ), "device": kind}), flush=True)

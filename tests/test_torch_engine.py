@@ -282,7 +282,8 @@ def test_spec_validation_matches_reference(bad):
 
 
 def test_fused_path_raises_on_non_fp32_state():
-    """The reference quietly falls back to its tree path; the port raises."""
+    """The fused round step raises on client state that is not fp32: the
+    route to the tree loop is taken at build time (``fused_route``)."""
     _, jm, tm = models()
     spec = engine.method_spec("savic", use_fused_kernel=True, **KW)
     init = jax.device_get(jeng.init_state(jax.random.PRNGKey(0), jm.init,
@@ -295,6 +296,43 @@ def test_fused_path_raises_on_non_fp32_state():
     with pytest.raises(NotImplementedError, match="fp32"):
         step(state, {k: torch.from_numpy(v).long()
                      for k, v in batches()[0].items()})
+
+
+def test_fused_route_takes_tree_loop_on_non_fp32_state():
+    """``fused_route`` sends bf16 client state under ``use_fused_kernel`` to
+    the tree loop at build time, with the reference's
+    ``fused_kernel_fallback`` text, as the reference's fused loop falls back
+    (its counterpart:
+    ``tests/test_fused_step.py::test_non_fp32_state_falls_back_to_tree_path``).
+    Two rounds from bf16 momentum give the tree loop's state bit for bit;
+    fp32 state keeps the fused loop."""
+    _, jm, tm = models()
+    init = jax.device_get(jeng.init_state(jax.random.PRNGKey(0), jm.init,
+                                          jeng.method_spec("savic"), M))
+    nb = batches()
+    fused_spec = engine.method_spec("savic", use_fused_kernel=True, **KW)
+    assert engine.fused_route(fused_spec, state_from_jax(init, "cpu")) \
+        == (fused_spec, "")
+    out = {}
+    for fused in (False, True):
+        state = state_from_jax(init, "cpu")
+        state["mom"] = {k: v for k, v in state["mom"].items()}
+        state["mom"]["final_norm"] = {"scale": state["mom"]["final_norm"][
+            "scale"].to(torch.bfloat16)}
+        spec, why = engine.fused_route(engine.method_spec(
+            "savic", use_fused_kernel=fused, **KW), state)
+        assert not spec.client.use_fused_kernel
+        assert why == ("non-fp32 client state (mom; flat view is fp32 by "
+                       "contract)" if fused else "")
+        step = engine.build_round_step(tm.loss, spec)
+        for r in range(2):
+            state, _ = step(state, {k: torch.from_numpy(v).long()
+                                    for k, v in nb[r].items()})
+        out[fused] = state
+    tree, fused = tree_paths(out[False]), tree_paths(out[True])
+    assert [p for p, _ in tree] == [p for p, _ in fused]
+    for (path, a), (_, b) in zip(tree, fused):
+        assert a.dtype == b.dtype and torch.equal(a, b), path
 
 
 def test_state_is_not_written_in_place():
