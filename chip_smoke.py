@@ -102,6 +102,17 @@ arguments' bytes and CUDA-event time read around the round step) and once
 under ``FlopCounterMode`` (15b): the FLOPs, K1's launches and the
 arguments' bytes must equal the prediction's, and the peak and the
 roofline round time are printed beside the measured ones as ratios.
+Phase 16 drives the mesh features on the 1×1 card mesh, each run held
+bitwise against ``--mesh none --clients 1`` in every deterministic record
+field (compression_err, wire_bytes and the controller's knobs among them)
+and every leaf of the final state: ``--mode plain --use-fused-kernel``
+with int8 + EF (16a: K1 4 and K3 28 launches on the rank's blocks) and
+``--mode paper`` with top-k + EF; the controller with a FIFO of 2 and the
+consistency objective at ``--labeled-frac 0.5``, 3 rounds (16b); ``--ckpt``
+over 4 rounds on the fused loop, straight and as 2 rounds then a resume,
+the mesh's ``data.bin`` at rounds 2 and 4 byte for byte (sha256) the
+unsharded run's, save and restore seconds, GB/s and the device peak
+during a save printed (16c; under ``.chip_smoke_ckpt16/``, removed).
 Any failed phase raises and the script exits non-zero. Without a CUDA
 device, or without the rest of the repository beside it, it exits non-zero
 before printing any result.
@@ -2826,13 +2837,16 @@ MESH_ARGV = ["--arch", "qwen2-0.5b", "--method", "savic", "--rounds", "2",
              "cuda"]
 
 
-def mesh_case(label, extra, expect_k1):
+def mesh_case(label, extra, expect_k1, expect_k3=0):
     """``train.main --mesh debug --mesh-shape 1x1`` (a 1-rank NCCL group
     started and destroyed by the run) against ``--mesh none --clients 1``
-    with the same arguments: losses, drifts and every leaf of the final
-    state bitwise (each run's state copied to the host, so that the two
-    peaks are alike). Returns the mesh run's K1 launches, round walls, peak
-    GiB and seconds, and the unsharded run's peak."""
+    with the same arguments: every deterministic field of every record
+    (loss, drift, compression_err, wire_bytes, the controller's knobs and
+    observations, ...) and every leaf of the final state bitwise (each
+    run's state copied to the host, so that the two peaks are alike); K1
+    and K3 launched as many times as expected in each run. Returns the
+    mesh run's K1 and K3 launches, round walls, peak GiB and seconds, and
+    the unsharded run's peak."""
     out = {}
     for mesh in (True, False):
         argv = MESH_ARGV + list(extra) + (
@@ -2841,39 +2855,45 @@ def mesh_case(label, extra, expect_k1):
         print(f"[chip_smoke] {label}: train.main " + " ".join(argv),
               flush=True)
         reset_counts()
+        qu.quantize_update_flat.launches = 0
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         log, state = train.main(argv, return_state=True)
         secs = time.perf_counter() - t0
-        k1 = su.fused_step_flat.launches
+        k1, k3 = su.fused_step_flat.launches, qu.quantize_update_flat.launches
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         check(k1 == expect_k1, f"{label}: K1 launched {k1} times, expected "
               f"{expect_k1}")
+        check(k3 == expect_k3, f"{label}: K3 launched {k3} times, expected "
+              f"{expect_k3}")
         for rec in log:
             check(all(finite(v) for v in rec.values()
                       if isinstance(v, float)), f"non-finite record {rec}")
         out[mesh] = (log, tree_map(lambda t: t.cpu(), state), k1, peak, secs)
         del state
     (lm, sm, k1, peak, secs), (ln, sn, _, peak_n, _) = out[True], out[False]
+    check(len(lm) == len(ln), f"{label}: {len(lm)} rounds vs {len(ln)}")
     for a, b in zip(lm, ln):
-        check(a["loss"] == b["loss"] and a["drift"] == b["drift"],
-              f"{label}: round {a['round']} differs from --mesh none")
+        check(det(a) == det(b), f"{label}: round {a['round']} differs from "
+              f"--mesh none: {det(a)} vs {det(b)}")
     pm, pn = tree_paths(sm), tree_paths(sn)
     same = [pa == pb and torch.equal(a, b)
             for (pa, a), (pb, b) in zip(pm, pn)]
     check(len(pm) == len(pn) and all(same),
           f"{label}: the final state differs from --mesh none")
     walls = [r["wall_s"] for r in lm]
-    print(f"[chip_smoke] {label}: losses {[r['loss'] for r in lm]} bitwise "
-          f"--mesh none's, {len(same)} state leaves bitwise; K1 {k1}; round "
-          f"walls {walls} s (--mesh none {[r['wall_s'] for r in ln]}); peak "
+    k3 = expect_k3
+    print(f"[chip_smoke] {label}: losses {[r['loss'] for r in lm]}, every "
+          f"record's {sorted(det(lm[0]))} bitwise --mesh none's, "
+          f"{len(same)} state leaves bitwise; K1 {k1}, K3 {k3}; round walls "
+          f"{walls} s (--mesh none {[r['wall_s'] for r in ln]}); peak "
           f"{peak:.2f} GiB (--mesh none {peak_n:.2f}); {secs:.1f} s",
           flush=True)
     del out, sm, sn, pm, pn
     torch.cuda.empty_cache()
-    return {"k1": k1, "walls": walls, "peak": peak, "secs": secs,
-            "peak_none": peak_n}
+    return {"k1": k1, "k3": k3, "walls": walls, "peak": peak, "secs": secs,
+            "peak_none": peak_n, "log": lm}
 
 
 def run_example(name, argv):
@@ -3075,6 +3095,144 @@ def phase15():
     secs = time.perf_counter() - t0
     print(f"[chip_smoke] phase 15: {secs:.1f} s", flush=True)
     return {"cases": out, "secs": secs}
+
+
+# --------------------------------------------------------------------------- #
+# phase 16: the mesh features on a 1×1 card mesh
+# --------------------------------------------------------------------------- #
+
+CKPT_16 = os.path.join(ROOT, ".chip_smoke_ckpt16")    # on disk, git-ignored
+
+
+def knobs_line(log):
+    return "; ".join(
+        f"round {r['round']} H_m {r['ctrl_h_m']} H_t {r['ctrl_h_t']} k "
+        f"{r['ctrl_k']} b_eff {r['ctrl_b_eff']} gns_ema {r['ctrl_gns_ema']}"
+        for r in log)
+
+
+def ckpt_run(label, argv, expect_k1, restores=0):
+    """One ``train.main(argv, return_state=True)`` under ``CkptIO``, with
+    its records checked finite and K1 counted; returns the log, the final
+    state on the host, the saves and restores, K1 and the round's peak."""
+    print(f"[chip_smoke] {label}: train.main " + " ".join(argv), flush=True)
+    reset_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with CkptIO(save_peaks=True) as io:
+        log, state = train.main(argv, return_state=True)
+    k1 = su.fused_step_flat.launches
+    check(k1 == expect_k1, f"{label}: K1 launched {k1} times, expected "
+          f"{expect_k1}")
+    check(len(io.restores) == restores, f"{label}: {len(io.restores)} "
+          f"restores, expected {restores}")
+    for rec in log:
+        check(all(finite(v) for v in rec.values() if isinstance(v, float)),
+              f"non-finite record {rec}")
+    state = tree_map(lambda t: t.cpu(), state)
+    torch.cuda.empty_cache()
+    return {"log": log, "state": state, "io": io, "k1": k1}
+
+
+def same_state(a, b):
+    pa, pb = tree_paths(a), tree_paths(b)
+    return len(pa) == len(pb) and all(
+        x == y and torch.equal(u, v) for (x, u), (y, v) in zip(pa, pb))
+
+
+def mesh_ckpt_case():
+    """16c: ``--mode plain --use-fused-kernel --rounds 4 --ckpt``: on the
+    1×1 mesh straight (saving round 4) and as 2 rounds (saving round 2)
+    then a resume to 4, against ``--mesh none --clients 1`` saving rounds
+    2 and 4. Records and final states bitwise; the mesh's data.bin at
+    rounds 2 and 4 byte for byte the unsharded run's (sha256)."""
+    shutil.rmtree(CKPT_16, ignore_errors=True)
+    os.makedirs(CKPT_16)
+    free = shutil.disk_usage(CKPT_16).free
+    # two steps of params, momentum and D at M = 1, fp32, at a time
+    need = 2 * 3 * 4 * 494_032_768
+    check(free > need + (1 << 30), f"16c: {free} B free, {need} B needed")
+    base = MESH_ARGV + ["--mode", "plain", "--use-fused-kernel"]
+    mesh = ["--mesh", "debug", "--mesh-shape", "1x1"]
+    d = {k: os.path.join(CKPT_16, k) for k in ("none", "straight", "split")}
+    per = lambda T, every, dd: ["--rounds", str(T), "--ckpt", dd,
+                                "--ckpt-every", str(every)]
+    try:
+        n = ckpt_run("16c --mesh none", base + ["--clients", "1"]
+                     + per(4, 2, d["none"]), 4 * H_LOCAL)
+        sha = {f"none{s}": sha256_file(os.path.join(
+            d["none"], f"step_{s:08d}", "data.bin")) for s in (2, 4)}
+        shutil.rmtree(d["none"])
+        a = ckpt_run("16c mesh straight", base + mesh
+                     + per(4, 4, d["straight"]), 4 * H_LOCAL)
+        sha["straight4"] = sha256_file(os.path.join(
+            d["straight"], "step_00000004", "data.bin"))
+        shutil.rmtree(d["straight"])
+        b1 = ckpt_run("16c mesh, first 2 rounds", base + mesh
+                      + per(2, 2, d["split"]), 2 * H_LOCAL)
+        sha["split2"] = sha256_file(os.path.join(
+            d["split"], "step_00000002", "data.bin"))
+        b2 = ckpt_run("16c mesh, resumed to 4", base + mesh
+                      + per(4, 2, d["split"]), 2 * H_LOCAL, restores=1)
+        sha["split4"] = sha256_file(os.path.join(
+            d["split"], "step_00000004", "data.bin"))
+    finally:
+        shutil.rmtree(CKPT_16, ignore_errors=True)
+    check([r["round"] for r in b2["log"]] == [2, 3],
+          f"16c: the resumed run logged {[r['round'] for r in b2['log']]}")
+    for ra, rn, rb in zip(a["log"], n["log"], b1["log"] + b2["log"]):
+        check(det(ra) == det(rn) == det(rb), f"16c: round {ra['round']} "
+              f"differs: {det(ra)} / {det(rn)} / {det(rb)}")
+    check(same_state(a["state"], n["state"])
+          and same_state(a["state"], b2["state"]),
+          "16c: the final states differ")
+    check(sha["split2"] == sha["none2"], "16c: the mesh's round-2 data.bin "
+          "differs from --mesh none's")
+    check(sha["straight4"] == sha["none4"] == sha["split4"],
+          "16c: the round-4 data.bin differs")
+    saves = [s for r in (n, a, b1, b2) for s in r["io"].saves]
+    print(f"[chip_smoke] 16c: 4 rounds on the mesh straight, 2 + restore + "
+          f"2, and --mesh none: every record and the final state bitwise; "
+          f"data.bin at round 2 {sha['none2'][:16]}… and round 4 "
+          f"{sha['none4'][:16]}… byte-equal; K1 {a['k1']} vs {b1['k1']} + "
+          f"{b2['k1']}; mesh straight: {io_line(a['io'])}; split: "
+          f"{io_line(b1['io'])}; {io_line(b2['io'])}; --mesh none: "
+          f"{io_line(n['io'])}", flush=True)
+    return {"k1": a["k1"] + b1["k1"] + b2["k1"], "saves": saves,
+            "restores": b2["io"].restores,
+            "walls": [r["wall_s"] for r in a["log"]]}
+
+
+def phase16():
+    """Phase 16: the mesh features on a 1×1 card mesh at full-width
+    qwen2-0.5b, each run bitwise ``--mesh none --clients 1``'s: 16a
+    compression (int8 + EF on K1 and K3, a rank's flat block and leaf
+    blocks; top-k + EF on the tree loop), 16b the controller with a FIFO
+    and a client objective, 16c checkpoints and a bitwise resume."""
+    t0 = time.perf_counter()
+    a = mesh_case("16a mesh 1x1 plain, K1 + K3 int8 + EF",
+                  ["--mode", "plain", "--use-fused-kernel", "--compression",
+                   "int8-stochastic", "--error-feedback"], 2 * H_LOCAL,
+                  2 * N_LEAVES)
+    t = mesh_case("16a mesh 1x1 paper, topk + EF",
+                  ["--mode", "paper", "--compression", "topk",
+                   "--compression-k", "0.1", "--error-feedback"], 0)
+    b = mesh_case("16b mesh 1x1 paper, controller + FIFO 2 + consistency",
+                  ["--mode", "paper", "--controller", "--async-buffer", "2",
+                   "--het-model", "lognormal", "--objective", "consistency",
+                   "--labeled-frac", "0.5", "--rounds", "3"], 0)
+    print(f"[chip_smoke] 16b knobs, equal to --mesh none's: "
+          f"{knobs_line(b['log'])}", flush=True)
+    c = mesh_ckpt_case()
+    secs = time.perf_counter() - t0
+    print(f"[chip_smoke] phase 16: {secs:.1f} s; 16a int8 {a['secs']:.1f} s "
+          f"(walls {a['walls']} s, peak {a['peak']:.2f} GiB, --mesh none "
+          f"{a['peak_none']:.2f}), topk {t['secs']:.1f} s (walls "
+          f"{t['walls']} s, peak {t['peak']:.2f} GiB, --mesh none "
+          f"{t['peak_none']:.2f}); 16b {b['secs']:.1f} s (walls "
+          f"{b['walls']} s, peak {b['peak']:.2f} GiB, --mesh none "
+          f"{b['peak_none']:.2f}); 16c walls {c['walls']} s", flush=True)
+    return {"a": a, "topk": t, "b": b, "c": c, "secs": secs}
 
 
 # --------------------------------------------------------------------------- #
@@ -3384,21 +3542,32 @@ class CkptIO:
     memory every 2 ms during a restore, beside ``getrusage``'s peak of the
     process so far."""
 
-    def __init__(self):
+    def __init__(self, save_peaks=False):
+        # save_peaks: read the device peak before each save and during it
+        # (this resets the peak counter, so a caller that reads the run's
+        # own peak afterwards must leave it off)
         self.saves, self.restores = [], []
+        self.save_peaks = save_peaks
 
     def __enter__(self):
         self._save, self._restore = ckpt_lib.save, ckpt_lib.restore
 
-        def save(d, step, state, keep=3):
+        def save(d, step, state, keep=3, **kw):
+            rec = {"step": step}
+            if self.save_peaks:
+                # the device peak so far (the rounds'), then the save's own
+                rec["peak_rounds"] = torch.cuda.max_memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            path = self._save(d, step, state, keep)
-            self.saves.append({"step": step, "s": time.perf_counter() - t0,
-                               "bytes": os.path.getsize(
-                                   os.path.join(path, "data.bin"))})
+            path = self._save(d, step, state, keep, **kw)
+            rec["s"] = time.perf_counter() - t0
+            rec["bytes"] = os.path.getsize(os.path.join(path, "data.bin"))
+            if self.save_peaks:
+                rec["peak_save"] = torch.cuda.max_memory_allocated()
+            self.saves.append(rec)
             return path
 
-        def restore(d, template, step=None):
+        def restore(d, template, step=None, **kw):
             before = rss_bytes()
             peak, done = [before], threading.Event()
 
@@ -3409,7 +3578,7 @@ class CkptIO:
             th.start()
             t0 = time.perf_counter()
             try:
-                out = self._restore(d, template, step)
+                out = self._restore(d, template, step, **kw)
                 torch.cuda.synchronize()
             finally:
                 done.set()
@@ -3450,8 +3619,11 @@ class Tee:
 def io_line(io):
     out = []
     for s in io.saves:
+        peaks = (f"; device peak {s['peak_save'] / 2 ** 30:.2f} GiB during "
+                 f"it, {s['peak_rounds'] / 2 ** 30:.2f} GiB before"
+                 if "peak_save" in s else "")
         out.append(f"save step {s['step']} {s['bytes']} B in {s['s']:.2f} s "
-                   f"({s['bytes'] / s['s'] / 1e9:.2f} GB/s)")
+                   f"({s['bytes'] / s['s'] / 1e9:.2f} GB/s{peaks})")
     for r in io.restores:
         out.append(f"restore step {r['step']} {r['bytes']} B in "
                    f"{r['s']:.2f} s ({r['bytes'] / r['s'] / 1e9:.2f} GB/s); "
@@ -4110,6 +4282,9 @@ def main():
     # ---- 15. the dry run's cost model against the card ---------------------
     p15 = phase15()
 
+    # ---- 16. the mesh features on a 1x1 card mesh ---------------------------
+    p16 = phase16()
+
     # ---- phase 9. checkpoint and bitwise resume; the train_lm runner ------
     try:
         res = resume_phase(n_main, qwen_shapes)
@@ -4128,7 +4303,14 @@ def main():
                "zamba2-2.7b 12-layer savic": ztr["k1"],
                "qwen2-0.5b 1x1 mesh plain savic": p14["b"]["k1"],
                "qwen2-0.5b 1x1 mesh plain savic (15b)":
-                   p15["cases"]["14b"]["real"]["k1"]},
+                   p15["cases"]["14b"]["real"]["k1"],
+               "qwen2-0.5b 1x1 mesh plain savic int8 + EF (16a)":
+                   p16["a"]["k1"],
+               "qwen2-0.5b 1x1 mesh plain savic --ckpt (16c)":
+                   p16["c"]["k1"]},
+        "k3": {"qwen2-0.5b savic int8 + EF": k3_launches,
+               "qwen2-0.5b 1x1 mesh plain savic int8 + EF (16a)":
+                   p16["a"]["k3"]},
         "k4": {"qwen2-0.5b long prompt": k4_launches,
                "zamba2-2.7b serve": z["counts"]["k4"],
                "zamba2-2.7b continuous": z["ccounts"]["k4"],
@@ -4188,7 +4370,9 @@ def main():
         "name": "quantize_update_flat", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/quantize_update.cu",
         "replaces": "src/repro/kernels/quantize_update.py:56",
-        "launches": k3_launches, "max_abs_err": k3_err, "ms": k3_ms,
+        "launches": sum(by_path["k3"].values()),
+        "launches_by_path": by_path["k3"], "max_abs_err": k3_err,
+        "ms": k3_ms,
         "plain_ms": k3_plain_ms, "bound_ms": k3_bound_ms,
         "bound_by": "bytes", "library_ms": None,
     }, {

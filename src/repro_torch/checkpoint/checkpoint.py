@@ -11,6 +11,11 @@ Unlike the reference, which reads the whole ``data.bin`` into host memory,
 both ways stream one leaf at a time by offset: host memory stays near the
 largest leaf. bf16 moves as its 16-bit pattern, so neither ``ml_dtypes``
 nor ``msgpack`` is needed (the manifest goes through ``utils/msgpack.py``).
+
+A mesh run writes the same file, of the full state: ``save`` takes the
+full leaves one at a time from the ranks' gathers (``leaves``) and only
+one rank writes; on ``restore`` each rank maps ``data.bin`` and copies
+only its part of each leaf (``local``), with no collective.
 """
 from __future__ import annotations
 
@@ -52,7 +57,20 @@ def _host_bytes(leaf: torch.Tensor):
     return _NAME[leaf.dtype], arr.reshape(-1).view(np.uint8)
 
 
-def save(ckpt_dir: str, step: int, state, keep: int = 3) -> str:
+def save(ckpt_dir: str, step: int, state, keep: int = 3, leaves=None,
+         write: bool = True):
+    """Write ``state`` as step ``step`` under ``ckpt_dir`` and keep the
+    newest ``keep`` steps; returns the step's directory. ``leaves``: an
+    iterable of ``(path, full leaf)`` in ``tree_paths`` order that replaces
+    ``state``'s own (a mesh rank's ``engine.full_leaves``, each leaf
+    gathered when it is taken, so at most one full leaf is alive at a
+    time); with ``write`` False every leaf is taken (every rank joins the
+    gathers) and nothing is written (returns None)."""
+    leaves = tree_paths(state) if leaves is None else leaves
+    if not write:
+        for _ in leaves:
+            pass
+        return None
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = path + ".tmp"
     os.makedirs(ckpt_dir, exist_ok=True)
@@ -65,12 +83,13 @@ def save(ckpt_dir: str, step: int, state, keep: int = 3) -> str:
     manifest = {"magic": _MAGIC, "step": step, "leaves": []}
     with open(os.path.join(tmp, "data.bin"), "wb") as fb:
         off = 0
-        for p, leaf in tree_paths(state):
+        for p, leaf in leaves:
             name, buf = _host_bytes(leaf)
             manifest["leaves"].append({
                 "path": p, "shape": list(leaf.shape), "dtype": name,
                 "offset": off, "nbytes": buf.size,
             })
+            del leaf
             fb.write(buf.data)
             off += buf.size
             del buf
@@ -95,10 +114,13 @@ def latest_step(ckpt_dir: str):
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, template, step: int = None):
+def restore(ckpt_dir: str, template, step: int = None, local=None):
     """Restore into the structure of ``template`` (shapes must match): each
     leaf in the checkpoint's dtype, on its template leaf's device. Returns
-    (state, step)."""
+    (state, step). ``local(path, full leaf) -> this process's part of it``
+    (basic slicing, as a mesh rank's ``engine.shard_leaf``): each leaf is
+    then mapped from ``data.bin`` and only its part is copied, and
+    ``template`` holds the parts' shapes."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
@@ -109,19 +131,32 @@ def restore(ckpt_dir: str, template, step: int = None):
         raise ValueError(f"{path}: not a {_MAGIC} checkpoint")
     by_path = {l["path"]: l for l in manifest["leaves"]}
 
-    with open(os.path.join(path, "data.bin"), "rb") as fb:
+    data = os.path.join(path, "data.bin")
+    size = os.path.getsize(data)
+    with open(data, "rb") as fb:
         def one(p, leaf):
             meta = by_path[p]
             tdtype, ndtype = _DTYPES[meta["dtype"]]
             shape = tuple(meta["shape"])
-            if shape != tuple(leaf.shape):
-                raise ValueError(f"{p}: ckpt {shape} != template "
-                                 f"{tuple(leaf.shape)}")
-            fb.seek(meta["offset"])
-            arr = np.fromfile(fb, dtype=ndtype, count=math.prod(shape))
-            if arr.nbytes != meta["nbytes"]:
+            if meta["offset"] + meta["nbytes"] > size:
                 raise ValueError(f"{p}: data.bin ends inside the leaf")
-            t = torch.from_numpy(arr.reshape(shape))
+            if local is not None and math.prod(shape):
+                full = np.memmap(data, dtype=ndtype, mode="r",
+                                 offset=meta["offset"], shape=shape)
+                arr = np.array(local(p, full), order="C")
+                del full
+            else:
+                fb.seek(meta["offset"])
+                arr = np.fromfile(fb, dtype=ndtype, count=math.prod(shape))
+                if arr.nbytes != meta["nbytes"]:
+                    raise ValueError(f"{p}: data.bin ends inside the leaf")
+                arr = arr.reshape(shape)
+                if local is not None:
+                    arr = np.array(local(p, arr), order="C")
+            if arr.shape != tuple(leaf.shape):
+                raise ValueError(f"{p}: ckpt {arr.shape} != template "
+                                 f"{tuple(leaf.shape)}")
+            t = torch.from_numpy(arr)
             if tdtype == torch.bfloat16:
                 t = t.view(torch.bfloat16)
             return t.to(leaf.device)

@@ -52,8 +52,13 @@ rank's flat block). The sync's weighted mean is a weighted partial sum and
 an all-reduce over the client axes; global norms and the client drift sum
 every element once over the shard axes. The rng draws are the round's on
 every rank, so a mesh round equals the single-device round up to the order
-of its sums. Compression on model-/FSDP-sharded plans and the controller
-on any mesh raise ``NotImplementedError``.
+of its sums. Every knob runs there: the compression of a leaf that the
+shard axes split is the full leaf's (``_compress_leaf``'s ``block``: int8's
+scale an all-reduce MAX, top-k's candidates all-gathered), the controller
+keeps its whole state on every rank and observes the round's deltas, and a
+client objective on a microbatch split over batch axes takes the whole
+microbatch's normalizers (``objectives``). ``full_leaves`` / ``shard_leaf``
+stream a state to and from a checkpoint one leaf at a time.
 """
 from __future__ import annotations
 
@@ -70,7 +75,8 @@ from repro_torch.core.controller import ControllerSpec
 from repro_torch.core.preconditioner import PrecondConfig
 from repro_torch.utils import rng
 from repro_torch.utils.flatten import FlatLayout, all_float32
-from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.utils.tree import (tree_from_paths, tree_leaves, tree_map,
+                                    tree_paths, tree_unflatten)
 
 
 def _torch_dtype(name: str):
@@ -477,52 +483,87 @@ def client_drift(params_m, shard_plan=None):
     return shard_plan.sum_leaves(per_leaf, params_m, clients=True)
 
 
+def _mesh_part(path: str, local_d: bool):
+    """Where the leaf at ``path`` of an engine state lies on a mesh:
+    ``(params path, lead dims, client dim)`` for a params-shaped leaf,
+    ``"clients"`` for a per-client vector (local D's step counters), or
+    None for a leaf every rank holds whole (``round``, a global step
+    counter, the controller's ``ctrl``)."""
+    head, _, rest = path.partition("/")
+    if head in ("params", "mom", "ef"):
+        return rest, 1, True
+    if head == "buffer":
+        return rest, 1, False
+    if head == "server":
+        return rest.partition("/")[2], 0, False
+    if head == "precond":
+        key, _, sub = rest.partition("/")
+        if key == "d":
+            return sub, int(local_d), local_d
+        if key == "t" and local_d:
+            return "clients"
+    return None
+
+
+def shard_leaf(path: str, leaf, shard_plan, local_d: bool):
+    """This rank's part of the full leaf at ``path`` of an engine state (a
+    view; slicing only, so a numpy array works too). ``local_d``: the
+    state's D is per client (``precond.t`` is (M,))."""
+    part = _mesh_part(path, local_d)
+    if part is None:
+        return leaf
+    if part == "clients":
+        return shard_plan.client_rows(leaf)
+    rest, lead, client_dim = part
+    return shard_plan.local_leaf(rest, leaf, lead, client_dim)
+
+
+def full_leaf(path: str, leaf, shard_plan, local_d: bool):
+    """The full leaf at ``path`` of an engine state from this rank's part
+    (``shard_leaf``'s inverse; a collective every rank of the mesh
+    calls)."""
+    part = _mesh_part(path, local_d)
+    if part is None:
+        return leaf
+    if part == "clients":
+        return shard_plan.gather_clients(leaf)
+    rest, lead, client_dim = part
+    return shard_plan.full_leaf(rest, leaf, lead, client_dim)
+
+
+def _local_d(state) -> bool:
+    return state["precond"]["t"].dim() == 1
+
+
 def shard_state(state, shard_plan):
     """This rank's part of a full engine state: its client's rows of the
-    per-client trees, its blocks of every params-shaped leaf (a block
-    smaller than its leaf is copied, so the full leaf can be freed)."""
-    pl = shard_plan
-    out = dict(state)
-    for k in ("params", "mom", "ef"):
-        if k in state:
-            out[k] = pl.local(state[k], lead=1, client_dim=True)
-    pre = dict(state["precond"])
-    if "d" in pre:
-        local = pre["t"].dim() == 1
-        pre["d"] = pl.local(pre["d"], lead=int(local), client_dim=local)
-        if local:
-            pre["t"] = pl.client_rows(pre["t"])
-    out["precond"] = pre
-    if "server" in state:
-        out["server"] = {k: pl.local(v) for k, v in state["server"].items()}
-    if "buffer" in state:
-        out["buffer"] = pl.local(state["buffer"], lead=1)
-    if "ctrl" in state:
-        raise NotImplementedError("the controller on a mesh")
-    return tree_map(lambda x, full: x.clone() if x.numel() < full.numel()
-                    else x, out, state)
+    per-client trees, its blocks of every params-shaped leaf (a part
+    smaller than its leaf is copied, so the full leaf can be freed); the
+    round counter and the controller's state whole on every rank."""
+    local_d = _local_d(state)
+
+    def one(path, leaf):
+        x = shard_leaf(path, leaf, shard_plan, local_d)
+        return x.clone() if x.numel() < leaf.numel() else x
+    return tree_from_paths(state, one)
+
+
+def full_leaves(state, shard_plan):
+    """``(path, full leaf)`` of every leaf of the full engine state, in
+    ``tree_paths`` order, each gathered only when the caller asks for the
+    next one (a collective every rank of the mesh calls in this order):
+    a checkpoint streams the state through it one leaf at a time."""
+    local_d = _local_d(state)
+    for path, leaf in tree_paths(state):
+        yield path, full_leaf(path, leaf, shard_plan, local_d)
 
 
 def gather_state(state, shard_plan):
     """The full engine state from every rank's part (``shard_state``'s
     inverse; a collective every rank of the mesh calls)."""
-    pl = shard_plan
-    out = dict(state)
-    for k in ("params", "mom", "ef"):
-        if k in state:
-            out[k] = pl.full(state[k], lead=1, client_dim=True)
-    pre = dict(state["precond"])
-    if "d" in pre:
-        local = pre["t"].dim() == 1
-        pre["d"] = pl.full(pre["d"], lead=int(local), client_dim=local)
-        if local:
-            pre["t"] = pl.gather_clients(pre["t"])
-    out["precond"] = pre
-    if "server" in state:
-        out["server"] = {k: pl.full(v) for k, v in state["server"].items()}
-    if "buffer" in state:
-        out["buffer"] = pl.full(state["buffer"], lead=1)
-    return out
+    local_d = _local_d(state)
+    return tree_from_paths(state, lambda path, leaf: full_leaf(
+        path, leaf, shard_plan, local_d))
 
 
 # --------------------------------------------------------------------------- #
@@ -572,16 +613,22 @@ def value_and_grad(loss_fn):
 
 
 def _objective_calls(loss_fn, grad_fn, objective):
-    """``(grad3, loss3)``, each ``(params, micro, step_stream)``: the value
-    and gradient, and the value alone, of what the client differentiates.
-    A non-identity objective draws its noise from the step stream folded by
-    ``rng.OBJECTIVE_FOLD``; otherwise the plain loss ignores the stream."""
+    """``(grad3, loss3)``: ``grad3(params, micro, step_stream, part=None)``,
+    the value and gradient, and ``loss3(params, micro, step_stream)``, the
+    value alone, of what the client differentiates. A non-identity
+    objective draws its noise from the step stream folded by
+    ``rng.OBJECTIVE_FOLD``; otherwise the plain loss ignores the stream.
+    ``part`` (a ``utils.flatten.RowPart``, objectives only): ``micro`` is
+    the whole microbatch and the value is this rank's term of it."""
     if objective is None or objective.is_identity():
-        return (lambda p, mc, st: grad_fn(p, mc),
+        return (lambda p, mc, st, part=None: grad_fn(p, mc),
                 lambda p, mc, st: loss_fn(p, mc))
     vg = value_and_grad(objective.loss)
     fold = lambda st: st.fold(rng.OBJECTIVE_FOLD)
-    return (lambda p, mc, st: vg(p, mc, fold(st)),
+    # ``part`` only where there is one: an objective of one device's round
+    # may take (params, micro, stream) alone
+    return (lambda p, mc, st, part=None: vg(p, mc, fold(st)) if part is None
+            else vg(p, mc, fold(st), part),
             lambda p, mc, st: objective.loss(p, mc, fold(st)))
 
 
@@ -596,19 +643,24 @@ def _local_stat(pc: PrecondConfig, grads):
     return PC.grad_stat(grads)
 
 
-def _mesh_calls(loss_fn, grad3, shard_plan):
+def _mesh_calls(loss_fn, grad3, shard_plan, semi: bool = False):
     """A client's gradient and local Hutchinson stat on a mesh, from this
     rank's blocks of its params: ``grad(p, micro, st) -> (loss, full
     gradient)`` and ``hutch(p, micro, st) -> this rank's blocks of the
     stat``. Both run on the gathered params and this rank's rows of the
     microbatch, then take the mean over the batch axes; with no mesh they
-    are the plain calls."""
+    are the plain calls. A client objective (``semi``) gets the whole
+    microbatch and this rank's rows of it (``ShardedFlatPlan.row_part``)
+    and returns its term of the whole microbatch's objective, so that the
+    mean over the batch axes is that objective and its gradient."""
     if shard_plan is None:
         return grad3, lambda p, mc, st: PC.hutchinson_diag(loss_fn, p, mc, st)
     pl = shard_plan
 
     def grad(p, micro, st):
-        loss, grads = grad3(pl.full(p), pl.batch_rows(micro), st)
+        part = pl.row_part(micro) if semi else None
+        loss, grads = grad3(pl.full(p), micro if part is not None
+                            else pl.batch_rows(micro), st, part)
         out = pl.mean_batch({"loss": loss, "grads": grads})
         return out["loss"], out["grads"]
 
@@ -626,15 +678,20 @@ def _client_ids(params_m, shard_plan):
     return list(range(c0, c0 + n))
 
 
-def _idle_losses(losses, loss3, params_of, batch, steps, h_m):
+def _idle_losses(losses, loss3, params_of, batch, steps, h_m, ids,
+                 shard_plan=None):
     """A client with no step this round (H_m = 0) reports the loss at its
     round-start params on its first microbatch, as the reference (which
-    computes every step and discards the masked ones) does."""
+    computes every step and discards the masked ones) does. ``h_m`` and
+    ``params_of(i)`` are this process's i-th client's, ``ids`` their
+    indices in the round; on a mesh every rank of the client computes it
+    on the gathered params and the whole microbatch."""
+    full = shard_plan.full if shard_plan is not None else (lambda t: t)
     with torch.no_grad():
-        for i, hm in enumerate(h_m):
+        for i, (c, hm) in enumerate(zip(ids, h_m)):
             if hm == 0:
-                losses[0, i] = loss3(params_of(i), _micro(batch, i, 0),
-                                     steps[0][i] if steps else None)
+                losses[0, i] = loss3(full(params_of(i)), _micro(batch, c, 0),
+                                     steps[0][c] if steps else None)
 
 
 def _client_loop(loss_fn, grad_fn, spec: EngineSpec, objective=None,
@@ -654,10 +711,11 @@ def _client_loop(loss_fn, grad_fn, spec: EngineSpec, objective=None,
     """
     cl, pc = spec.client, spec.precond
     grad3, loss3 = _objective_calls(loss_fn, grad_fn, objective)
+    semi = objective is not None and not objective.is_identity()
     if cl.use_fused_kernel:
-        return _fused_run(loss_fn, grad3, loss3, spec, shard_plan)
+        return _fused_run(loss_fn, grad3, loss3, spec, shard_plan, semi)
     local = cl.scaling == "local" and pc.kind != "identity"
-    grad_at, hutch_at = _mesh_calls(loss_fn, grad3, shard_plan)
+    grad_at, hutch_at = _mesh_calls(loss_fn, grad3, shard_plan, semi)
     to_local = shard_plan.local if shard_plan is not None else (lambda t: t)
 
     def run(params_m, mom_m, pstate, batch, steps, h_m):
@@ -691,7 +749,8 @@ def _client_loop(loss_fn, grad_fn, spec: EngineSpec, objective=None,
                                              spec)
                 grads_last[i] = grads
                 losses[h, i] = loss
-        _idle_losses(losses, loss3, lambda i: ps[i], batch, steps, h_m)
+        _idle_losses(losses, loss3, lambda i: ps[i], batch, steps, h_m, ids,
+                     shard_plan)
         stack = lambda trees: tree_map(lambda *xs: torch.stack(xs), *trees)
         if local:
             pstate = {"d": stack([c["d"] for c in cps]),
@@ -746,7 +805,8 @@ def fused_route(spec: EngineSpec, state):
             f"non-fp32 client state ({bad}; flat view is fp32 by contract)")
 
 
-def _fused_run(loss_fn, grad3, loss3, spec: EngineSpec, shard_plan=None):
+def _fused_run(loss_fn, grad3, loss3, spec: EngineSpec, shard_plan=None,
+               semi: bool = False):
     """The flat-buffer fused client loop.
 
     Same contract as the tree ``run``, but the client state rides as
@@ -777,7 +837,7 @@ def _fused_run(loss_fn, grad3, loss3, spec: EngineSpec, shard_plan=None):
     # "local" here = D advances inside the loop (global D updates at sync)
     local = cl.scaling == "local" and has_d
     hutch = local and pc.uses_hutchinson
-    grad_at, hutch_at = _mesh_calls(loss_fn, grad3, shard_plan)
+    grad_at, hutch_at = _mesh_calls(loss_fn, grad3, shard_plan, semi)
     to_local = shard_plan.local if shard_plan is not None else (lambda t: t)
 
     def run(params_m, mom_m, pstate, batch, steps, h_m):
@@ -836,7 +896,7 @@ def _fused_run(loss_fn, grad3, loss3, spec: EngineSpec, shard_plan=None):
                          if frozen else 1)
         del frozen
         _idle_losses(losses, loss3, lambda i: layout.unflatten(P[i]), batch,
-                     steps, h_m)
+                     steps, h_m, ids, shard_plan)
         params_m = layout.unflatten(P, batch_dims=1)
         mom_m = layout.unflatten(Mo, batch_dims=1)
         last_grads = layout.unflatten(G, batch_dims=1)
@@ -895,7 +955,7 @@ def _kept_count(spec: CompressionSpec, n: int, k_frac=None):
 
 
 def _compress_leaf(spec: CompressionSpec, x, stream, k_frac=None,
-                   rows=None):
+                   rows=None, block=None):
     """Apply one compression operator to a (M, ...) leaf of round deltas.
 
     Per-client semantics throughout: topk/randk keep EXACTLY kc entries per
@@ -905,30 +965,68 @@ def _compress_leaf(spec: CompressionSpec, x, stream, k_frac=None,
     wire, same shape as x. ``rows = (first, M)``: ``x`` holds clients
     ``first, first + 1, …`` of M (a mesh rank's), and the draws are the M
     clients' rows.
+
+    ``block = (shard_plan, path)``: ``x`` is this rank's block of the leaf
+    at ``path``, which the plan's shard axes split, and the result is the
+    full leaf's compression restricted to the block. The draws are the
+    full leaf's (randk's scores and int8's uniforms), of which the rank
+    takes its block's elements; int8's scale is the max over the whole
+    leaf (an all-reduce MAX over the shard axes); topk keeps the kc
+    largest of the whole leaf, ties to the lower flat index of the full
+    leaf: each rank offers its block's best min(kc, block) as (|value|,
+    flat index) candidates, all-gathered over the shard axes, so every
+    rank picks the same kc (a rank that does not own its block's copy
+    offers none).
     """
     M = x.shape[0]
     flat = x.reshape(M, -1)
-    n = flat.shape[1]
+    pl, path = block if block is not None else (None, None)
+    shape = pl.full_shape(path) if pl is not None else None
+    n = math.prod(shape) if pl is not None else flat.shape[1]
 
     def uniform():
         if rows is None:
-            return stream.uniform(flat.shape, flat.device)
+            return stream.uniform((M, n), flat.device)
         first, m_all = rows
         return stream.uniform((m_all, n), flat.device)[first:first + M]
+
+    def mine(full):
+        """(M, n) rows of the full leaf -> this rank's (M, block) rows."""
+        if pl is None:
+            return full
+        return pl.local_leaf(path, full.reshape((M,) + shape),
+                             lead=1).reshape(M, -1)
+
     if spec.op in ("topk", "randk"):
-        # randk = topk on uniform scores: same selection code, random ranking
-        scores = flat.abs() if spec.op == "topk" else uniform()
         kc, inv = _kept_count(spec, n, k_frac)
-        idx = _top_indices(scores, kc)
-        del scores
-        kept = torch.zeros_like(flat).scatter_(1, idx, flat.gather(1, idx))
+        if pl is None:
+            # randk = topk on uniform scores: same selection code, random
+            # ranking
+            scores = flat.abs() if spec.op == "topk" else uniform()
+            idx = _top_indices(scores, kc)
+            del scores
+            kept = torch.zeros_like(flat).scatter_(1, idx, flat.gather(1, idx))
+        elif spec.op == "randk":
+            # the full leaf's scores on every rank: a global pick, no
+            # collective
+            idx = _top_indices(uniform(), kc)
+            hit = torch.zeros((M, n), dtype=torch.bool,
+                              device=flat.device).scatter_(1, idx, True)
+            kept = torch.where(mine(hit), flat, 0.0)
+        else:
+            top, hit = _topk_block(flat, kc, pl, path)
+            kept = torch.zeros_like(flat).scatter_(
+                1, top, torch.where(hit, flat.gather(1, top), 0.0))
         if spec.op == "randk" and not spec.error_feedback:
             # unbiased rescale E[C(x)] = x, only without EF
             kept = kept * inv
         return kept.reshape(x.shape)
     # int8-stochastic: E[floor(v + U[0,1))] = v, an unbiased QDQ
-    scale = flat.abs().amax(dim=1) / 127.0
-    u01 = uniform()
+    amax = flat.abs().amax(dim=1)
+    if pl is not None:
+        pl.max_shards(amax)
+    scale = amax / 127.0
+    u01 = mine(uniform())
     if spec.use_fused_kernel:
         from repro_torch.kernels import ops as kops
         _, dec = kops.quantize_update(flat, u01, scale)
@@ -936,6 +1034,31 @@ def _compress_leaf(spec: CompressionSpec, x, stream, k_frac=None,
         from repro_torch.kernels import ref as kref
         _, dec = kref.quantize_update_ref(flat, u01, scale)
     return dec.reshape(x.shape)
+
+
+def _topk_block(flat, kc: int, pl, path):
+    """Top-k of a split leaf on this rank's (M, block) rows ``flat``:
+    ``(top, hit)``, the (M, c) positions in the block of its best c =
+    min(kc, block) entries and whether each is among the kc largest
+    |values| of the whole leaf (per client row, ties to the lower flat
+    index of the full leaf)."""
+    scores = flat.abs()
+    # the block's C order is increasing in the full leaf's flat index, so
+    # the stable sort already breaks ties toward the lower global index
+    top = _top_indices(scores, min(kc, flat.shape[1]))          # (M, c)
+    cand = scores.gather(1, top)
+    del scores
+    if not pl.owns(path):
+        cand.fill_(-1.0)                        # below every |value|
+    gidx = pl.flat_index(path, flat.device)[top]
+    all_s, all_g = pl.gather_shards(cand), pl.gather_shards(gidx)
+    order = torch.argsort(all_g, dim=1, stable=True)
+    all_s, all_g = all_s.gather(1, order), all_g.gather(1, order)
+    chosen = torch.sort(all_g.gather(1, _top_indices(all_s, kc)),
+                        dim=1).values                          # (M, kc)
+    del all_s, all_g, order
+    at = torch.searchsorted(chosen, gidx).clamp_max_(kc - 1)
+    return top, chosen.gather(1, at) == gidx
 
 
 def compress_tree(spec: CompressionSpec, deltas, stream, k_frac=None):
@@ -948,12 +1071,14 @@ def compress_tree(spec: CompressionSpec, deltas, stream, k_frac=None):
                                    for x, st in zip(leaves, streams)])
 
 
-def _leaf_wire_bytes(comp: CompressionSpec, c, elem_bytes: int = 4):
+def _leaf_wire_bytes(comp: CompressionSpec, c, elem_bytes: int = 4,
+                     scale_bytes: int = 4):
     """Encoded bytes per client of one compressed (M, ...) leaf, measured
     from the decoded view: topk/randk count the surviving nonzero entries,
     each an (fp32 value, int32 index) pair; int8 moves 1 byte per element
-    plus one fp32 scale; identity specs move every element. An int64 (M,)
-    tensor on the leaf's device."""
+    plus one fp32 scale (``scale_bytes``: 0 for a mesh rank's block that
+    does not carry its leaf's scale); identity specs move every element.
+    An int64 (M,) tensor on the leaf's device."""
     M = c.shape[0]
     flat = c.reshape(M, -1)
     n = flat.shape[1]
@@ -962,7 +1087,7 @@ def _leaf_wire_bytes(comp: CompressionSpec, c, elem_bytes: int = 4):
     elif comp.op in ("topk", "randk"):
         return torch.count_nonzero(flat, dim=1).to(torch.int64) * (4 + 4)
     else:
-        per = n * 1 + 4
+        per = n * 1 + scale_bytes
     return torch.full((M,), per, dtype=torch.int64, device=c.device)
 
 
@@ -1099,17 +1224,33 @@ def staleness_weights(spec: AsyncSpec, round_idx, b_eff=None):
     return w / torch.clamp_min(w.sum(), torch.finfo(torch.float32).tiny)
 
 
-def _ctrl_observations(x_ref, params_m):
+def _ctrl_observations(x_ref, params_m, shard_plan=None):
     """The controller's gradient-noise inputs from the raw round deltas
     Δ_m = x_{m,H} − x_t of the synced leaves, leaf by leaf: E_m‖Δ_m‖² and
-    ‖mean_m Δ_m‖² (fp32 scalars)."""
+    ‖mean_m Δ_m‖² (fp32 scalars). On a mesh (``params_m`` this rank's
+    clients and blocks) both are the round's: the block sums over the
+    shard axes (each element once) gathered over the clients, and the mean
+    of the raw deltas over the client axes (one all-reduce of each synced
+    leaf's block: the sync averages C(u), not u) before its squared norm
+    is summed over the shard axes."""
+    pl = shard_plan
     d2 = dbar = 0
-    for p, x in zip(tree_leaves(params_m), tree_leaves(x_ref)):
-        d = (p - x.unsqueeze(0)).reshape(p.shape[0], -1)
-        d2 = d2 + torch.stack([torch.dot(r, r) for r in d])
-        b = d.mean(dim=0)
-        dbar = dbar + torch.dot(b, b)
+    M = p_rows = tree_leaves(params_m)[0].shape[0]
+    if pl is not None:
+        M *= pl.client_ranks
+    for (path, x), p in zip(tree_paths(x_ref), tree_leaves(params_m)):
+        d = (p - x.unsqueeze(0)).reshape(p_rows, -1)
+        v = torch.stack([torch.dot(r, r) for r in d])
+        b = d.mean(dim=0) if M == p_rows \
+            else pl.sum_clients(d.sum(dim=0)) / M
+        w = torch.dot(b, b)
+        if pl is not None and not pl.owns(path):
+            v, w = torch.zeros_like(v), torch.zeros_like(w)
+        d2, dbar = d2 + v, dbar + w
         del d, b
+    if pl is not None:
+        d2 = pl.gather_clients(pl.sum_shards(d2))
+        dbar = pl.sum_shards(dbar)
     zero = torch.zeros((), dtype=torch.float32, device=dbar.device)
     return {"delta_sq_mean": d2.mean(), "delta_sq_avg": dbar,
             "payload_sq": zero, "resid_sq": zero}
@@ -1129,8 +1270,10 @@ def _delta_sync(comp: CompressionSpec, avg, x_ref, params_m, ef, buffer,
     new_buffer | None, compression_err | None, wire_bytes | None,
     payload_sq | None)`` with the error Σ‖u_m − C(u_m)‖², the measured
     per-client payload (M,) and the compressor's input energy Σ‖u_m‖².
-    On a mesh (client-only plans) ``params_m`` holds this rank's client;
-    the draws, the sums and the payload are the round's.
+    On a mesh ``params_m`` holds this rank's clients and blocks; the
+    compression is the full leaf's (``_compress_leaf``'s ``block``), the
+    residual stays in the block, and the draws, the sums and the payload
+    are the round's (each element counted once over the shard axes).
     """
     squeeze = not comp.is_identity()
     p_leaves, x_leaves = tree_leaves(params_m), tree_leaves(x_ref)
@@ -1141,21 +1284,32 @@ def _delta_sync(comp: CompressionSpec, avg, x_ref, params_m, ef, buffer,
             rng.COMPRESSION_FOLD).split(len(p_leaves))
     x_avg, d_avg, new_ef, new_buf = [], [], [], []
     err = wire = payload = 0
-    rows = None if shard_plan is None else \
-        (shard_plan.client_rank * p_leaves[0].shape[0], n_clients)
+    pl = shard_plan
+    rows = None if pl is None else \
+        (pl.client_rank * p_leaves[0].shape[0], n_clients)
+    paths = [path for path, _ in tree_paths(x_ref)]
     for i, (p, x) in enumerate(zip(p_leaves, x_leaves)):
         u = p - x.unsqueeze(0)
         if not squeeze:
             d = avg(u)
         else:
+            path = paths[i]
+            block = (pl, path) if pl is not None and pl.is_split(path) \
+                else None
+            # each element once over the shard axes: a copy of a block that
+            # this rank does not own adds nothing
+            own = (lambda v: v) if pl is None or pl.owns(path) \
+                else torch.zeros_like
             if ef_leaves is not None:
                 u.add_(ef_leaves[i])
-            payload = payload + torch.dot(u.reshape(-1), u.reshape(-1))
-            c = _compress_leaf(comp, u, streams[i], k_frac, rows)
-            wire = wire + _leaf_wire_bytes(comp, c)
+            payload = payload + own(torch.dot(u.reshape(-1), u.reshape(-1)))
+            c = _compress_leaf(comp, u, streams[i], k_frac, rows, block)
+            wire = wire + own(_leaf_wire_bytes(
+                comp, c, scale_bytes=4 if block is None
+                or pl.first_block(path) else 0))
             d = avg(c)
             r = u.sub_(c)                   # the residual u − C(u), in place
-            err = err + torch.dot(r.reshape(-1), r.reshape(-1))
+            err = err + own(torch.dot(r.reshape(-1), r.reshape(-1)))
             if ef_leaves is not None:
                 new_ef.append(r)
             del c, r
@@ -1172,9 +1326,10 @@ def _delta_sync(comp: CompressionSpec, avg, x_ref, params_m, ef, buffer,
             d_avg.append(d)
         del d
     unflat = lambda leaves: tree_unflatten(x_ref, leaves)
-    if squeeze and shard_plan is not None:
-        err, payload = (shard_plan.sum_clients(v) for v in (err, payload))
-        wire = shard_plan.gather_clients(wire)
+    if squeeze and pl is not None:
+        err, payload = (pl.sum_clients(pl.sum_shards(v))
+                        for v in (err, payload))
+        wire = pl.gather_clients(pl.sum_shards(wire))
     return (unflat(x_avg), unflat(d_avg) if keep_delta else None,
             unflat(new_ef) if ef_leaves is not None else None,
             unflat(new_buf) if b_leaves is not None else None,
@@ -1196,22 +1351,32 @@ def _broadcast_back(full_m, avg):
 # --------------------------------------------------------------------------- #
 
 
-def _compress_server_state(spec: ServerSpec, m, v):
+def _compress_server_state(spec: ServerSpec, m, v, shard_plan=None):
     """Compress the server m/v trees for the replica-agreement sync leg:
     ``sync_k`` keeps ONE shared largest-|m| index set per leaf for both trees
     (stable ranking, ties to the lower index; a dropped coordinate's m is 0
     and its v falls back to the ``v_init`` floor), and ``sync_dtype``
-    round-trips both trees through that dtype."""
+    round-trips both trees through that dtype. On a mesh the trees are this
+    rank's blocks and the index set is the full leaf's."""
     if spec.sync_k < 1.0:
         v0 = spec.v_init if spec.v_init is not None else spec.tau ** 2
+        pl = shard_plan
 
-        def mask_leaf(mm):
-            fm = mm.reshape(-1)
-            idx = _top_indices(fm.abs(), _k_count(spec.sync_k, fm.numel()))
-            return torch.zeros(fm.shape, dtype=torch.bool, device=fm.device) \
-                .index_fill_(0, idx, True).reshape(mm.shape)
+        def mask_leaf(path, mm):
+            fm = mm.reshape(1, -1)
+            if pl is None or not pl.is_split(path):
+                idx = _top_indices(fm.abs(), _k_count(spec.sync_k,
+                                                      fm.numel()))
+                hit = None
+            else:
+                n = math.prod(pl.full_shape(path))
+                idx, hit = _topk_block(fm, _k_count(spec.sync_k, n), pl,
+                                       path)
+            mask = torch.zeros(fm.shape, dtype=torch.bool, device=fm.device)
+            return mask.scatter_(1, idx, True if hit is None else hit) \
+                .reshape(mm.shape)
 
-        masks = tree_map(mask_leaf, m)
+        masks = tree_from_paths(m, mask_leaf)
         m = tree_map(lambda mm, ma: torch.where(ma, mm, 0.0), m, masks)
         v = tree_map(lambda vv, ma: torch.where(ma, vv, v0), v, masks)
     if spec.sync_dtype:
@@ -1221,7 +1386,8 @@ def _compress_server_state(spec: ServerSpec, m, v):
     return m, v
 
 
-def _adaptive_server_update(spec: ServerSpec, server, x_prev, delta):
+def _adaptive_server_update(spec: ServerSpec, server, x_prev, delta,
+                            shard_plan=None):
     """m/v/x update of Algorithm 2 [42] on the pseudo-gradient Δ."""
     m = tree_map(lambda m_, d: spec.beta1 * m_ + (1 - spec.beta1) * d,
                  server["m"], delta)
@@ -1234,7 +1400,7 @@ def _adaptive_server_update(spec: ServerSpec, server, x_prev, delta):
         v = tree_map(lambda v_, d: v_ - (1 - spec.beta2) * d * d
                      * torch.sign(v_ - d * d), server["v"], delta)
     if not spec.sync_identity():
-        m, v = _compress_server_state(spec, m, v)
+        m, v = _compress_server_state(spec, m, v, shard_plan)
     x = tree_map(lambda x_, m_, v_: x_ + spec.eta * m_ / (torch.sqrt(v_)
                                                          + spec.tau),
                  x_prev, m, v)
@@ -1277,8 +1443,10 @@ def build_round_step(loss_fn: Callable, spec: EngineSpec, objective=None,
     With ``shard_plan`` (a ``utils.flatten.ShardedFlatPlan``) the round runs
     on a mesh, in every rank: ``state`` is this rank's part
     (``shard_state``), ``batch`` the whole round's, the metrics the
-    round's. Compression on a plan whose shard axes split the params and
-    the controller on any mesh raise ``NotImplementedError``.
+    round's: every knob runs there as it does on one device (compression
+    on the full leaves, the controller's state whole on every rank and its
+    observations the round's, a client objective over the whole
+    microbatch).
     """
     grad_fn = value_and_grad(loss_fn)
     cl, sy, sv, pc = spec.client, spec.sync, spec.server, spec.precond
@@ -1304,12 +1472,6 @@ def build_round_step(loss_fn: Callable, spec: EngineSpec, objective=None,
                 f"controller buffer_max={ctrl.buffer_max} must equal the "
                 f"allocated AsyncSpec.buffer_rounds={asy.buffer_rounds} "
                 f"(b_eff masks within the static FIFO)")
-    if shard_plan is not None:
-        if ctrl.enabled:
-            raise NotImplementedError("the controller on a mesh")
-        if not comp.is_identity() and shard_plan.layout.n_shards > 1:
-            raise NotImplementedError(
-                f"compression {comp.op!r} on a model-/FSDP-sharded mesh plan")
     strip = lambda t: strip_personal(personal, t)
     client_run = _client_loop(loss_fn, grad_fn, spec, objective, shard_plan)
     pl = shard_plan
@@ -1358,7 +1520,7 @@ def build_round_step(loss_fn: Callable, spec: EngineSpec, objective=None,
         # clients start each round at the common broadcast point, so
         # x_t = params[0] and Δ_m = x_{m,H} − x_t
         x_ref = strip(tree_map(lambda p: p[0], state["params"]))
-        ctrl_obs = _ctrl_observations(x_ref, strip(params_m)) \
+        ctrl_obs = _ctrl_observations(x_ref, strip(params_m), pl) \
             if ctrl.enabled else None
         avg = make_sync(sy, stream, M, dev, pl)
         new_ef = new_buffer = delta_avg = comp_err = wire = staleness = None
@@ -1473,7 +1635,7 @@ def build_round_step(loss_fn: Callable, spec: EngineSpec, objective=None,
                 delta = tree_map(lambda a, x: a.to(x.dtype) - x, params_avg,
                                  x_prev)
             x_new, server = _adaptive_server_update(sv, state["server"],
-                                                    x_prev, delta)
+                                                    x_prev, delta, pl)
             params_m = _broadcast_back(params_m, x_new)
             new_state["server"] = server
             if pl is None:

@@ -20,6 +20,15 @@ changes nothing else:
 The perturbation draws from the stream the engine gives each (round, local
 step, client), folded by ``rng.OBJECTIVE_FOLD`` there. A batch without a
 ``"labeled"`` leaf counts as fully labeled.
+
+On a mesh plan that splits a client's microbatch over batch axes, the loss
+gets ``part`` (a ``utils.flatten.RowPart``: this rank's rows of ``n``) and
+the WHOLE microbatch, and returns this rank's term: its rows' sums times
+``n`` over the whole microbatch's normalizers (the labeled count from the
+whole ``"labeled"`` leaf, which every rank holds; the pseudo-label gate's
+count summed over the ranks), and its rows of the whole microbatch's
+perturbation draws. The mean of the ranks' terms, and of their gradients,
+is then the whole microbatch's objective.
 """
 from __future__ import annotations
 
@@ -79,11 +88,21 @@ def _labeled_of(micro, like):
     return lab.float()
 
 
-def _masked_ce(logits, y, mask):
-    """Mean CE over examples with mask = 1 (an empty mask gives 0)."""
+def _masked_ce(logits, y, mask, part=None, count=None):
+    """Mean CE over examples with mask = 1 (an empty mask gives 0); with
+    ``part``, ``n`` × this rank's sum over ``count``, the whole
+    microbatch's (default: ``mask`` summed over the ranks)."""
     logp = torch.log_softmax(logits, dim=-1)
     ce = -torch.gather(logp, -1, y.long()[..., None])[..., 0]
-    return (ce * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    if part is None:
+        return (ce * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    if count is None:
+        count = part.sum(mask.sum().detach())
+    return part.n * (ce * mask).sum() / torch.clamp_min(count, 1.0)
+
+
+def _rows(part):
+    return part.rows if part is not None else (lambda x: x)
 
 
 def classification_objective(spec: ObjectiveSpec,
@@ -101,13 +120,17 @@ def classification_objective(spec: ObjectiveSpec,
         return ClientObjective(spec=spec, loss=lambda p, mc, s: base_loss(
             p, mc), base_loss=base_loss)
 
-    def loss(params, micro, stream):
+    def loss(params, micro, stream, part=None):
         x, y = micro["x"], micro["y"]
         labeled = _labeled_of(micro, y)
+        n_lab = labeled.sum() if part is not None else None
+        mine = _rows(part)
+        x, y, labeled = mine(x), mine(y), mine(labeled)
         logits = logits_fn(params, x)
-        sup = _masked_ce(logits, y, labeled)
+        sup = _masked_ce(logits, y, labeled, part, n_lab)
         if spec.kind == "consistency":
-            x_aug = x + spec.noise_sigma * stream.normal(x.shape, x.device)
+            whole = micro["x"].shape
+            x_aug = x + spec.noise_sigma * mine(stream.normal(whole, x.device))
             p_clean = torch.softmax(logits, dim=-1).detach()
             p_aug = torch.softmax(logits_fn(params, x_aug), dim=-1)
             unsup = ((p_aug - p_clean) ** 2).sum(dim=-1).mean()
@@ -116,7 +139,7 @@ def classification_objective(spec: ObjectiveSpec,
             conf = probs.max(dim=-1).values
             pseudo = torch.argmax(logits, dim=-1).detach()
             gate = (conf >= spec.pseudo_threshold).float() * (1.0 - labeled)
-            unsup = _masked_ce(logits, pseudo, gate)
+            unsup = _masked_ce(logits, pseudo, gate, part)
         return sup + spec.unlabeled_weight * unsup
 
     return ClientObjective(spec=spec, loss=loss, base_loss=base_loss)
@@ -140,19 +163,32 @@ def lm_objective(spec: ObjectiveSpec, model) -> ClientObjective:
         return ClientObjective(spec=spec, loss=lambda p, mc, s: base_loss(
             p, mc), base_loss=base_loss)
 
-    def loss(params, micro, stream):
+    def loss(params, micro, stream, part=None):
         toks, labels = micro["tokens"], micro["labels"]
         labeled = _labeled_of(micro, labels)                   # (b,)
         lab_col = labeled[:, None]
         sup_labels = torch.where(lab_col > 0, labels,
                                  torch.full_like(labels, -1))
-        sup = base_loss(params, {"tokens": toks, "labels": sup_labels})
+        whole = toks.shape
+        if part is None:
+            sup = base_loss(params, {"tokens": toks, "labels": sup_labels})
+        else:
+            # the whole microbatch's count of labeled positions, over n
+            norm = torch.clamp_min((sup_labels >= 0).sum().float(),
+                                   1.0) / part.n
+            micro = {k: part.rows(v) for k, v in micro.items()}
+            toks, labels, sup_labels, lab_col = (part.rows(v) for v in (
+                toks, labels, sup_labels, lab_col))
+            sup = base_loss(params, {"tokens": toks, "labels": sup_labels},
+                            ce_norm=norm)
+        mine = _rows(part)
         logits = model.logits(params, micro)                   # (b, S, V)
         if spec.kind == "consistency":
             s_drop, s_tok = stream.split(2)
             # jax.random.bernoulli draws uniform(key) < p
-            drop = s_drop.uniform(toks.shape, toks.device) < spec.noise_sigma
-            rand = s_tok.randint(toks.shape, 0, V, toks.device).to(toks.dtype)
+            drop = mine(s_drop.uniform(whole, toks.device)) < spec.noise_sigma
+            rand = mine(s_tok.randint(whole, 0, V, toks.device)).to(
+                toks.dtype)
             aug = dict(micro)
             aug["tokens"] = torch.where(drop, rand, toks)
             p_clean = torch.softmax(logits, dim=-1).detach()
@@ -166,7 +202,11 @@ def lm_objective(spec: ObjectiveSpec, model) -> ClientObjective:
                 * (1.0 - lab_col) * (labels >= 0).float()
             logp = torch.log_softmax(logits, dim=-1)
             ce = -torch.gather(logp, -1, pseudo[..., None])[..., 0]
-            unsup = (ce * gate).sum() / torch.clamp_min(gate.sum(), 1.0)
+            if part is None:
+                unsup = (ce * gate).sum() / torch.clamp_min(gate.sum(), 1.0)
+            else:
+                unsup = part.n * (ce * gate).sum() / torch.clamp_min(
+                    part.sum(gate.sum().detach()), 1.0)
         return sup + spec.unlabeled_weight * unsup
 
     return ClientObjective(spec=spec, loss=loss, base_loss=base_loss)

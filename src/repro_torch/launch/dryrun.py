@@ -47,8 +47,7 @@ from the rank's shapes), ``params``, ``active_params``, ``op_census``,
 ``ok``; and for train shapes ``compression``, ``sync_payload_per_client``,
 ``asynchrony``, ``flat_layout`` / ``flat_layout_sharded``,
 ``fused_kernel_fallback``, ``objective`` and ``heterogeneity`` where the
-reference has them (no ``controller``: the controller on a mesh is one of
-the features the port lacks). It adds ``seq_len``, ``global_batch``,
+reference has them (no ``controller``: see below). It adds ``seq_len``, ``global_batch``,
 ``peak_bytes`` (the rank's predicted peak), ``flops_by_dtype``,
 ``flops_by_matmul``, ``collective_intra_bytes`` /
 ``collective_inter_bytes``, ``custom_counts``, ``trace_s``,
@@ -59,10 +58,13 @@ no counterpart and are left out: ``flops_raw``, ``bytes_raw``,
 ``collective_bytes_static``, ``collective_by_kind_static``,
 ``temp_size_in_bytes`` and ``generated_code_size_in_bytes``.
 
-A pair that raises one of the port's named ``NotImplementedError``s (a
-mesh feature it lacks: compression on a plan that shards the params, the
-controller, an objective that splits the microbatch) is recorded with
-``ok: false`` and the message.
+A pair that raises a ``NotImplementedError`` is recorded with ``ok: false``
+and the message. So is a pair with the controller: it reads its knobs
+(H_m, k) to the host once a round, and a fake tensor has no value to read
+(``DataDependentOutputException``); its record says so in ``error``.
+Compression on a plan whose shard axes split the leaves traces: its
+records count int8's MAX all-reduce of the per-client scales and top-k's
+all-gather of candidates among the collectives.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-0.5b \\
       --shape train_4k
@@ -82,7 +84,8 @@ import traceback
 
 import torch
 import torch.distributed as dist
-from torch._subclasses.fake_tensor import FakeTensorMode
+from torch._subclasses.fake_tensor import (DataDependentOutputException,
+                                           FakeTensorMode)
 
 from repro_torch import configs
 from repro_torch.configs import get_config, get_shape, pairs_to_run
@@ -289,8 +292,15 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
                 built = build(arch, shape, mesh, call=call, reduced=reduced)
                 t, peak, a, o = _trace_serve(built, shape, mesh, dev)
                 traced = trips = None
-        except NotImplementedError as e:
-            rec.update({"ok": False, "error": f"NotImplementedError: {e}",
+        except (NotImplementedError, DataDependentOutputException) as e:
+            why = f"{type(e).__name__}: {e}"
+            ctrl = controller if controller is not None else \
+                getattr(engine_spec, "controller", None)
+            if isinstance(e, DataDependentOutputException) \
+                    and ctrl is not None and ctrl.enabled:
+                why += (" (the controller reads its knobs to the host once "
+                        "a round; a fake tensor has no value to read)")
+            rec.update({"ok": False, "error": why,
                         "params": cfg.param_count(),
                         "active_params": cfg.active_param_count()})
             return _finish(rec, out_dir, save, verbose)

@@ -190,10 +190,6 @@ def build_train_step(arch: str, shape: ShapeConfig, mesh, *,
             spec, sync=dataclasses.replace(spec.sync,
                                            personal=tuple(personal)))
     client_objective = objectives.build_objective(objective, model=model)
-    if client_objective is not None and not client_objective.is_identity() \
-            and _ax(mesh, plan.batch) > 1:
-        raise NotImplementedError("a client objective on a mesh plan that "
-                                  "splits the microbatch over batch axes")
     if client_objective is not None or labeled_frac < 1.0 or personal:
         het_meta["objective"] = {
             "kind": objective.kind if objective is not None else "supervised",
@@ -259,7 +255,9 @@ def _engine_state_spec(cfg, state_shape, mesh, plan, spec: engine.EngineSpec):
     """PartitionSpec tree of an engine state: client leaves carry a leading
     M dim over the client axes; the global D and the adaptive server's m/v
     are single-replica trees; the FIFO has a leading, never sharded B dim;
-    server, EF and FIFO trees hold ``None`` at personal leaves."""
+    server, EF and FIFO trees hold ``None`` at personal leaves; the
+    controller's state is replicated (every rank holds all of it, ``h_m``
+    for all M clients)."""
     pspec_m = params_pspecs(cfg, state_shape["params"], mesh, plan,
                             client_dim=True)
     state_spec = {
@@ -282,10 +280,7 @@ def _engine_state_spec(cfg, state_shape, mesh, plan, spec: engine.EngineSpec):
         pspec_buf = params_pspecs(cfg, buf_one, mesh, plan, client_dim=False)
         state_spec["buffer"] = tree_map(lambda s: P(None, *s), pspec_buf)
     if "ctrl" in state_shape:
-        cl_ax = plan.client if plan.client else None
-        state_spec["ctrl"] = {
-            k: (P(cl_ax) if s.dim() else P())
-            for k, s in state_shape["ctrl"].items()}
+        state_spec["ctrl"] = {k: P() for k in state_shape["ctrl"]}
     return state_spec
 
 

@@ -19,8 +19,10 @@ Two launch paths share the spec resolution, data, round loop and log:
   for the big archs, else paper). The plan fixes M from its client axes.
   Every rank runs this script (``torchrun``, or alone: a group of one rank
   is started then), builds the same initial state from the seed and keeps
-  its part of it; logs and the ``--log`` file come from rank 0. ``--ckpt``
-  with ``--mesh`` raises ``NotImplementedError``.
+  its part of it; logs and the ``--log`` file come from rank 0. Every flag
+  runs there: ``--ckpt`` writes the full state's checkpoint (the ranks
+  gather it one leaf at a time and rank 0 writes it), and a restore reads
+  each rank's part of it.
 
 Every arch trains (dense qwen2 / qwen3 / gemma3, moe qwen2-moe and the MLA
 deepseek-v2, ssm mamba2, hybrid zamba2, audio musicgen, vlm internvl2), on
@@ -75,6 +77,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import time
 
 import numpy as np
@@ -89,7 +92,7 @@ from repro_torch.data import federated
 from repro_torch.models import ModelCallConfig, build
 from repro_torch.utils import rng
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.tree import tree_map, tree_paths
+from repro_torch.utils.tree import tree_map
 
 
 def _parser():
@@ -181,14 +184,6 @@ def _parser():
     return ap
 
 
-def _unported_flags(args) -> list:
-    """CLI features outside the port so far."""
-    out = []
-    if args.mesh != "none" and args.ckpt:
-        out.append("--ckpt with --mesh")
-    return out
-
-
 def _make_mesh(args, device_type):
     from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
     if args.mesh == "debug":
@@ -278,10 +273,6 @@ def setup(argv=None, init_params=None, root_stream=None) -> Run:
     """
     args = _parser().parse_args(argv)
     device = resolve_device(args.device)
-    missing = _unported_flags(args)
-    if missing:
-        raise NotImplementedError("not ported to repro_torch yet: "
-                                  + ", ".join(missing))
     cfg = get_config(args.arch, reduced=args.reduced)
     call = ModelCallConfig(dtype=getattr(torch, args.dtype))
     mesh, started, rank0 = None, False, True
@@ -296,10 +287,10 @@ def setup(argv=None, init_params=None, root_stream=None) -> Run:
             raise RuntimeError(f"--mesh {args.mesh} spans {mesh.mesh.numel()} "
                                f"ranks of {dist.get_world_size()}")
         rank0 = dist.get_rank() == 0
-        if started:
-            print(f"[train] started a process group of 1 rank "
-                  f"({dist.get_backend()}) and the mesh in {t_group:.3f} s",
-                  flush=True)
+        if started and rank0:
+            print(f"[train] started a process group of "
+                  f"{dist.get_world_size()} rank(s) ({dist.get_backend()}) "
+                  f"and the mesh in {t_group:.3f} s", flush=True)
         plan, plan_mode = steps._train_plan(args.arch, mesh, args.mode)
         M = plan.clients(mesh) if plan.client else 1
         if M != args.clients and rank0:
@@ -404,17 +395,23 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def _nbytes(state) -> int:
-    return sum(leaf.numel() * leaf.element_size()
-               for _, leaf in tree_paths(state))
-
-
-def _save(ckpt, step, state) -> int:
+def _save(run, step, state) -> int:
+    """Checkpoint ``state`` as round ``step``. On a mesh the ranks gather
+    the full state one leaf at a time and rank 0 writes it; a barrier then
+    holds every rank until the step is whole on disk."""
     ts = time.perf_counter()
-    ckpt_lib.save(ckpt, step, state)
-    dt = time.perf_counter() - ts
-    print(f"[train] saved round {step} ({_nbytes(state) / 1e9:.3f} GB in "
-          f"{dt:.2f} s)", flush=True)
+    if run.shard_plan is None:
+        path = ckpt_lib.save(run.args.ckpt, step, state)
+    else:
+        import torch.distributed as dist
+        path = ckpt_lib.save(run.args.ckpt, step, state,
+                             leaves=engine.full_leaves(state, run.shard_plan),
+                             write=run.rank0)
+        dist.barrier()
+    if run.rank0:
+        size = os.path.getsize(os.path.join(path, "data.bin"))
+        print(f"[train] saved round {step} ({size / 1e9:.3f} GB in "
+              f"{time.perf_counter() - ts:.2f} s)", flush=True)
     return step
 
 
@@ -452,14 +449,22 @@ def _rounds(run):
         # the template needs shapes and devices only: free the initial
         # state first, then hold the replicated leaves as a sync does
         template = tree_map(lambda t: t.new_empty(()).expand(t.shape), state)
+        local = None
+        if run.shard_plan is not None:
+            # this rank's part of each leaf, read from the mapped file
+            local_d = state["precond"]["t"].dim() == 1
+            local = lambda p, a: engine.shard_leaf(p, a, run.shard_plan,
+                                                   local_d)
         del state
-        state, start_round = ckpt_lib.restore(args.ckpt, template)
+        state, start_round = ckpt_lib.restore(args.ckpt, template,
+                                              local=local)
         state = engine.share_replicas(state)
         saved = start_round
         _sync(device)
-        print(f"[train] restored round {start_round} "
-              f"({_nbytes(state) / 1e9:.3f} GB in "
-              f"{time.perf_counter() - tr:.2f} s)", flush=True)
+        size = os.path.getsize(os.path.join(
+            args.ckpt, f"step_{start_round:08d}", "data.bin"))
+        say(f"[train] restored round {start_round} ({size / 1e9:.3f} GB in "
+            f"{time.perf_counter() - tr:.2f} s)", flush=True)
     tokens_round = run.n_clients * args.h_local * args.batch * args.seq
     log = []
     t0 = time.time()
@@ -512,10 +517,10 @@ def _rounds(run):
         say(f"[train] round {r:4d} loss {loss:.4f} drift {drift:.3e}"
             f"{extra} ({time.time()-t0:.1f}s)", flush=True)
         if args.ckpt and (r + 1) % args.ckpt_every == 0:
-            saved = _save(args.ckpt, r + 1, state)
+            saved = _save(run, r + 1, state)
     # the final state, unless it was just written
     if args.ckpt and saved != args.rounds:
-        _save(args.ckpt, args.rounds, state)
+        _save(run, args.rounds, state)
     if args.log and run.rank0:
         with open(args.log, "w") as f:
             json.dump(log, f)

@@ -349,9 +349,10 @@ def unembed(p, x, cfg: ModelConfig, dtype):
     return x.to(dtype) @ p["head"].to(dtype)
 
 
-def cross_entropy(logits, labels, vocab_size):
+def cross_entropy(logits, labels, vocab_size, norm=None):
     """Mean CE over positions; labels < 0 are masked out; padded vocab
-    masked."""
+    masked. ``norm`` (a tensor) replaces the count of unmasked positions
+    as the denominator."""
     V = logits.shape[-1]
     logits = logits.float()
     if V > vocab_size:
@@ -362,4 +363,6 @@ def cross_entropy(logits, labels, vocab_size):
                         labels.clamp_min(0).long()[..., None])[..., 0]
     nll = logz - gold
     mask = (labels >= 0).float()
+    if norm is not None:
+        return (nll * mask).sum() / norm
     return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)

@@ -135,9 +135,12 @@ def build(cfg: ModelConfig, call: Optional[ModelCallConfig] = None) -> Model:
         y = rmsnorm(params["final_norm"], y, cfg.norm_eps)
         return unembed(params["embed"], y, cfg, dtype), labels, aux
 
-    def loss(params, batch):
+    def loss(params, batch, ce_norm=None):
+        """Mean CE over the labeled positions (+ the MoE aux loss);
+        ``ce_norm`` replaces the CE's count of labeled positions (a mesh
+        rank's share of a microbatch split over batch axes)."""
         logits_, labels, aux = _forward_logits(params, batch)
-        return cross_entropy(logits_, labels, cfg.vocab_size) + aux
+        return cross_entropy(logits_, labels, cfg.vocab_size, ce_norm) + aux
 
     def logits(params, batch):
         return _forward_logits(params, batch)[0].float()

@@ -266,6 +266,22 @@ class ShardFlatLayout:
         }
 
 
+@dataclasses.dataclass(frozen=True)
+class RowPart:
+    """Rows ``lo:hi`` of a microbatch, this rank's of ``n`` ranks that split
+    it; ``sum(x)`` is the sum of ``x`` over those ranks (an all-reduce, a
+    new tensor). A client objective scales its rows' term by ``n`` over the
+    whole microbatch's normalizer, so that the mean of the ranks' terms is
+    the whole microbatch's objective."""
+    lo: int
+    hi: int
+    n: int
+    sum: Any
+
+    def rows(self, x):
+        return x[self.lo:self.hi]
+
+
 def _ravel(coord: dict, axes, sizes: dict) -> int:
     k = 0
     for a in axes:
@@ -285,9 +301,12 @@ class ShardedFlatPlan:
     and holds that client's leaves as its blocks over the layout's shard
     axes. The methods below are the round's only collectives: a gather of
     a client's params over the shard axes before its forward pass, the
-    gradient mean over the batch axes, sums over the client axes (the
-    sync) and global sums over the shard axes (every element counted
-    once). A group of one rank is never called."""
+    gradient mean over the batch axes (and an objective's sums there,
+    ``row_part``), sums over the client axes (the sync) and global sums
+    over the shard axes (every element counted once), and the compression
+    of a split leaf's max (``max_shards``) and candidates
+    (``gather_shards``) over the shard axes. A group of one rank is never
+    called."""
     mesh: Any
     layout: ShardFlatLayout
     client: Any = None
@@ -349,34 +368,77 @@ class ShardedFlatPlan:
 
     # ---- layout of trees of params' paths ---------------------------------- #
 
+    def local_leaf(self, path, leaf, lead: int = 0, client_dim: bool = False):
+        """This rank's block of one full leaf at ``path`` (a view; basic
+        slicing only, so a numpy array, a memory-mapped file's among
+        them, works too)."""
+        _, _, sl, _ = self._by_path[path]
+        x = leaf[(slice(None),) * lead + sl]
+        return self.client_rows(x) if client_dim else x
+
     def local(self, tree, lead: int = 0, client_dim: bool = False):
         """This rank's blocks of a tree of full leaves (a tree rooted where
         the params are: params, momentum, D, the server's, EF's and FIFO's
         trees) behind ``lead`` leading dims (views). ``client_dim``: the
         first leading dim is the M clients, of which this rank keeps its
         own rows."""
-        def one(path, leaf):
-            _, _, sl, _ = self._by_path[path]
-            x = leaf[(slice(None),) * lead + sl]
-            return self.client_rows(x) if client_dim else x
-        return tree_from_paths(tree, one)
+        return tree_from_paths(tree, lambda path, leaf: self.local_leaf(
+            path, leaf, lead, client_dim))
+
+    def full_leaf(self, path, leaf, lead: int = 0, client_dim: bool = False):
+        """The full leaf at ``path`` of this rank's block (a gather over the
+        shard axes, and with ``client_dim`` over the client axes too: the
+        first of the ``lead`` dims is then the clients')."""
+        spec, shape, _, _ = self._by_path[path]
+        head = list(leaf.shape[:lead])
+        entries = [None] * lead
+        if client_dim:
+            head[0] *= self.client_ranks
+            entries[0] = self.client
+        shape = tuple(head) + shape
+        pl = to_placements(self.mesh, PartitionSpec(*entries, *spec), shape)
+        return gather(leaf, self.mesh, pl, shape)
 
     def full(self, tree, lead: int = 0, client_dim: bool = False):
-        """The full leaves of a tree of this rank's blocks (a gather over
-        the shard axes, and with ``client_dim`` over the client axes too:
-        the first of the ``lead`` dims is then the clients')."""
-        def one(path, leaf):
-            spec, shape, _, _ = self._by_path[path]
-            head = list(leaf.shape[:lead])
-            entries = [None] * lead
-            if client_dim:
-                head[0] *= self.client_ranks
-                entries[0] = self.client
-            shape = tuple(head) + shape
-            pl = to_placements(self.mesh, PartitionSpec(*entries, *spec),
-                               shape)
-            return gather(leaf, self.mesh, pl, shape)
-        return tree_from_paths(tree, one)
+        """``full_leaf`` of every leaf of a tree of this rank's blocks."""
+        return tree_from_paths(tree, lambda path, leaf: self.full_leaf(
+            path, leaf, lead, client_dim))
+
+    # ---- a leaf's block in the full leaf ----------------------------------- #
+
+    def is_split(self, path) -> bool:
+        """Whether the shard axes split the leaf (else every shard rank
+        holds it whole). The same on every rank."""
+        _, shape, sl, _ = self._by_path[path]
+        return any(s != slice(None) for s in sl)
+
+    def full_shape(self, path) -> tuple:
+        """The single-replica shape of the full leaf at ``path``."""
+        return self._by_path[path][1]
+
+    def first_block(self, path) -> bool:
+        """Whether this rank's block of the leaf starts at its first
+        element (the block that carries a per-leaf scalar, such as int8's
+        scale, once)."""
+        _, shape, sl, _ = self._by_path[path]
+        return all(s.indices(d)[0] == 0 for s, d in zip(sl, shape))
+
+    def owns(self, path) -> bool:
+        """Whether this rank counts the elements of its block of the leaf:
+        of the shard ranks that hold copies of a block, one does."""
+        return self._by_path[path][3]
+
+    def flat_index(self, path, device=None):
+        """The full leaf's flat (C order) index of each element of this
+        rank's block, in the block's own C order (int64, increasing: a
+        block is a box of the leaf)."""
+        _, shape, sl, _ = self._by_path[path]
+        idx = torch.zeros((), dtype=torch.int64, device=device)
+        for s, dim in zip(sl, shape):
+            lo, hi, _ = s.indices(dim)
+            idx = idx[..., None] * dim + torch.arange(
+                lo, hi, dtype=torch.int64, device=device)
+        return idx.reshape(-1)
 
     # ---- collectives ----------------------------------------------------- #
 
@@ -417,6 +479,26 @@ class ShardedFlatPlan:
             leaf.div_(n)
         return tree
 
+    def row_part(self, micro):
+        """This rank's share of a client's microbatch for an objective that
+        needs the whole microbatch's normalizers: a ``RowPart``, or None
+        where the batch axes do not split dim 0 (one rank, or rows that do
+        not divide: every rank then computes the whole microbatch)."""
+        n = math.prod(self._sizes[a] for a in self.batch)
+        rows = tree_leaves(micro)[0].shape[0]
+        if n == 1 or rows % n:
+            return None
+        r = rows // n
+        k = _ravel(self._coord, self.batch, self._sizes)
+        return RowPart(k * r, (k + 1) * r, n, self._sum_batch)
+
+    def _sum_batch(self, x):
+        import torch.distributed as dist
+        x = x.clone()
+        for g in self._groups(self.batch):
+            dist.all_reduce(x, group=g)
+        return x
+
     def batch_rows(self, micro):
         """This rank's rows of a client's microbatch: dim 0 cut over the
         batch axes where it divides, else every row."""
@@ -432,18 +514,42 @@ class ShardedFlatPlan:
             return x[k * r:(k + 1) * r]
         return tree_map(one, micro)
 
+    def sum_shards(self, x):
+        """Σ over the shard axes, in place."""
+        import torch.distributed as dist
+        for g in self._groups(self.layout.axes):
+            dist.all_reduce(x, group=g)
+        return x
+
+    def max_shards(self, x):
+        """The elementwise max over the shard axes, in place (int8's
+        per-client scale of a split leaf)."""
+        import torch.distributed as dist
+        for g in self._groups(self.layout.axes):
+            dist.all_reduce(x, op=dist.ReduceOp.MAX, group=g)
+        return x
+
+    def gather_shards(self, x):
+        """Every shard rank's ``x``, concatenated along the last dim (an
+        all-gather over each shard axis in turn; top-k's candidates)."""
+        import torch.distributed as dist
+        x = x.contiguous()
+        for g in self._groups(self.layout.axes):
+            parts = [torch.empty_like(x) for _ in range(dist.get_world_size(g))]
+            dist.all_gather(parts, x, group=g)
+            x = torch.cat(parts, dim=-1)
+        return x
+
     def sum_leaves(self, fn, tree, clients: bool = False):
         """Σ over the leaves of ``fn(block)`` (an fp32 scalar each) over
         the shard axes, every element counted once (a block that several
         shard ranks hold counts on one of them); with ``clients``, also
         summed over the client axes."""
-        import torch.distributed as dist
         total = None
         for path, leaf in tree_paths(tree):
             v = fn(leaf)
-            if not self._by_path[path][3]:
+            if not self.owns(path):
                 v = torch.zeros_like(v)
             total = v if total is None else total + v
-        for g in self._groups(self.layout.axes):
-            dist.all_reduce(total, group=g)
+        self.sum_shards(total)
         return self.sum_clients(total) if clients else total

@@ -10,6 +10,16 @@ leaves are laid out like a model's: ``w1`` (fsdp, model), ``b1`` (model),
 ``w2`` (model, fsdp), ``b2`` over (fsdp + model) jointly, which on the plain
 (2, 2) plan is 10 over 4 shards: the uneven fallback replicates it.
 
+The feature cases run the sync's compression on plans whose shard axes
+split the leaves (int8 + EF, top-k + EF, rand-k; plain's ``b2`` is the
+replicated fallback; the adaptive server's top-|m| ``sync_k``), the controller (top-k + EF, a FIFO of 2, one client
+slow enough to sit a round out) and the classification objectives on plans
+that split the microbatch, at ``labeled_frac`` 0.5 (consistency; and
+pseudo-label at a gate the random init opens for some rows).
+``record_compression`` keeps every rank's compression calls so that
+``verify_masks`` can hold each kept-k mask against ``_compress_leaf`` on
+the run's own gathered deltas.
+
 The one-device cases are the reference's ``test_one_device_shard_plan_bitwise``:
 the Section-5 quadratic (d = 24, M = 4 on one rank) on a 1×1 mesh.
 
@@ -18,6 +28,7 @@ under ``paper`` on (2, 2), M 2, H 2, b 2, S 32, from the reference's init.
 """
 import contextlib
 import dataclasses
+import math
 import os
 import subprocess
 import sys
@@ -29,9 +40,9 @@ import torch
 
 from _torch_rng_replay import JaxStream
 from repro_torch.bridge import params_from_jax
-from repro_torch.core import engine
+from repro_torch.core import engine, objectives
 from repro_torch.data import ClassificationData, FederatedLoader, \
-    QuadraticLoader, QuadraticProblem, iid_partition
+    QuadraticLoader, QuadraticProblem, iid_partition, labeled_mask
 from repro_torch.models import mlp
 from repro_torch.sharding import PartitionSpec as P
 from repro_torch.sharding import plan_for
@@ -51,7 +62,7 @@ class Case:
     shape: tuple                 # mesh shape
     mode: str                    # paper | paper_fsdp | plain | diloco
     method: str = "savic"
-    knobs: str = ""              # "" | "knobs" | "int8-fifo"
+    knobs: str = ""              # "" | "knobs" | "int8-fifo" | FEATURES
 
     @property
     def axes(self):
@@ -82,12 +93,31 @@ CASES = (
        Case("plain-2x2-savic", (2, 2), "plain"),
        Case("plain-2x2-knobs", (2, 2), "plain", knobs="knobs"),
        Case("diloco-2x1x2-savic", (2, 1, 2), "diloco"),
-       Case("diloco-2x1x2-knobs", (2, 1, 2), "diloco", knobs="knobs")])
+       Case("diloco-2x1x2-knobs", (2, 1, 2), "diloco", knobs="knobs"),
+       Case("paper-2x2-int8-ef", (2, 2), "paper", knobs="int8-ef"),
+       Case("fsdp-2x2-topk-ef", (2, 2), "paper_fsdp", knobs="topk-ef"),
+       Case("plain-2x2-randk", (2, 2), "plain", knobs="randk"),
+       Case("plain-2x2-int8-ef", (2, 2), "plain", knobs="int8-ef"),
+       Case("paper-2x2-ctrl", (2, 2), "paper", knobs="ctrl"),
+       Case("fsdp-2x2-objective", (2, 2), "paper_fsdp",
+            knobs="consistency"),
+       Case("plain-2x2-objective", (2, 2), "plain", knobs="pseudo-label"),
+       Case("plain-2x2-fedadam-server-k", (2, 2), "plain", "fedadam",
+            knobs="server-k")])
 CASE_IDS = [c.id for c in CASES]
+FEATURES = ("int8-ef", "topk-ef", "randk", "ctrl", "consistency",
+            "pseudo-label", "server-k")
+FEATURE_IDS = [c.id for c in CASES if c.knobs in FEATURES]
+OBJECTIVES = ("consistency", "pseudo-label")
+LABELED_FRAC = 0.5
+PSEUDO_THRESHOLD = 0.2
+# client 1 is 2.6× slower: at H_t = 1 it sits the round out (H_m = 0)
+CTRL_KW = dict(enabled=True, h_min=1, h_max=H, noise_target=1e-3,
+               buffer_max=2, step_times=(1.0, 2.6))
 ONE_DEVICE_METHODS = ("savic", "fedadam", "local-adam")
 
 
-def _knob_kw(case):
+def _knob_kw(case, controller_spec):
     M = case.n_clients
     if case.knobs == "knobs":
         # half the clients sampled, client M-1 stops after one step
@@ -95,6 +125,20 @@ def _knob_kw(case):
     if case.knobs == "int8-fifo":
         return dict(compression="int8-stochastic", error_feedback=True,
                     async_buffer=2)
+    if case.knobs == "int8-ef":
+        return dict(compression="int8-stochastic", error_feedback=True)
+    if case.knobs == "topk-ef":
+        return dict(compression="topk", compression_k=0.1,
+                    error_feedback=True)
+    if case.knobs == "randk":
+        return dict(compression="randk", compression_k=0.1)
+    if case.knobs == "server-k":
+        # the adaptive server's m/v kept on one shared top-|m| index set
+        return dict(server_sync_k=0.5)
+    if case.knobs == "ctrl":
+        return dict(compression="topk", compression_k=0.1,
+                    error_feedback=True, async_buffer=2,
+                    controller=controller_spec(**CTRL_KW))
     return {}
 
 
@@ -106,14 +150,30 @@ def _clip_wd(spec, case):
 
 
 def port_spec(case, fused):
-    return _clip_wd(engine.method_spec(case.method, use_fused_kernel=fused,
-                                       **KW, **_knob_kw(case)), case)
+    return _clip_wd(engine.method_spec(
+        case.method, use_fused_kernel=fused, **KW,
+        **_knob_kw(case, engine.ControllerSpec)), case)
 
 
 def jax_spec(case):
     from repro.core import engine as jeng
-    return _clip_wd(jeng.method_spec(case.method, **KW, **_knob_kw(case)),
-                    case)
+    return _clip_wd(jeng.method_spec(
+        case.method, **KW, **_knob_kw(case, jeng.ControllerSpec)), case)
+
+
+def port_objective(case):
+    if case.knobs not in OBJECTIVES:
+        return None
+    return objectives.classification_objective(objectives.ObjectiveSpec(
+        kind=case.knobs, pseudo_threshold=PSEUDO_THRESHOLD), mlp.logits)
+
+
+def jax_objective(case):
+    if case.knobs not in OBJECTIVES:
+        return None
+    from repro.core import objectives as jobj
+    return jobj.classification_objective(jobj.ObjectiveSpec(
+        kind=case.knobs, pseudo_threshold=PSEUDO_THRESHOLD), jax_mlp_logits)
 
 
 # --------------------------------------------------------------------------- #
@@ -131,9 +191,13 @@ def mlp_init_np():
     return jax.device_get(init(jax.random.PRNGKey(0)))
 
 
+def jax_mlp_logits(params, x):
+    h = jax.nn.relu(x @ params["w1"] + params["b1"])
+    return h @ params["w2"] + params["b2"]
+
+
 def jax_mlp_loss(params, batch):
-    h = jax.nn.relu(batch["x"] @ params["w1"] + params["b1"])
-    logits = h @ params["w2"] + params["b2"]
+    logits = jax_mlp_logits(params, batch["x"])
     logz = jax.nn.logsumexp(logits, -1)
     gold = jnp.take_along_axis(logits, batch["y"][:, None], 1)[:, 0]
     return (logz - gold).mean()
@@ -143,8 +207,10 @@ def round_inputs(case):
     """[(numpy round batch, reference round key)] for the case's M."""
     data = ClassificationData.make(n=N_DATA, n_classes=10, seed=0)
     parts = iid_partition(N_DATA, case.n_clients, seed=0)
+    labeled = labeled_mask(data.y, LABELED_FRAC, seed=0) \
+        if case.knobs in OBJECTIVES else None
     loader = FederatedLoader(data.x, data.y.astype(np.int32), parts,
-                             batch_size=B, seed=0)
+                             batch_size=B, seed=0, labeled=labeled)
     key, out = jax.random.PRNGKey(1), []
     for _ in range(ROUNDS):
         key, k = jax.random.split(key)
@@ -153,8 +219,11 @@ def round_inputs(case):
 
 
 def torch_batch(nb):
-    return {"x": torch.from_numpy(nb["x"]),
-            "y": torch.from_numpy(nb["y"].astype(np.int64))}
+    out = {"x": torch.from_numpy(nb["x"]),
+           "y": torch.from_numpy(nb["y"].astype(np.int64))}
+    if "labeled" in nb:
+        out["labeled"] = torch.from_numpy(nb["labeled"])
+    return out
 
 
 def mlp_pspecs(plan):
@@ -182,7 +251,8 @@ def run_port(case, fused, shard_plan=None):
     """The case's rounds on the port: (full final state, per-round metrics)
     as numpy; on a mesh in every rank, the state gathered."""
     spec = port_spec(case, fused)
-    step = engine.build_round_step(mlp.loss, spec, shard_plan=shard_plan)
+    step = engine.build_round_step(mlp.loss, spec, port_objective(case),
+                                   shard_plan=shard_plan)
     init = params_from_jax(mlp_init_np(), "cpu")
     state = engine.init_state(torch.Generator(), lambda g: {
         k: v.clone() for k, v in init.items()}, spec, case.n_clients)
@@ -203,12 +273,65 @@ def run_jax(case):
     state = jeng.init_state(jax.random.PRNGKey(0), lambda k: {
         n: jnp.asarray(v) for n, v in mlp_init_np().items()}, jspec,
         case.n_clients)
-    step = jax.jit(jeng.build_round_step(jax_mlp_loss, jspec))
+    step = jax.jit(jeng.build_round_step(jax_mlp_loss, jspec,
+                                         objective=jax_objective(case)))
     mets = []
     for nb, k in round_inputs(case):
         state, met = step(state, jax.tree.map(jnp.asarray, nb), k)
         mets.append(jax.device_get(met))
     return jax.device_get(state), mets
+
+
+@contextlib.contextmanager
+def record_compression(calls):
+    """Append every ``engine._compress_leaf`` call on a split leaf (its
+    input deltas, output, stream, kept fraction, rows and path) to
+    ``calls`` while entered."""
+    orig = engine._compress_leaf
+
+    def rec(spec, x, stream, k_frac=None, rows=None, block=None):
+        u = x.clone()
+        c = orig(spec, x, stream, k_frac, rows, block)
+        if block is not None:
+            calls.append((spec, u, c.clone(), stream, k_frac, rows, block))
+        return c
+    engine._compress_leaf = rec
+    try:
+        yield calls
+    finally:
+        engine._compress_leaf = orig
+
+
+def verify_masks(calls):
+    """Every recorded top-k / rand-k call against ``_compress_leaf`` on the
+    gathered full deltas of this rank's clients (a collective: every rank
+    calls it with its own records, in the same order): the rank's block of
+    the full compression, bit for bit, and exactly kc entries kept in each
+    client row of the full leaf that has kc nonzero deltas. Returns
+    (calls, rows) checked."""
+    rows_checked = 0
+    for spec, u, c, stream, k_frac, rows, (pl, path) in calls:
+        if spec.op not in ("topk", "randk"):
+            continue
+        full_u = pl.full_leaf(path, u, lead=1)
+        full_c = pl.full_leaf(path, c, lead=1)
+        want = engine._compress_leaf(spec, full_u, stream, k_frac, rows)
+        mine = pl.local_leaf(path, want, lead=1)
+        assert torch.equal(c, mine), path
+        assert torch.equal(full_c, want), path
+        kc, _ = engine._kept_count(spec, math.prod(pl.full_shape(path)),
+                                   k_frac)
+        # exactly kc kept where a row has kc nonzero deltas (a client
+        # that sat the round out sends zeros: top-k then keeps zeros)
+        nnz = lambda t: torch.count_nonzero(t.reshape(t.shape[0], -1), dim=1)
+        kept, live = nnz(want), nnz(full_u)
+        if spec.op == "topk":
+            assert torch.equal(kept, live.clamp_max(kc)), (path, kept, kc)
+        else:           # rand-k's picks fall on zeros too, but not here
+            dense = live == full_u[0].numel()
+            assert bool((kept[dense] == kc).all()), (path, kept, kc)
+        rows_checked += want.shape[0]
+    return len(calls), rows_checked
 
 
 def to_numpy(tree):
@@ -308,9 +431,12 @@ def assert_states_close(got, want, rtol=1e-5, atol_scale=1e-5, atol=0.0,
 
 
 METRIC_SCALE = {"client_drift": 10, "step_norm": 100}
+# the feature cases' compression error is a sum of squares of round deltas
+# (differences of nearly equal params), as the drift is
+FEATURE_SCALE = dict(METRIC_SCALE, compression_err=10)
 
 
-def assert_metrics_close(got, want, rtol=1e-5):
+def assert_metrics_close(got, want, rtol=1e-5, scale=METRIC_SCALE):
     for g, w in zip(got, want):
         for k in ("loss", "loss_per_client", "client_drift", "step_norm",
                   "compression_err", "staleness"):
@@ -318,7 +444,7 @@ def assert_metrics_close(got, want, rtol=1e-5):
             if k in w:
                 np.testing.assert_allclose(
                     np.asarray(g[k], np.float64), np.asarray(w[k], np.float64),
-                    rtol=rtol * METRIC_SCALE.get(k, 1), atol=1e-7, err_msg=k)
+                    rtol=rtol * scale.get(k, 1), atol=1e-7, err_msg=k)
 
 
 @contextlib.contextmanager

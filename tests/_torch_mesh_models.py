@@ -11,7 +11,21 @@ for the comparisons, on one process.
   6 greedy ``build_serve_step`` steps (argmax over the real vocabulary).
 * ``mesh_train_main``: ``launch.train.main --mesh debug --mesh-shape 2x2``
   on the fused loop.
+* ``mesh_objective``: ``launch.train.main --mesh debug --mesh-shape 2x2
+  --mode plain`` (M 1, the microbatch of 2 split over the data axis) with
+  the LM objectives at ``--labeled-frac 0.5`` (consistency; pseudo-label
+  at a gate the random init opens), so the ranks' labeled counts differ.
+* ``mesh_ckpt``: ``launch.train.main --mesh debug --mesh-shape 2x2 --ckpt``
+  (paper with int8 + EF on the tree loop; plain on the fused loop), 2
+  rounds saved every round, then round 2's step deleted and round 1
+  resumed from round 1's: each rank holds the resumed records and state
+  bitwise; rank 0 holds the written step against the port's own save of
+  the gathered state, and the resumed run's step against the first one,
+  byte for byte.
 """
+import os
+import shutil
+
 import numpy as np
 import torch
 
@@ -22,7 +36,7 @@ from repro_torch.launch import steps
 from repro_torch.models import ModelCallConfig, build
 from repro_torch.sharding import gather, local_shard
 from repro_torch.utils import rng
-from repro_torch.utils.tree import tree_map
+from repro_torch.utils.tree import tree_map, tree_paths
 
 ARCHS = ("qwen2-0.5b", "mamba2-1.3b", "qwen2-moe-a2.7b")
 M, H, B, S, ROUNDS = 2, 2, 2, 32, 2
@@ -139,6 +153,80 @@ def single_serve(params_bf16):
             logits.append(lg)
     return (torch.stack(logits).float().numpy(),
             torch.stack(ids).numpy())
+
+
+OBJECTIVE_CASES = {
+    "consistency": ["--objective", "consistency"],
+    "pseudo-label": ["--objective", "pseudo-label", "--pseudo-threshold",
+                     "1e-4"],
+}
+OBJECTIVE_ARGV = ["--arch", "qwen2-0.5b", "--reduced", "--device", "cpu",
+                  "--rounds", "2", "--h-local", "2", "--batch", "2", "--seq",
+                  "32", "--labeled-frac", "0.5", "--mode", "plain"]
+
+
+def mesh_objective():
+    from repro_torch.launch import train
+    return {name: train.main(OBJECTIVE_ARGV + extra + [
+        "--mesh", "debug", "--mesh-shape", "2x2"], return_state=True)
+        for name, extra in OBJECTIVE_CASES.items()}
+
+
+CKPT_CASES = {
+    "paper-int8-ef": ["--mode", "paper", "--compression", "int8-stochastic",
+                      "--error-feedback"],
+    "plain-fused": ["--mode", "plain", "--use-fused-kernel"],
+}
+CKPT_ARGV = ["--arch", "qwen2-0.5b", "--reduced", "--device", "cpu",
+             "--rounds", "2", "--h-local", "2", "--batch", "2", "--seq",
+             "32", "--mesh", "debug", "--mesh-shape", "2x2", "--ckpt-every",
+             "1"]
+MEASURED = ("wall_s", "tokens_per_s")
+
+
+def step_files(path):
+    out = []
+    for name in ("state.msgpack", "data.bin"):
+        with open(os.path.join(path, name), "rb") as f:
+            out.append(f.read())
+    return out
+
+
+def mesh_ckpt(outdir, rank):
+    """The ``--ckpt`` runs of every case in every rank (module docstring);
+    returns rank 0's findings, the gathered state in its own dtypes and
+    each checkpoint's directory."""
+    import torch.distributed as dist
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.launch import train
+    det = lambda rec: {k: v for k, v in rec.items() if k not in MEASURED}
+    out = {}
+    for name, extra in CKPT_CASES.items():
+        d = os.path.join(outdir, "ckpt_" + name)
+        argv = CKPT_ARGV + extra + ["--ckpt", d]
+        log_a, st_a = train.main(argv, return_state=True)
+        step2 = os.path.join(d, "step_00000002")
+        first = os.path.join(outdir, "first_" + name)
+        found = {}
+        if rank == 0:
+            ref = ckpt.save(os.path.join(outdir, "gathered_" + name), 2,
+                            st_a)
+            found["written_is_gathered"] = step_files(step2) == \
+                step_files(ref)
+            shutil.move(step2, first)
+        dist.barrier()
+        log_b, st_b = train.main(argv, return_state=True)
+        assert [r["round"] for r in log_b] == [1], log_b
+        assert det(log_b[0]) == det(log_a[1])
+        for (p, a), (q, b) in zip(tree_paths(st_b), tree_paths(st_a)):
+            assert p == q and torch.equal(a, b), p
+        if rank == 0:
+            found["resumed_step_is_first"] = step_files(step2) == \
+                step_files(first)
+        out[name] = dict(found, dir=d, log=log_a, state=tree_map(
+            lambda t: t.detach().numpy().copy(), st_a))
+    return out
 
 
 def mesh_train_main():

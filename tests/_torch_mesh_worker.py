@@ -45,8 +45,14 @@ def engine_suite(rank, outdir):
         if mesh.get_coordinate() is None:
             continue
         plan = C.mlp_shard_plan(case, mesh)
-        out[case.id] = {fused: C.run_port(case, fused, plan)
-                        for fused in (False, True)}
+        out[case.id] = {}
+        for fused in (False, True):
+            calls = []
+            with C.record_compression(calls):
+                out[case.id][fused] = C.run_port(case, fused, plan)
+            if case.knobs in C.FEATURES:
+                # every rank holds its own masks; rank 0's counts go out
+                out[case.id]["masks", fused] = C.verify_masks(calls)
     mesh = mesh_of((1, 1), ("data", "model"))
     if mesh.get_coordinate() is not None:
         for method in C.ONE_DEVICE_METHODS:
@@ -65,6 +71,9 @@ def models_suite(rank, outdir):
                      for fused in (False, True)}
     out["serve"] = MM.mesh_serve(inputs["serve"], mesh)
     out["train_main"] = MM.mesh_train_main()
+    out["objective"] = {k: (log, MM.to_numpy(st)) for k, (log, st)
+                        in MM.mesh_objective().items()}
+    out["ckpt"] = MM.mesh_ckpt(outdir, rank)
     return out
 
 

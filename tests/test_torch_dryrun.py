@@ -403,15 +403,34 @@ def test_run_one_writes_the_records(arch, tmp_path):
                                         "roofline_frac", "fits"}
 
 
-def test_run_one_records_a_mesh_feature_the_port_lacks(tmp_path):
-    """Compression on a plan that shards the params raises the port's named
-    NotImplementedError: recorded ``ok: false`` with the message."""
-    comp = engine.CompressionSpec(op="topk", k=0.1)
-    rec = dryrun.run_one("qwen2-0.5b", TRAIN.name, shape=TRAIN, reduced=True,
-                         mesh_shape=(2, 2), h_local=2, compression=comp,
-                         out_dir=str(tmp_path), verbose=False)
-    assert rec["ok"] is False
-    assert rec["error"].startswith("NotImplementedError: compression 'topk'")
+def _sync_record(tmp_path, **kw):
+    return dryrun.run_one("qwen2-0.5b", TRAIN.name, shape=TRAIN, reduced=True,
+                          mesh_shape=(2, 2), h_local=2, mode="plain",
+                          out_dir=str(tmp_path), verbose=False, **kw)
+
+
+def test_run_one_records_compression_on_a_sharded_plan(tmp_path):
+    """Compression on a plan whose shard axes split the leaves (plain on
+    2x2) traces: top-k's record is ``ok: true`` with the candidates'
+    all-gather on top of the param gathers, int8's with the MAX
+    all-reduce of its scales on top of the sync's all-reduces."""
+    base = _sync_record(tmp_path)
+    topk = _sync_record(tmp_path, compression=engine.CompressionSpec(
+        op="topk", k=0.1))
+    int8 = _sync_record(tmp_path, compression=engine.CompressionSpec(
+        op="int8-stochastic"))
+    assert base["ok"] and topk["ok"] and int8["ok"]
+    assert topk["collective_by_kind"]["all-gather"] > \
+        base["collective_by_kind"]["all-gather"] > 0
+    assert topk["collective_counts"]["all-gather"] > \
+        base["collective_counts"]["all-gather"]
+    assert int8["collective_counts"]["all-reduce"] > \
+        base["collective_counts"]["all-reduce"]
+    ctrl = _sync_record(tmp_path, compression=engine.CompressionSpec(
+        op="topk", k=0.1, error_feedback=True),
+        controller=engine.ControllerSpec(enabled=True, h_max=2))
+    assert ctrl["ok"] is False
+    assert "controller reads its knobs to the host" in ctrl["error"]
 
 
 def test_fake_world_refuses_a_live_group():

@@ -164,3 +164,62 @@ def test_train_main_on_a_mesh(mesh_runs):
         np.testing.assert_allclose(a["loss"], b["loss"], rtol=1e-5)
         np.testing.assert_allclose(a["drift"], b["drift"], rtol=1e-4)
     assert_states_close(st_m, MM.to_numpy(st_s))
+
+
+@pytest.mark.parametrize("name", list(MM.OBJECTIVE_CASES))
+def test_train_main_objective_on_a_split_microbatch(mesh_runs, name):
+    """An LM objective on ``plain`` (the client's microbatch split over the
+    data axis, the ranks' labeled counts unequal) equals the single-device
+    run's, ``--clients 1``: each rank's term is its share of the whole
+    microbatch's objective."""
+    log_m, st_m = mesh_runs["objective"][name]
+    with one_thread():
+        log_s, st_s = train.main(MM.OBJECTIVE_ARGV + MM.OBJECTIVE_CASES[name]
+                                 + ["--clients", "1"], return_state=True)
+    assert len(log_m) == len(log_s) == 2
+    for a, b in zip(log_m, log_s):
+        np.testing.assert_allclose(a["loss"], b["loss"], rtol=1e-5)
+        np.testing.assert_allclose(a["drift"], b["drift"], rtol=1e-4,
+                                   atol=1e-12)
+    assert_states_close(st_m, MM.to_numpy(st_s))
+
+
+def _reference_template(name):
+    """The reference's own engine state template for the case's run: its
+    init_state's shapes and dtypes (``jax.eval_shape``)."""
+    from repro.core import engine as jeng
+    from repro.launch import train as jtrain
+    M = 2 if name.startswith("paper") else 1
+    jm = jbuild(jget_config("qwen2-0.5b", reduced=True),
+                JCall(dtype=jnp.float32))
+    args = jtrain._parser().parse_args(
+        ["--arch", "qwen2-0.5b", "--clients", str(M)]
+        + [f for f in MM.CKPT_CASES[name]
+           if f not in ("--mode", "paper", "plain", "--use-fused-kernel")])
+    jspec = jtrain._resolve_spec(args, M)[0]
+    return jax.eval_shape(lambda k: jeng.init_state(k, jm.init, jspec, M),
+                          jax.random.PRNGKey(0))
+
+
+@pytest.mark.parametrize("name", list(MM.CKPT_CASES))
+def test_train_main_checkpoint_on_a_mesh(mesh_runs, name):
+    """``--ckpt`` on the 2x2 mesh: the resume was bitwise in every rank
+    (checked there); the written step is the port's own save of the
+    gathered state byte for byte, and the resumed run writes the same
+    step again; ``repro.checkpoint.restore`` reads it into the reference's
+    state template with every shape and dtype, and every value the
+    gathered state's."""
+    from repro import checkpoint as jckpt
+    from repro.utils.tree import tree_paths as jtree_paths
+    from repro_torch.utils.tree import tree_paths
+    r = mesh_runs["ckpt"][name]
+    assert r["written_is_gathered"] and r["resumed_step_is_first"]
+    assert len(r["log"]) == 2
+    out, step = jckpt.restore(r["dir"], _reference_template(name))
+    assert step == 2
+    got, want = jtree_paths(out), tree_paths(r["state"])
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (p, a), (_, b) in zip(got, want):
+        a = np.asarray(a)
+        assert a.shape == b.shape and a.dtype == b.dtype, p
+        np.testing.assert_array_equal(a, b, err_msg=p)

@@ -175,18 +175,27 @@ def test_train_main_own_init_runs_finite(tmp_path):
     ["--objective", "consistency"], ["--personalize", "final_norm"],
     ["--mesh", "debug", "--ckpt", "x"],
 ])
-def test_unported_flags_raise(flag):
-    """Only --ckpt with --mesh is outside the port, and raises; every flag
-    the port once refused (--mesh and --ckpt each alone among them) is no
-    longer listed."""
-    argv = BASE + ["--device", "cpu"] + flag
-    listed = train._unported_flags(train._parser().parse_args(argv))
-    if "--mesh" in flag and "--ckpt" in flag:
-        assert listed == ["--ckpt with --mesh"]
-        with pytest.raises(NotImplementedError, match="not ported"):
-            train.main(argv)
-    else:
-        assert listed == []
+def test_flags_run_on_a_1x1_cpu_mesh(flag, tmp_path):
+    """Every flag the port once refused runs on a 1x1 gloo mesh (a group
+    of one rank that ``train.main`` starts and destroys): one round of
+    reduced qwen2 with finite records; a ``--ckpt`` run then resumes from
+    its checkpoint for a second round. A personal mask needs local D."""
+    flag = [str(tmp_path / "ck") if f == "x" else f for f in flag]
+    if "--personalize" in flag:
+        flag += ["--scaling", "local"]
+    argv = BASE + ["--device", "cpu", "--mesh", "debug", "--mesh-shape",
+                   "1x1"] + flag
+    runs = [argv + ["--rounds", "1"]]
+    if "--ckpt" in flag:
+        runs.append(argv + ["--rounds", "2"])
+    for r, run in enumerate(runs):
+        log = train.main(run)
+        assert [rec["round"] for rec in log] == [r]
+        assert all(np.isfinite(v) for rec in log for v in rec.values()
+                   if isinstance(v, float))
+    if "--ckpt" in flag:
+        assert sorted(os.listdir(tmp_path / "ck")) == ["step_00000001",
+                                                       "step_00000002"]
 
 
 def test_entry_point_without_device_raises_without_cuda(monkeypatch):
