@@ -31,10 +31,13 @@ requests on 8 slots), holds K6 at heads wider than 2048 (d = 2560, 8192),
 holds the kernel paths against the plain ones teacher-forced (the K4
 prefill against the chunked ``models/flash.py`` one, the K7 prefill against
 ``models.ssm.ssd_chunked``), and checks what comes out. Phase 9 holds
-checkpoint and resume through ``train.main --ckpt``: full-width savic
-through K1, 3 rounds against 2 + restore + 1 (9a); two full-width 2-layer
-cases with every optional state group between them, 4 rounds against
-2 + 2 (9b, K3 in one); the final checkpoints byte for byte equal, save and
+checkpoint and resume through ``train.main --ckpt``: savic through K1 at
+full width cut to 2 layers, M = 4, 3 rounds against 2 + restore + 1 (9a;
+cut from 24 layers, whose 17.84 GB saves took 125 s on the machine's 9p
+disk, to make room for phase 17: 2 layers keep K1 on the (4, n) buffer
+and every leaf kind at full width); two full-width 2-layer cases with
+every optional state group between them, 4 rounds against 2 + 2 (9b, K3
+in one); the final checkpoints byte for byte equal, save and
 restore times and the host's memory printed; then ``launch/train_lm.py``'s
 six methods and full-width savic (9c). It writes its checkpoints under
 ``.chip_smoke_ckpt/`` beside this file and removes the directory. Phase
@@ -109,13 +112,28 @@ and every leaf of the final state: ``--mode plain --use-fused-kernel``
 with int8 + EF (16a: K1 4 and K3 28 launches on the rank's blocks) and
 ``--mode paper`` with top-k + EF; the controller with a FIFO of 2 and the
 consistency objective at ``--labeled-frac 0.5``, 3 rounds (16b); ``--ckpt``
-over 4 rounds on the fused loop, straight and as 2 rounds then a resume,
-the mesh's ``data.bin`` at rounds 2 and 4 byte for byte (sha256) the
-unsharded run's, save and restore seconds, GB/s and the device peak
-during a save printed (16c; under ``.chip_smoke_ckpt16/``, removed).
-Any failed phase raises and the script exits non-zero. Without a CUDA
-device, or without the rest of the repository beside it, it exits non-zero
-before printing any result.
+over 4 rounds on the fused loop at 2 layers (cut from 24 for time),
+straight and as 2 rounds then a resume, the mesh's ``data.bin`` at rounds
+2 and 4 byte for byte (sha256 over its chunks' sha256) the unsharded
+run's, save and restore seconds, GB/s and the device peak during a save
+printed (16c; under ``.chip_smoke_ckpt16/``, removed).
+Phase 17 trains the families that were only served, through
+``train.main --method savic --use-fused-kernel`` at full width (M = 2, H
+= 2, b = 8, 2 rounds, fp32), depth cut where the card's 80 GB force it:
+mamba2-1.3b at 36 of 48 layers (17a), qwen2-moe-a2.7b at 1 of 24 (17b, an
+MoE layer), gemma3-4b at 6 of 34 (17c, its first global layer), musicgen-
+large at 16 of 48 (17d), internvl2-1b at full depth with S = 384 (17e,
+256 patches and 128 text tokens); each launches K1 4 times, every record
+finite with loss > 0 and drift > 0, its peak printed beside the
+prediction from savic's measured bytes a parameter, and M·n (past 2^31 on
+17a-17d). 17f holds the fused loop against the tree loop for each family
+at a smaller depth (M = 2; the fused state kept in host memory meanwhile),
+17g runs mamba2 at 24 layers with int8 + EF (K3 once a leaf a round), 17h
+qwen2-moe at 1 layer with ``--dtype bfloat16`` (bf16 compute on fp32
+state: the fused loop, K1 4). Each phase's seconds are printed on a line
+of their own. Any failed phase raises and the script exits non-zero.
+Without a CUDA device, or without the rest of the repository beside it,
+it exits non-zero before printing any result.
 
 The second-to-last lines are one JSON object listing the kernels (launches
 on the main path, error against the plain version (K4's over its fp32
@@ -1807,14 +1825,26 @@ def qwen3_phase():
     return {"counts": counts, "peak": peak, "prefill": prof}
 
 
-def register_z12():
-    """Full-width zamba2-2.7b cut to 12 layers, registered as ``ARCH_Z12``
-    so that ``train.main`` drives it."""
-    mod = types.ModuleType("repro_torch.configs.zamba2_2p7b_12l")
-    mod.CONFIG = mod.REDUCED = get_config("zamba2-2.7b").replace(
-        n_layers=12)
+def register_cut(arch, layers):
+    """``arch`` at full width cut to ``layers`` layers, registered so that
+    ``train.main`` drives it; returns its id (``arch`` itself when
+    ``layers`` is None)."""
+    if layers is None:
+        return arch
+    name = f"{arch}-{layers}l"
+    mod = types.ModuleType("repro_torch.configs." + name.replace("-", "_")
+                           .replace(".", "p"))
+    mod.CONFIG = mod.REDUCED = get_config(arch).replace(n_layers=layers)
     sys.modules[mod.__name__] = mod
-    configs.register(ARCH_Z12, "zamba2_2p7b_12l")
+    configs.register(name, mod.__name__.rsplit(".", 1)[1])
+    return name
+
+
+def tree_n(cfg):
+    """The per-client flat length n of ``cfg``'s parameter tree (no
+    storage)."""
+    with FakeTensorMode():
+        return tree_size(build_model(cfg).init(torch.Generator()))
 
 
 def zamba_train_phase():
@@ -1823,13 +1853,12 @@ def zamba_train_phase():
     rounds through ``train.main`` on the fused loop (K1 once a local step),
     on the plain SSD and attention routes; then fused against tree at 6
     layers (one application)."""
-    register_z12()
+    register_cut("zamba2-2.7b", 12)
     argv = ["--arch", ARCH_Z12, "--method", "savic", "--use-fused-kernel",
             "--rounds", "2", "--h-local", str(H_LOCAL), "--clients", "4",
             "--batch", "8", "--seq", "128", "--device", "cuda"]
     cfg = get_config(ARCH_Z12)
-    with FakeTensorMode():              # the tree's size, with no storage
-        n = tree_size(build_model(cfg).init(torch.Generator()))
+    n = tree_n(cfg)
     print(f"[chip_smoke] 10d zamba2 training, full width, 12 layers (n = "
           f"{n} in the tree; param_count() {cfg.param_count()}): "
           f"train.main " + " ".join(argv), flush=True)
@@ -3141,8 +3170,10 @@ def same_state(a, b):
 
 
 def mesh_ckpt_case():
-    """16c: ``--mode plain --use-fused-kernel --rounds 4 --ckpt``: on the
-    1×1 mesh straight (saving round 4) and as 2 rounds (saving round 2)
+    """16c: ``--mode plain --use-fused-kernel --rounds 4 --ckpt`` at full
+    width cut to 2 layers (2.0 GB steps; the 24-layer model's 5.93 GB
+    saves and their hashes took most of phase 16): on the 1×1 mesh
+    straight (saving round 4) and as 2 rounds (saving round 2)
     then a resume to 4, against ``--mesh none --clients 1`` saving rounds
     2 and 4. Records and final states bitwise; the mesh's data.bin at
     rounds 2 and 4 byte for byte the unsharded run's (sha256)."""
@@ -3150,9 +3181,10 @@ def mesh_ckpt_case():
     os.makedirs(CKPT_16)
     free = shutil.disk_usage(CKPT_16).free
     # two steps of params, momentum and D at M = 1, fp32, at a time
-    need = 2 * 3 * 4 * 494_032_768
+    need = 2 * 3 * 4 * tree_n(get_config(register_cut("qwen2-0.5b", 2)))
     check(free > need + (1 << 30), f"16c: {free} B free, {need} B needed")
-    base = MESH_ARGV + ["--mode", "plain", "--use-fused-kernel"]
+    base = ["--arch", ARCH_2L] + MESH_ARGV[2:] + ["--mode", "plain",
+                                                  "--use-fused-kernel"]
     mesh = ["--mesh", "debug", "--mesh-shape", "1x1"]
     d = {k: os.path.join(CKPT_16, k) for k in ("none", "straight", "split")}
     per = lambda T, every, dd: ["--rounds", str(T), "--ckpt", dd,
@@ -3281,20 +3313,25 @@ def main_path(argv, expect_k1, expect_k3=0):
     return log, k1, k3, peak
 
 
-def fused_vs_tree(name, rounds=1, flips=False, H=2, cfg=None, **method_kw):
+def fused_vs_tree(name, rounds=1, flips=False, H=2, cfg=None, M=4, S=128,
+                  offload=False, **method_kw):
     """``rounds`` rounds at full width and 2 layers (or ``cfg``, a
-    full-width config cut in depth): fused client loop
+    full-width config cut in depth), M clients of 8 × ``S`` (an audio or
+    vlm round wrapped by ``train._wrap_modal``): fused client loop
     against the tree loop from the same start, same batches, same rng
-    streams. Every float leaf must agree to 1e-5 of its scale (the EF
-    residual's and the staleness FIFO's scale is the matching params leaf's:
-    u − C(u) and the averaged deltas x̄ − x_t cancel to ulps of the params). ``flips`` (int8 rounds): where the two loops' deltas
-    differ in the last bits at an integer boundary, floor(v + u) flips q by
-    one; up to 1e-4 of a leaf's elements may then differ by up to 2e-4 of
-    its scale. Returns (worst relative difference, flipped elements, K1
-    launches of the fused run)."""
+    streams. ``offload`` keeps the fused run's final state in host memory
+    while the tree loop runs (where both states and the tree loop's peak
+    do not fit the card together). Every float leaf must agree to 1e-5 of
+    its scale (the EF residual's and the staleness FIFO's scale is the
+    matching params leaf's: u − C(u) and the averaged deltas x̄ − x_t cancel
+    to ulps of the params). ``flips`` (int8 rounds): where the two loops'
+    deltas differ in the last bits at an integer boundary, floor(v + u)
+    flips q by one; up to 1e-4 of a leaf's elements may then differ by up
+    to 2e-4 of its scale. Returns (worst relative difference, flipped
+    elements, K1 launches of the fused run)."""
     cfg = cfg or get_config("qwen2-0.5b").replace(n_layers=2)
     model = build_model(cfg, ModelCallConfig(dtype=torch.float32))
-    M, b, S = 4, 8, 128
+    b = 8
     loader = LMRoundLoader(TokenStream(cfg.vocab_size, seed=0), M, b)
     root = rng.TorchStream(1)
     out = {}
@@ -3306,8 +3343,12 @@ def fused_vs_tree(name, rounds=1, flips=False, H=2, cfg=None, **method_kw):
         step = engine.build_round_step(model.loss, spec)
         su.fused_step_flat.launches, need = 0, 0
         for r in range(rounds):
-            batch = {k: torch.from_numpy(v).to(DEV, torch.long)
-                     for k, v in loader.round_batch(r, H, S).items()}
+            nb = loader.round_batch(r, H, S)
+            if cfg.family in ("audio", "vlm"):
+                nb = train._wrap_modal(cfg, nb, 0, r)
+            batch = {k: torch.from_numpy(v).to(
+                DEV, torch.float32 if k in train._FLOAT_FIELDS
+                else torch.long) for k, v in nb.items()}
             state, met = step(state, batch, root.fold(r))
             # one launch a local step in which any client is active
             need += max(met["ctrl_h_m"].tolist()) if "ctrl_h_m" in met \
@@ -3316,12 +3357,16 @@ def fused_vs_tree(name, rounds=1, flips=False, H=2, cfg=None, **method_kw):
             k1 = su.fused_step_flat.launches
             check(k1 == need, f"{name}: K1 launched {k1} times, the "
                   f"realized H_m need {need}")
+        if fused and offload:
+            state = tree_map(lambda t: t.cpu(), state)
         out[fused] = (state, float(met["loss"]))
         del state, met
+        torch.cuda.empty_cache()
     (sf, lf), (st, lt) = out[True], out[False]
     worst, n_flips = 0.0, 0
     tree = dict(tree_paths(st))
     for (k, a), (_, c) in zip(tree_paths(sf), tree_paths(st)):
+        a = a.to(c.device)
         if not a.is_floating_point():
             check(torch.equal(a, c), f"{name}: {k} differs")
             continue
@@ -3342,7 +3387,7 @@ def fused_vs_tree(name, rounds=1, flips=False, H=2, cfg=None, **method_kw):
     del out, sf, st, tree
     torch.cuda.empty_cache()
     print(f"[chip_smoke] fused vs tree ({name}, {cfg.n_layers} layers, "
-          f"{rounds} rounds): "
+          f"M {M}, S {S}, {rounds} rounds): "
           f"loss {lf:.6f} vs {lt:.6f}, worst state diff {worst:.3e} of leaf "
           f"scale" + (f", {n_flips} int8 boundary flips" if flips else "")
           + f"; K1 launches {k1}", flush=True)
@@ -3513,12 +3558,21 @@ def det(rec):
     return {k: v for k, v in rec.items() if k not in MEASURED}
 
 
-def sha256_file(path, chunk=1 << 26):
+def sha256_file(path, chunk=1 << 26, window=8):
+    """sha256 of the sha256 digests of the file's 64 MiB chunks: equal
+    files give equal digests and a difference anywhere changes its chunk's.
+    ``window`` chunks are read, then hashed on as many threads (hashlib
+    frees the GIL), so the host's cores share the hashing and at most
+    ``window`` chunks are held."""
     h = hashlib.sha256()
-    with open(path, "rb") as f:
-        for block in iter(lambda: f.read(chunk), b""):
-            h.update(block)
-    return h.hexdigest()
+    digest = lambda block: hashlib.sha256(block).digest()
+    with open(path, "rb") as f, ThreadPoolExecutor(window) as pool:
+        while True:
+            blocks = [b for b in (f.read(chunk) for _ in range(window)) if b]
+            if not blocks:
+                return h.hexdigest()
+            for d in pool.map(digest, blocks):
+                h.update(d)
 
 
 def step_files(d, step):
@@ -3695,34 +3749,31 @@ def resume_case(label, argv, t, T, d, expect_k1, expect_k3=0):
             "walls": [r["wall_s"] for r in log_a]}
 
 
-def register_2l():
-    """Full-width qwen2-0.5b cut to 2 layers, registered as ``ARCH_2L`` so
-    that ``train.main`` (and its checkpoints) drive it."""
-    mod = types.ModuleType("repro_torch.configs.qwen2_0p5b_2l")
-    mod.CONFIG = mod.REDUCED = get_config("qwen2-0.5b").replace(n_layers=2)
-    sys.modules[mod.__name__] = mod
-    configs.register(ARCH_2L, "qwen2_0p5b_2l")
-
-
-def resume_phase(n, shapes):
-    """9a: full-width qwen2-0.5b savic through K1, 3 rounds straight
-    against 2 + restore + 1 (M = 2 where the disk cannot hold two M = 4
-    checkpoints); 9b: two 2-layer cases, 4 rounds against 2 + 2. ``n`` is
-    the model's parameter count, ``shapes`` its {path: shape}."""
+def resume_phase(shapes):
+    """9a: savic through K1 at full width cut to 2 layers, M = 4, 3 rounds
+    straight against 2 + restore + 1 (the 24-layer model's 17.84 GB saves
+    took 125 s of the script's time on the machine's 9p disk; 2 layers
+    keep K1 on the (4, n) buffer and every leaf kind at full width, at a
+    third of the bytes); 9b: two 2-layer cases, 4 rounds against 2 + 2.
+    ``shapes`` is full-width qwen2-0.5b's {path: shape}."""
+    register_cut("qwen2-0.5b", 2)
+    n = tree_n(get_config(ARCH_2L))
     os.makedirs(CKPT_ROOT, exist_ok=True)
     usage = shutil.disk_usage(CKPT_ROOT)
     fs = subprocess.run(["df", "-hT", CKPT_ROOT], capture_output=True,
                         text=True).stdout.strip().splitlines()[-1]
-    need = lambda M: 2 * (2 * M + 1) * n * 4
-    M = 4 if usage.free > need(4) + (4 << 30) else 2
+    M = 4
+    need = 2 * (2 * M + 1) * n * 4
     print(f"[chip_smoke] 9a checkpoint dir {CKPT_ROOT}: {usage.free} B free "
-          f"of {usage.total} ({fs}); two savic checkpoints at M = 4 need "
-          f"{need(4)} B: running at M = {M}", flush=True)
-    check(usage.free > need(M) + (1 << 30), f"{usage.free} B free: too few "
+          f"of {usage.total} ({fs}); two savic checkpoints at M = {M}, "
+          f"n = {n} need {need} B", flush=True)
+    check(usage.free > need + (1 << 30), f"{usage.free} B free: too few "
           f"for two M = {M} checkpoints")
-    argv = main_argv("savic", 3) + ["--clients", str(M)]
-    print("[chip_smoke] 9a resume, full width: train.main " + " ".join(argv)
-          + " --ckpt ...", flush=True)
+    argv = ["--arch", ARCH_2L, "--method", "savic", "--use-fused-kernel",
+            "--rounds", "3", "--h-local", str(H_LOCAL), "--clients", str(M),
+            "--batch", "8", "--seq", "128", "--device", "cuda"]
+    print("[chip_smoke] 9a resume, full width, 2 layers: train.main "
+          + " ".join(argv) + " --ckpt ...", flush=True)
     a = resume_case("9a savic", argv, 2, 3, os.path.join(CKPT_ROOT, "9a"),
                     lambda log: len(log) * H_LOCAL)
     # params and momentum (M, n) each, global D (n), fp32; then the int32
@@ -3732,7 +3783,6 @@ def resume_phase(n, shapes):
           f"expected (2M + 1)·n·4 = {expect} + a few scalars")
     print(f"[chip_smoke]   9a data.bin {a['size']} B = (2M + 1)·n·4 + "
           f"{a['size'] - expect} B of scalars", flush=True)
-    register_2l()
     n_synced = sum("final_norm" not in p for p in shapes)  # K3 a round
     b = []
     for label, flags, k1, k3 in (
@@ -3753,7 +3803,7 @@ def resume_phase(n, shapes):
 def train_lm_phase():
     """9c: launch/train_lm.py's six methods at the bench's point (reduced
     qwen2-0.5b, M = 4, H = 8, b = 4, S = 64, 10 rounds), then savic at
-    full width for 3 rounds; K1 counted over each."""
+    full width for 2 rounds; K1 counted over each."""
     F_ = train_lm.FIXED
     t0 = time.perf_counter()
     su.fused_step_flat.launches = 0
@@ -3762,9 +3812,9 @@ def train_lm_phase():
     k1 = su.fused_step_flat.launches
     check(k1 == len(rows) * F_["rounds"] * F_["h_local"], f"9c K1 {k1}")
     su.fused_step_flat.launches = 0
-    full = train_lm.run_method("savic", device="cuda", full=True, rounds=3)
+    full = train_lm.run_method("savic", device="cuda", full=True, rounds=2)
     k1_full = su.fused_step_flat.launches
-    check(k1_full == 3 * F_["h_local"], f"9c full-width K1 {k1_full}")
+    check(k1_full == 2 * F_["h_local"], f"9c full-width K1 {k1_full}")
     for r in rows + [full]:
         check(all(finite(v) for v in r["info"]["loss_curve"]),
               f"9c {r['coords']} non-finite loss {r['info']['loss_curve']}")
@@ -3776,6 +3826,157 @@ def train_lm_phase():
           f"width); {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
     return {"rows": rows, "full": full, "k1": k1, "k1_full": k1_full}
+
+
+# --------------------------------------------------------------------------- #
+# phase 17: training of the families served only, at full width
+# --------------------------------------------------------------------------- #
+
+# savic's measured device bytes a parameter: 35.0 at M = 1 (the 1x1 fused
+# run, 16.15 GiB at n = 495,523,712) plus 15.9 for each further client
+# (qwen2-0.5b at M = 4: 38.17 GiB)
+SAVIC_B, CLIENT_B = 35.0, 15.9
+P17_M = 2
+# label, arch, layers (None: full depth), seq; the cuts keep the predicted
+# peak at M = 2 within 60 GiB (gemma3's 6 layers hold its first global
+# layer, index 5; qwen2-moe's layer 0 is an MoE layer)
+P17_RUNS = (("17a", "mamba2-1.3b", 36, 128),
+            ("17b", MOE_ARCH, 1, 128),
+            ("17c", "gemma3-4b", 6, 128),
+            ("17d", "musicgen-large", 16, 128),
+            ("17e", "internvl2-1b", None, 384))   # 256 patches + 128 tokens
+# fused against tree at a smaller depth (gemma3: at S 128 its 1024 window
+# masks nothing, so a global layer adds nothing there)
+P17_PAIRS = (("mamba2-1.3b", 4, 128), (MOE_ARCH, 1, 128),
+             ("gemma3-4b", 2, 128), ("musicgen-large", 4, 128),
+             ("internvl2-1b", 4, 384))
+P17_INT8_LAYERS = 24          # mamba2 with int8 + EF: +2 (M, n) EF buffers
+
+
+def predicted_gib(n, M=P17_M, extra_b=0.0):
+    """The savic round's peak predicted from the measured bytes a
+    parameter (``SAVIC_B``, ``CLIENT_B``), plus ``extra_b`` a parameter."""
+    return (SAVIC_B + CLIENT_B * (M - 1) + extra_b) * n / 2 ** 30
+
+
+def p17_argv(arch, seq, extra=()):
+    return ["--arch", arch, "--method", "savic", "--use-fused-kernel",
+            "--rounds", "2", "--h-local", str(H_LOCAL), "--clients",
+            str(P17_M), "--batch", "8", "--seq", str(seq), "--device",
+            "cuda", *extra]
+
+
+def modal_draw_s(cfg, seq, rounds=2):
+    """Host seconds of ``train._wrap_modal`` (the reference's numpy draws)
+    on each round's token batch at this run's shape, and the batch's
+    embedding bytes."""
+    loader = LMRoundLoader(TokenStream(cfg.vocab_size, seed=0), P17_M, 8,
+                           seed=0)
+    out, nb_bytes = [], 0
+    for r in range(rounds):
+        nb = loader.round_batch(r, H_LOCAL, seq)
+        t0 = time.perf_counter()
+        w = train._wrap_modal(cfg, nb, 0, r)
+        out.append(round(time.perf_counter() - t0, 4))
+        nb_bytes = sum(w[k].nbytes for k in ("embeds", "patches") if k in w)
+    return out, nb_bytes
+
+
+def train_family(label, arch, layers, seq, extra=(), expect_k3=0,
+                 extra_b=0.0):
+    """One ``train.main`` run of phase 17 (M = 2, H = 2, b = 8, 2 rounds,
+    fp32, seed 0) on the fused loop: K1 launched once a local step, every
+    record finite with loss > 0 and drift > 0; prints n, M·n, the peak
+    beside the prediction and each round's wall and tokens/s."""
+    name = register_cut(arch, layers)
+    cfg = get_config(name)
+    n = tree_n(cfg)
+    pred = predicted_gib(n, extra_b=extra_b)
+    argv = p17_argv(name, seq, extra)
+    past = " > 2^31" if P17_M * n > 2 ** 31 else ""
+    print(f"[chip_smoke] {label} {arch} training, full width, "
+          f"{cfg.n_layers} of {get_config(arch).n_layers} layers (n = {n} "
+          f"in the tree; M·n = {P17_M * n}{past}; predicted peak "
+          f"{pred:.2f} GiB): train.main " + " ".join(argv), flush=True)
+    t0 = time.perf_counter()
+    log, k1, k3, peak = main_path(argv, 2 * H_LOCAL, expect_k3)
+    for rec in log:
+        check(rec["loss"] > 0 and rec["drift"] > 0, f"{label}: round "
+              f"{rec['round']} loss {rec['loss']} drift {rec['drift']}")
+    out = {"arch": arch, "layers": cfg.n_layers, "n": n, "mn": P17_M * n,
+           "k1": k1, "k3": k3, "peak": peak, "pred": pred,
+           "walls": [r["wall_s"] for r in log],
+           "tokens_per_s": [r["tokens_per_s"] for r in log],
+           "losses": [r["loss"] for r in log],
+           "drifts": [r["drift"] for r in log]}
+    if cfg.family in ("audio", "vlm"):
+        out["draw_s"], out["draw_bytes"] = modal_draw_s(cfg, seq)
+    out["secs"] = time.perf_counter() - t0
+    print(f"[chip_smoke]   {label}: peak {peak:.2f} GiB, predicted "
+          f"{pred:.2f} GiB (ratio {peak / pred:.3f}); walls {out['walls']} "
+          f"s, tokens/s {out['tokens_per_s']}; K1 {k1}, K3 {k3}"
+          + (f"; modal draws {out['draw_s']} s a round "
+             f"({out['draw_bytes']} B of fp32 embeddings)"
+             if "draw_s" in out else "")
+          + f"; {out['secs']:.1f} s", flush=True)
+    return out
+
+
+def bf16_family(label, arch, layers, seq):
+    """17h: ``--dtype bfloat16`` with ``--use-fused-kernel``. The flag sets
+    the compute dtype; the params, momentum and D stay fp32 masters (as the
+    reference's ``param_dtype``), so ``engine.fused_route`` keeps the fused
+    loop: K1 once a local step and no ``fused_kernel_fallback`` line
+    (the fallback needs non-fp32 client state, which no ``train.main`` flag
+    makes; the CPU tests hold it)."""
+    name = register_cut(arch, layers)
+    argv = p17_argv(name, seq, ["--dtype", "bfloat16"])
+    print(f"[chip_smoke] {label} {arch} bf16 compute, {layers} layer(s): "
+          f"train.main " + " ".join(argv), flush=True)
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        log, k1, k3, peak = main_path(argv, 2 * H_LOCAL)
+    lines = [ln for ln in "".join(tee.text).splitlines()
+             if ln.startswith("[train] tree loop: ")]
+    check(not lines, f"{label}: fp32 state took the tree loop: {lines}")
+    for rec in log:
+        check(rec["loss"] > 0 and rec["drift"] > 0, f"{label}: round "
+              f"{rec['round']} loss {rec['loss']} drift {rec['drift']}")
+    return {"k1": k1, "peak": peak, "walls": [r["wall_s"] for r in log],
+            "losses": [r["loss"] for r in log]}
+
+
+def phase17():
+    """Phase 17: ``train.main`` at full width for the families served only
+    (17a-17e), fused against tree for each at a smaller depth (17f), int8
+    + EF on mamba2 (17g, K3 once a leaf a round), bf16 compute on
+    qwen2-moe (17h, fp32 state on K1)."""
+    t0 = time.perf_counter()
+    runs = {label: train_family(label, arch, layers, seq)
+            for label, arch, layers, seq in P17_RUNS}
+    pairs = {}
+    for arch, layers, seq in P17_PAIRS:
+        cfg = get_config(arch).replace(n_layers=layers)
+        worst, _, k1 = fused_vs_tree(f"17f {arch} savic", cfg=cfg, M=P17_M,
+                                     S=seq, offload=True)
+        pairs[arch] = {"worst": worst, "k1": k1, "layers": layers}
+    with FakeTensorMode():
+        n_leaves = len(tree_paths(build_model(get_config(
+            "mamba2-1.3b")).init(torch.Generator())))
+    g = train_family("17g", "mamba2-1.3b", P17_INT8_LAYERS, 128, INT8_EF,
+                     expect_k3=2 * n_leaves, extra_b=2 * 4 * P17_M)
+    h = bf16_family("17h", MOE_ARCH, 1, 128)
+    secs = time.perf_counter() - t0
+    print(f"[chip_smoke] phase 17: {secs:.1f} s; peaks / predicted "
+          + ", ".join(f"{k} {r['peak']:.2f} / {r['pred']:.2f} GiB"
+                      for k, r in {**runs, "17g": g}.items())
+          + f"; 17h bf16 compute {h['peak']:.2f} GiB (17b fp32 "
+          f"{runs['17b']['peak']:.2f}); 17f worst "
+          + ", ".join(f"{a} {p['worst']:.3e}" for a, p in pairs.items())
+          + f"; K1 {[r['k1'] for r in runs.values()]} + 17g {g['k1']}, K3 "
+          f"17g {g['k3']} ({n_leaves} leaves × 2 rounds), 17h K1 "
+          f"{h['k1']}", flush=True)
+    return {"runs": runs, "pairs": pairs, "g": g, "h": h, "secs": secs}
 
 
 def ptxas_summary(log):
@@ -3791,6 +3992,20 @@ def ptxas_summary(log):
             out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
             name = None
     return out
+
+
+class Laps:
+    """Seconds of each phase of ``main``, each printed on its own line."""
+
+    def __init__(self):
+        self.t, self.secs = time.perf_counter(), {}
+
+    def __call__(self, label):
+        now = time.perf_counter()
+        self.secs[label] = round(now - self.t, 1)
+        self.t = now
+        print(f"[chip_smoke] phase {label}: {self.secs[label]:.1f} s",
+              flush=True)
 
 
 def build_all():
@@ -3825,8 +4040,10 @@ def main():
           f"CUDA {torch.version.cuda}", flush=True)
     gen = torch.Generator(device=DEV).manual_seed(0)
 
+    lap = Laps()
     # ---- 1. build ----------------------------------------------------------
     build_all()
+    lap("1 build")
 
     # ---- 2. K1 against its plain version, every engine combination --------
     max_err = 0.0
@@ -3908,6 +4125,8 @@ def main():
               f"): max abs {err:.3e}, max ulp {ulps} over every element",
               flush=True)
         check(ulps == 0, "K2 differs from its plain version beyond 2^31")
+
+    lap("2 K1, K3, K2 against their plain versions")
 
     # ---- 3. main path: savic, full-width qwen2-0.5b ------------------------
     argv = main_argv("savic", 2)
@@ -3993,6 +4212,8 @@ def main():
         print(f"[chip_smoke]   round {r} sync weights {w.tolist()}",
               flush=True)
 
+    lap("3-6 the qwen2-0.5b training paths")
+
     # ---- 7. fused against tree at full width, 2 layers ---------------------
     fused_vs_tree("savic")
     fused_vs_tree("savic int8 + EF", rounds=2, flips=True,
@@ -4018,8 +4239,11 @@ def main():
             step_times=tuple(federated.sample_step_times("lognormal", 4,
                                                          seed=0))))
 
+    lap("7-8d fused vs tree and the round's knobs")
+
     # ---- 7b. the paper's experiments: fig1, thm1 transient, sec52 ---------
     paper_phase()
+    lap("7b the paper's experiments")
 
     # ---- 8. K5 and K6 against their plain versions ------------------------
     k5_err = 0.0
@@ -4092,6 +4316,8 @@ def main():
               f"{err:.3e} (bound {bound:.1e})", flush=True)
         check(err <= bound, "K4 differs from its plain version")
 
+    lap("8 K5, K6, K4 against their plain versions")
+
     # ---- 9. serving main path: prefill reuse + 63 decode steps -------------
     steps = SERVE["gen_len"] - 1
     print("[chip_smoke] serve main path: serve('qwen2-0.5b', reduced=False, "
@@ -4129,6 +4355,8 @@ def main():
           f"near-tie exceptions {lties}", flush=True)
     del sparams
     torch.cuda.empty_cache()
+
+    lap("9-10b qwen2-0.5b serving")
 
     # ---- 12. K7 against its plain version ----------------------------------
     k7_err = 0.0
@@ -4264,33 +4492,47 @@ def main():
           f"max/now (MHz) {smi_line('clocks.max.sm,clocks.sm')}",
           flush=True)
 
+    lap("12-14 mamba2 and K7, K6 timed")
+
     # ---- 10. the hybrid (zamba2-2.7b) and qwen3-4b at full width ---------
     p10 = phase10(gen)
+    lap("10 zamba2 and qwen3-4b")
 
     # ---- 11. gemma3-4b at full width and depth ----------------------------
     p11 = phase11(gen)
+    lap("11 gemma3-4b serving")
 
     # ---- 12. qwen2-moe-a2.7b at full width and depth ----------------------
     p12 = phase12(gen)
+    lap("12 qwen2-moe-a2.7b serving")
 
     # ---- 13. deepseek-v2 (MLA, 4 layers), musicgen-large, internvl2-1b ----
     p13 = phase13(gen)
+    lap("13 deepseek-v2, musicgen-large, internvl2-1b serving")
 
     # ---- 14. the mesh layer on a 1x1 card mesh; the examples --------------
     p14 = phase14()
+    lap("14 the 1x1 mesh and the examples")
 
     # ---- 15. the dry run's cost model against the card ---------------------
     p15 = phase15()
+    lap("15 the dry run against the card")
 
     # ---- 16. the mesh features on a 1x1 card mesh ---------------------------
     p16 = phase16()
+    lap("16 the mesh features")
+
+    # ---- 17. training of the families served only, at full width ----------
+    p17 = phase17()
+    lap("17 training the served-only families")
 
     # ---- phase 9. checkpoint and bitwise resume; the train_lm runner ------
     try:
-        res = resume_phase(n_main, qwen_shapes)
+        res = resume_phase(qwen_shapes)
         tlm = train_lm_phase()
     finally:
         shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    lap("9 checkpoints and the train_lm runner")
 
     z, q3, ztr, ks = (p10["zamba"], p10["qwen3"], p10["train"],
                       p10["kernels"])
@@ -4307,10 +4549,19 @@ def main():
                "qwen2-0.5b 1x1 mesh plain savic int8 + EF (16a)":
                    p16["a"]["k1"],
                "qwen2-0.5b 1x1 mesh plain savic --ckpt (16c)":
-                   p16["c"]["k1"]},
+                   p16["c"]["k1"],
+               **{f"{r['arch']} {r['layers']}-layer savic M 2 ({k})":
+                  r["k1"] for k, r in p17["runs"].items()},
+               **{f"{a} {p['layers']}-layer fused vs tree M 2 (17f)":
+                  p["k1"] for a, p in p17["pairs"].items()},
+               f"mamba2-1.3b {P17_INT8_LAYERS}-layer savic int8 + EF M 2 "
+               "(17g)": p17["g"]["k1"],
+               f"{MOE_ARCH} 1-layer bf16 compute M 2 (17h)": p17["h"]["k1"]},
         "k3": {"qwen2-0.5b savic int8 + EF": k3_launches,
                "qwen2-0.5b 1x1 mesh plain savic int8 + EF (16a)":
-                   p16["a"]["k3"]},
+                   p16["a"]["k3"],
+               f"mamba2-1.3b {P17_INT8_LAYERS}-layer savic int8 + EF M 2 "
+               "(17g)": p17["g"]["k3"]},
         "k4": {"qwen2-0.5b long prompt": k4_launches,
                "zamba2-2.7b serve": z["counts"]["k4"],
                "zamba2-2.7b continuous": z["ccounts"]["k4"],
@@ -4463,6 +4714,7 @@ def main():
           f"{a['k1'][0]} vs {a['k1'][1]} + {a['k1'][2]}; 9b K1 "
           f"{[b['k1'] for b in res['b']]}, K3 {[b['k3'] for b in res['b']]};"
           f" 9c K1 {tlm['k1']} + {tlm['k1_full']}", flush=True)
+    print(f"[chip_smoke] phase seconds {json.dumps(lap.secs)}", flush=True)
     print(f"[chip_smoke] total {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

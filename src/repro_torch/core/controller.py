@@ -135,7 +135,13 @@ def budget_h(spec: ControllerSpec, h_t, n_clients: int, device="cpu"):
     tensor on ``device``): a lookup into ``budget_table``."""
     table = torch.tensor(budget_table(spec, n_clients), dtype=torch.int32,
                          device=device)
-    return table[torch.as_tensor(h_t, device=device).long()]
+    return _row(table, torch.as_tensor(h_t, device=device))
+
+
+def _row(table, i):
+    """``table[i]`` for a 0-d integer tensor ``i``, as a gather: no read of
+    ``i`` to the host (Python indexing reads a 0-d CPU index)."""
+    return torch.index_select(table, 0, i.long().reshape(1))[0]
 
 
 def init_ctrl_state(spec: ControllerSpec, n_clients: int, device="cpu"):
@@ -167,8 +173,8 @@ def controller_step(spec: ControllerSpec, ctrl_state: dict, obs: dict):
     gns_ema = torch.where(first, gns,
                           _ema_update(spec.ema, ctrl_state["gns_ema"], gns))
     h_t = ctrl_state["h_t"]
-    grown = torch.tensor(growth_table(spec), dtype=torch.int32,
-                         device=dev)[h_t.long()]
+    grown = _row(torch.tensor(growth_table(spec), dtype=torch.int32,
+                              device=dev), h_t)
     h_t = torch.where(gns_ema > f32(spec.noise_target), grown, h_t)
     h_m = budget_h(spec, h_t, M, dev)
 

@@ -34,8 +34,20 @@ counter that is affine in H (the tests hold it against a whole H-step
 trace; H = 1 is no base: ``DTensor`` gathers the (1, M) losses by a view
 where a longer round needs a split and a cat); the peak is the H = 3
 trace's plus the extra batch rows' bytes.
-Under per-client ``local_steps`` (``--het-model``) the whole round is
-traced. ``local_steps_traced`` and ``trip_count`` record which.
+Under per-client ``local_steps`` (``--het-model``) and under the
+controller the whole round is traced. ``local_steps_traced`` and
+``trip_count`` record which.
+
+**The controller's knobs are taken as given.** Its round reads H_m and k
+to the host once (one copy of ``state["ctrl"]``), and a fake tensor has
+no value to read. Its state leaves go in as fake tensors that carry
+``controller.init_ctrl_state``'s values (``_Values``): an op whose tensor
+arguments all carry values gets its output's value from the same op on
+them, on the CPU, and a scalar read of such a tensor returns it. So the
+round is traced at the initial knobs, as the reference lowers one
+knob-agnostic program and records the initial knobs; the record's
+``controller`` block keeps the spec, those knobs and the state leaves'
+shapes.
 
 **The record**, ``<out>/<arch>__<shape>__<mesh>[__<tag>].json``, keeps the
 reference's keys where a key means the same: ``arch``, ``shape``,
@@ -46,10 +58,10 @@ reference's keys where a key means the same: ``arch``, ``shape``,
 from the rank's shapes), ``params``, ``active_params``, ``op_census``,
 ``ok``; and for train shapes ``compression``, ``sync_payload_per_client``,
 ``asynchrony``, ``flat_layout`` / ``flat_layout_sharded``,
-``fused_kernel_fallback``, ``objective`` and ``heterogeneity`` where the
-reference has them (no ``controller``: see below). It adds ``seq_len``, ``global_batch``,
-``peak_bytes`` (the rank's predicted peak), ``flops_by_dtype``,
-``flops_by_matmul``, ``collective_intra_bytes`` /
+``fused_kernel_fallback``, ``objective``, ``heterogeneity`` and
+``controller`` where the reference has them. It adds ``seq_len``,
+``global_batch``, ``peak_bytes`` (the rank's predicted peak),
+``flops_by_dtype``, ``flops_by_matmul``, ``collective_intra_bytes`` /
 ``collective_inter_bytes``, ``custom_counts``, ``trace_s``,
 ``local_steps_traced``, ``trip_count`` and ``roofline``
 (``launch/roofline.py``'s H100 terms). The reference's XLA-only keys have
@@ -59,12 +71,9 @@ no counterpart and are left out: ``flops_raw``, ``bytes_raw``,
 ``temp_size_in_bytes`` and ``generated_code_size_in_bytes``.
 
 A pair that raises a ``NotImplementedError`` is recorded with ``ok: false``
-and the message. So is a pair with the controller: it reads its knobs
-(H_m, k) to the host once a round, and a fake tensor has no value to read
-(``DataDependentOutputException``); its record says so in ``error``.
-Compression on a plan whose shard axes split the leaves traces: its
-records count int8's MAX all-reduce of the per-client scales and top-k's
-all-gather of candidates among the collectives.
+and the message. Compression on a plan whose shard axes split the leaves
+traces: its records count int8's MAX all-reduce of the per-client scales
+and top-k's all-gather of candidates among the collectives.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-0.5b \\
       --shape train_4k
@@ -84,8 +93,12 @@ import traceback
 
 import torch
 import torch.distributed as dist
-from torch._subclasses.fake_tensor import (DataDependentOutputException,
-                                           FakeTensorMode)
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _disable_current_modes)
+from torch.utils._pytree import tree_flatten
+from torch.utils._pytree import tree_map as pytree_map
+from torch.utils.weak import WeakTensorKeyDictionary
 
 from repro_torch import configs
 from repro_torch.configs import get_config, get_shape, pairs_to_run
@@ -136,15 +149,58 @@ def _blocks(shape_tree, placements, mesh, dev):
         pl).clone(), shape_tree, placements)
 
 
-def _trace(make_args, fn, grad):
-    """Run ``fn(*make_args())`` on fake tensors under a ``CostMode``.
-    Returns (totals, peak bytes, argument bytes, output bytes)."""
+class _Values(TorchDispatchMode):
+    """Values carried by a few small fake tensors (module docstring, the
+    controller's knobs). ``seeds`` maps fake tensors to real CPU tensors.
+    An op whose tensor arguments all carry values runs on the values too
+    (on the CPU) and its outputs carry the results; a scalar read of a
+    tensor with a value returns it; an in-place op on a tensor with a value
+    and an argument without one drops the value."""
+
+    def __init__(self, seeds):
+        super().__init__()
+        self.values = WeakTensorKeyDictionary()
+        for t, v in seeds.items():
+            self.values[t] = v
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        flat, _ = tree_flatten((args, kwargs))
+        tensors = [t for t in flat if isinstance(t, torch.Tensor)]
+        known = bool(tensors) and all(t in self.values for t in tensors)
+        if known and func is torch.ops.aten._local_scalar_dense.default:
+            with _disable_current_modes():
+                return self.values[args[0]].item()
+        out = func(*args, **kwargs)
+        if not known:
+            if func._schema.is_mutable:
+                for t in tensors:
+                    self.values.pop(t, None)
+            return out
+        real = lambda x: self.values[x] if isinstance(x, torch.Tensor) else x
+        r_args = pytree_map(real, list(args))
+        r_kwargs = {k: pytree_map(real, v) for k, v in kwargs.items()
+                    if k != "device"}
+        with _disable_current_modes():
+            r_out = func(*r_args, **r_kwargs)
+        for o, r in zip(tree_flatten(out)[0], tree_flatten(r_out)[0]):
+            if isinstance(o, torch.Tensor):
+                self.values[o] = r
+        return out
+
+
+def _trace(make_args, fn, grad, seeds=None):
+    """Run ``fn(*make_args())`` on fake tensors under a ``CostMode``;
+    ``seeds(args)`` gives the arguments' tensors that carry values
+    (``_Values``). Returns (totals, peak bytes, argument bytes, output
+    bytes)."""
     with FakeTensorMode(allow_non_fake_inputs=True):
         args = make_args()
         mode = cost.CostMode(node_ranks=roofline.NODE_RANKS)
         mode.track(args)
         arg_bytes = _nbytes(args)
-        with torch.set_grad_enabled(grad), mode:
+        values = _Values(seeds(args)) if seeds else contextlib.nullcontext()
+        with torch.set_grad_enabled(grad), values, mode:
             out = fn(*args)
         out_bytes = _nbytes(out)
         del args, out
@@ -178,8 +234,12 @@ def _trace_train(built, dev, seed=0, int_dtype=None):
     fn = lambda state, batch: built.fn(state, batch, stream)
     spec = built.meta["engine_spec"]
     inputs = lambda h: _train_inputs(built, h, dev, int_dtype)
-    if spec.client.local_steps is not None or H <= 3:
-        t, peak, a, o = _trace(inputs(H), fn, True)
+    seeds = None
+    if spec.controller.enabled:
+        c0 = _init_ctrl(built)
+        seeds = lambda args: {args[0]["ctrl"][k]: v for k, v in c0.items()}
+    if spec.client.local_steps is not None or seeds or H <= 3:
+        t, peak, a, o = _trace(inputs(H), fn, True, seeds)
         return t, peak, a, o, H, H
     t2, _, _, _ = _trace(inputs(2), fn, True)
     t3, peak3, a3, o = _trace(inputs(3), fn, True)
@@ -187,6 +247,15 @@ def _trace_train(built, dev, seed=0, int_dtype=None):
         a = _nbytes(inputs(H)())
     t = cost.combine((1, t2), (H - 2, t3), (2 - H, t2))
     return t, peak3 + a - a3, a, o, 5, H
+
+
+def _init_ctrl(built):
+    """``controller.init_ctrl_state`` for the built step's M clients (real
+    CPU tensors)."""
+    from repro_torch.core import controller
+    M = built.args[0]["ctrl"]["h_m"].shape[0]
+    return controller.init_ctrl_state(built.meta["engine_spec"].controller,
+                                      M)
 
 
 def _trace_serve(built, shape, m, dev):
@@ -238,6 +307,15 @@ def _train_extras(rec, built):
            ("het_model", "step_times", "sim_round_time_sync",
             "sim_round_time_budgeted", "sim_round_time_async")
            if k in built.meta}}
+    if spec.controller.enabled:
+        # the program reads its knobs from state["ctrl"] each round; the
+        # record keeps the spec and the initial knobs it was traced at
+        c0 = _init_ctrl(built)
+        rec["controller"] = {
+            "spec": dataclasses.asdict(spec.controller),
+            "init_knobs": {"h_m": [int(h) for h in c0["h_m"].tolist()],
+                           "k": float(c0["k"]), "b_eff": int(c0["b_eff"])},
+            "state_leaves": {k: list(v.shape) for k, v in c0.items()}}
 
 
 def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
@@ -292,15 +370,8 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
                 built = build(arch, shape, mesh, call=call, reduced=reduced)
                 t, peak, a, o = _trace_serve(built, shape, mesh, dev)
                 traced = trips = None
-        except (NotImplementedError, DataDependentOutputException) as e:
-            why = f"{type(e).__name__}: {e}"
-            ctrl = controller if controller is not None else \
-                getattr(engine_spec, "controller", None)
-            if isinstance(e, DataDependentOutputException) \
-                    and ctrl is not None and ctrl.enabled:
-                why += (" (the controller reads its knobs to the host once "
-                        "a round; a fake tensor has no value to read)")
-            rec.update({"ok": False, "error": why,
+        except NotImplementedError as e:
+            rec.update({"ok": False, "error": f"{type(e).__name__}: {e}",
                         "params": cfg.param_count(),
                         "active_params": cfg.active_param_count()})
             return _finish(rec, out_dir, save, verbose)

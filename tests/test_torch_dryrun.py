@@ -429,8 +429,51 @@ def test_run_one_records_compression_on_a_sharded_plan(tmp_path):
     ctrl = _sync_record(tmp_path, compression=engine.CompressionSpec(
         op="topk", k=0.1, error_feedback=True),
         controller=engine.ControllerSpec(enabled=True, h_max=2))
-    assert ctrl["ok"] is False
-    assert "controller reads its knobs to the host" in ctrl["error"]
+    assert ctrl["ok"] is True
+    _holds_controller_block(ctrl, engine.ControllerSpec(enabled=True,
+                                                        h_max=2))
+    assert ctrl["local_steps_traced"] == ctrl["trip_count"] == 2
+
+
+def _holds_controller_block(rec, spec):
+    """The record's ``controller`` block is the reference's: the spec, the
+    initial knobs and the state leaves' shapes of
+    ``repro.core.controller.init_ctrl_state``."""
+    import dataclasses
+    from repro.core import controller as jctrl
+    want = jctrl.init_ctrl_state(
+        jctrl.ControllerSpec(**dataclasses.asdict(spec)), rec["clients"])
+    block = json.loads(json.dumps(rec["controller"]))
+    assert set(block) == {"spec", "init_knobs", "state_leaves"}
+    assert block["spec"] == json.loads(json.dumps(dataclasses.asdict(spec)))
+    assert block["init_knobs"] == {
+        "h_m": [int(h) for h in np.asarray(want["h_m"])],
+        "k": float(want["k"]), "b_eff": int(want["b_eff"])}
+    assert block["state_leaves"] == {k: list(np.shape(v))
+                                     for k, v in want.items()}
+
+
+@pytest.mark.parametrize("h_max,buffer", [(5, 0), (6, 2)])
+def test_controller_round_traced_whole_at_its_h(h_max, buffer, tmp_path):
+    """A controller round with h_max > 3 (the extrapolation's bases) gives
+    an ``ok`` record, traced whole at H; the knobs it is traced at are the
+    initial ones (H_t = h_min = 1: one local step a client, so its FLOPs
+    are those of a round at H = 1 with the same H microbatches in), and the
+    state it writes back keeps the controller's leaves."""
+    spec = engine.ControllerSpec(
+        enabled=True, h_max=h_max, buffer_max=buffer,
+        step_times=(1.0, 1.7) if buffer else ())
+    asy = engine.AsyncSpec(buffer_rounds=buffer) if buffer else None
+    rec = dryrun.run_one("qwen2-0.5b", TRAIN.name, shape=TRAIN, reduced=True,
+                         mesh_shape=(2, 2), h_local=h_max,
+                         out_dir=str(tmp_path), verbose=False,
+                         controller=spec, asynchrony=asy)
+    assert rec["ok"] is True and rec["clients"] == 2
+    assert rec["local_steps_traced"] == rec["trip_count"] == h_max
+    _holds_controller_block(rec, spec)
+    if not buffer:
+        assert rec["controller"]["init_knobs"]["h_m"] == [1, 1]
+    assert rec["flops"] > 0 and rec["peak_bytes"] > 0
 
 
 def test_fake_world_refuses_a_live_group():

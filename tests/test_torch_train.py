@@ -18,11 +18,8 @@ import pytest
 import torch
 
 from _torch_rng_replay import JaxStream
-from repro.configs import get_config as jget_config
+from _torch_train_families import reference_init
 from repro.launch import train as jtrain
-from repro.models import ModelCallConfig as JCall
-from repro.models import build as jbuild
-from repro_torch.bridge import params_from_jax
 from repro_torch.launch import train
 
 torch.set_num_threads(1)
@@ -30,15 +27,6 @@ torch.set_num_threads(1)
 BASE = ["--arch", "qwen2-0.5b", "--reduced", "--rounds", "2", "--h-local",
         "2", "--clients", "2", "--batch", "1", "--seq", "16"]
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def _reference_init(seed=0):
-    cfg = jget_config("qwen2-0.5b", reduced=True)
-    import jax.numpy as jnp
-    params = jbuild(cfg, JCall(dtype=jnp.float32)).init(
-        jax.random.PRNGKey(seed))
-    np_params = jax.device_get(params)
-    return lambda gen: params_from_jax(np_params, gen.device)
 
 
 INT8_EF = ["--compression", "int8-stochastic", "--error-feedback"]
@@ -81,7 +69,7 @@ def test_train_main_matches_reference(method, flags, fused):
     want = jtrain.main(BASE + extra)
     got = train.main(BASE + extra + ["--device", "cpu"]
                      + (["--use-fused-kernel"] if fused else []),
-                     init_params=_reference_init(),
+                     init_params=reference_init("qwen2-0.5b"),
                      root_stream=JaxStream(jax.random.PRNGKey(1)))
     assert len(got) == len(want) == 2
     for g, w in zip(got, want):
