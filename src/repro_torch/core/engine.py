@@ -73,7 +73,7 @@ from repro_torch.core import controller as CTRL
 from repro_torch.core import preconditioner as PC
 from repro_torch.core.controller import ControllerSpec
 from repro_torch.core.preconditioner import PrecondConfig
-from repro_torch.utils import rng
+from repro_torch.utils import rng, trace
 from repro_torch.utils.flatten import FlatLayout, all_float32
 from repro_torch.utils.tree import (tree_from_paths, tree_leaves, tree_map,
                                     tree_paths, tree_unflatten)
@@ -602,6 +602,7 @@ def value_and_grad(loss_fn):
     token table: its frame embeddings replace the tokens) gets a zero
     gradient, as under ``jax.grad``."""
     def vg(params, *args):
+        trace.count("engine.grad_calls")
         leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
         with torch.enable_grad():
             loss = loss_fn(tree_unflatten(params, leaves), *args)
@@ -738,15 +739,20 @@ def _client_loop(loss_fn, grad_fn, spec: EngineSpec, objective=None,
                     continue
                 micro = _micro(batch, c, h)
                 st = steps[h][c] if steps else None
-                loss, grads = grad_at(ps[i], micro, st)
-                grads = to_local(_clip(grads, cl.grad_clip))
+                with trace.span("engine.grad"):
+                    loss, grads = grad_at(ps[i], micro, st)
+                    grads = to_local(_clip(grads, cl.grad_clip))
                 if local:
-                    stat = hutch_at(ps[i], micro, st) if pc.uses_hutchinson \
-                        else _local_stat(pc, grads)
+                    if pc.uses_hutchinson:
+                        with trace.span("engine.hvp"):
+                            stat = hutch_at(ps[i], micro, st)
+                    else:
+                        stat = _local_stat(pc, grads)
                     cps[i] = PC.update(pc, cps[i], stat)
-                ps[i], ms[i] = _apply_update(ps[i], ms[i], grads,
-                                             cps[i] if local else pstate,
-                                             spec)
+                with trace.span("engine.update"):
+                    ps[i], ms[i] = _apply_update(ps[i], ms[i], grads,
+                                                 cps[i] if local else pstate,
+                                                 spec)
                 grads_last[i] = grads
                 losses[h, i] = loss
         _idle_losses(losses, loss3, lambda i: ps[i], batch, steps, h_m, ids,
@@ -851,11 +857,12 @@ def _fused_run(loss_fn, grad3, loss3, spec: EngineSpec, shard_plan=None,
         h_m = [h_m[c] for c in ids]
         H = tree_leaves(batch)[0].shape[1]
         layout = _shard_flat_ops(shard_plan, params_m)
-        P = layout.flatten(params_m, batch_dims=1)
-        Mo = layout.flatten(mom_m, batch_dims=1)
-        G = torch.zeros_like(P)                 # carried sync-step grads
-        D = layout.flatten(pstate["d"], batch_dims=1 if local else 0) \
-            if has_d else None
+        with trace.span("engine.flatten"):
+            P = layout.flatten(params_m, batch_dims=1)
+            Mo = layout.flatten(mom_m, batch_dims=1)
+            G = torch.zeros_like(P)             # carried sync-step grads
+            D = layout.flatten(pstate["d"], batch_dims=1 if local else 0) \
+                if has_d else None
         T = pstate["t"] if local else None      # per-client (M,) int32
         Hs = torch.empty_like(P) if hutch else None   # local Hutchinson stat
         rows = [P, Mo] + ([D] if local else [])  # what a frozen client keeps
@@ -870,24 +877,27 @@ def _fused_run(loss_fn, grad3, loss3, spec: EngineSpec, shard_plan=None,
                     continue
                 params_i, micro = layout.unflatten(P[i]), _micro(batch, c, h)
                 st = steps[h][c] if steps else None
-                loss, grads = grad_at(params_i, micro, st)
-                # tree-level clip, exactly as the tree path: the CLIPPED
-                # grads are what the sync-time D stat reads
-                grads = to_local(_clip(grads, cl.grad_clip))
-                torch.cat([g.reshape(-1) for g in tree_leaves(grads)],
-                          out=G[i])
-                del grads
+                with trace.span("engine.grad"):
+                    loss, grads = grad_at(params_i, micro, st)
+                    # tree-level clip, exactly as the tree path: the CLIPPED
+                    # grads are what the sync-time D stat reads
+                    grads = to_local(_clip(grads, cl.grad_clip))
+                    torch.cat([g.reshape(-1) for g in tree_leaves(grads)],
+                              out=G[i])
+                    del grads
                 if hutch:
-                    stat = hutch_at(params_i, micro, st)
-                    torch.cat([x.reshape(-1) for x in tree_leaves(stat)],
-                              out=Hs[i])
-                    del stat
+                    with trace.span("engine.hvp"):
+                        stat = hutch_at(params_i, micro, st)
+                        torch.cat([x.reshape(-1) for x in tree_leaves(stat)],
+                                  out=Hs[i])
+                        del stat
                 losses[h, i] = loss
-            kops.fused_local_step(
-                P, Mo, G, D, Hs, T, None, gamma=cl.lr, beta1=cl.momentum,
-                weight_decay=cl.weight_decay, alpha=pc.alpha, beta2=pc.beta2,
-                kind=pc.kind, clip=pc.clip, schedule=pc.schedule,
-                update_d=local)
+            with trace.span("engine.k1"):
+                kops.fused_local_step(
+                    P, Mo, G, D, Hs, T, None, gamma=cl.lr,
+                    beta1=cl.momentum, weight_decay=cl.weight_decay,
+                    alpha=pc.alpha, beta2=pc.beta2, kind=pc.kind,
+                    clip=pc.clip, schedule=pc.schedule, update_d=local)
             for i, saved in frozen.items():
                 for buf, row in zip(rows, saved):
                     buf[i].copy_(row)
@@ -897,11 +907,12 @@ def _fused_run(loss_fn, grad3, loss3, spec: EngineSpec, shard_plan=None,
         del frozen
         _idle_losses(losses, loss3, lambda i: layout.unflatten(P[i]), batch,
                      steps, h_m, ids, shard_plan)
-        params_m = layout.unflatten(P, batch_dims=1)
-        mom_m = layout.unflatten(Mo, batch_dims=1)
-        last_grads = layout.unflatten(G, batch_dims=1)
-        if local:
-            pstate = {"d": layout.unflatten(D, batch_dims=1), "t": T}
+        with trace.span("engine.flatten"):
+            params_m = layout.unflatten(P, batch_dims=1)
+            mom_m = layout.unflatten(Mo, batch_dims=1)
+            last_grads = layout.unflatten(G, batch_dims=1)
+            if local:
+                pstate = {"d": layout.unflatten(D, batch_dims=1), "t": T}
         return params_m, mom_m, pstate, last_grads, losses
 
     return run
@@ -1480,6 +1491,10 @@ def build_round_step(loss_fn: Callable, spec: EngineSpec, objective=None,
     manage_depth = ctrl.enabled and ctrl.buffer_max > 0
 
     def round_step(state, batch, stream=None):
+        with trace.span("engine.round"):
+            return _round(state, batch, stream)
+
+    def _round(state, batch, stream):
         M = tree_leaves(state["params"])[0].shape[0]
         if pl is not None:
             M *= pl.client_ranks
@@ -1510,8 +1525,9 @@ def build_round_step(loss_fn: Callable, spec: EngineSpec, objective=None,
             if need_steps else None
         mom0 = tree_map(torch.zeros_like, state["mom"]) \
             if cl.reset_momentum else state["mom"]
-        params_m, mom_m, pstate, last_grads, losses = client_run(
-            state["params"], mom0, state["precond"], batch, steps, h_m)
+        with trace.span("engine.local_steps"):
+            params_m, mom_m, pstate, last_grads, losses = client_run(
+                state["params"], mom0, state["precond"], batch, steps, h_m)
         if pl is not None:
             losses = pl.gather_clients(losses, dim=1)
         drift_pre_sync = client_drift(params_m, pl)
@@ -1519,73 +1535,81 @@ def build_round_step(loss_fn: Callable, spec: EngineSpec, objective=None,
         # ---- SyncStrategy (synced leaves only) -------------------------------
         # clients start each round at the common broadcast point, so
         # x_t = params[0] and Δ_m = x_{m,H} − x_t
-        x_ref = strip(tree_map(lambda p: p[0], state["params"]))
-        ctrl_obs = _ctrl_observations(x_ref, strip(params_m), pl) \
-            if ctrl.enabled else None
-        avg = make_sync(sy, stream, M, dev, pl)
-        new_ef = new_buffer = delta_avg = comp_err = wire = staleness = None
-        if comp.is_identity() and asy.is_identity():
-            params_avg = tree_map(avg, strip(params_m))
-        else:
-            rescale = weights = None
-            if manage_depth:
-                # skipped stragglers (H_m = 0) sent Δ = 0: average over the
-                # clients that reported, as participation sampling does
-                n_act = max(sum(h > 0 for h in h_m), 1)
-                rescale = float(np.float32(M) / np.float32(n_act))
-            if not asy.is_identity():
-                weights = staleness_weights(
-                    asy, state["round"],
-                    cstate["b_eff"] if manage_depth else None)
-                staleness = torch.sum(weights * torch.arange(
-                    asy.buffer_rounds, dtype=torch.float32, device=dev))
-            params_avg, delta_avg, new_ef, new_buffer, comp_err, wire, \
-                payload = _delta_sync(comp, avg, x_ref, strip(params_m),
-                                      state.get("ef"), state.get("buffer"),
-                                      weights, rescale, stream, k_dyn,
-                                      keep_delta=sv.kind == "adaptive",
-                                      shard_plan=pl, n_clients=M)
-            if ctrl_obs is not None and comp_err is not None:
-                ctrl_obs["payload_sq"], ctrl_obs["resid_sq"] = payload, \
-                    comp_err
-        if sv.kind == "average":
-            params_m = _broadcast_back(params_m, params_avg)
-            params_avg = tree_map(lambda x: x[0], params_m)
-            if sy.average_momentum:
-                mom_m = _broadcast_back(mom_m, tree_map(avg, strip(mom_m)))
+        with trace.span("engine.sync"):
+            x_ref = strip(tree_map(lambda p: p[0], state["params"]))
+            ctrl_obs = _ctrl_observations(x_ref, strip(params_m), pl) \
+                if ctrl.enabled else None
+            avg = make_sync(sy, stream, M, dev, pl)
+            new_ef = new_buffer = delta_avg = comp_err = wire = None
+            staleness = None
+            if comp.is_identity() and asy.is_identity():
+                params_avg = tree_map(avg, strip(params_m))
+            else:
+                rescale = weights = None
+                if manage_depth:
+                    # skipped stragglers (H_m = 0) sent Δ = 0: average over
+                    # the clients that reported, as participation sampling
+                    # does
+                    n_act = max(sum(h > 0 for h in h_m), 1)
+                    rescale = float(np.float32(M) / np.float32(n_act))
+                if not asy.is_identity():
+                    weights = staleness_weights(
+                        asy, state["round"],
+                        cstate["b_eff"] if manage_depth else None)
+                    staleness = torch.sum(weights * torch.arange(
+                        asy.buffer_rounds, dtype=torch.float32, device=dev))
+                params_avg, delta_avg, new_ef, new_buffer, comp_err, wire, \
+                    payload = _delta_sync(
+                        comp, avg, x_ref, strip(params_m), state.get("ef"),
+                        state.get("buffer"), weights, rescale, stream, k_dyn,
+                        keep_delta=sv.kind == "adaptive", shard_plan=pl,
+                        n_clients=M)
+                if ctrl_obs is not None and comp_err is not None:
+                    ctrl_obs["payload_sq"], ctrl_obs["resid_sq"] = payload, \
+                        comp_err
+            if sv.kind == "average":
+                params_m = _broadcast_back(params_m, params_avg)
+                params_avg = tree_map(lambda x: x[0], params_m)
+                if sy.average_momentum:
+                    mom_m = _broadcast_back(mom_m,
+                                            tree_map(avg, strip(mom_m)))
 
         # ---- D update at sync (global scaling; Algorithm 1 line 4) ---------
         if cl.scaling == "global" and pc.kind != "identity":
-            if cl.stat_source == "avg_grad":
-                if pc.uses_hutchinson:
-                    # one probe at the averaged point on client 0's last
-                    # microbatch (on a mesh: every rank the same probe)
-                    stat = PC.hutchinson_diag(
-                        loss_fn, params_avg if pl is None
-                        else pl.full(params_avg), _micro(batch, 0, H - 1),
-                        _needs(stream, "a Hutchinson probe").fold(
-                            rng.HUTCHINSON_FOLD))
-                    if pl is not None:
-                        stat = pl.local(stat)
-                else:
-                    # participation weights and sync dtype apply to the stat
-                    stat = _local_stat(pc, tree_map(avg, last_grads))
-            else:  # avg_local
-                if pc.uses_hutchinson:
-                    hk = _needs(stream, "a Hutchinson probe").fold(
-                        rng.HUTCHINSON_FOLD).split(M)
-                    _, hutch_at = _mesh_calls(loss_fn, None, pl)
-                    stats = [hutch_at(tree_map(lambda x: x[i], params_m),
-                                      _micro(batch, c, H - 1), hk[c])
-                             for i, c in enumerate(_client_ids(params_m, pl))]
-                    stat = tree_map(lambda *xs: torch.stack(xs), *stats)
-                    del stats
-                else:
-                    stat = _local_stat(pc, last_grads)
-                stat = tree_map(lambda s: s.mean(dim=0) if pl is None
-                                else pl.sum_clients(s.sum(dim=0)) / M, stat)
-            pstate = PC.update(pc, pstate, stat)
-            del stat
+            with trace.span("engine.precond"):
+                if cl.stat_source == "avg_grad":
+                    if pc.uses_hutchinson:
+                        # one probe at the averaged point on client 0's last
+                        # microbatch (on a mesh: every rank the same probe)
+                        stat = PC.hutchinson_diag(
+                            loss_fn, params_avg if pl is None
+                            else pl.full(params_avg), _micro(batch, 0, H - 1),
+                            _needs(stream, "a Hutchinson probe").fold(
+                                rng.HUTCHINSON_FOLD))
+                        if pl is not None:
+                            stat = pl.local(stat)
+                    else:
+                        # participation weights and sync dtype apply to
+                        # the stat
+                        stat = _local_stat(pc, tree_map(avg, last_grads))
+                else:  # avg_local
+                    if pc.uses_hutchinson:
+                        hk = _needs(stream, "a Hutchinson probe").fold(
+                            rng.HUTCHINSON_FOLD).split(M)
+                        _, hutch_at = _mesh_calls(loss_fn, None, pl)
+                        stats = [
+                            hutch_at(tree_map(lambda x: x[i], params_m),
+                                     _micro(batch, c, H - 1), hk[c])
+                            for i, c in enumerate(_client_ids(params_m, pl))]
+                        stat = tree_map(lambda *xs: torch.stack(xs), *stats)
+                        del stats
+                    else:
+                        stat = _local_stat(pc, last_grads)
+                    stat = tree_map(
+                        lambda s: s.mean(dim=0) if pl is None
+                        else pl.sum_clients(s.sum(dim=0)) / M, stat)
+                pstate = PC.update(pc, pstate, stat)
+                del stat
 
         if masked:
             # the mean over the steps taken; each client's loss at ITS last
@@ -1626,26 +1650,27 @@ def build_round_step(loss_fn: Callable, spec: EngineSpec, objective=None,
                                                          ctrl_obs)
             metrics["ctrl_gns_ema"] = new_state["ctrl"]["gns_ema"]
         if sv.kind == "adaptive":
-            x_prev = x_ref
-            if delta_avg is not None:
-                # delta path: Δ is exactly the applied averaged delta
-                delta = tree_map(lambda d, x: d.to(x.dtype), delta_avg,
-                                 x_prev)
-            else:
-                delta = tree_map(lambda a, x: a.to(x.dtype) - x, params_avg,
-                                 x_prev)
-            x_new, server = _adaptive_server_update(sv, state["server"],
-                                                    x_prev, delta, pl)
-            params_m = _broadcast_back(params_m, x_new)
-            new_state["server"] = server
-            if pl is None:
-                metrics["step_norm"] = torch.sqrt(_sqnorm(
-                    [a - b for a, b in zip(tree_leaves(x_new),
-                                           tree_leaves(x_prev))]))
-            else:
-                metrics["step_norm"] = torch.sqrt(pl.sum_leaves(
-                    lambda d: torch.dot(d.reshape(-1), d.reshape(-1)),
-                    tree_map(torch.sub, x_new, x_prev)))
+            with trace.span("engine.server"):
+                x_prev = x_ref
+                if delta_avg is not None:
+                    # delta path: Δ is exactly the applied averaged delta
+                    delta = tree_map(lambda d, x: d.to(x.dtype), delta_avg,
+                                     x_prev)
+                else:
+                    delta = tree_map(lambda a, x: a.to(x.dtype) - x,
+                                     params_avg, x_prev)
+                x_new, server = _adaptive_server_update(sv, state["server"],
+                                                        x_prev, delta, pl)
+                params_m = _broadcast_back(params_m, x_new)
+                new_state["server"] = server
+                if pl is None:
+                    metrics["step_norm"] = torch.sqrt(_sqnorm(
+                        [a - b for a, b in zip(tree_leaves(x_new),
+                                               tree_leaves(x_prev))]))
+                else:
+                    metrics["step_norm"] = torch.sqrt(pl.sum_leaves(
+                        lambda d: torch.dot(d.reshape(-1), d.reshape(-1)),
+                        tree_map(torch.sub, x_new, x_prev)))
         new_state["params"] = params_m
         new_state["mom"] = mom_m
         return new_state, metrics

@@ -16,6 +16,7 @@ from repro_torch.kernels import quantize_update as _qu
 from repro_torch.kernels import ref
 from repro_torch.kernels import scaled_update as _su
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.utils import trace
 from repro_torch.utils.tree import tree_leaves, tree_unflatten
 
 
@@ -64,6 +65,7 @@ def fused_local_step(p, m, g, d=None, h=None, t=None, s=None, *, gamma, beta1,
     scales. Updates ``p``, ``m`` (and ``d`` with ``update_d``) in place on
     both devices and returns ``(p, m, d | None)``.
     """
+    trace.count("engine.k1_launches")
     kw = dict(gamma=float(gamma), beta1=float(beta1),
               weight_decay=float(weight_decay), alpha=float(alpha),
               beta2=float(beta2), kind=kind, clip=clip, schedule=schedule,

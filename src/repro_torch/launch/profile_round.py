@@ -2,17 +2,18 @@
 
 Takes the training CLI's flags (``launch/train.py``), runs ``--rounds``
 rounds untraced (each timed between device synchronizations), then one round
-under ``torch.profiler`` and prints: the untraced rounds' wall times, the
-traced round's wall time, the device-busy time (summed kernel time of the
-traced round) as a share of the traced round and of the median untraced
-round after the first (the first carries the CUDA and cuBLAS set-up), the
+under ``torch.profiler`` with the program's spans recorded
+(``utils/trace.py``) and prints: the untraced rounds' wall times and their
+median after the first (the first carries the CUDA and cuBLAS set-up), the
+traced round's wall time, the summed kernel time of the traced round, the
 time and launches of the port's kernels (K1, the fused local step, and K3,
-the int8 quantize-dequantize of compressed syncs), the kernels that took the most
-device time and the host ops that took the most host time (self time, so
-nested ops are not counted twice), and the peak device memory over the
-whole run. CUDA only: a device share has no meaning
-on the CPU. The profiler's own cost inflates the host times and the traced
-round's wall time.
+the int8 quantize-dequantize of compressed syncs), the kernels that took the
+most device time, the host ops that took the most host time and each span's
+host time (self time both, so nested ops and spans are not counted twice),
+and the peak device memory over the whole run. CUDA only. The profiler's
+own cost inflates the host times and the traced round's wall time; the
+benchmark's ``perfbench/run.py --trace 1`` reads device time and idle
+gaps by span from a device-only profile.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_round \
       --arch qwen2-0.5b --method savic --use-fused-kernel --rounds 1 \
@@ -27,6 +28,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.launch import train
+from repro_torch.utils import trace
 
 # the port's kernels by the names of their CUDA functions
 KERNELS = {"k1": ("fused_step_vec4", "fused_step_scalar"),
@@ -57,12 +59,14 @@ def main(argv=None):
     batch = train.round_batch(run.loader, args, args.rounds, device)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            trace.recording() as rec:
         t0 = time.perf_counter()
         state, met = run.round_step(state, batch, run.stream(args.rounds))
         float(met["loss"])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    span_self = trace.self_ns(rec.collect()[0])
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type.name == "CUDA"]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
@@ -74,16 +78,10 @@ def main(argv=None):
     tops = sorted(kernels, key=lambda e: -e.self_device_time_total)[:TOP]
     host = sorted((e for e in events if e.device_type.name == "CPU"),
                   key=lambda e: -e.self_cpu_time_total)[:TOP]
-    tokens = args.clients * args.h_local * args.batch * args.seq
     summary = {
         "device": torch.cuda.get_device_name(0), "wall_ms": wall_ms,
-        "tokens_per_s": tokens / wall_ms * 1e3, "device_busy_ms": busy_ms,
-        "device_busy_share": busy_ms / wall_ms,
-        "untraced_round_ms": untraced_ms,
-        "untraced_steady_median_ms": steady_ms,
-        "device_busy_share_untraced": (busy_ms / steady_ms if steady_ms
-                                       else None),
-        **ours,
+        "device_busy_ms": busy_ms, "untraced_round_ms": untraced_ms,
+        "untraced_steady_median_ms": steady_ms, **ours,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "top_kernels": [{"name": e.key[:90], "calls": e.count,
                          "ms": e.self_device_time_total / 1e3}
@@ -93,6 +91,8 @@ def main(argv=None):
         "top_host_ops": [{"name": e.key[:90], "calls": e.count,
                           "self_ms": e.self_cpu_time_total / 1e3}
                          for e in host],
+        "span_host_self_ms": {k: v / 1e6 for k, v in sorted(
+            span_self.items(), key=lambda kv: -kv[1])},
     }
     print(json.dumps(summary, indent=1), flush=True)
     return summary

@@ -90,7 +90,7 @@ from repro_torch.core import (PrecondConfig, SavicConfig, engine, objectives,
 from repro_torch.data import LMRoundLoader, TokenStream
 from repro_torch.data import federated
 from repro_torch.models import ModelCallConfig, build
-from repro_torch.utils import rng
+from repro_torch.utils import rng, trace
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_map
 
@@ -360,13 +360,14 @@ def round_batch(loader, args, r, device):
     ``device``, and the (M, H, b) fp32 ``labeled`` mask when the loader
     draws one; for the audio and vlm families wrapped by ``_wrap_modal``
     (its embeddings fp32)."""
-    nb = loader.round_batch(r, args.h_local, args.seq)
-    cfg = get_config(args.arch, reduced=args.reduced)
-    if cfg.family in ("audio", "vlm"):
-        nb = _wrap_modal(cfg, nb, args.seed, r)
-    return {k: torch.from_numpy(v).to(
-        device=device, dtype=torch.float32 if k in _FLOAT_FIELDS
-        else torch.long) for k, v in nb.items()}
+    with trace.span("data.round_batch"):
+        nb = loader.round_batch(r, args.h_local, args.seq)
+        cfg = get_config(args.arch, reduced=args.reduced)
+        if cfg.family in ("audio", "vlm"):
+            nb = _wrap_modal(cfg, nb, args.seed, r)
+        return {k: torch.from_numpy(v).to(
+            device=device, dtype=torch.float32 if k in _FLOAT_FIELDS
+            else torch.long) for k, v in nb.items()}
 
 
 def _wrap_modal(cfg, nb, seed, r):

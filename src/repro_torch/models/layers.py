@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
 from repro_torch.models.flash import HUGE_WINDOW, flash_attention_bshd
+from repro_torch.utils import trace
 
 # --------------------------------------------------------------------------- #
 # initializers / basics
@@ -211,19 +212,23 @@ def attention(p, cfg: ModelConfig, x, positions, call: AttnCall, dtype):
     k = apply_rope(k, cos, sin).to(dtype)
     cache_kv = (k, v)
     rep = h // hk
-    if call.use_flash_kernel:
-        from repro_torch.kernels import ops as kops
-        win = call.window if _window_on(call.window) else 0
-        out = kops.flash_attention(q, k, v, window=win, softcap=call.softcap)
-    elif call.chunk and S > call.chunk:
-        win = call.window if _window_on(call.window) else None
-        out = flash_attention_bshd(q, *_repeat_kv(k, v, rep), positions,
-                                   positions, window=win,
-                                   softcap=call.softcap, bq=call.chunk,
-                                   bk=call.chunk)
-    else:
-        out = _sdpa_dense(q, *_repeat_kv(k, v, rep), positions, positions,
-                          call.window, call.softcap)
+    with trace.span("model.attention") as sp:
+        q, k, v = sp.inputs(q, k, v)
+        if call.use_flash_kernel:
+            from repro_torch.kernels import ops as kops
+            win = call.window if _window_on(call.window) else 0
+            out = kops.flash_attention(q, k, v, window=win,
+                                       softcap=call.softcap)
+        elif call.chunk and S > call.chunk:
+            win = call.window if _window_on(call.window) else None
+            out = flash_attention_bshd(q, *_repeat_kv(k, v, rep), positions,
+                                       positions, window=win,
+                                       softcap=call.softcap, bq=call.chunk,
+                                       bk=call.chunk)
+        else:
+            out = _sdpa_dense(q, *_repeat_kv(k, v, rep), positions,
+                              positions, call.window, call.softcap)
+        out = sp.output(out)
     return _proj_out(p["wo"], out.to(dtype), dtype), cache_kv
 
 

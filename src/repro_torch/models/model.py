@@ -33,6 +33,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.layers import (AttnCall, cross_entropy, embed,
                                        init_embed, init_rmsnorm, rmsnorm,
                                        unembed)
+from repro_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -129,25 +130,31 @@ def build(cfg: ModelConfig, call: Optional[ModelCallConfig] = None) -> Model:
                                    want_cache=want_cache, remat=remat)
         return y, caches, aux, labels
 
-    def _forward_logits(params, batch):
+    def _head(params, y):
+        y = rmsnorm(params["final_norm"], y, cfg.norm_eps)
+        return unembed(params["embed"], y, cfg, dtype)
+
+    def _forward_y(params, batch):
         y, _, aux, labels = _forward(params, batch, False, call.remat,
                                      constrain=True)
-        y = rmsnorm(params["final_norm"], y, cfg.norm_eps)
-        return unembed(params["embed"], y, cfg, dtype), labels, aux
+        return y, labels, aux
 
     def loss(params, batch, ce_norm=None):
         """Mean CE over the labeled positions (+ the MoE aux loss);
         ``ce_norm`` replaces the CE's count of labeled positions (a mesh
         rank's share of a microbatch split over batch axes)."""
-        logits_, labels, aux = _forward_logits(params, batch)
-        return cross_entropy(logits_, labels, cfg.vocab_size, ce_norm) + aux
+        y, labels, aux = _forward_y(params, batch)
+        with trace.span("model.loss_head") as sp:
+            (y,) = sp.inputs(y)
+            ce = sp.output(cross_entropy(_head(params, y), labels,
+                                         cfg.vocab_size, ce_norm))
+        return ce + aux
 
     def logits(params, batch):
-        return _forward_logits(params, batch)[0].float()
+        return _head(params, _forward_y(params, batch)[0]).float()
 
     def _last_logits(params, y):
-        y = rmsnorm(params["final_norm"], y[:, -1:, :], cfg.norm_eps)
-        return unembed(params["embed"], y, cfg, dtype)[:, 0, :]
+        return _head(params, y[:, -1:, :])[:, 0, :]
 
     def prefill(params, batch):
         y, caches, _, _ = _forward(params, batch, True, False)

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from repro_torch.configs import ModelConfig
 from repro_torch.models.layers import (_dense_init, _normal, init_rmsnorm,
                                        linear, rmsnorm)
+from repro_torch.utils import trace
 
 
 def _dims(cfg: ModelConfig):
@@ -90,6 +91,13 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk, h0=None):
     per head (groups broadcast; any strides). Returns (y (B,S,H,P) fp32,
     h_final (B,H,P,N) fp32); ``h0`` is the state before the first token
     (zeros when None)."""
+    with trace.span("model.ssd") as sp:
+        xh, dt, A, Bm, Cm, h0 = sp.inputs(xh, dt, A, Bm, Cm, h0)
+        y, h = _ssd_chunked(xh, dt, A, Bm, Cm, chunk, h0)
+        return sp.output(y), h
+
+
+def _ssd_chunked(xh, dt, A, Bm, Cm, chunk, h0):
     Bsz, S, H, P = xh.shape
     N = Bm.shape[-1]
     Q = chunk
