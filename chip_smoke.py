@@ -123,11 +123,13 @@ Phase 17 trains the families that were only served, through
 mamba2-1.3b at 36 of 48 layers (17a), qwen2-moe-a2.7b at 1 of 24 (17b, an
 MoE layer), gemma3-4b at 6 of 34 (17c, its first global layer), musicgen-
 large at 16 of 48 (17d), internvl2-1b at full depth with S = 384 (17e,
-256 patches and 128 text tokens); each launches K1 4 times, every record
-finite with loss > 0 and drift > 0, its peak printed beside the
-prediction from savic's measured bytes a parameter, and M·n (past 2^31 on
-17a-17d). 17f holds the fused loop against the tree loop for each family
-at a smaller depth (M = 2; the fused state kept in host memory meanwhile),
+256 patches and 128 text tokens); each launches K1 4 times (mamba2's SSD
+also K7b once a layer a client's local step and K7 twice, on the card's
+training route), every record finite with loss > 0 and drift > 0, its
+peak printed beside the prediction from savic's measured bytes a
+parameter, and M·n (past 2^31 on 17a-17d). 17f holds the fused loop
+against the tree loop for each family at a smaller depth (M = 2; the
+fused state kept in host memory meanwhile),
 17g runs mamba2 at 24 layers with int8 + EF (K3 once a leaf a round), 17h
 qwen2-moe at 1 layer with ``--dtype bfloat16`` (bf16 compute on fp32
 state: the fused loop, K1 4). Each phase's seconds are printed on a line
@@ -137,10 +139,11 @@ it exits non-zero before printing any result.
 
 The second-to-last lines are one JSON object listing the kernels (launches
 on the main path, error against the plain version (K4's over its fp32
-cases, K7's over all its cases), measured and least possible times; K2's
-times are one per-leaf step over full-width qwen2-0.5b's 14 leaves at M =
-4) and the card's name and power limit; the last line is ``{"ok": true,
-"device": {...}}``.
+cases, K7's over all its cases, K7b's at the mamba2 benchmark cell's and
+phase 17's training shapes, held there against its plain VJP), measured
+and least possible times; K2's times are one per-leaf step over
+full-width qwen2-0.5b's 14 leaves at M = 4) and the card's name and
+power limit; the last line is ``{"ok": true, "device": {...}}``.
 """
 import contextlib
 import dataclasses
@@ -288,6 +291,12 @@ K7_CASES = [(*K7_MAIN, None, True), (*K7_MAIN, None, False),
             (*K7_MAIN, -16.0, True),
             (2, 512, 8, 64, 64, 128, None, "B"),
             (*K7_ONE, -16.0, True)]
+# K7b (K7's VJP, the backward of the SSD's training route) against its plain
+# VJP and timed at the shapes the main path gives it, B/C one group: the
+# mamba2 benchmark cell's call (b 2, S 2048, 8 chunks) and phase 17's mamba2
+# runs' (b 8, S 128: one chunk of 128)
+K7B_CELL = (2, 2048, 64, 64, 128, 256)
+K7B_P17 = (8, 128, 64, 64, 128, 128)
 U = 2.0 ** -24
 # phase 10: the hybrid zamba2-2.7b (54 mamba2 layers, one weight-tied
 # attention + MLP block after every 6th: 9 applications, d_head 80, 32 kv
@@ -1336,6 +1345,80 @@ def time_k7(gen, shape=K7_MAIN):
     return t
 
 
+def k7b_inputs(B, S, H, P, N, Q, gen):
+    """K7's inputs as the training route passes them (B and C one group,
+    (B, S, 1, N); A = -linspace(1, 16), the model's A_log range) and K7's
+    cotangents dY, dS, dtot ~ N(0, 1)."""
+    f = lambda *shape: torch.randn(shape, generator=gen, device=DEV)
+    ins = (f(B, S, H, P), F.softplus(f(B, S, H)),
+           -torch.linspace(1.0, 16.0, H, device=DEV), f(B, S, 1, N),
+           f(B, S, 1, N))
+    nc = S // Q
+    return ins, (f(B, S, H, P), f(B, nc, H, N, P), f(B, nc, H))
+
+
+def k7b_eps(cmax, H, P, N, Q, G=1):
+    """K7b's relative bound against its plain VJP, of the plain VJP on
+    magnitudes (``magnitudes=True``), as
+    ``tests/test_torch_cuda.py::k7b_bounds``: u·(4·max|cum| + 2(N + Q + P
+    + H/G) + hs·P + 16), u = 2^-24. Both sides sum P products for M, N for
+    G and B·dS, up to Q for Wᵀ·dY, dG·B, dGᵀ·C and R's row sums, H/G heads
+    for dG; the kernel sums (xdt·decay)·dSᵀ over a split's hs heads (one
+    group: ``ssd.HEADS_A_SPLIT``) in one chain; the exps and cum move as
+    ``k7_eps`` says."""
+    hs = ssd.HEADS_A_SPLIT if G == 1 else 1
+    return U * (4 * cmax + 2 * (N + Q + P + H // G) + hs * P + 16)
+
+
+def k7b_case(B, S, H, P, N, Q, gen):
+    """K7b against its plain VJP (``ref.ssd_intra_chunk_vjp_ref``) element
+    by element within ``k7b_eps`` of the VJP on magnitudes, and a second
+    call against the first bit for bit. Returns (max abs error, the worst
+    ratio of an error to its bound, eps, max|cum|)."""
+    ins, cots = k7b_inputs(B, S, H, P, N, Q, gen)
+    want = ref.ssd_intra_chunk_vjp_ref(*ins, Q, *cots)
+    got = ssd.ssd_intra_chunk_bwd(*ins, Q, *cots)
+    again = ssd.ssd_intra_chunk_bwd(*ins, Q, *cots)
+    torch.cuda.synchronize()
+    check(all(torch.equal(u, v) for u, v in zip(got, again)),
+          "two K7b calls on the same inputs differ")
+    cmax = cum_max(ins[1], ins[2], Q)
+    eps = k7b_eps(cmax, H, P, N, Q)
+    mags = ref.ssd_intra_chunk_vjp_ref(*ins, Q, *cots, magnitudes=True)
+    err = ratio = 0.0
+    for name, g, w, m, t in zip(("dx", "ddt", "dA", "dB", "dC"), got, want,
+                                mags, ins):
+        check(g.shape == t.shape and g.dtype == torch.float32,
+              f"K7b {name} {tuple(g.shape)} {g.dtype}")
+        d = (g - w).abs()
+        err = max(err, float(d.max()))
+        ratio = max(ratio, float((d / (eps * m).clamp_min(1e-30)).max()))
+    del ins, cots, want, got, again, mags
+    torch.cuda.empty_cache()
+    return err, ratio, eps, cmax
+
+
+def time_k7b(gen, shape=K7B_CELL):
+    """K7b at a training route's shape (B/C one group, A as the model's):
+    CUDA-event times of the wrapper (four launches a call) back to back and
+    as device time (a CUDA graph of calls), of its plain VJP, and its bound
+    from ``ssd_scan.work_bwd``. No library computes K7's VJP (the route
+    replaced autograd of the plain SSD)."""
+    B, S, H, P, N, Q = shape
+    ins, cots = k7b_inputs(B, S, H, P, N, Q, gen)
+    call = lambda: ssd.ssd_intra_chunk_bwd(*ins, Q, *cots)
+    t = {"ms": cuda_ms(call, 20),
+         "plain_ms": cuda_ms(lambda: ref.ssd_intra_chunk_vjp_ref(
+             *ins, Q, *cots), 3),
+         "device_ms": graph_ms(call, calls=10 if B * S > 2048 else 50)}
+    t["flops"], t["bytes"] = ssd.work_bwd(B, S, H, P, N, Q, 1)
+    t["bound_ms"] = max(t["bytes"] / HBM_BYTES_PER_S,
+                        t["flops"] / FP32_FLOP_PER_S) * 1e3
+    del ins, cots
+    torch.cuda.empty_cache()
+    return t
+
+
 # --------------------------------------------------------------------------- #
 # serving phases
 # --------------------------------------------------------------------------- #
@@ -1851,8 +1934,9 @@ def zamba_train_phase():
     """10d: savic on full-width zamba2-2.7b cut to 12 layers (two
     applications of the shared block), M = 4, H = 2, b = 8, S = 128, 2
     rounds through ``train.main`` on the fused loop (K1 once a local step),
-    on the plain SSD and attention routes; then fused against tree at 6
-    layers (one application)."""
+    its SSD on the card's training route (K7 + K7b: K7 twice a K7b, for
+    the remat recompute) and attention on the plain route; then fused
+    against tree at 6 layers (one application)."""
     register_cut("zamba2-2.7b", 12)
     argv = ["--arch", ARCH_Z12, "--method", "savic", "--use-fused-kernel",
             "--rounds", "2", "--h-local", str(H_LOCAL), "--clients", "4",
@@ -1863,10 +1947,12 @@ def zamba_train_phase():
           f"{n} in the tree; param_count() {cfg.param_count()}): "
           f"train.main " + " ".join(argv), flush=True)
     log, k1, _, peak = main_path(argv, 2 * H_LOCAL)
+    k7, k7b = ssd.ssd_intra_chunk.launches, ssd.ssd_intra_chunk_bwd.launches
+    check(k7b > 0 and k7 == 2 * k7b, f"10d: K7 {k7}, K7b {k7b} launched")
     check(all(finite(rec["loss"]) for rec in log), "zamba2 loss not finite")
     worst, _, k1_6 = fused_vs_tree(
         "zamba2 savic", cfg=get_config("zamba2-2.7b").replace(n_layers=6))
-    return {"k1": k1, "n": n, "peak": peak,
+    return {"k1": k1, "k7": k7, "k7b": k7b, "n": n, "peak": peak,
             "walls": [r["wall_s"] for r in log],
             "tokens_per_s": [r["tokens_per_s"] for r in log],
             "fused_vs_tree": worst, "k1_6": k1_6}
@@ -3277,13 +3363,16 @@ def finite(v):
 
 
 def main_path(argv, expect_k1, expect_k3=0):
-    """Drive ``train.main(argv)`` with the kernels' counts set to 0 just
-    before and read just after; returns (log, K1 launches, K3 launches,
-    peak GiB). ``expect_k1`` is a count, or a function of the log (the
-    launches the realized H_m need: one a local step in which any client is
-    active, Σ_r max_m H_m,r)."""
+    """Drive ``train.main(argv)`` with the kernels' counts (K1, K3, and K7
+    and K7b, which an SSM's differentiated SSD takes on the card) set to 0
+    just before and read just after; returns (log, K1 launches, K3
+    launches, peak GiB); K7's and K7b's counts stay on their wrappers'
+    ``launches`` until the next run. ``expect_k1`` is a count, or a
+    function of the log (the launches the realized H_m need: one a local
+    step in which any client is active, Σ_r max_m H_m,r)."""
     su.fused_step_flat.launches = 0
     qu.quantize_update_flat.launches = 0
+    ssd.ssd_intra_chunk.launches = ssd.ssd_intra_chunk_bwd.launches = 0
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     log = train.main(argv)
@@ -3308,8 +3397,10 @@ def main_path(argv, expect_k1, expect_k3=0):
         expect_k1 = expect_k1(log)
     check(k1 == expect_k1, f"K1 launched {k1} times, expected {expect_k1}")
     check(k3 == expect_k3, f"K3 launched {k3} times, expected {expect_k3}")
-    print(f"[chip_smoke]   launches K1 {k1}, K3 {k3}; peak memory "
-          f"{peak:.2f} GiB", flush=True)
+    print(f"[chip_smoke]   launches K1 {k1}, K3 {k3}, K7 "
+          f"{ssd.ssd_intra_chunk.launches}, K7b "
+          f"{ssd.ssd_intra_chunk_bwd.launches}; peak memory {peak:.2f} GiB",
+          flush=True)
     return log, k1, k3, peak
 
 
@@ -3886,8 +3977,11 @@ def train_family(label, arch, layers, seq, extra=(), expect_k3=0,
                  extra_b=0.0):
     """One ``train.main`` run of phase 17 (M = 2, H = 2, b = 8, 2 rounds,
     fp32, seed 0) on the fused loop: K1 launched once a local step, every
-    record finite with loss > 0 and drift > 0; prints n, M·n, the peak
-    beside the prediction and each round's wall and tokens/s."""
+    record finite with loss > 0 and drift > 0; an SSM's SSD on the card's
+    training route, K7b once a layer a local step of a client and K7 twice
+    (forward and remat recompute), other families on neither; prints n,
+    M·n, the peak beside the prediction, each round's wall and tokens/s
+    and the K7 and K7b counts of the run."""
     name = register_cut(arch, layers)
     cfg = get_config(name)
     n = tree_n(cfg)
@@ -3900,11 +3994,16 @@ def train_family(label, arch, layers, seq, extra=(), expect_k3=0,
           f"{pred:.2f} GiB): train.main " + " ".join(argv), flush=True)
     t0 = time.perf_counter()
     log, k1, k3, peak = main_path(argv, 2 * H_LOCAL, expect_k3)
+    k7, k7b = ssd.ssd_intra_chunk.launches, ssd.ssd_intra_chunk_bwd.launches
+    calls = P17_M * H_LOCAL * cfg.n_layers * 2 if cfg.family == "ssm" else 0
+    check(k7b == calls and k7 == 2 * calls, f"{label}: K7 {k7}, K7b {k7b} "
+          f"launched; expected {2 * calls} and {calls}")
     for rec in log:
         check(rec["loss"] > 0 and rec["drift"] > 0, f"{label}: round "
               f"{rec['round']} loss {rec['loss']} drift {rec['drift']}")
     out = {"arch": arch, "layers": cfg.n_layers, "n": n, "mn": P17_M * n,
-           "k1": k1, "k3": k3, "peak": peak, "pred": pred,
+           "k1": k1, "k3": k3, "k7": k7, "k7b": k7b, "peak": peak,
+           "pred": pred,
            "walls": [r["wall_s"] for r in log],
            "tokens_per_s": [r["tokens_per_s"] for r in log],
            "losses": [r["loss"] for r in log],
@@ -3914,7 +4013,8 @@ def train_family(label, arch, layers, seq, extra=(), expect_k3=0,
     out["secs"] = time.perf_counter() - t0
     print(f"[chip_smoke]   {label}: peak {peak:.2f} GiB, predicted "
           f"{pred:.2f} GiB (ratio {peak / pred:.3f}); walls {out['walls']} "
-          f"s, tokens/s {out['tokens_per_s']}; K1 {k1}, K3 {k3}"
+          f"s, tokens/s {out['tokens_per_s']}; K1 {k1}, K3 {k3}, K7 {k7}, "
+          f"K7b {k7b}"
           + (f"; modal draws {out['draw_s']} s a round "
              f"({out['draw_bytes']} B of fp32 embeddings)"
              if "draw_s" in out else "")
@@ -3975,7 +4075,8 @@ def phase17():
           + ", ".join(f"{a} {p['worst']:.3e}" for a, p in pairs.items())
           + f"; K1 {[r['k1'] for r in runs.values()]} + 17g {g['k1']}, K3 "
           f"17g {g['k3']} ({n_leaves} leaves × 2 rounds), 17h K1 "
-          f"{h['k1']}", flush=True)
+          f"{h['k1']}; K7 / K7b 17a {runs['17a']['k7']} / "
+          f"{runs['17a']['k7b']}, 17g {g['k7']} / {g['k7b']}", flush=True)
     return {"runs": runs, "pairs": pairs, "g": g, "h": h, "secs": secs}
 
 
@@ -4012,21 +4113,22 @@ def build_all():
     """One nvcc per kernel source, all started together."""
     t0 = time.perf_counter()
     libs = (su._lib, su._flat_lib, qu._lib, ds._attention_lib,
-            ds._sample_lib, fa._lib, ssd._lib)
+            ds._sample_lib, fa._lib, ssd._lib, ssd._lib_bwd)
     with ThreadPoolExecutor(max_workers=len(libs)) as pool:
         list(pool.map(lambda f: f(), libs))
     for src in ("fused_step.cu", "scaled_update.cu", "quantize_update.cu",
                 "decode_attention.cu", "decode_sample.cu",
-                "flash_attention.cu", "ssd_intra_chunk.cu"):
+                "flash_attention.cu", "ssd_intra_chunk.cu",
+                "ssd_intra_chunk_bwd.cu"):
         info = build.BUILD_LOG.get(src, {"seconds": 0.0, "ptxas": "(cached)"})
         print(f"[chip_smoke] {src}: nvcc {info['seconds']:.2f} s\n"
               f"{info['ptxas']}", flush=True)
     for src in ("decode_attention.cu", "flash_attention.cu",
-                "ssd_intra_chunk.cu"):
+                "ssd_intra_chunk.cu", "ssd_intra_chunk_bwd.cu"):
         for line in ptxas_summary(build.BUILD_LOG.get(src, {}).get("ptxas",
                                                                   "")):
             print(f"[chip_smoke] ptxas {src}: {line}", flush=True)
-    print(f"[chip_smoke] built K1, K2, K3, K4, K5, K6 and K7 in "
+    print(f"[chip_smoke] built K1, K2, K3, K4, K5, K6, K7 and K7b in "
           f"{time.perf_counter() - t0:.2f} s",
           flush=True)
 
@@ -4374,6 +4476,18 @@ def main():
               f"second call bitwise the first", flush=True)
         check(ratio <= 1.0, "K7 differs from its plain version")
 
+    # ---- 12a. K7b against its plain VJP at the training route's shapes -----
+    k7b_err = 0.0
+    for shape in (K7B_CELL, K7B_P17):
+        err, ratio, eps, cmax = k7b_case(*shape, gen)
+        k7b_err = max(k7b_err, err)
+        print(f"[chip_smoke] K7b (B, S, H, P, N, Q) = {shape}, B/C one "
+              f"group, A = -linspace(1, 16): max abs {err:.3e}, worst error "
+              f"at {ratio:.2e} of its bound (bound {eps:.2e} of the plain "
+              f"VJP on magnitudes, max|cum| {cmax:.1f}); a second call "
+              f"bitwise the first", flush=True)
+        check(ratio <= 1.0, "K7b differs from its plain VJP")
+
     # ---- 12b. K6 against its plain version at mamba2's head ----------------
     for B_, greedy in ((MAMBA["batch"], True), (MAMBA["batch"], False),
                        (MTRACE["slots"], True)):
@@ -4481,6 +4595,18 @@ def main():
               f"{t['bound_ms'] / t['ms'] * 100:.1f} % of the bound "
               f"({t['bound_ms'] / t['device_ms'] * 100:.1f} % on device "
               f"time)", flush=True)
+    k7bt, k7bp = time_k7b(gen), time_k7b(gen, K7B_P17)
+    for label, shape, t in (("the mamba2 cell's", K7B_CELL, k7bt),
+                            ("phase 17's", K7B_P17, k7bp)):
+        print(f"[chip_smoke] K7b at {label} training shape {shape}: "
+              f"{t['ms'] * 1e3:.2f} us/call back to back (4 launches), "
+              f"device time (CUDA graph) {t['device_ms'] * 1e3:.2f} us, "
+              f"plain VJP {t['plain_ms'] * 1e3:.2f} us, library none, bound "
+              f"{t['bound_ms'] * 1e3:.3f} us (operations: "
+              f"{t['flops'] / 1e9:.3f} GFLOP, `ssd_scan.work_bwd`; bytes "
+              f"{t['bytes'] / 1e6:.1f} MB), "
+              f"{t['bound_ms'] / t['device_ms'] * 100:.1f} % of the bound "
+              f"on device time", flush=True)
     k4t = time_k4(gen)
     print(f"[chip_smoke] K4 at the prefill's shape {K4_MAIN}: "
           f"{k4t['ms']:.3f} ms/launch, plain {k4t['plain_ms']:.3f} ms, "
@@ -4595,7 +4721,17 @@ def main():
                "internvl2-1b serve": ivl["counts"]["k6"]},
         "k7": {"mamba2-1.3b serve": k7_launches,
                "zamba2-2.7b serve": z["counts"]["k7"],
-               "zamba2-2.7b continuous": z["ccounts"]["k7"]}}
+               "zamba2-2.7b continuous": z["ccounts"]["k7"],
+               "zamba2-2.7b 12-layer savic": ztr["k7"],
+               "mamba2-1.3b 36-layer savic M 2 (17a)": p17["runs"]["17a"][
+                   "k7"],
+               f"mamba2-1.3b {P17_INT8_LAYERS}-layer savic int8 + EF M 2 "
+               "(17g)": p17["g"]["k7"]},
+        "k7b": {"zamba2-2.7b 12-layer savic": ztr["k7b"],
+                "mamba2-1.3b 36-layer savic M 2 (17a)": p17["runs"]["17a"][
+                    "k7b"],
+                f"mamba2-1.3b {P17_INT8_LAYERS}-layer savic int8 + EF M 2 "
+                "(17g)": p17["g"]["k7b"]}}
     shape_times = lambda ts, shapes, keys=("ms", "plain_ms", "bound_ms",
                                            "library_ms", "library_backend",
                                            "device_ms"): [
@@ -4696,6 +4832,16 @@ def main():
         "device_ms": k7t["device_ms"],
         "at_shapes": shape_times(ks["k7"], {"zamba2": K7_ZAMBA,
                                             "zamba2_one": K7_ZAMBA_ONE}),
+    }, {
+        "name": "ssd_intra_chunk_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_intra_chunk_bwd.cu",
+        "replaces": None,       # K7's VJP: the TPU kernel has none
+        "launches": sum(by_path["k7b"].values()),
+        "launches_by_path": by_path["k7b"], "max_abs_err": k7b_err,
+        "ms": k7bt["ms"], "plain_ms": k7bt["plain_ms"],
+        "bound_ms": k7bt["bound_ms"], "bound_by": "operations",
+        "library_ms": None, "device_ms": k7bt["device_ms"],
+        "at_shapes": shape_times({"phase17": k7bp}, {"phase17": K7B_P17}),
     }]
     print(f"[chip_smoke] peak memory: savic {peak:.2f} GiB, savic int8 + EF "
           f"{cpeak:.2f} GiB, savic OASIS + participation 0.5 {rpeak:.2f} GiB, "

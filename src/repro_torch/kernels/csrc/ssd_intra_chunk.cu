@@ -25,10 +25,11 @@
 //       group, so G is built once per (batch, chunk), not once per head;
 //       otherwise a group is a head. Tiles go to a scratch (B, nc, groups,
 //       nrt * nrt, 64, 64) (tile (i, j) at i * nrt + j, stored [j][i]).
-//     * a cum block scans 8 cells, one a warp: each lane adds its run of
-//       rows in order in fp64, a shuffle scan adds the lanes' sums, and
-//       each prefix is rounded once to fp32 (within half an ulp of the
-//       exact sum, whatever the order of the fp64 adds: ref.ssd_cumsum).
+//     * a cum block scans 8 cells, one a warp (ssd_cum.cuh): each lane adds
+//       its run of rows in order in fp64, a shuffle scan adds the lanes'
+//       sums, and each prefix is rounded once to fp32 (within half an ulp
+//       of the exact sum, whatever the order of the fp64 adds:
+//       ref.ssd_cumsum).
 //       It writes the cell's cum, dt and decay exp(cum_{Q-1} - cum) to a
 //       scratch (B, nc, H, 3, Q), contiguous for the main blocks, and
 //       total = exp(cum_{Q-1}).
@@ -69,6 +70,7 @@
 #include <stdint.h>
 
 #include "smem_once.cuh"
+#include "ssd_cum.cuh"
 
 namespace {
 
@@ -79,7 +81,6 @@ constexpr int PT = T + 4;                   // pitch of the G block's C/B
 constexpr int QMAX = 256;
 constexpr int PREP_THREADS = 256;
 constexpr int CUM_CELLS = PREP_THREADS / 32;  // cells of a cum block
-constexpr unsigned FULL = 0xffffffffu;
 
 struct Args {
   const float* x;
@@ -187,49 +188,10 @@ __device__ void cum_cells(const Args& a, int64_t id) {
   const int h = (int)(cell % a.H);
   const int64_t c = (cell / a.H) % a.nc;
   const int64_t b = cell / ((int64_t)a.H * a.nc);
-  const float Ah = a.A[h * a.as];
   const float* d = a.dt + b * a.ds[0] + c * a.Q * a.ds[1] + h * a.ds[2];
-  const int L = (a.Q + 31) / 32;    // rows of a lane: lane * L .. + L - 1
-  double part[QMAX / 32];
-  float dv[QMAX / 32];
-  double run = 0.0;
-#pragma unroll
-  for (int u = 0; u < QMAX / 32; ++u) {
-    const int q = lane * L + u;
-    dv[u] = u < L && q < a.Q ? d[q * a.ds[1]] : 0.0f;
-  }
-#pragma unroll
-  for (int u = 0; u < QMAX / 32; ++u) {
-    run = __dadd_rn(run, (double)__fmul_rn(dv[u], Ah));
-    part[u] = run;
-  }
-  double incl = run;                // inclusive scan of the lanes' sums
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const double v = __shfl_up_sync(FULL, incl, o);
-    if (lane >= o) incl = __dadd_rn(incl, v);
-  }
-  double excl = __shfl_up_sync(FULL, incl, 1);
-  if (lane == 0) excl = 0.0;
-  float cq[QMAX / 32];
-#pragma unroll
-  for (int u = 0; u < QMAX / 32; ++u)
-    cq[u] = __double2float_rn(__dadd_rn(excl, part[u]));
-  float mine = 0.0f;                // cum_{Q-1}, from the lane that has it
-#pragma unroll
-  for (int u = 0; u < QMAX / 32; ++u)
-    if (lane * L + u == a.Q - 1) mine = cq[u];
-  const float last = __shfl_sync(FULL, mine, (a.Q - 1) / L);
-  float* out = a.cellbuf + cell * 3 * a.Q;  // [cum | dt | decay] of the cell
-#pragma unroll
-  for (int u = 0; u < QMAX / 32; ++u) {
-    const int q = lane * L + u;
-    if (u < L && q < a.Q) {
-      out[q] = cq[u];
-      out[a.Q + q] = dv[u];
-      out[2 * a.Q + q] = expf(__fsub_rn(last, cq[u]));
-    }
-  }
+  // [cum | dt | decay] of the cell
+  const float last = ssd_cum_cell(d, a.ds[1], a.A[h * a.as], a.Q,
+                                  a.cellbuf + cell * 3 * a.Q);
   if (lane == 0) a.tot[cell] = expf(last);
 }
 

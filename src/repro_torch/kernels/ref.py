@@ -254,8 +254,8 @@ def ssd_cumsum(dA):
     device adds in, so kernel K7 (which adds in fp64 in order) and this
     plain version agree on cum bit for bit, but for an fp64 sum that lands
     within ~2^-29 relative of an fp32 rounding boundary (then one ulp).
-    dA (..., Q) fp32 -> (..., Q) fp32."""
-    return torch.cumsum(dA.double(), dim=-1).float()
+    dA (..., Q) fp32 -> (..., Q) fp32 (fp64 -> fp64)."""
+    return torch.cumsum(dA.double(), dim=-1).to(dA.dtype)
 
 
 def ssd_intra_chunk_ref(xh, dt, A, Bm, Cm, chunk):
@@ -269,18 +269,20 @@ def ssd_intra_chunk_ref(xh, dt, A, Bm, Cm, chunk):
 
     xh (B,S,H,P), dt (B,S,H), A (H,), Bm/Cm (B,S,H,N) (any strides), S %
     chunk == 0. Returns (Y_diag (B,S,H,P), S_chunk (B,nc,H,N,P), total
-    (B,nc,H)). The plain version of kernel K7 (the TPU kernel's body at
+    (B,nc,H)), in fp64 for an fp64 ``xh`` (gradcheck), else fp32. The plain
+    version of kernel K7 (the TPU kernel's body at
     ``repro/kernels/ssd_scan.py:26``)."""
     B, S, H, P = xh.shape
     Q = chunk
     nc = S // Q
+    f = _ssd_dtype(xh)
 
     def cells(t):               # (B,S,H,...) -> (B,nc,H,Q,...)
-        t = t.float().reshape((B, nc, Q) + tuple(t.shape[2:]))
+        t = t.to(f).reshape((B, nc, Q) + tuple(t.shape[2:]))
         return t.transpose(2, 3)
 
     x, dtc, Bc, Cc = cells(xh), cells(dt), cells(Bm), cells(Cm)
-    cum = ssd_cumsum(dtc * A.float()[None, None, :, None])      # (B,nc,H,Q)
+    cum = ssd_cumsum(dtc * A.to(f)[None, None, :, None])        # (B,nc,H,Q)
     xdt = x * dtc[..., None]                                     # (B,nc,H,Q,P)
     diff = cum[..., :, None] - cum[..., None, :]
     mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
@@ -291,6 +293,80 @@ def ssd_intra_chunk_ref(xh, dt, A, Bm, Cm, chunk):
     decay_out = torch.exp(cum[..., -1:] - cum)                   # (B,nc,H,Q)
     s_chunk = Bc.transpose(-1, -2) @ (xdt * decay_out[..., None])
     return y, s_chunk, torch.exp(cum[..., -1])
+
+
+def _ssd_dtype(xh):
+    return torch.float64 if xh.dtype == torch.float64 else torch.float32
+
+
+def ssd_intra_chunk_vjp_ref(xh, dt, A, Bm, Cm, chunk, dY, dS, dtot, *,
+                            magnitudes=False):
+    """The VJP of ``ssd_intra_chunk_ref`` in the arithmetic of kernel K7b
+    (``csrc/ssd_intra_chunk_bwd.cu``), batched over cells. Per cell, with
+    cum, L, xdt = x·dt and decay as the forward has them, W = G ⊙ L, M =
+    dY·xdtᵀ and R = M ⊙ W:
+
+        dxdt = Wᵀ·dY + decay·(B·dS);  e = decay·rowsum((B·dS) ⊙ xdt);
+        dcum = rowsum(R) − rowsum(xdt ⊙ dxdt) (R's column sum and e are in
+               the second term), and at the last row + Σe + dtot·total;
+        ddA = the reverse cumsum of dcum, in fp64, rounded once;
+        dx = dxdt·dt;  ddt = ddA·A + rowsum(x ⊙ dxdt);  dA = Σ ddA·dt;
+        dG = Σ over a group's heads of L ⊙ M;
+        dC = dG·B;  dB = dGᵀ·C + Σ over a group's heads of (xdt·decay)·dSᵀ.
+
+    xh (B,S,H,P), dt (B,S,H), A (H,), Bm/Cm (B,S,G,N) with G dividing H
+    (head h reads group h // (H/G)), dY (B,S,H,P), dS (B,nc,H,N,P), dtot
+    (B,nc,H). Returns (dx, ddt, dA, dB, dC) in the shapes of xh, dt, A, Bm
+    and Cm, fp32 (fp64 for an fp64 ``xh``). ``magnitudes=True`` takes every
+    input by its absolute value and every difference as a sum: each output
+    is then the sum of the magnitudes of the terms it adds, which the card
+    tests scale into rounding bounds."""
+    B, S, H, P = xh.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Q = chunk
+    nc, k = S // Q, H // G
+    f = _ssd_dtype(xh)
+    val = (lambda t: t.to(f).abs()) if magnitudes else (lambda t: t.to(f))
+    sub = torch.add if magnitudes else torch.sub
+
+    def cells(t):               # (B,S,K,...) -> (B,nc,K,Q,...)
+        return t.reshape((B, nc, Q) + tuple(t.shape[2:])).transpose(2, 3)
+
+    def heads(t):               # (B,nc,G,...) -> (B,nc,H,...)
+        return t.repeat_interleave(k, dim=2)
+
+    def seq(t):                 # (B,nc,K,Q,...) -> (B,S,K,...)
+        t = t.transpose(2, 3)
+        return t.reshape((B, S) + tuple(t.shape[3:]))
+
+    x, dtc, dy = cells(val(xh)), cells(dt.to(f)), cells(val(dY))
+    Bc, Cc = cells(val(Bm)), cells(val(Cm))                      # (B,nc,G,Q,N)
+    dS, dtot, Af = val(dS), val(dtot), A.to(f)
+    cum = ssd_cumsum(dtc * Af[None, None, :, None])              # (B,nc,H,Q)
+    xdt = x * dtc[..., None]
+    diff = cum[..., :, None] - cum[..., None, :]
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                 device=xh.device))
+    Lm = torch.exp(torch.where(mask, diff, -1e30)) * mask
+    decay = torch.exp(cum[..., -1:] - cum)                       # (B,nc,H,Q)
+    Gh = heads(Cc @ Bc.transpose(-1, -2))                        # (B,nc,H,Q,Q)
+    LM = Lm * (dy @ xdt.transpose(-1, -2))
+    BdS = heads(Bc) @ dS                                         # (B,nc,H,Q,P)
+    e = (BdS * xdt).sum(-1) * decay
+    dxdt = BdS * decay[..., None] + (Gh * Lm).transpose(-1, -2) @ dy
+    dcum = sub((LM * Gh).sum(-1), (xdt * dxdt).sum(-1))
+    last = dcum[..., -1] + (e.sum(-1) + dtot * torch.exp(cum[..., -1]))
+    dcum = torch.cat([dcum[..., :-1], last[..., None]], dim=-1)
+    ddA = dcum.double().flip(-1).cumsum(-1).flip(-1).to(f)
+    Aa = Af.abs() if magnitudes else Af
+    ddt = ddA * Aa[None, None, :, None] + (x * dxdt).sum(-1)
+    dA = (ddA.double() * dtc.double()).sum((0, 1, 3)).to(f)
+    dG = LM.reshape(B, nc, G, k, Q, Q).sum(3)
+    u = xdt * decay[..., None]
+    dBu = (u @ dS.transpose(-1, -2)).reshape(B, nc, G, k, Q, N).sum(3)
+    dC = dG @ Bc
+    dB = dG.transpose(-1, -2) @ Cc + dBu
+    return (seq(dxdt * dtc[..., None]), seq(ddt), dA, seq(dB), seq(dC))
 
 
 def ssd_ref(xh, dt, A, Bm, Cm):

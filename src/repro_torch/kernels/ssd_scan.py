@@ -27,7 +27,14 @@ SSD quantities:
   (B=4, S=2048, H=64, P=64, N=128, Q=256, one group) the inputs need
   17.48 GFLOP, >= 0.261 ms at 67 TFLOP/s; 0.35 GB to move, 0.10 ms.
 * Forward only, as the TPU kernel is: the wrapper raises for an input that
-  requires grad.
+  requires grad. Training differentiates it through ``intra_chunk``, an
+  ``autograd.Function`` whose backward is K7b (``ssd_intra_chunk_bwd``,
+  ``csrc/ssd_intra_chunk_bwd.cu``): a hand-written VJP that replaces no TPU
+  kernel (the Pallas K7 has none) and, like K7, never writes a (Q, Q)
+  tensor per head. Four launches a call (``plan_bwd``); its plain version
+  is ``kernels/ref.py::ssd_intra_chunk_vjp_ref``; bound: operations
+  (``work_bwd``), 17.6 GFLOP at mamba2-1.3b's training shape (B=2, S=2048,
+  H=64, P=64, N=128, Q=256, one group), >= 0.263 ms at 67 TFLOP/s.
 
 ``ssd_kernel_forward`` is the whole SSD on top of it, as in the reference:
 the intra-chunk term, then the inter-chunk recurrence (a Python loop over
@@ -266,16 +273,214 @@ def ssd_intra_chunk(xh, dt, A, Bm, Cm, chunk):
 
 ssd_intra_chunk.launches = 0    # wrapper calls (2 launches each) since reset
 
+HEADS_A_SPLIT = 8    # heads a K7b block sums for dG and dB (one group)
+
+
+def work_bwd(B, S, H, P, N, Q, groups):
+    """(flops, bytes) K7b's inputs need, on the causal pairs: per cell
+    M = dY·xdtᵀ and Wᵀ·dY (2P each a pair), B·dS and (xdt·decay)·dSᵀ (2QNP
+    each); per (batch, chunk, group) G = C·Bᵀ, dG·B and dGᵀ·C (2N each a
+    pair). Bytes: K7's inputs and the cotangents dY, dS, dtot read once,
+    dx, ddt, dA, dB and dC written once, fp32."""
+    nc = S // Q
+    cells = B * nc * H
+    pairs = Q * (Q + 1) // 2
+    flops = cells * (2 * pairs * 2 * P + 2 * 2 * Q * N * P) \
+        + B * nc * groups * 3 * pairs * 2 * N
+    nbytes = 4 * (3 * B * S * H * P + 2 * B * S * H + 2 * H
+                  + 4 * B * S * groups * N + cells * N * P + cells)
+    return flops, nbytes
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """K7b's four launches and scratch for one call (``plan_bwd``)."""
+    B: int
+    nc: int
+    H: int
+    P: int
+    N: int
+    Q: int
+    groups: int       # 1 or H
+    hs: int           # heads a split (one group), else 1
+
+    @property
+    def cells(self):
+        return self.B * self.nc * self.H
+
+    @property
+    def bcgs(self):
+        """(batch, chunk, group) triples."""
+        return self.B * self.nc * self.groups
+
+    @property
+    def nrt(self):
+        return -(-self.Q // TILE)
+
+    @property
+    def nnt(self):
+        return -(-self.N // TILE)
+
+    @property
+    def npairs(self):
+        return self.nrt * (self.nrt + 1) // 2
+
+    @property
+    def nsplit(self):
+        return -(-self.H // self.hs) if self.groups == 1 else 1
+
+    @property
+    def grids(self):
+        """Blocks of the prep (G tiles, Bᵀ tiles, cum), heads (dG, dBu),
+        dx and finish (one a head, then dB / dC tiles) launches."""
+        b = self.bcgs
+        return (b * self.npairs + b * self.nrt + -(-self.cells // CUM_CELLS),
+                b * self.npairs * self.nsplit
+                + b * self.nrt * self.nnt * self.nsplit,
+                self.cells * self.nrt,
+                self.H + b * self.nrt * self.nnt * 2)
+
+    @property
+    def scratch_shapes(self):
+        b, T = self.bcgs, TILE
+        return {"g": (b, self.nrt * self.nrt, T, T),
+                "bt": (b, self.N, self.Q),
+                "cell": (self.cells, 3, self.Q),
+                "dgp": (b, self.npairs, self.nsplit, T, T),
+                "rsp": (self.cells, self.npairs, T),
+                "dbu": (b, self.nsplit, self.Q, self.N),
+                "rows": (self.cells, 3, self.Q)}
+
+
+def plan_bwd(B, S, H, P, N, Q, groups):
+    """K7b's launches for K7's shapes and B/C ``groups`` (1 or H): a split
+    of ``HEADS_A_SPLIT`` heads for one group, else one head."""
+    return BwdPlan(B=B, nc=S // Q, H=H, P=P, N=N, Q=Q, groups=groups,
+                   hs=HEADS_A_SPLIT if groups == 1 else 1)
+
+
+def check_bwd_args(xh, dt, A, Bm, Cm, chunk, dY, dS, dtot):
+    """K7b's contract: K7's inputs with B/C (B, S, G, N), G 1 or H, and
+    the cotangents of K7's three outputs; raises ValueError."""
+    B, S, H, P = xh.shape
+    if Bm.dim() != 4 or Bm.shape != Cm.shape \
+            or Bm.shape[2] not in (1, H) or Bm.shape[:2] != (B, S):
+        raise ValueError(f"K7b takes Bm/Cm (B, S, 1 or H, N); got "
+                         f"{tuple(Bm.shape)} and {tuple(Cm.shape)}")
+    G = Bm.shape[2]
+    check_args(xh, dt, A, heads(Bm, H), heads(Cm, H), chunk)
+    nc = S // int(chunk)
+    for name, t, shape in (("dY", dY, (B, S, H, P)),
+                           ("dS", dS, (B, nc, H, Bm.shape[3], P)),
+                           ("dtot", dtot, (B, nc, H))):
+        if tuple(t.shape) != shape or t.dtype != torch.float32 \
+                or t.device != xh.device:
+            raise ValueError(f"{name} must be {shape} float32 on "
+                             f"{xh.device}; got {tuple(t.shape)} {t.dtype} "
+                             f"on {t.device}")
+    return G
+
+
+def heads(g, H):
+    """B or C (B, S, G, N), G 1 or H -> (B, S, H, N): one group as an
+    expanded view (head stride 0, K7's one-group layout)."""
+    return g.expand(g.shape[0], g.shape[1], H, g.shape[3]) \
+        if g.shape[2] == 1 else g
+
+
+@functools.cache
+def _lib_bwd():
+    from repro_torch.kernels import build
+    fn = build.load("ssd_intra_chunk_bwd.cu").ssd_intra_chunk_bwd_f32
+    vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    st = ctypes.POINTER(ctypes.c_longlong)
+    fn.argtypes = [vp] * 20 + [cll, cll] + [ci] * 7 + [st, st, st, cll, st,
+                                                       st, vp]
+    fn.restype = ci
+    return fn
+
+
+def ssd_intra_chunk_bwd(xh, dt, A, Bm, Cm, chunk, dY, dS, dtot):
+    """K7b on CUDA tensors: K7's inputs (B/C as (B, S, G, N), G 1 or H, any
+    strides) and the cotangents dY (B, S, H, P), dS (B, nc, H, N, P), dtot
+    (B, nc, H) -> new contiguous (dx, ddt, dA, dB, dC) in the shapes of xh,
+    dt, A, Bm and Cm, fp32. Four launches (``plan_bwd``); ``launches``
+    counts calls."""
+    xh, dt, A, Bm, Cm = (t.detach() for t in (xh, dt, A, Bm, Cm))
+    dY, dS, dtot = (t.detach().contiguous() for t in (dY, dS, dtot))
+    G = check_bwd_args(xh, dt, A, Bm, Cm, chunk, dY, dS, dtot)
+    if xh.device.type != "cuda":
+        raise ValueError(f"ssd_intra_chunk_bwd launches on CUDA tensors; "
+                         f"got {xh.device}")
+    B, S, H, P = xh.shape
+    N = Bm.shape[3]
+    Q = int(chunk)
+    pl = plan_bwd(B, S, H, P, N, Q, G)
+    if max(pl.grids) > GRID_X_MAX:
+        raise ValueError(f"K7b's grids {pl.grids} exceed {GRID_X_MAX}")
+    f32 = dict(dtype=torch.float32, device=xh.device)
+    outs = [torch.empty(t.shape, **f32) for t in (xh, dt, A, Bm, Cm)]
+    scratch = [torch.empty(shape, **f32)
+               for shape in pl.scratch_shapes.values()]
+    grids = (ctypes.c_longlong * 4)(*pl.grids)
+    x_st, dt_st, b_st, c_st = ((ctypes.c_longlong * t.dim())(*t.stride())
+                               for t in (xh, dt, Bm, Cm))
+    ptrs = [t.data_ptr() for t in [xh, dt, A, Bm, Cm, dY, dS, dtot]
+            + outs + scratch]
+    vec = (_rows_in_float4s(xh) | 2 * _rows_in_float4s(dY)
+           | 4 * int(P % 4 == 0 and dS.data_ptr() % 16 == 0))
+    with torch.cuda.device(xh.device):
+        stream = torch.cuda.current_stream(xh.device).cuda_stream
+        err = _lib_bwd()(*ptrs, B, S, H, P, N, Q, G, pl.hs, vec, grids, x_st,
+                         dt_st, A.stride(0), b_st, c_st, stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_intra_chunk_bwd_f32 launch failed: CUDA "
+                           f"error {err}")
+    ssd_intra_chunk_bwd.launches += 1
+    return tuple(outs)
+
+
+ssd_intra_chunk_bwd.launches = 0   # wrapper calls (4 launches each)
+
+
+class _IntraChunk(torch.autograd.Function):
+    """The intra-chunk term with B/C as groups (B, S, G, N), G 1 or H:
+    ``fwd`` (K7) on detached inputs, ``vjp`` (K7b) from the saved inputs
+    alone, so autograd holds no (Q, Q) tensor."""
+
+    @staticmethod
+    def forward(ctx, xh, dt, A, Bm, Cm, chunk, fwd, vjp):
+        ctx.save_for_backward(xh, dt, A, Bm, Cm)
+        ctx.chunk, ctx.vjp = chunk, vjp
+        H = xh.shape[2]
+        xh, dt, A, Bm, Cm = (t.detach() for t in (xh, dt, A, Bm, Cm))
+        return fwd(xh, dt, A, heads(Bm, H), heads(Cm, H), chunk)
+
+    @staticmethod
+    def backward(ctx, dY, dS, dtot):
+        grads = ctx.vjp(*ctx.saved_tensors, ctx.chunk, dY, dS, dtot)
+        return (*grads, None, None, None)
+
+
+def intra_chunk(xh, dt, A, Bm, Cm, chunk, fwd=ssd_intra_chunk,
+                vjp=ssd_intra_chunk_bwd):
+    """K7's outputs, differentiable through K7b; B/C as groups (B, S, G,
+    N), G 1 or H. ``fwd`` and ``vjp`` default to the kernels (the tests put
+    the plain versions in their place on the CPU)."""
+    return _IntraChunk.apply(xh, dt, A, Bm, Cm, chunk, fwd, vjp)
+
 
 def ssd_kernel_forward(xh, dt, A, Bm, Cm, chunk, h0=None,
                        intra=ssd_intra_chunk):
     """The whole SSD from the intra-chunk term ``intra`` (K7 by default;
-    ``ops.ssd`` passes the plain version for CPU tensors), the inter-chunk
-    recurrence from ``h0`` (zeros when None) and the ``Y_off`` term. Equal
-    to ``models.ssm.ssd_chunked``: returns (y (B, S, H, P), h_final
+    ``ops.ssd`` passes the plain version for CPU tensors, the training route
+    ``intra_chunk``), the inter-chunk recurrence from ``h0`` (zeros when
+    None) and the ``Y_off`` term. B/C are what ``intra`` takes: (B, S, H, N)
+    per head, or (B, S, G, N) groups read by H / G heads each. Equal to
+    ``models.ssm.ssd_chunked``: returns (y (B, S, H, P), h_final
     (B, H, P, N)), fp32."""
     B, S, H, P = xh.shape
-    N = Bm.shape[-1]
+    G, N = Cm.shape[2], Cm.shape[3]
     nc = S // chunk
     Yd, S_c, total = intra(xh, dt, A, Bm, Cm, chunk)
     h = torch.zeros((B, H, P, N), dtype=torch.float32, device=xh.device) \
@@ -290,7 +495,10 @@ def ssd_kernel_forward(xh, dt, A, Bm, Cm, chunk, h0=None,
     dA = dt.float() * A.float()[None, None, :]
     cum = torch.cumsum(dA.reshape(B, nc, chunk, H).double(), dim=2).float()
     decay_in = torch.exp(cum)                        # (B,nc,Q,H)
-    Cc = Cm.float().reshape(B, nc, chunk, H, N)
-    Y_off = torch.einsum("bcihn,bcih,bchpn->bcihp", Cc, decay_in, h_prevs)
+    # C·h per group: a group's C is read once for its H / G heads
+    Cc = Cm.float().reshape(B, nc, chunk, G, N)
+    ch = torch.einsum("bcign,bcgkpn->bcigkp", Cc,
+                      h_prevs.reshape(B, nc, G, H // G, P, N))
+    Y_off = ch.reshape(B, nc, chunk, H, P) * decay_in[..., None]
     y = Yd.reshape(B, nc, chunk, H, P) + Y_off
     return y.reshape(B, S, H, P), h

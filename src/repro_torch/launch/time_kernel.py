@@ -1,21 +1,28 @@
 """Time a hand-written kernel on the card: K1
 (``kernels/scaled_update.py::fused_step_flat``) at a client count and a
-flat size, or K4 (``kernels/flash_attention.py``) at given shapes. CUDA
-events around calls made back to back (K4 adds device time: the calls
-captured in one CUDA graph, replayed); fp32 inputs from a seed. Prints the
-card's name and power limit, then one JSON line a shape.
+flat size, K4 (``kernels/flash_attention.py``) at given shapes, or K7b
+(``kernels/ssd_scan.py::ssd_intra_chunk_bwd``, the VJP of K7) at given
+shapes beside its plain version and its bound. CUDA events around calls
+made back to back (K4 and K7b add device time: the calls captured in one
+CUDA graph, replayed); fp32 inputs from a seed. Prints the card's name and
+power limit, then one JSON line a shape.
 
   PYTHONPATH=src python src/repro_torch/launch/time_kernel.py --kernel k1 \\
       --m 4 --n 495523712
   PYTHONPATH=src python src/repro_torch/launch/time_kernel.py --kernel k4 \\
       --shape 2,8192,14,2,64 --shape 4,2048,32,32,80 --shape 8,512,32,8,128
+  PYTHONPATH=src python src/repro_torch/launch/time_kernel.py --kernel k7b \\
+      --shape 2,2048,64,64,128,256
 
 K1 runs with global D and the debias schedule (the savic round's step). A
-K4 shape is B,S,H,Hk,D or B,S,H,Hk,D,window. The script imports only the
-timed kernel's module (and its ``build``), so it times whichever tree's
-package ``PYTHONPATH`` names: two trees in one call, run in turns (A, B,
-B, A), compare on one card. It reports times only: the kernels' bounds are
-``chip_smoke.py``'s. CUDA only.
+K4 shape is B,S,H,Hk,D or B,S,H,Hk,D,window; a K7b shape B,S,H,P,N,Q with
+one B/C group (B,S,H,P,N,Q,G for G groups, 1 or H): mamba2-1.3b's
+training call is 2,2048,64,64,128,256. The script imports only the
+timed kernel's module (and its ``build``; K7b its plain version too), so it
+times whichever tree's package ``PYTHONPATH`` names: two trees in one call,
+run in turns (A, B, B, A), compare on one card. K1 and K4 report times
+only (their bounds are ``chip_smoke.py``'s); K7b adds its bound
+(``ssd_scan.work_bwd`` at 67 TFLOP/s and 3.35 TB/s). CUDA only.
 """
 from __future__ import annotations
 
@@ -85,19 +92,43 @@ def time_k4(args, gen, dev):
         torch.cuda.empty_cache()
 
 
+def time_k7b(args, gen, dev):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ssd
+    for spec in args.shape:
+        B, S, H, P, N, Q, *rest = (int(x) for x in spec.split(","))
+        G = rest[0] if rest else 1
+        nc = S // Q
+        f = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+        ins = (f(B, S, H, P), torch.nn.functional.softplus(f(B, S, H)),
+               -torch.exp(f(H)), f(B, S, G, N), f(B, S, G, N), Q,
+               f(B, S, H, P), f(B, nc, H, N, P), f(B, nc, H))
+        flops, nbytes = ssd.work_bwd(B, S, H, P, N, Q, G)
+        print(json.dumps({
+            "shape": [B, S, H, P, N, Q], "groups": G,
+            "ms": _ms(lambda: ssd.ssd_intra_chunk_bwd(*ins), args.iters),
+            "device_ms": _device_ms(lambda: ssd.ssd_intra_chunk_bwd(*ins)),
+            "bound_ms": max(flops / 67e12, nbytes / 3.35e12) * 1e3,
+            "gflop": flops / 1e9,
+            "plain_ms": _ms(lambda: ref.ssd_intra_chunk_vjp_ref(*ins), 3),
+            "launches": ssd.ssd_intra_chunk_bwd.launches}), flush=True)
+        del ins
+        torch.cuda.empty_cache()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--kernel", choices=("k1", "k4"), required=True)
+    ap.add_argument("--kernel", choices=("k1", "k4", "k7b"), required=True)
     ap.add_argument("--m", type=int, default=4, help="k1: clients")
     ap.add_argument("--n", type=int, default=495_523_712,
                     help="k1: flat size a client")
     ap.add_argument("--shape", action="append", default=[],
-                    help="k4: B,S,H,Hk,D[,window]")
+                    help="k4: B,S,H,Hk,D[,window]; k7b: B,S,H,P,N,Q[,G]")
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.kernel == "k4" and not args.shape:
-        ap.error("--kernel k4 needs at least one --shape")
+    if args.kernel != "k1" and not args.shape:
+        ap.error(f"--kernel {args.kernel} needs at least one --shape")
     if not torch.cuda.is_available():
         sys.exit("time_kernel: no CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -105,7 +136,8 @@ def main(argv=None):
                          text=True).stdout.strip(), flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    (time_k1 if args.kernel == "k1" else time_k4)(args, gen, dev)
+    {"k1": time_k1, "k4": time_k4, "k7b": time_k7b}[args.kernel](args, gen,
+                                                                 dev)
 
 
 if __name__ == "__main__":

@@ -10,7 +10,9 @@ tails, so a decode step costs the same at any context length.
 ``mamba2_forward(..., use_ssd_kernel=True)`` routes the SSD through
 ``kernels.ops.ssd`` (kernel K7 for the intra-chunk term, then the same
 inter-chunk recurrence), which computes the function of ``ssd_chunked``; the
-reference's model always takes ``ssd_chunked``.
+reference's model always takes ``ssd_chunked``. On the card, a
+differentiated ``ssd_chunked`` call takes K7 as well, with its hand-written
+VJP K7b (``_takes_k7``).
 
 Parameters are stored in fp32 and cast to the compute ``dtype`` at use, as
 in ``models/layers.py``. The single group of B and C (ngroups = 1) reaches
@@ -21,8 +23,10 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.configs import ModelConfig
+from repro_torch.kernels import ssd_scan
 from repro_torch.models.layers import (_dense_init, _normal, init_rmsnorm,
                                        linear, rmsnorm)
 from repro_torch.utils import trace
@@ -87,14 +91,55 @@ def _segsum_exp(cum):
 def ssd_chunked(xh, dt, A, Bm, Cm, chunk, h0=None):
     """Chunked SSD scan.
 
-    xh (B,S,H,P) input heads; dt (B,S,H) > 0; A (H,) < 0; Bm/Cm (B,S,H,N)
-    per head (groups broadcast; any strides). Returns (y (B,S,H,P) fp32,
-    h_final (B,H,P,N) fp32); ``h0`` is the state before the first token
-    (zeros when None)."""
+    xh (B,S,H,P) input heads; dt (B,S,H) > 0; A (H,) < 0; Bm/Cm (B,S,G,N)
+    with G dividing H, head h reading group h // (H/G) (G = H: per head;
+    any strides). Returns (y (B,S,H,P) fp32, h_final (B,H,P,N) fp32);
+    ``h0`` is the state before the first token (zeros when None).
+
+    A call that ``_takes_k7`` (a differentiated call on the card) runs the
+    intra-chunk term on K7 and its VJP K7b (``ssd_scan.intra_chunk``;
+    counter ``model.ssd_k7``), the rest of the scan in torch
+    (``ssd_scan.ssd_kernel_forward``); every other call runs
+    ``_ssd_chunked``."""
     with trace.span("model.ssd") as sp:
         xh, dt, A, Bm, Cm, h0 = sp.inputs(xh, dt, A, Bm, Cm, h0)
-        y, h = _ssd_chunked(xh, dt, A, Bm, Cm, chunk, h0)
+        H = xh.shape[2]
+        if _takes_k7(xh, dt, A, Bm, Cm, chunk, h0):
+            trace.count("model.ssd_k7")
+            if Bm.shape[2] not in (1, H):   # K7 takes one group or H
+                Bm, Cm = broadcast_heads(Bm, H), broadcast_heads(Cm, H)
+            y, h = ssd_scan.ssd_kernel_forward(xh, dt, A, Bm, Cm, chunk, h0,
+                                               intra=ssd_scan.intra_chunk)
+        else:
+            y, h = _ssd_chunked(xh, dt, A, broadcast_heads(Bm, H),
+                                broadcast_heads(Cm, H), chunk, h0)
         return sp.output(y), h
+
+
+def _takes_k7(xh, dt, A, Bm, Cm, chunk, h0):
+    """The card's training route: CUDA tensors, grad enabled and an input
+    that requires it. What the inputs show decides, so every model's SSD
+    (mamba2's and zamba2's blocks) takes it alike; the CPU, no-grad calls
+    (serving's prefill, on its own ``use_ssd_kernel`` choice) and fake
+    tensors (the dry run's: K7 and K7b have no fake kernels) run
+    ``_ssd_chunked``. A routed call past K7's limits (S a multiple of
+    Q <= 256, N <= 128, P <= 128) raises ValueError, and one with an input
+    other than fp32 raises in K7's argument check: the card never falls
+    back to the plain scan quietly."""
+    ts = [t for t in (xh, dt, A, Bm, Cm, h0) if t is not None]
+    if not (xh.is_cuda and torch.is_grad_enabled()
+            and not isinstance(xh, FakeTensor)
+            and any(t.requires_grad for t in ts)):
+        return False
+    S, P, N = xh.shape[1], xh.shape[3], Bm.shape[3]
+    if not (1 <= chunk <= ssd_scan.QMAX and S % chunk == 0
+            and N <= ssd_scan.NMAX and P <= ssd_scan.PMAX):
+        raise ValueError(f"the SSD's training route on the card takes K7, "
+                         f"whose limits are a chunk Q <= {ssd_scan.QMAX} "
+                         f"dividing S, N <= {ssd_scan.NMAX} and P <= "
+                         f"{ssd_scan.PMAX}; got Q={chunk}, S={S}, N={N}, "
+                         f"P={P}")
+    return True
 
 
 def _ssd_chunked(xh, dt, A, Bm, Cm, chunk, h0):
@@ -151,15 +196,24 @@ def _conv_tail(x, K):
     return F.pad(x, (0, 0, K - 1 - S, 0))
 
 
-def _heads(t, s, nh):
-    """(B,S,G·N) -> (B,S,H,N) fp32: head h reads group h // (H/G). For one
-    group an expanded view (head stride 0), not a copy."""
-    Bsz, S = t.shape[:2]
-    t = t.float().reshape(Bsz, S, s.ngroups, 1, s.d_state)
-    t = t.expand(Bsz, S, s.ngroups, nh // s.ngroups, s.d_state)
-    if s.ngroups == 1:
+def _groups(t, s):
+    """(B,S,G·N) -> (B,S,G,N) fp32, a view."""
+    return t.float().reshape(t.shape[0], t.shape[1], s.ngroups, s.d_state)
+
+
+def broadcast_heads(g, nh):
+    """(B,S,G,N) -> (B,S,H,N): head h reads group h // (H/G). For one group
+    an expanded view (head stride 0), not a copy."""
+    Bsz, S, G, N = g.shape
+    t = g.reshape(Bsz, S, G, 1, N).expand(Bsz, S, G, nh // G, N)
+    if G == 1:
         return t[:, :, 0]
-    return t.reshape(Bsz, S, nh, s.d_state)
+    return t.reshape(Bsz, S, nh, N)
+
+
+def _heads(t, s, nh):
+    """(B,S,G·N) -> (B,S,H,N) fp32 (``broadcast_heads`` of ``_groups``)."""
+    return broadcast_heads(_groups(t, s), nh)
 
 
 def mamba2_forward(p, cfg: ModelConfig, u, dtype, h0=None, return_state=False,
@@ -184,13 +238,14 @@ def mamba2_forward(p, cfg: ModelConfig, u, dtype, h0=None, return_state=False,
     A = -torch.exp(p["A_log"].float())
 
     xh = x.reshape(Bsz, S, nh, s.head_dim)
-    Bh, Ch = _heads(Bm, s, nh), _heads(Cm, s, nh)
     chunk = min(s.chunk, S)
     if use_ssd_kernel:
         from repro_torch.kernels import ops as kops
-        y, h_fin = kops.ssd(xh.float(), dt, A, Bh, Ch, chunk=chunk, h0=h0)
+        y, h_fin = kops.ssd(xh.float(), dt, A, _heads(Bm, s, nh),
+                            _heads(Cm, s, nh), chunk=chunk, h0=h0)
     else:
-        y, h_fin = ssd_chunked(xh, dt, A, Bh, Ch, chunk, h0=h0)
+        y, h_fin = ssd_chunked(xh.float(), dt, A, _groups(Bm, s),
+                               _groups(Cm, s), chunk, h0=h0)
     y = y + p["Dskip"].float()[None, None, :, None] * xh.float()
     y = y.reshape(Bsz, S, d_in).to(dtype)
     y = rmsnorm(p["gate_norm"], y * F.silu(z), cfg.norm_eps)

@@ -22,6 +22,11 @@ events: on an H100 host (torch 2.11, CUDA 12.8) the CUPTI launch events of
 64 calls each lay between the ``time.time_ns()`` pair around its call,
 which puts the trace's clock within [-2.6, 4.8] µs of it.
 
+The program's counters: ``engine.grad_calls`` (each client gradient,
+``core/engine``), ``engine.k1_launches`` (each K1 launch, ``kernels/ops``)
+and ``model.ssd_k7`` (each SSD call that takes K7 and its VJP K7b,
+``models/ssm.ssd_chunked``: forward and remat recompute alike).
+
 A model span follows its tensors into backward. ``sp.inputs(*ts)`` and
 ``sp.output(t)`` put an identity ``autograd.Function`` on the span's
 floating inputs and on its output, so that backward opens ``<name>.bwd``

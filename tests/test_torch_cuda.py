@@ -19,7 +19,9 @@ u·(4·max|cum| + 2(N + Q) + 16) of the magnitude sum (the plain version on
 rest, within (N + Q)·u of that sum each; their exps differ by <= 2 ulps;
 and cum, an fp64 sum rounded once on both sides, differs by one ulp only
 where the fp64 sums straddle an fp32 rounding boundary, which moves an L
-by at most 4u·max|cum| relative.
+by at most 4u·max|cum| relative. K7b (``ssd_intra_chunk_bwd``, K7's VJP)
+is held the same way to its plain VJP on magnitudes (``k7b_bounds``), and
+bitwise to itself (a second call, strided views).
 """
 import pytest
 import torch
@@ -601,6 +603,248 @@ def test_k7_launches_through_serve(dev):
     assert ssd.ssd_intra_chunk.launches == 2
     assert ds.decode_sample.launches == 3
     assert res.tokens.shape == (2, 4) and int(res.tokens.max()) < 512
+
+
+# K7b, the VJP of K7: (B, S, H, P, N, Q, G, A) the training call's shape
+# with one B/C group, per-head B/C, P 128 (the second dx instance), ragged
+# P, N and Q with one group and per head, P 32 with N 16, zamba2's 80 heads
+# (ten splits of eight), one chunk, A = -16 (max|cum| in the thousands)
+K7B_CASES = [(2, 2048, 64, 64, 128, 256, 1, None),
+             (2, 1024, 16, 64, 128, 256, 16, None),
+             (2, 512, 8, 128, 64, 128, 1, None),
+             (1, 144, 3, 30, 20, 48, 1, None),
+             (1, 144, 3, 30, 20, 48, 3, None),
+             (2, 512, 8, 32, 16, 64, 8, None),
+             (2, 1024, 80, 64, 64, 256, 1, None),
+             (1, 256, 64, 64, 128, 256, 1, None),
+             (2, 1024, 8, 64, 128, 256, 1, -16.0)]
+
+
+def _k7b_inputs(B, S, H, P, N, Q, G, dev, a=None, seed=0):
+    """K7's inputs with B/C as (B, S, G, N) groups, and K7's cotangents."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(f(B, S, H))
+    A = torch.full((H,), a, device=dev) if a is not None else -torch.exp(f(H))
+    ins = (f(B, S, H, P), dt, A, f(B, S, G, N), f(B, S, G, N))
+    nc = S // Q
+    return ins, (f(B, S, H, P), f(B, nc, H, N, P), f(B, nc, H))
+
+
+def k7b_bounds(ins, Q, cots):
+    """K7b's per-element bounds against its plain version:
+    u·(4·max|cum| + 2(N + Q + P + H/G) + hs·P + 16), u = 2^-24, times the
+    plain VJP on magnitudes (``magnitudes=True``). Both sides sum P
+    products for M and the rows of x·dxdt, N for G and B·dS, up to Q for
+    Wᵀ·dY, dG·B, dGᵀ·C and the row sums of R, H/G heads for dG; the kernel
+    sums (xdt·decay)·dSᵀ over a split's hs = ``ssd.HEADS_A_SPLIT`` heads in
+    one chain of hs·P products; the exps and cum move as K7's bound says
+    (module docstring); the fp64 reverse cumsum and dA's fp64 sum add at
+    most an ulp of the result."""
+    x, dt, A, Bg, Cg = ins
+    B, S, H, P = x.shape
+    G, N = Bg.shape[2], Bg.shape[3]
+    cmax = float((dt * A.abs()).reshape(B, S // Q, Q, H).sum(2).max())
+    hs = ssd.HEADS_A_SPLIT if G == 1 else 1
+    eps = 2.0 ** -24 * (4 * cmax + 2 * (N + Q + P + H // G) + hs * P + 16)
+    mags = ref.ssd_intra_chunk_vjp_ref(*ins, Q, *cots, magnitudes=True)
+    return [eps * m for m in mags], cmax
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,P,N,Q,G,a", K7B_CASES)
+def test_k7b_vs_plain(dev, B, S, H, P, N, Q, G, a):
+    ins, cots = _k7b_inputs(B, S, H, P, N, Q, G, dev, a)
+    want = ref.ssd_intra_chunk_vjp_ref(*ins, Q, *cots)
+    before = ssd.ssd_intra_chunk_bwd.launches
+    got = ssd.ssd_intra_chunk_bwd(*ins, Q, *cots)
+    torch.cuda.synchronize()
+    assert ssd.ssd_intra_chunk_bwd.launches == before + 1
+    bounds, cmax = k7b_bounds(ins, Q, cots)
+    for name, g, w, bd, t in zip(("dx", "ddt", "dA", "dB", "dC"), got, want,
+                                 bounds, ins):
+        assert g.shape == t.shape and g.dtype == torch.float32, name
+        assert g.is_contiguous(), name
+        assert bool(((g - w).abs() <= bd).all()), \
+            (name, float(((g - w).abs() / bd.clamp_min(1e-30)).max()))
+    if a is not None:
+        assert cmax > 2000.0
+
+
+@pytest.mark.cuda
+def test_k7b_is_deterministic(dev):
+    """No atomics; every cross-head, cross-tile and cross-cell sum in a
+    fixed order: two calls give the same bits in all five outputs."""
+    ins, cots = _k7b_inputs(2, 2048, 64, 64, 128, 256, 1, dev)
+    first = ssd.ssd_intra_chunk_bwd(*ins, 256, *cots)
+    second = ssd.ssd_intra_chunk_bwd(*ins, 256, *cots)
+    for u, v in zip(first, second):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 4])
+def test_k7b_reads_strided_views(dev, G):
+    """x, dt, A, B and C as views of other layouts (heads before sequence,
+    every other element of a wider dim, a group expanded from one) give
+    the bits of contiguous copies: every element is read, never summed
+    differently, by its strides."""
+    B, S, H, P, N, Q = 2, 256, 4, 64, 32, 128
+    gen = torch.Generator(device=dev).manual_seed(3)
+    r = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    x = r(B, H, S, P).transpose(1, 2)
+    dt = torch.nn.functional.softplus(r(B, S, 2 * H))[..., ::2]
+    A = -torch.exp(r(2 * H))[::2]
+    Bg = r(B, G, S, 2 * N).transpose(1, 2)[..., ::2]
+    Cg = r(B, S, 1, N).expand(B, S, G, N) if G > 1 else r(B, S, 2, N)[:, :,
+                                                                     :1]
+    _, cots = _k7b_inputs(B, S, H, P, N, Q, G, dev)
+    got = ssd.ssd_intra_chunk_bwd(x, dt, A, Bg, Cg, Q, *cots)
+    same = ssd.ssd_intra_chunk_bwd(x.contiguous(), dt.contiguous(),
+                                   A.contiguous(), Bg.contiguous(),
+                                   Cg.contiguous(), Q, *cots)
+    for u, v in zip(got, same):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.cuda
+def test_k7_route_layer_grads_match_chunked(dev, monkeypatch):
+    """One full-width mamba2-1.3b layer at the training call's shape (B 2,
+    S 2048): its parameter gradients through the route (K7 + K7b) against
+    autograd of ``_ssd_chunked``, each leaf to eps·max|grad| + 1e-5 of it,
+    eps the K7b bound's factor at the layer's max|cum| (the fp32
+    projections around the SSD add ~d·u, within the 1e-5)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers, ssm
+    from repro_torch.utils.tree import tree_paths, tree_unflatten
+    cfg = get_config("mamba2-1.3b")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    p = ssm.init_mamba2(gen, cfg)
+    u = torch.randn((2, 2048, cfg.d_model), generator=gen, device=dev)
+    w = torch.randn((2, 2048, cfg.d_model), generator=gen, device=dev)
+    calls = []
+    real = ssm._takes_k7
+    monkeypatch.setattr(ssm, "_takes_k7",
+                        lambda *t: calls.append(real(*t)) or calls[-1])
+
+    def grads(route):
+        calls.clear()
+        before = ssd.ssd_intra_chunk_bwd.launches
+        paths = [(k, v.clone().requires_grad_()) for k, v in tree_paths(p)]
+        if not route:
+            monkeypatch.setattr(ssm, "_takes_k7", lambda *t: False)
+        out = ssm.mamba2_forward(tree_unflatten(p, [v for _, v in paths]),
+                                 cfg, u, torch.float32)
+        g = torch.autograd.grad((out * w).sum(), [v for _, v in paths])
+        torch.cuda.synchronize()
+        return ({k: gi for (k, _), gi in zip(paths, g)},
+                ssd.ssd_intra_chunk_bwd.launches - before)
+
+    got, n_bwd = grads(True)
+    assert calls == [True] and n_bwd == 1
+    want, n_plain = grads(False)
+    assert n_plain == 0
+    s = cfg.ssm
+    dt = ssm._softplus(layers.linear(p["wdt"], u, torch.float32)
+                       + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    cmax = float((dt * A.abs()).reshape(2, 8, s.chunk, -1).sum(2).max())
+    eps = 2.0 ** -24 * (4 * cmax + 2 * (s.d_state + s.chunk + s.head_dim
+                                        + 64) + 8 * s.head_dim + 16)
+    for k in want:
+        tol = (eps + 1e-5) * float(want[k].abs().max())
+        assert float((got[k] - want[k]).abs().max()) <= tol, k
+
+
+@pytest.mark.cuda
+def test_ssd_k7_counts_in_a_training_round(dev):
+    """One round of the mamba2-1.3b training cell's job (24 layers at full
+    width; savic, Adam D at sync, fused K1; M 2, H 2, b 2, S 2048) under
+    the recorder: ``model.ssd_k7`` counts 192 routed calls (96 forward, 96
+    remat recompute: M·H·24), K7 launches 192 times and K7b 96."""
+    import sys
+    import types
+
+    from repro_torch import configs
+    from repro_torch.launch import train
+    from repro_torch.utils import trace
+    name = "mamba2-1.3b-24l"
+    mod = types.ModuleType("repro_torch.configs.mamba2_1p3b_24l_cuda_test")
+    mod.CONFIG = mod.REDUCED = configs.get_config("mamba2-1.3b").replace(
+        n_layers=24)
+    sys.modules[mod.__name__] = mod
+    configs.register(name, mod.__name__.rsplit(".", 1)[1])
+    run = train.setup(["--arch", name, "--device", "cuda", "--seed", "11",
+                       "--dtype", "float32", "--method", "savic",
+                       "--preconditioner", "adam", "--scaling", "global",
+                       "--clients", "2", "--h-local", "2", "--batch", "2",
+                       "--seq", "2048", "--use-fused-kernel"])
+    batch = train.round_batch(run.loader, run.args, 0, run.device)
+    k7, k7b = ssd.ssd_intra_chunk.launches, ssd.ssd_intra_chunk_bwd.launches
+    with trace.recording() as rec:
+        state, met = run.round_step(run.state, batch, run.stream(0))
+        torch.cuda.synchronize()
+    _, counters = rec.collect()
+    assert counters[0]["model.ssd_k7"] == 192
+    assert ssd.ssd_intra_chunk.launches - k7 == 192
+    assert ssd.ssd_intra_chunk_bwd.launches - k7b == 96
+    assert bool(torch.isfinite(met["loss"]).all())
+
+
+@pytest.mark.cuda
+def test_ssd_k7_takes_bf16_compute(dev, monkeypatch):
+    """``--dtype bfloat16`` (bf16 compute on fp32 state) takes the route
+    too: a round of reduced mamba2 (2 layers; M 2, H 2, b 2, S 64)
+    counts ``model.ssd_k7`` 2·M·H·L = 16 (forward and remat recompute) and
+    K7b M·H·L = 8; one full-width layer's parameter gradients in bf16
+    through the route match the plain route's (``_takes_k7`` stubbed
+    False) to 2^-5 of each leaf's largest: the routes differ only in the
+    SSD's fp32 rounding, which a bf16 cast of y can move by one bf16 ulp
+    (2^-8) of an element."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import ssm
+    from repro_torch.utils import trace
+    from repro_torch.utils.tree import tree_paths, tree_unflatten
+    run = train.setup(["--arch", "mamba2-1.3b", "--reduced", "--device",
+                       "cuda", "--seed", "13", "--dtype", "bfloat16",
+                       "--method", "savic", "--clients", "2", "--h-local",
+                       "2", "--batch", "2", "--seq", "64"])
+    batch = train.round_batch(run.loader, run.args, 0, run.device)
+    k7b = ssd.ssd_intra_chunk_bwd.launches
+    with trace.recording() as rec:
+        _, met = run.round_step(run.state, batch, run.stream(0))
+        torch.cuda.synchronize()
+    _, counters = rec.collect()
+    assert counters[0]["model.ssd_k7"] == 16
+    assert ssd.ssd_intra_chunk_bwd.launches - k7b == 8
+    assert bool(torch.isfinite(met["loss"]).all())
+
+    cfg = get_config("mamba2-1.3b")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    p = ssm.init_mamba2(gen, cfg)
+    u = torch.randn((2, 2048, cfg.d_model), generator=gen, device=dev)
+    w = torch.randn((2, 2048, cfg.d_model), generator=gen, device=dev)
+
+    def grads():
+        paths = [(k, v.clone().requires_grad_()) for k, v in tree_paths(p)]
+        with trace.recording() as r:
+            out = ssm.mamba2_forward(tree_unflatten(p, [v for _, v in paths]),
+                                     cfg, u, torch.bfloat16)
+            g = torch.autograd.grad((out.float() * w).sum(),
+                                    [v for _, v in paths])
+        torch.cuda.synchronize()
+        n = sum(c.get("model.ssd_k7", 0) for c in r.collect()[1].values())
+        return {k: gi for (k, _), gi in zip(paths, g)}, n
+
+    got, n_route = grads()
+    monkeypatch.setattr(ssm, "_takes_k7", lambda *t: False)
+    want, n_plain = grads()
+    assert n_route == 1 and n_plain == 0
+    for k in want:
+        assert got[k].dtype == want[k].dtype
+        tol = 2.0 ** -5 * float(want[k].abs().max())
+        assert float((got[k] - want[k]).abs().max()) <= tol, k
 
 
 def _k2_inputs(n, dev, seed=0, alpha=1e-2):
