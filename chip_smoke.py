@@ -123,9 +123,12 @@ Phase 17 trains the families that were only served, through
 mamba2-1.3b at 36 of 48 layers (17a), qwen2-moe-a2.7b at 1 of 24 (17b, an
 MoE layer), gemma3-4b at 6 of 34 (17c, its first global layer), musicgen-
 large at 16 of 48 (17d), internvl2-1b at full depth with S = 384 (17e,
-256 patches and 128 text tokens); each launches K1 4 times (mamba2's SSD
-also K7b once a layer a client's local step and K7 twice, on the card's
-training route), every record finite with loss > 0 and drift > 0, its
+256 patches and 128 text tokens), and the benchmark's nemotron3-nano-
+30b-a3b share (8 of 128 experts, 32,768 ids) at 13 of 52 layers (17i,
+its 6 Mamba-2 layers at 8 groups of B/C); each launches K1 4 times (the
+SSD of mamba2 and of nemotron's M layers also K7b once a layer a client's
+local step and K7 twice, on the card's training route), every record
+finite with loss > 0 and drift > 0, its
 peak printed beside the prediction from savic's measured bytes a
 parameter, and M·n (past 2^31 on 17a-17d). 17f holds the fused loop
 against the tree loop for each family at a smaller depth (M = 2; the
@@ -140,8 +143,10 @@ it exits non-zero before printing any result.
 The second-to-last lines are one JSON object listing the kernels (launches
 on the main path, error against the plain version (K4's over its fp32
 cases, K7's over all its cases, K7b's at the mamba2 benchmark cell's and
-phase 17's training shapes, held there against its plain VJP), measured
-and least possible times; K2's times are one per-leaf step over
+phase 17's training shapes and at the nemotron cell's, whose 8 groups of
+B/C reach it as per-head copies with dB and dC summed over each group's
+heads, held there against the plain VJP at G groups), measured and least
+possible times; K2's times are one per-leaf step over
 full-width qwen2-0.5b's 14 leaves at M = 4) and the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -195,7 +200,7 @@ from repro_torch.models import layers as Lyr  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.flash import flash_attention_bshd  # noqa: E402
-from repro_torch.models.ssm import ssd_chunked  # noqa: E402
+from repro_torch.models.ssm import broadcast_heads, ssd_chunked  # noqa: E402
 from repro_torch.utils import rng  # noqa: E402
 from repro_torch.utils.flatten import FlatLayout  # noqa: E402
 from repro_torch.utils.tree import (tree_leaves, tree_map,  # noqa: E402
@@ -283,20 +288,27 @@ K7_ONE = (1, 256, 64, 64, 128, 256)     # the continuous-batching prefill's
 # model passes them) and per head; Q 64/128 x N 16/64 x P 32/128; one chunk
 # (the continuous-batching prefill); A = -16 on every head (largest |cum|);
 # B with head stride 0 beside a per-head C ("B": the per-head G path); one
-# chunk with A = -16
+# chunk with A = -16; the nemotron benchmark cell's call (b 2, S 4096, Q 128)
+# with its 8 groups of B/C as per-head copies (``ssm.broadcast_heads``, as
+# the training route passes them)
+K7_NEMO = (2, 4096, 64, 64, 128, 128)
+NEMO_GROUPS = 8
 K7_CASES = [(*K7_MAIN, None, True), (*K7_MAIN, None, False),
             *[(2, 512, 8, P, N, Q, None, False) for Q in (64, 128)
               for N in (16, 64) for P in (32, 128)],
             (*K7_ONE, None, True),
             (*K7_MAIN, -16.0, True),
             (2, 512, 8, 64, 64, 128, None, "B"),
-            (*K7_ONE, -16.0, True)]
+            (*K7_ONE, -16.0, True),
+            (*K7_NEMO, None, NEMO_GROUPS)]
 # K7b (K7's VJP, the backward of the SSD's training route) against its plain
-# VJP and timed at the shapes the main path gives it, B/C one group: the
-# mamba2 benchmark cell's call (b 2, S 2048, 8 chunks) and phase 17's mamba2
-# runs' (b 8, S 128: one chunk of 128)
-K7B_CELL = (2, 2048, 64, 64, 128, 256)
-K7B_P17 = (8, 128, 64, 64, 128, 128)
+# VJP and timed at the shapes the main path gives it, (B, S, H, P, N, Q, G):
+# B/C one group, the mamba2 benchmark cell's call (b 2, S 2048, 8 chunks)
+# and phase 17's mamba2 runs' (b 8, S 128: one chunk of 128); 8 groups as
+# per-head copies, the nemotron benchmark cell's (b 2, S 4096, 32 chunks)
+K7B_CELL = (2, 2048, 64, 64, 128, 256, 1)
+K7B_P17 = (8, 128, 64, 64, 128, 128, 1)
+K7B_NEMO = (*K7_NEMO, NEMO_GROUPS)
 U = 2.0 ** -24
 # phase 10: the hybrid zamba2-2.7b (54 mamba2 layers, one weight-tied
 # attention + MLP block after every 6th: 9 applications, d_head 80, 32 kv
@@ -1261,12 +1273,16 @@ def time_k4(gen, shape=K4_MAIN, window=0, dv=None):
 def k7_inputs(B, S, H, P, N, a, shared, gen):
     """x, B, C ~ N(0, 1), dt = softplus(N(0, 1)), A = -linspace(1, 16) (the
     model's A_log range) or ``a`` on every head; ``shared``: True for one
-    B/C group expanded over the heads, "B" for B alone (C per head)."""
+    B/C group expanded over the heads, "B" for B alone (C per head), an int
+    G for G groups as per-head copies (``ssm.broadcast_heads``)."""
     f = lambda *shape: torch.randn(shape, generator=gen, device=DEV)
     x = f(B, S, H, P)
     dt = F.softplus(f(B, S, H))
     A = torch.full((H,), a, device=DEV) if a is not None else \
         -torch.linspace(1.0, 16.0, H, device=DEV)
+    if type(shared) is int:
+        return (x, dt, A, broadcast_heads(f(B, S, shared, N), H),
+                broadcast_heads(f(B, S, shared, N), H))
     Bm = f(B, S, 1, N).expand(B, S, H, N) if shared else f(B, S, H, N)
     Cm = f(B, S, 1, N).expand(B, S, H, N) if shared is True \
         else f(B, S, H, N)
@@ -1318,16 +1334,17 @@ def k7_case(B, S, H, P, N, Q, a, shared, gen):
     return err, ratio, eps, cmax, groups
 
 
-def time_k7(gen, shape=K7_MAIN):
+def time_k7(gen, shape=K7_MAIN, shared=True):
     """K7 at a serve path's shape (B/C one group over the heads, as the
-    model passes them; A as the model's): CUDA-event times of the kernel
+    model passes them, or ``shared`` as ``k7_inputs`` takes it; A as the
+    model's): CUDA-event times of the kernel
     wrapper (two launches a call) back to back and as device time (a CUDA
     graph of calls), of its plain version and of the whole plain SSD
     (``models.ssm.ssd_chunked``), and its bound from ``ssd_scan.work``
     with the plan's groups. No single PyTorch call computes K7's function:
     no library time."""
     B, S, H, P, N, Q = shape
-    x, dt, A, Bm, Cm = k7_inputs(B, S, H, P, N, None, True, gen)
+    x, dt, A, Bm, Cm = k7_inputs(B, S, H, P, N, None, shared, gen)
     t = {"ms": cuda_ms(lambda: ssd.ssd_intra_chunk(x, dt, A, Bm, Cm, Q), 20),
          "plain_ms": cuda_ms(lambda: ref.ssd_intra_chunk_ref(x, dt, A, Bm,
                                                              Cm, Q), 3),
@@ -1345,16 +1362,39 @@ def time_k7(gen, shape=K7_MAIN):
     return t
 
 
-def k7b_inputs(B, S, H, P, N, Q, gen):
-    """K7's inputs as the training route passes them (B and C one group,
-    (B, S, 1, N); A = -linspace(1, 16), the model's A_log range) and K7's
-    cotangents dY, dS, dtot ~ N(0, 1)."""
+def k7b_inputs(B, S, H, P, N, Q, G, gen):
+    """K7's inputs with B and C as (B, S, G, N) groups (A =
+    -linspace(1, 16), the model's A_log range) and K7's cotangents dY, dS,
+    dtot ~ N(0, 1)."""
     f = lambda *shape: torch.randn(shape, generator=gen, device=DEV)
     ins = (f(B, S, H, P), F.softplus(f(B, S, H)),
-           -torch.linspace(1.0, 16.0, H, device=DEV), f(B, S, 1, N),
-           f(B, S, 1, N))
+           -torch.linspace(1.0, 16.0, H, device=DEV), f(B, S, G, N),
+           f(B, S, G, N))
     nc = S // Q
     return ins, (f(B, S, H, P), f(B, nc, H, N, P), f(B, nc, H))
+
+
+def k7b_heads(ins):
+    """K7b's inputs as the training route passes them: one group of B/C as
+    it is, G > 1 groups as per-head copies (``ssm.broadcast_heads``)."""
+    x, dt, A, Bg, Cg = ins
+    if Bg.shape[2] == 1:
+        return ins
+    H = x.shape[2]
+    return x, dt, A, broadcast_heads(Bg, H), broadcast_heads(Cg, H)
+
+
+def k7b_route(ins, Q, cots):
+    """K7b as the training route calls it (``k7b_heads``), with the
+    copies' dB and dC summed over each group's heads, as autograd of the
+    copy sums them."""
+    B, S, H, _ = ins[0].shape
+    G, N = ins[3].shape[2], ins[3].shape[3]
+    dx, ddt, dA, dB, dC = ssd.ssd_intra_chunk_bwd(*k7b_heads(ins), Q, *cots)
+    if G == 1:
+        return dx, ddt, dA, dB, dC
+    fold = lambda t: t.reshape(B, S, G, H // G, N).sum(3)
+    return dx, ddt, dA, fold(dB), fold(dC)
 
 
 def k7b_eps(cmax, H, P, N, Q, G=1):
@@ -1363,27 +1403,29 @@ def k7b_eps(cmax, H, P, N, Q, G=1):
     ``tests/test_torch_cuda.py::k7b_bounds``: u·(4·max|cum| + 2(N + Q + P
     + H/G) + hs·P + 16), u = 2^-24. Both sides sum P products for M, N for
     G and B·dS, up to Q for Wᵀ·dY, dG·B, dGᵀ·C and R's row sums, H/G heads
-    for dG; the kernel sums (xdt·decay)·dSᵀ over a split's hs heads (one
-    group: ``ssd.HEADS_A_SPLIT``) in one chain; the exps and cum move as
-    ``k7_eps`` says."""
+    for dG (with G > 1 groups as per-head copies: the sum of the copies'
+    dB and dC); the kernel sums (xdt·decay)·dSᵀ over a split's hs heads
+    (one group: ``ssd.HEADS_A_SPLIT``) in one chain; the exps and cum move
+    as ``k7_eps`` says."""
     hs = ssd.HEADS_A_SPLIT if G == 1 else 1
     return U * (4 * cmax + 2 * (N + Q + P + H // G) + hs * P + 16)
 
 
-def k7b_case(B, S, H, P, N, Q, gen):
-    """K7b against its plain VJP (``ref.ssd_intra_chunk_vjp_ref``) element
-    by element within ``k7b_eps`` of the VJP on magnitudes, and a second
-    call against the first bit for bit. Returns (max abs error, the worst
-    ratio of an error to its bound, eps, max|cum|)."""
-    ins, cots = k7b_inputs(B, S, H, P, N, Q, gen)
+def k7b_case(B, S, H, P, N, Q, G, gen):
+    """K7b on the training route (``k7b_route``) against the plain VJP of
+    the G-group SSD (``ref.ssd_intra_chunk_vjp_ref``) element by element
+    within ``k7b_eps`` of the VJP on magnitudes, and a second call against
+    the first bit for bit. Returns (max abs error, the worst ratio of an
+    error to its bound, eps, max|cum|)."""
+    ins, cots = k7b_inputs(B, S, H, P, N, Q, G, gen)
     want = ref.ssd_intra_chunk_vjp_ref(*ins, Q, *cots)
-    got = ssd.ssd_intra_chunk_bwd(*ins, Q, *cots)
-    again = ssd.ssd_intra_chunk_bwd(*ins, Q, *cots)
+    got = k7b_route(ins, Q, cots)
+    again = k7b_route(ins, Q, cots)
     torch.cuda.synchronize()
     check(all(torch.equal(u, v) for u, v in zip(got, again)),
           "two K7b calls on the same inputs differ")
     cmax = cum_max(ins[1], ins[2], Q)
-    eps = k7b_eps(cmax, H, P, N, Q)
+    eps = k7b_eps(cmax, H, P, N, Q, G)
     mags = ref.ssd_intra_chunk_vjp_ref(*ins, Q, *cots, magnitudes=True)
     err = ratio = 0.0
     for name, g, w, m, t in zip(("dx", "ddt", "dA", "dB", "dC"), got, want,
@@ -1399,22 +1441,29 @@ def k7b_case(B, S, H, P, N, Q, gen):
 
 
 def time_k7b(gen, shape=K7B_CELL):
-    """K7b at a training route's shape (B/C one group, A as the model's):
-    CUDA-event times of the wrapper (four launches a call) back to back and
-    as device time (a CUDA graph of calls), of its plain VJP, and its bound
-    from ``ssd_scan.work_bwd``. No library computes K7's VJP (the route
-    replaced autograd of the plain SSD)."""
-    B, S, H, P, N, Q = shape
-    ins, cots = k7b_inputs(B, S, H, P, N, Q, gen)
-    call = lambda: ssd.ssd_intra_chunk_bwd(*ins, Q, *cots)
+    """K7b at a training route's shape (B/C in G groups, G > 1 reaching it
+    as per-head copies made before the timing, ``k7b_heads``; A as the
+    model's): CUDA-event times of the wrapper (four launches a call) back
+    to back and as device time (a CUDA graph of calls), of the plain VJP at
+    G groups, and the bound from ``ssd_scan.work_bwd`` at G groups (the
+    copies' work on H groups as ``copies_bound_ms``). No library computes
+    K7's VJP (the route replaced autograd of the plain SSD)."""
+    B, S, H, P, N, Q, G = shape
+    ins, cots = k7b_inputs(B, S, H, P, N, Q, G, gen)
+    heads = k7b_heads(ins)
+    call = lambda: ssd.ssd_intra_chunk_bwd(*heads, Q, *cots)
     t = {"ms": cuda_ms(call, 20),
          "plain_ms": cuda_ms(lambda: ref.ssd_intra_chunk_vjp_ref(
              *ins, Q, *cots), 3),
          "device_ms": graph_ms(call, calls=10 if B * S > 2048 else 50)}
-    t["flops"], t["bytes"] = ssd.work_bwd(B, S, H, P, N, Q, 1)
+    if G > 1:
+        fl, by = ssd.work_bwd(B, S, H, P, N, Q, H)
+        t["copies_bound_ms"] = max(by / HBM_BYTES_PER_S,
+                                   fl / FP32_FLOP_PER_S) * 1e3
+    t["flops"], t["bytes"] = ssd.work_bwd(B, S, H, P, N, Q, G)
     t["bound_ms"] = max(t["bytes"] / HBM_BYTES_PER_S,
                         t["flops"] / FP32_FLOP_PER_S) * 1e3
-    del ins, cots
+    del ins, cots, heads
     torch.cuda.empty_cache()
     return t
 
@@ -3935,13 +3984,15 @@ P17_RUNS = (("17a", "mamba2-1.3b", 36, 128),
             ("17b", MOE_ARCH, 1, 128),
             ("17c", "gemma3-4b", 6, 128),
             ("17d", "musicgen-large", 16, 128),
-            ("17e", "internvl2-1b", None, 384))   # 256 patches + 128 tokens
+            ("17e", "internvl2-1b", None, 384),   # 256 patches + 128 tokens
+            ("17i", "nemotron3-nano-30b-a3b-ep16", 13, 128))
 # fused against tree at a smaller depth (gemma3: at S 128 its 1024 window
 # masks nothing, so a global layer adds nothing there)
 P17_PAIRS = (("mamba2-1.3b", 4, 128), (MOE_ARCH, 1, 128),
              ("gemma3-4b", 2, 128), ("musicgen-large", 4, 128),
              ("internvl2-1b", 4, 384))
 P17_INT8_LAYERS = 24          # mamba2 with int8 + EF: +2 (M, n) EF buffers
+NEMO_17I = "nemotron3-nano-30b-a3b-ep16 13-layer"
 
 
 def predicted_gib(n, M=P17_M, extra_b=0.0):
@@ -3979,9 +4030,10 @@ def train_family(label, arch, layers, seq, extra=(), expect_k3=0,
     fp32, seed 0) on the fused loop: K1 launched once a local step, every
     record finite with loss > 0 and drift > 0; an SSM's SSD on the card's
     training route, K7b once a layer a local step of a client and K7 twice
-    (forward and remat recompute), other families on neither; prints n,
-    M·n, the peak beside the prediction, each round's wall and tokens/s
-    and the K7 and K7b counts of the run."""
+    (forward and remat recompute), over a pattern stack's Mamba-2 layers
+    (nemotron_h's 8 groups reach K7 as per-head copies), other families on
+    neither; prints n, M·n, the peak beside the prediction, each round's
+    wall and tokens/s and the K7 and K7b counts of the run."""
     name = register_cut(arch, layers)
     cfg = get_config(name)
     n = tree_n(cfg)
@@ -3995,7 +4047,9 @@ def train_family(label, arch, layers, seq, extra=(), expect_k3=0,
     t0 = time.perf_counter()
     log, k1, k3, peak = main_path(argv, 2 * H_LOCAL, expect_k3)
     k7, k7b = ssd.ssd_intra_chunk.launches, ssd.ssd_intra_chunk_bwd.launches
-    calls = P17_M * H_LOCAL * cfg.n_layers * 2 if cfg.family == "ssm" else 0
+    mamba = cfg.n_layers if cfg.family == "ssm" \
+        else cfg.layer_kinds.count("M")
+    calls = P17_M * H_LOCAL * mamba * 2
     check(k7b == calls and k7 == 2 * calls, f"{label}: K7 {k7}, K7b {k7b} "
           f"launched; expected {2 * calls} and {calls}")
     for rec in log:
@@ -4466,8 +4520,10 @@ def main():
         err, ratio, eps, cmax, groups = k7_case(B_, S_, H_, P_, N_, Q_, a_,
                                                 shared, gen)
         k7_err = max(k7_err, err)
-        stride0 = {True: " B/C head stride 0", "B": " B head stride 0, C "
-                   "per head", False: ""}[shared]
+        stride0 = f" {shared} B/C groups as per-head copies" \
+            if type(shared) is int else {
+                True: " B/C head stride 0", "B": " B head stride 0, C per "
+                "head", False: ""}[shared]
         print(f"[chip_smoke] K7 B={B_} S={S_} H={H_} P={P_} N={N_} Q={Q_} "
               f"A={'-linspace(1, 16)' if a_ is None else a_}{stride0} "
               f"({groups} G group{'s' if groups > 1 else ''}): max abs "
@@ -4478,14 +4534,17 @@ def main():
 
     # ---- 12a. K7b against its plain VJP at the training route's shapes -----
     k7b_err = 0.0
-    for shape in (K7B_CELL, K7B_P17):
+    for shape in (K7B_CELL, K7B_P17, K7B_NEMO):
         err, ratio, eps, cmax = k7b_case(*shape, gen)
         k7b_err = max(k7b_err, err)
-        print(f"[chip_smoke] K7b (B, S, H, P, N, Q) = {shape}, B/C one "
-              f"group, A = -linspace(1, 16): max abs {err:.3e}, worst error "
-              f"at {ratio:.2e} of its bound (bound {eps:.2e} of the plain "
-              f"VJP on magnitudes, max|cum| {cmax:.1f}); a second call "
-              f"bitwise the first", flush=True)
+        groups = "B/C one group" if shape[-1] == 1 else (
+            f"B/C {shape[-1]} groups as per-head copies, their dB and dC "
+            f"summed over each group's heads")
+        print(f"[chip_smoke] K7b (B, S, H, P, N, Q, G) = {shape}, {groups}, "
+              f"A = -linspace(1, 16): max abs {err:.3e}, worst error at "
+              f"{ratio:.2e} of its bound (bound {eps:.2e} of the plain VJP "
+              f"at G groups on magnitudes, max|cum| {cmax:.1f}); a second "
+              f"call bitwise the first", flush=True)
         check(ratio <= 1.0, "K7b differs from its plain VJP")
 
     # ---- 12b. K6 against its plain version at mamba2's head ----------------
@@ -4579,9 +4638,12 @@ def main():
               f"{k6w['bound_ms'] * 1e3:.3f} us ({k6w['bytes']} B)",
               flush=True)
     k7t, k7o = time_k7(gen), time_k7(gen, K7_ONE)
+    k7n = time_k7(gen, K7_NEMO, NEMO_GROUPS)
     for label, shape, t in (("the prefill's", K7_MAIN, k7t),
                             ("the continuous-batching prefill's", K7_ONE,
-                             k7o)):
+                             k7o),
+                            (f"the nemotron cell's ({NEMO_GROUPS} B/C groups "
+                             f"as per-head copies)", K7_NEMO, k7n)):
         print(f"[chip_smoke] K7 at {label} shape {shape}: "
               f"{t['ms'] * 1e3:.2f} us/call back to back (2 launches), "
               f"device time (CUDA graph) {t['device_ms'] * 1e3:.2f} us, plain "
@@ -4596,15 +4658,21 @@ def main():
               f"({t['bound_ms'] / t['device_ms'] * 100:.1f} % on device "
               f"time)", flush=True)
     k7bt, k7bp = time_k7b(gen), time_k7b(gen, K7B_P17)
+    k7bn = time_k7b(gen, K7B_NEMO)
     for label, shape, t in (("the mamba2 cell's", K7B_CELL, k7bt),
-                            ("phase 17's", K7B_P17, k7bp)):
-        print(f"[chip_smoke] K7b at {label} training shape {shape}: "
+                            ("phase 17's", K7B_P17, k7bp),
+                            ("the nemotron cell's", K7B_NEMO, k7bn)):
+        copies = "" if "copies_bound_ms" not in t else (
+            f"; {t['copies_bound_ms'] * 1e3:.3f} us for the per-head "
+            f"copies' work")
+        print(f"[chip_smoke] K7b at {label} training shape "
+              f"(B, S, H, P, N, Q, G) = {shape}: "
               f"{t['ms'] * 1e3:.2f} us/call back to back (4 launches), "
               f"device time (CUDA graph) {t['device_ms'] * 1e3:.2f} us, "
               f"plain VJP {t['plain_ms'] * 1e3:.2f} us, library none, bound "
               f"{t['bound_ms'] * 1e3:.3f} us (operations: "
-              f"{t['flops'] / 1e9:.3f} GFLOP, `ssd_scan.work_bwd`; bytes "
-              f"{t['bytes'] / 1e6:.1f} MB), "
+              f"{t['flops'] / 1e9:.3f} GFLOP, `ssd_scan.work_bwd` at G "
+              f"groups; bytes {t['bytes'] / 1e6:.1f} MB{copies}), "
               f"{t['bound_ms'] / t['device_ms'] * 100:.1f} % of the bound "
               f"on device time", flush=True)
     k4t = time_k4(gen)
@@ -4726,14 +4794,17 @@ def main():
                "mamba2-1.3b 36-layer savic M 2 (17a)": p17["runs"]["17a"][
                    "k7"],
                f"mamba2-1.3b {P17_INT8_LAYERS}-layer savic int8 + EF M 2 "
-               "(17g)": p17["g"]["k7"]},
+               "(17g)": p17["g"]["k7"],
+               f"{NEMO_17I} savic M 2 (17i)": p17["runs"]["17i"]["k7"]},
         "k7b": {"zamba2-2.7b 12-layer savic": ztr["k7b"],
                 "mamba2-1.3b 36-layer savic M 2 (17a)": p17["runs"]["17a"][
                     "k7b"],
                 f"mamba2-1.3b {P17_INT8_LAYERS}-layer savic int8 + EF M 2 "
-                "(17g)": p17["g"]["k7b"]}}
+                "(17g)": p17["g"]["k7b"],
+                f"{NEMO_17I} savic M 2 (17i)": p17["runs"]["17i"]["k7b"]}}
     shape_times = lambda ts, shapes, keys=("ms", "plain_ms", "bound_ms",
-                                           "library_ms", "library_backend",
+                                           "copies_bound_ms", "library_ms",
+                                           "library_backend",
                                            "device_ms"): [
         {"at": name, "shape": list(shapes[name]),
          **{k: t[k] for k in keys if k in t}} for name, t in ts.items()]
@@ -4830,8 +4901,10 @@ def main():
         "plain_ms": k7t["plain_ms"], "bound_ms": k7t["bound_ms"],
         "bound_by": "operations", "library_ms": None,
         "device_ms": k7t["device_ms"],
-        "at_shapes": shape_times(ks["k7"], {"zamba2": K7_ZAMBA,
-                                            "zamba2_one": K7_ZAMBA_ONE}),
+        "at_shapes": shape_times({**ks["k7"], "nemotron_cell": k7n},
+                                 {"zamba2": K7_ZAMBA,
+                                  "zamba2_one": K7_ZAMBA_ONE,
+                                  "nemotron_cell": K7_NEMO}),
     }, {
         "name": "ssd_intra_chunk_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_intra_chunk_bwd.cu",
@@ -4841,7 +4914,9 @@ def main():
         "ms": k7bt["ms"], "plain_ms": k7bt["plain_ms"],
         "bound_ms": k7bt["bound_ms"], "bound_by": "operations",
         "library_ms": None, "device_ms": k7bt["device_ms"],
-        "at_shapes": shape_times({"phase17": k7bp}, {"phase17": K7B_P17}),
+        "at_shapes": shape_times({"phase17": k7bp, "nemotron_cell": k7bn},
+                                 {"phase17": K7B_P17,
+                                  "nemotron_cell": K7B_NEMO}),
     }]
     print(f"[chip_smoke] peak memory: savic {peak:.2f} GiB, savic int8 + EF "
           f"{cpeak:.2f} GiB, savic OASIS + participation 0.5 {rpeak:.2f} GiB, "

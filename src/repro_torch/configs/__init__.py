@@ -15,7 +15,13 @@ weight-tied attention + MLP block after every ``hybrid_attn_every``-th),
 ``musicgen-large`` (audio: frame embeddings replace the token embeddings)
 and ``internvl2-1b`` (vlm: ``frontend_tokens`` patch embeddings prepended
 to the text), and, as in the reference's ``_VARIANTS``, ``qwen3-4b-swa``
-(``CONFIG_SWA``: a sliding window of 8192). ``register`` adds a module of
+(``CONFIG_SWA``: a sliding window of 8192). Beside them, as variants (no
+counterpart in the reference, so neither in ``ARCH_IDS`` nor in
+``list_archs()``): ``nemotron3-nano-30b-a3b`` (family ``nemotron_h``: a
+``layer_pattern`` of Mamba-2 layers at 8 groups, sigmoid-routed relu²
+expert layers and attention without positions) and
+``nemotron3-nano-30b-a3b-ep16``, one chip's share of it (8 of each layer's
+128 experts held, 32,768 of the 131,072 ids). ``register`` adds a module of
 the caller's (``examples/train_lm_torch.py`` registers its ``lm-100m``).
 Every architecture of the reference's registry has its counterpart.
 
@@ -45,6 +51,13 @@ class MoEConfig:
     router_aux_weight: float = 0.01
     moe_layer_start: int = 0        # first layer index that is MoE (earlier = dense)
     d_ff_dense: int = 0             # FFN dim for the dense (non-MoE) layers
+    # nemotron_h's expert share: the picks' sigmoid scores, normalised, times
+    # this (models/moe.route_sigmoid)
+    routed_scale: float = 1.0
+    # the expert share (nemotron_h): experts [first_held, first_held +
+    # n_held) are held here (0: all), every choice on them computed
+    n_held: int = 0
+    first_held: int = 0
 
 
 @dataclass(frozen=True)
@@ -64,6 +77,8 @@ class SSMConfig:
     head_dim: int = 64
     chunk: int = 256                # SSD chunk length
     ngroups: int = 1
+    n_heads: int = 0                # 0: expand·d_model / head_dim
+    conv_bias: bool = False         # a bias on the depthwise conv's x, B, C
 
 
 @dataclass(frozen=True)
@@ -85,7 +100,8 @@ class ModelConfig:
     local_global_ratio: int = 0
     logit_softcap: float = 0.0
     norm_eps: float = 1e-6
-    act: str = "silu"               # silu (SwiGLU) | gelu (GeGLU)
+    act: str = "silu"               # silu (SwiGLU) | gelu (GeGLU) | relu2
+    rope: bool = True               # False: attention without positions
     tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
@@ -96,6 +112,9 @@ class ModelConfig:
     # modality frontend stub: extra embedding inputs (B, n_frontend, d_model)
     frontend_tokens: int = 0        # vlm: #patch embeddings; audio: -1 (1:1)
     frontend_kind: str = ""         # "" | "vision" | "audio"
+    # nemotron_h: layer i is the kind of letter i (M mamba2, E the expert
+    # share, * attention), each kind's leaves stacked apart
+    layer_pattern: str = ""
     source: str = ""
 
     @property
@@ -108,6 +127,15 @@ class ModelConfig:
     def is_attention_free(self) -> bool:
         return self.family == "ssm"
 
+    @property
+    def layer_kinds(self) -> str:
+        """The pattern's letters of the ``n_layers`` layers ("" without a
+        pattern)."""
+        if len(self.layer_pattern) < self.n_layers and self.layer_pattern:
+            raise ValueError(f"{self.name}: {self.n_layers} layers, a "
+                             f"pattern of {len(self.layer_pattern)}")
+        return self.layer_pattern[:self.n_layers]
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
@@ -118,6 +146,8 @@ class ModelConfig:
         ``n_shared`` MLPs of ``d_ff_shared // n_shared`` each, and the
         audio and vlm families as dense stacks: their frontends are
         stubs)."""
+        if self.layer_pattern:
+            return self._pattern_param_count()
         d, L, V = self.d_model, self.n_layers, self.vocab_size
         n = V * d  # embeddings
         if not self.tie_embeddings:
@@ -163,6 +193,25 @@ class ModelConfig:
         n += per_layer * L + d  # final norm
         return n
 
+    def _pattern_param_count(self) -> int:
+        """The pattern stack's tree, leaf for leaf (padded vocabulary aside):
+        a mamba2 layer with its conv biases, an expert layer with its
+        held experts, shared expert, router and score bias, an attention
+        layer, each with its pre-norm; embedding, head and final norm."""
+        d, s, m = self.d_model, self.ssm, self.moe
+        nh = s.n_heads or s.expand * d // s.head_dim
+        d_in, gn = nh * s.head_dim, s.ngroups * s.d_state
+        conv = (d_in + 2 * gn) * (s.d_conv + int(s.conv_bias))
+        per = {"M": d * (2 * d_in + 2 * gn + nh) + conv + d_in * d
+               + 3 * nh + d_in,
+               "E": (m.n_held or m.n_experts) * 2 * d * m.d_ff_expert
+               + 2 * d * m.d_ff_shared + d * m.n_experts + m.n_experts,
+               "*": 2 * d * self.n_heads * self.head_dim
+               + 2 * d * self.n_kv_heads * self.head_dim}
+        layers = sum(per[k] + d for k in self.layer_kinds)
+        head = 1 if self.tie_embeddings else 2
+        return head * self.vocab_size * d + layers + d
+
     def active_param_count(self) -> int:
         """Parameters active per token (MoE: the routed top-k only)."""
         if self.family != "moe":
@@ -180,7 +229,10 @@ ARCH_IDS = ("zamba2-2.7b", "qwen3-4b", "qwen2-moe-a2.7b", "gemma3-4b",
             "deepseek-v2-236b", "internvl2-1b")
 _MODULE_FOR = {a: a.replace("-", "_").replace(".", "p") for a in ARCH_IDS}
 # beyond-assignment variants (selectable, as in the reference)
-_VARIANTS = {"qwen3-4b-swa": ("qwen3_4b", "CONFIG_SWA")}
+_VARIANTS = {"qwen3-4b-swa": ("qwen3_4b", "CONFIG_SWA"),
+             "nemotron3-nano-30b-a3b": ("nemotron3_nano_30b_a3b", "CONFIG"),
+             "nemotron3-nano-30b-a3b-ep16": ("nemotron3_nano_30b_a3b",
+                                             "CONFIG_EP16")}
 
 
 # --------------------------------------------------------------------------- #

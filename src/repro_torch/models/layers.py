@@ -185,7 +185,8 @@ class AttnCall:
 def attention(p, cfg: ModelConfig, x, positions, call: AttnCall, dtype):
     """Full causal self-attention over x (B,S,d) at integer positions (S,).
     Returns (out (B,S,d), (k, v)): the compact Hk-head keys (after RoPE) and
-    values, for the decode cache.
+    values, for the decode cache. A config with ``rope`` off (nemotron_h)
+    gives the queries and keys no position.
 
     The reference's three routes, in its order: kernel K4
     (``kernels.ops.flash_attention``, forward only) when
@@ -207,9 +208,10 @@ def attention(p, cfg: ModelConfig, x, positions, call: AttnCall, dtype):
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
-    cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
-    q = apply_rope(q, cos, sin).to(dtype)
-    k = apply_rope(k, cos, sin).to(dtype)
+    if cfg.rope:
+        cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin).to(dtype)
+        k = apply_rope(k, cos, sin).to(dtype)
     cache_kv = (k, v)
     rep = h // hk
     with trace.span("model.attention") as sp:
@@ -309,16 +311,25 @@ def attention_decode(p, cfg: ModelConfig, x, pos, kcache, vcache,
 
 
 # --------------------------------------------------------------------------- #
-# Gated MLP (SwiGLU / GeGLU)
+# MLP: gated (SwiGLU / GeGLU), or relu² without a gate
 # --------------------------------------------------------------------------- #
 
 
-def init_mlp(gen, d, f):
+def init_mlp(gen, d, f, act="silu"):
+    """``wu`` and ``wd``, and the gate ``wg`` unless ``act`` is relu²."""
+    if act == "relu2":
+        return {"wu": _dense_init(gen, d, f), "wd": _dense_init(gen, f, d)}
     return {"wg": _dense_init(gen, d, f), "wu": _dense_init(gen, d, f),
             "wd": _dense_init(gen, f, d)}
 
 
+def relu2(x):
+    return torch.square(F.relu(x))
+
+
 def mlp(p, x, act, dtype):
+    if act == "relu2":                  # down(relu(up(x))²)
+        return linear(p["wd"], relu2(linear(p["wu"], x, dtype)), dtype)
     g = linear(p["wg"], x, dtype)
     u = linear(p["wu"], x, dtype)
     # jax.nn.gelu defaults to the tanh approximation

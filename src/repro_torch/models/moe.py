@@ -24,6 +24,23 @@ from the first, in ``dtype`` (the reference's ``.at[token_of].add``): no
 ``index_add_``, whose atomics on the card would make a serve's ids differ
 from run to run. The reference's sharding hook (``shard``) belongs to the
 multi-device layer and is not carried.
+
+The expert share (``share_apply``, nemotron_h's expert layer; no
+counterpart in the reference) is the layer that expert parallelism asks
+for, run on one chip without its exchange: it holds experts ``[first_held,
+first_held + n_held)`` of ``n_experts``, routes every token over all of
+them (sigmoid scores; the top K by score + a correction bias that takes no
+gradient; the picks' scores normalised and times ``routed_scale``) and
+adds weight × expert(x) for every choice that lands on a held expert, with
+no capacity and no drop; a choice on an absent expert adds nothing. The
+held choices are sorted by expert (stable, so by token within one), their
+rows gathered, each expert run on its own rows (one host read of the
+counts a call, counter ``model.moe_host_reads``) and the weighted outputs
+added back by ``index_put`` with ``accumulate`` (sort-based on the card,
+so the same sums every run). Under remat the layer takes a ``memo`` dict
+that the checkpoint hands to both runs: the recompute takes the forward's
+picks and counts from it, so it routes exactly as the forward did and
+reads nothing from the host.
 """
 from __future__ import annotations
 
@@ -32,7 +49,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
 from repro_torch.models.layers import (_dense_init, _normal, init_mlp,
-                                       linear, mlp)
+                                       linear, mlp, relu2)
+from repro_torch.utils import trace
 
 
 def init_moe(gen, cfg: ModelConfig):
@@ -164,3 +182,92 @@ def moe_apply(p, cfg: ModelConfig, x, act, dtype, capacity=None,
     if "shared" in p:
         y = y + mlp(p["shared"], x, act, dtype)
     return y, aux.mean()
+
+
+# --------------------------------------------------------------------------- #
+# the expert share (nemotron_h)
+# --------------------------------------------------------------------------- #
+
+
+def init_share(gen, cfg: ModelConfig):
+    """Router ``{"w": (d, E)}`` over all E experts, its correction bias
+    ``score_bias`` (E,) (drawn at 0.01; it takes no gradient), the held
+    experts' relu² weights ``wu`` (n_held, d, f) and ``wd`` (n_held, f, d)
+    and the shared expert (relu², width ``d_ff_shared``)."""
+    m = cfg.moe
+    d, f, n = cfg.d_model, m.d_ff_expert, m.n_held or m.n_experts
+    return {"router": _dense_init(gen, d, m.n_experts),
+            "score_bias": _normal(gen, (m.n_experts,), 0.01),
+            "experts": {"wu": _normal(gen, (n, d, f), d ** -0.5),
+                        "wd": _normal(gen, (n, f, d), f ** -0.5)},
+            "shared": init_mlp(gen, d, m.d_ff_shared, "relu2")}
+
+
+def route_sigmoid(p, cfg: ModelConfig, x, picks=None):
+    """x (N, d) -> (picks (N, K) int64, weights (N, K) fp32): the top K
+    experts by sigmoid score + ``score_bias`` (a stable descending sort:
+    ties to the lower expert), weighted by their scores normalised to sum
+    1 and times ``routed_scale``. Given ``picks``, only the weights are
+    taken (remat's recompute)."""
+    m = cfg.moe
+    scores = torch.sigmoid(linear(p["router"], x, torch.float32))
+    if picks is None:
+        with torch.no_grad():
+            choice = scores + p["score_bias"].float()
+            picks = torch.sort(choice, dim=-1, descending=True,
+                               stable=True)[1][:, :m.top_k]
+    w = scores.gather(1, picks)
+    w = w / (w.sum(-1, keepdim=True) + 1e-20) * m.routed_scale
+    return picks, w
+
+
+def held_choices(cfg: ModelConfig, picks):
+    """(the held choices' flat indices into (N·K,), sorted by held expert
+    and by token within one; their count on each held expert, a list read
+    from the device)."""
+    m = cfg.moe
+    n_held = m.n_held or m.n_experts
+    local = picks.reshape(-1) - m.first_held
+    local = torch.where((local >= 0) & (local < n_held), local, n_held)
+    counts = torch.bincount(local, minlength=n_held + 1)[:n_held].tolist()
+    trace.count("model.moe_host_reads")
+    order = torch.argsort(local, stable=True)
+    return order[:sum(counts)], counts
+
+
+def share_apply(p, cfg: ModelConfig, x, dtype, memo=None):
+    """x (B, S, d) -> (B, S, d): the held experts' part of the routed sum
+    plus the shared expert. ``memo``: a dict kept across remat's two runs
+    (empty on the first; see the module's note)."""
+    m = cfg.moe
+    B, S, d = x.shape
+    K = m.top_k
+    with trace.span("model.moe") as sp:
+        (xf,) = sp.inputs(x.reshape(B * S, d))
+        with trace.span("model.moe.route") as rt:
+            # the routing's uses of x reach it through a node of their own,
+            # hooked or not, so that a recorded round sums x's gradient
+            # in the same groups as one not recorded
+            (xr,) = rt.inputs(xf.view_as(xf))
+            picks, w = route_sigmoid(p, cfg, xr, memo.get("picks")
+                                     if memo else None)
+            if memo:
+                sel, counts = memo["sel"], memo["counts"]
+            else:
+                sel, counts = held_choices(cfg, picks)
+                trace.count("model.moe_choices_held", len(sel))
+                if memo is not None:
+                    memo.update(picks=picks, sel=sel, counts=counts)
+            tok = torch.div(sel, K, rounding_mode="floor")
+            rows = rt.output(xr.to(dtype)[tok])
+            ws = rt.output(w.reshape(-1)[sel].to(dtype))
+        we = p["experts"]
+        ys = torch.cat([relu2(r @ wu.to(dtype)) @ wd.to(dtype) for r, wu, wd
+                        in zip(rows.split(counts), we["wu"].unbind(0),
+                               we["wd"].unbind(0))])
+        with trace.span("model.moe.route") as rt:
+            ys, ws = rt.inputs(ys, ws)
+            y = rt.output(xf.new_zeros((B * S, d), dtype=dtype).index_put(
+                (tok,), ys * ws[:, None], accumulate=True))
+        y = y + mlp(p["shared"], xf, "relu2", dtype)
+        return sp.output(y).reshape(B, S, d)

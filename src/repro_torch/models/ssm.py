@@ -18,6 +18,14 @@ Parameters are stored in fp32 and cast to the compute ``dtype`` at use, as
 in ``models/layers.py``. The single group of B and C (ngroups = 1) reaches
 the H heads as an ``expand``ed view with a head stride of 0, where the
 reference repeats it.
+
+The nemotron_h family's Mamba-2 layer sets its heads itself
+(``SSMConfig.n_heads``: d_inner = n_heads·head_dim), adds a bias to the
+depthwise conv's x, B and C (``conv_bias``) and takes the gated RMSNorm
+over its ``ngroups`` groups of d_inner; G > 1 groups of B and C reach K7
+as per-head copies (``broadcast_heads``). The defaults are mamba2's and
+zamba2's layer, unchanged; ``mamba2_decode`` takes none of the three (the
+pattern stack has no decode cache).
 """
 from __future__ import annotations
 
@@ -33,7 +41,11 @@ from repro_torch.utils import trace
 
 
 def _dims(cfg: ModelConfig):
+    """(ssm config, d_inner, heads): ``n_heads`` × ``head_dim`` where the
+    config gives the heads (nemotron_h), else ``expand`` × d."""
     s = cfg.ssm
+    if s.n_heads:
+        return s, s.n_heads * s.head_dim, s.n_heads
     d_in = s.expand * cfg.d_model
     nheads = d_in // s.head_dim
     return s, d_in, nheads
@@ -41,7 +53,8 @@ def _dims(cfg: ModelConfig):
 
 def init_mamba2(gen, cfg: ModelConfig):
     """One mamba2 block's parameters, drawn from ``gen`` (on its device) in
-    the reference's order of keys."""
+    the reference's order of keys; with ``conv_bias``, zero biases
+    ``conv_x_b``, ``conv_B_b``, ``conv_C_b`` after them."""
     s, d_in, nh = _dims(cfg)
     gn = s.ngroups * s.d_state
     d = cfg.d_model
@@ -57,6 +70,10 @@ def init_mamba2(gen, cfg: ModelConfig):
     p["Dskip"] = torch.ones((nh,), device=dev)
     p["gate_norm"] = init_rmsnorm(d_in, dev)
     p["wo"] = _dense_init(gen, d_in, d)
+    if s.conv_bias:
+        for name, width in (("conv_x_b", d_in), ("conv_B_b", gn),
+                            ("conv_C_b", gn)):
+            p[name] = torch.zeros((width,), device=dev)
     return p
 
 
@@ -65,17 +82,17 @@ def _softplus(x):
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def _causal_conv(x, w):
+def _causal_conv(x, w, b=None):
     """Depthwise causal conv: x (B,S,C), w (C,K) -> (B,S,C), as the
     reference's K shifted multiply-adds (no cuDNN, which would run fp32 in
-    TF32 on the card)."""
+    TF32 on the card); ``b`` (C,) added last where given."""
     K = w.shape[-1]
     S = x.shape[1]
     xp = F.pad(x, (0, 0, K - 1, 0))
     out = torch.zeros_like(x)
     for k in range(K):
         out = out + xp[:, k:k + S, :] * w[None, None, :, k]
-    return out
+    return out if b is None else out + b
 
 
 def _segsum_exp(cum):
@@ -216,6 +233,25 @@ def _heads(t, s, nh):
     return broadcast_heads(_groups(t, s), nh)
 
 
+def _conv_bias(p, name, dtype):
+    b = p.get(name + "_b")
+    return None if b is None else b.to(dtype)
+
+
+def _gated_norm(p, y, z, cfg: ModelConfig):
+    """RMSNorm of y·silu(z), over the whole d_inner or, with ``ngroups``
+    G > 1, over each of G groups of d_inner / G (nemotron_h), then the
+    scale."""
+    G = cfg.ssm.ngroups
+    if G == 1:
+        return rmsnorm(p["gate_norm"], y * F.silu(z), cfg.norm_eps)
+    t = (y * F.silu(z)).float()
+    g = t.reshape(t.shape[:-1] + (G, t.shape[-1] // G))
+    g = g * torch.rsqrt(torch.mean(g * g, dim=-1, keepdim=True)
+                        + cfg.norm_eps)
+    return (g.reshape(t.shape) * p["gate_norm"]["scale"].float()).to(y.dtype)
+
+
 def mamba2_forward(p, cfg: ModelConfig, u, dtype, h0=None, return_state=False,
                    return_cache=False, use_ssd_kernel=False):
     """u (B,S,d) -> (B,S,d). Full sequence (training / prefill).
@@ -229,9 +265,12 @@ def mamba2_forward(p, cfg: ModelConfig, u, dtype, h0=None, return_state=False,
     x_pre = linear(p["wx"], u, dtype)
     B_pre = linear(p["wB"], u, dtype)
     C_pre = linear(p["wC"], u, dtype)
-    x = F.silu(_causal_conv(x_pre, p["conv_x"].to(dtype)))
-    Bm = F.silu(_causal_conv(B_pre, p["conv_B"].to(dtype)))
-    Cm = F.silu(_causal_conv(C_pre, p["conv_C"].to(dtype)))
+    x = F.silu(_causal_conv(x_pre, p["conv_x"].to(dtype),
+                            _conv_bias(p, "conv_x", dtype)))
+    Bm = F.silu(_causal_conv(B_pre, p["conv_B"].to(dtype),
+                             _conv_bias(p, "conv_B", dtype)))
+    Cm = F.silu(_causal_conv(C_pre, p["conv_C"].to(dtype),
+                             _conv_bias(p, "conv_C", dtype)))
     z = linear(p["wz"], u, dtype)
     dt = _softplus(linear(p["wdt"], u, torch.float32)
                    + p["dt_bias"].float())
@@ -248,7 +287,7 @@ def mamba2_forward(p, cfg: ModelConfig, u, dtype, h0=None, return_state=False,
                                _groups(Cm, s), chunk, h0=h0)
     y = y + p["Dskip"].float()[None, None, :, None] * xh.float()
     y = y.reshape(Bsz, S, d_in).to(dtype)
-    y = rmsnorm(p["gate_norm"], y * F.silu(z), cfg.norm_eps)
+    y = _gated_norm(p, y, z, cfg)
     out = linear(p["wo"], y, dtype)
     if return_cache:
         K = s.d_conv

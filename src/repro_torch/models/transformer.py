@@ -37,6 +37,15 @@ that the prompt fits.
 
 The audio (musicgen) and vlm (internvl2) families are dense stacks; their
 frontends are stubs that feed the residual stream (``models/model.py``).
+
+The nemotron_h family is a pattern stack: layer i is ``x + mixer(RMSNorm
+(x))`` with the mixer of the i-th letter of ``cfg.layer_pattern`` (M a
+mamba2 layer, E the expert share of ``models/moe.share_apply``, * attention
+without positions), each kind's leaves stacked apart: ``{"mamba":
+{"norm1", "mamba"}, "moe": {"norm1", "moe"}, "attention": {"norm1",
+"attn"}}``, each with a leading dim of that kind's layer count. Under
+remat each layer is the checkpointed unit, and an expert layer gets a memo
+that its recompute routes from. It trains; it has no decode cache.
 """
 from __future__ import annotations
 
@@ -58,6 +67,10 @@ from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import (HUGE_WINDOW, AttnCall, init_rmsnorm,
                                        mlp, rmsnorm)
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
+
+
+# the pattern stack's letters and the names of their stacks
+PATTERN_KINDS = {"M": "mamba", "E": "moe", "*": "attention"}
 
 
 def _is_ssm(cfg: ModelConfig) -> bool:
@@ -121,7 +134,9 @@ def init_stack(gen, cfg: ModelConfig):
     The (L, ...) leaves are allocated once and block i is initialised into
     slice i, in layer order (the draw order of one block after another), so
     at most one block lives beside the stack. The audio and vlm families
-    are dense stacks."""
+    are dense stacks; a pattern stack (nemotron_h) has one stack a kind."""
+    if cfg.layer_pattern:
+        return _init_pattern(gen, cfg)
     n_prefix = _n_prefix(cfg)
     Ls = cfg.n_layers - n_prefix
     stack = None
@@ -140,6 +155,36 @@ def init_stack(gen, cfg: ModelConfig):
     if cfg.hybrid_attn_every:
         p["shared"] = _init_shared_block(gen, cfg)
     return p
+
+
+def _init_pattern_block(gen, cfg: ModelConfig, kind: str):
+    d = cfg.d_model
+    if kind == "M":
+        mixer = {"mamba": SSM.init_mamba2(gen, cfg)}
+    elif kind == "E":
+        mixer = {"moe": MOE.init_share(gen, cfg)}
+    else:
+        mixer = {"attn": Lyr.init_attention(gen, cfg)}
+    return {"norm1": init_rmsnorm(d, gen.device), **mixer}
+
+
+def _init_pattern(gen, cfg: ModelConfig):
+    """The pattern stack's leaves: one stack a kind, layer i drawn into its
+    kind's next slot, in layer order."""
+    kinds = cfg.layer_kinds
+    stacks, filled = {}, {}
+    for kind in kinds:
+        name = PATTERN_KINDS[kind]
+        block = _init_pattern_block(gen, cfg, kind)
+        if name not in stacks:
+            n = kinds.count(kind)
+            stacks[name] = tree_map(
+                lambda x: x.new_empty((n,) + tuple(x.shape)), block)
+        i = filled.get(name, 0)
+        tree_map(lambda s, x: s[i].copy_(x), stacks[name], block)
+        filled[name] = i + 1
+        del block
+    return stacks
 
 
 def layer_windows(cfg: ModelConfig, n_layers: int, force_window: int = 0):
@@ -241,6 +286,38 @@ def _layer_remat(bp, sp, cfg, x, positions, window, call, dtype, i):
     return x, aux
 
 
+def _pattern_layer(kind, bp, cfg, x, positions, call: AttnCall, dtype,
+                   memo=None):
+    """One layer of a pattern stack: x + mixer(RMSNorm(x))."""
+    h = rmsnorm(bp["norm1"], x, cfg.norm_eps)
+    if kind == "M":
+        h = SSM.mamba2_forward(bp["mamba"], cfg, h, dtype,
+                               use_ssd_kernel=call.use_ssd_kernel)
+    elif kind == "E":
+        h = MOE.share_apply(bp["moe"], cfg, h, dtype, memo)
+    else:
+        c = AttnCall(softcap=call.softcap, chunk=call.chunk,
+                     use_flash_kernel=call.use_flash_kernel)
+        h, _ = Lyr.attention(bp["attn"], cfg, h, positions, c, dtype)
+    return x + h
+
+
+def _pattern_forward(params, cfg: ModelConfig, x, positions, call, dtype,
+                     remat):
+    kinds = cfg.layer_kinds
+    stacks = {name: iter(_layers(params[name], kinds.count(kind)))
+              for kind, name in PATTERN_KINDS.items() if kind in kinds}
+    for kind in kinds:
+        bp = next(stacks[PATTERN_KINDS[kind]])
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(_pattern_layer, kind, bp, cfg, x, positions, call,
+                           dtype, {}, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = _pattern_layer(kind, bp, cfg, x, positions, call, dtype)
+    return x
+
+
 def forward(params, cfg: ModelConfig, x, positions, call: AttnCall, dtype,
             want_cache=False, remat=True):
     """x (B,S,d) residual stream -> (y (B,S,d), caches, aux). With
@@ -258,7 +335,14 @@ def forward(params, cfg: ModelConfig, x, positions, call: AttnCall, dtype,
     run first, at full attention (``force_window`` does not reach them, as
     in the reference). Under ``remat`` the checkpointed unit is the whole
     stack layer, the shared block included; its aux comes out of the
-    checkpoint beside x."""
+    checkpoint beside x. A pattern stack (nemotron_h) returns no caches
+    and raises where they are asked for."""
+    if cfg.layer_pattern:
+        if want_cache:
+            raise NotImplementedError(f"{cfg.name}: the pattern stack "
+                                      f"trains; it has no decode cache")
+        return _pattern_forward(params, cfg, x, positions, call, dtype,
+                                remat), {}, 0.0
     caches, aux_total = {}, 0.0
     for i, bp in enumerate(params.get("prefix", [])):
         x, kv, aux = _attn_block(bp, cfg, x, positions, HUGE_WINDOW, call,
@@ -310,6 +394,9 @@ def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int, device,
     (``cache_len`` unused: the state does not grow with the context); for
     the hybrid that tree and ``shared_k`` / ``shared_v``, each (L // every,
     batch, cache_len, Hk, hd) in ``dtype``."""
+    if cfg.layer_pattern:
+        raise NotImplementedError(f"{cfg.name}: the pattern stack has no "
+                                  f"decode cache")
     if _is_ssm(cfg):
         one = SSM.mamba2_init_cache(cfg, batch, device)
         c = {"mamba": tree_map(

@@ -24,8 +24,13 @@ which puts the trace's clock within [-2.6, 4.8] µs of it.
 
 The program's counters: ``engine.grad_calls`` (each client gradient,
 ``core/engine``), ``engine.k1_launches`` (each K1 launch, ``kernels/ops``)
-and ``model.ssd_k7`` (each SSD call that takes K7 and its VJP K7b,
-``models/ssm.ssd_chunked``: forward and remat recompute alike).
+``model.ssd_k7`` (each SSD call that takes K7 and its VJP K7b,
+``models/ssm.ssd_chunked``: forward and remat recompute alike), and the
+expert share's ``model.moe_choices_held`` (the choices that land on a
+held expert, counted once a layer call, not again in remat's recompute,
+which routes from the forward's memo) and ``model.moe_host_reads`` (the
+one host read of the held experts' counts a forward call,
+``models/moe.share_apply``).
 
 A model span follows its tensors into backward. ``sp.inputs(*ts)`` and
 ``sp.output(t)`` put an identity ``autograd.Function`` on the span's

@@ -634,10 +634,17 @@ def test_register_and_param_count_of_the_examples_config(tiny, monkeypatch):
 def test_param_count_refuses_unported_families():
     """Every family of the reference is ported now, so ``param_count``
     refuses none: each gives the reference's count (the audio and vlm
-    families count as dense stacks)."""
+    families count as dense stacks). The reference's config gets the
+    reference's fields; the port's own (the nemotron_h family's) are at
+    their defaults."""
+    names = {f.name for f in dataclasses.fields(JModelConfig)}
+    own = [f for f in dataclasses.fields(configs.ModelConfig)
+           if f.name not in names]
     for family in ("dense", "audio", "vlm"):
         cfg = configs.get_config("qwen2-0.5b", True).replace(family=family)
-        jcfg = JModelConfig(**dataclasses.asdict(cfg))
+        assert all(getattr(cfg, f.name) == f.default for f in own)
+        jcfg = JModelConfig(**{k: v for k, v in dataclasses.asdict(cfg)
+                               .items() if k in names})
         assert cfg.param_count() == jcfg.param_count() > 0
 
 

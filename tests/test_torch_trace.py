@@ -213,3 +213,72 @@ def test_self_ns():
     assert trace.self_ns(spans) == {"engine.grad": 50, "model.attention": 50,
                                     "model.attention.bwd": 10,
                                     "engine.k1": 4}
+
+
+def test_moe_spans_and_counters_in_a_round(monkeypatch):
+    """A savic round of reduced nemotron3-nano-30b-a3b (3 expert layers,
+    experts 2-5 of 8 held): ``model.moe`` and its two ``model.moe.route``
+    spans a call nest under ``engine.grad``, forward, remat recompute and
+    backward, and ``model.moe_choices_held`` is the count of the picks
+    that land on a held expert, read off the routing of every forward call
+    (one host read each); the recompute adds to neither. The round's
+    arithmetic is the same with recording on."""
+    from repro_torch import configs
+    from repro_torch.configs import MoEConfig
+    from repro_torch.models import moe
+    import sys
+    import types
+    red = get_config("nemotron3-nano-30b-a3b", reduced=True)
+    arch = "nemotron-trace-share"
+    mod = types.ModuleType("repro_torch.configs.nemotron_trace_share")
+    mod.CONFIG = mod.REDUCED = red.replace(name=arch, moe=MoEConfig(
+        **{**red.moe.__dict__, "n_held": 4, "first_held": 2}))
+    sys.modules[mod.__name__] = mod
+    configs.register(arch, mod.__name__.rsplit(".", 1)[1])
+    run = train.setup(["--arch", arch, "--device", "cpu", "--method",
+                       "savic", "--h-local", "2", "--clients", "2",
+                       "--batch", "2", "--seq", "32", "--seed", "5",
+                       "--use-fused-kernel"])
+    picks, real = [], moe.route_sigmoid
+
+    def spy(p, c, x, given=None):
+        out = real(p, c, x, given)
+        if given is None:
+            picks.append(out[0])
+        return out
+    monkeypatch.setattr(moe, "route_sigmoid", spy)
+    batch = train.round_batch(run.loader, run.args, 0, run.device)
+    s0, m0 = run.round_step(tree_map(torch.clone, run.state), batch,
+                            run.stream(0))
+    picks.clear()
+    with trace.recording() as rec:
+        s1, m1 = run.round_step(tree_map(torch.clone, run.state), batch,
+                                run.stream(0))
+    assert torch.equal(m0["loss"], m1["loss"])
+    a, b = dict(tree_paths(s0["params"])), dict(tree_paths(s1["params"]))
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    spans, counters = rec.collect()
+    calls = 3 * 4                       # E layers × M·H
+    assert len(picks) == calls
+    held = sum(int(((p >= 2) & (p < 6)).sum()) for p in picks)
+    assert 0 < held < sum(p.numel() for p in picks)
+    assert counters[0]["model.moe_choices_held"] == held
+    assert counters[0]["model.moe_host_reads"] == calls
+    by_id = {sp.id: sp for sp in spans}
+
+    def chain(sp):
+        out = []
+        while sp.parent:
+            sp = by_id[sp.parent]
+            out.append(sp.name)
+        return out
+    names = [sp.name for sp in spans]
+    for suffix in ("", ".recompute", ".bwd"):
+        assert names.count("model.moe" + suffix) == calls
+        assert names.count("model.moe.route" + suffix) == 2 * calls
+    for sp in spans:
+        if sp.name.startswith("model.moe"):
+            assert "engine.grad" in chain(sp), sp.name
+        if sp.name.startswith("model.moe.route"):
+            outer = "model.moe" + sp.name[len("model.moe.route"):]
+            assert chain(sp)[0] == outer, (sp.name, chain(sp))
