@@ -104,7 +104,11 @@ runs; the same runs then go on the card, once timed (each round's
 arguments' bytes and CUDA-event time read around the round step) and once
 under ``FlopCounterMode`` (15b): the FLOPs, K1's launches and the
 arguments' bytes must equal the prediction's, and the peak and the
-roofline round time are printed beside the measured ones as ratios.
+roofline round time are printed beside the measured ones as ratios. All
+three take attention's training route, K4 + K4b (``layers._takes_k4``):
+the dry run's fake CUDA tensors through the operators' fake kernels, and
+the dry run and ``FlopCounterMode`` count both by their FLOP formulas
+(``kernels.flash_attention.work`` and ``work_bwd``).
 Phase 16 drives the mesh features on the 1×1 card mesh, each run held
 bitwise against ``--mesh none --clients 1`` in every deterministic record
 field (compression_err, wire_bytes and the controller's knobs among them)
@@ -306,6 +310,14 @@ K7_CASES = [(*K7_MAIN, None, True), (*K7_MAIN, None, False),
 # B/C one group, the mamba2 benchmark cell's call (b 2, S 2048, 8 chunks)
 # and phase 17's mamba2 runs' (b 8, S 128: one chunk of 128); 8 groups as
 # per-head copies, the nemotron benchmark cell's (b 2, S 4096, 32 chunks)
+# B, S, H, Hk, D of the training cells' attention calls: qwen2-0.5b's and
+# nemotron's (K4 + K4b on the training route, ``layers._takes_k4``)
+K4B_CELL = (4, 1024, 14, 2, 64)
+K4B_NEMO = (2, 4096, 32, 2, 128)
+# (B, S, H, Hk, D, window, softcap) beside them: D 80 padded to 128 with a
+# window and a softcap, S not a multiple of 64
+K4B_CASES = [(*K4B_CELL, 0, 0.0), (*K4B_NEMO, 0, 0.0),
+             (2, 1000, 8, 2, 80, 300, 30.0)]
 K7B_CELL = (2, 2048, 64, 64, 128, 256, 1)
 K7B_P17 = (8, 128, 64, 64, 128, 128, 1)
 K7B_NEMO = (*K7_NEMO, NEMO_GROUPS)
@@ -1266,6 +1278,186 @@ def time_k4(gen, shape=K4_MAIN, window=0, dv=None):
 
 
 # --------------------------------------------------------------------------- #
+# K4's training instance and K4b (its VJP): against the plain VJP, timed
+# --------------------------------------------------------------------------- #
+
+
+def k4b_inputs(B, S, H, Hk, D, gen):
+    """q, k, v and the cotangent dout ~ N(0, 1), fp32."""
+    return [torch.randn(shape, generator=gen, device=DEV)
+            for shape in ((B, S, H, D), (B, S, Hk, D), (B, S, Hk, D),
+                          (B, S, H, D))]
+
+
+def k4b_smax(q, k):
+    """D^-½·max‖q_r‖·max‖k_c‖: a bound of Σ_d |q'_d k_d| for any pair."""
+    return q.shape[-1] ** -0.5 * float(q.norm(dim=-1).max()
+                                        * k.norm(dim=-1).max())
+
+
+def k4b_eps(q, k):
+    """K4b's relative bound against its plain VJP, of the plain VJP on
+    magnitudes, as ``tests/test_torch_cuda.py::k4b_bounds``: u·(2·D·smax
+    + 4·D + 2·rep·S + 32): the scores' error, which moves p relatively; D
+    products in dp and delta; up to S keys in dq and rep·S rows in dk and
+    dv."""
+    B, S, H, D = q.shape
+    rep = H // k.shape[2]
+    return U * (2 * D * k4b_smax(q, k) + 4 * D + 2 * rep * S + 32)
+
+
+def k4b_rows(fn, *ts, **kw):
+    """``fn`` (the plain VJP) one batch row at a time, concatenated: at the
+    nemotron cell's shape one row's (H, S, S) fp32 scores are 2.1 GB."""
+    outs = [fn(*(t[b:b + 1] for t in ts), **kw) for b in range(ts[0].shape[0])]
+    return [torch.cat(parts) for parts in zip(*outs)]
+
+
+def k4b_case(B, S, H, Hk, D, window, cap, gen):
+    """K4's training instance and K4b on one call: out bit for bit the
+    serving instance's, lse within the plain log-sum-exp's bound, dq, dk,
+    dv element by element within ``k4b_eps`` of the plain VJP on
+    magnitudes (the same out and lse on both sides), a second K4b call bit
+    for bit the first. Returns (max abs error, the worst ratio of an error
+    to its bound, eps, max lse error over its bound)."""
+    q, k, v, dout = k4b_inputs(B, S, H, Hk, D, gen)
+    kw = dict(window=window, softcap=cap)
+    out, lse = fa.flash_attention_lse(q, k, v, **kw)
+    check(torch.equal(out, fa.flash_attention(q, k, v, **kw)),
+          "K4's training instance changes out")
+    want_lse = torch.cat([ref.flash_attention_ref(
+        q[b:b + 1], k[b:b + 1], v[b:b + 1], with_lse=True, **kw)[1]
+        for b in range(B)])
+    eps = k4b_eps(q, k)
+    lse_ratio = float((lse - want_lse).abs().max()) / (
+        U * (2 * D * k4b_smax(q, k) + 2 * S + 16
+             + float(want_lse.abs().max())))
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    check(all(torch.equal(u, w) for u, w in zip(got, again)),
+          "two K4b calls on the same inputs differ")
+    want = k4b_rows(ref.flash_attention_vjp_ref, q, k, v, out, lse, dout,
+                    **kw)
+    mags = k4b_rows(ref.flash_attention_vjp_ref, q, k, v, out, lse, dout,
+                    magnitudes=True, **kw)
+    err = ratio = 0.0
+    for name, g, w, m, t in zip(("dq", "dk", "dv"), got, want, mags,
+                                (q, k, v)):
+        check(g.shape == t.shape and g.dtype == torch.float32,
+              f"K4b {name} {tuple(g.shape)} {g.dtype}")
+        d = (g - w).abs()
+        err = max(err, float(d.max()))
+        ratio = max(ratio, float((d / (eps * m).clamp_min(1e-30)).max()))
+    del q, k, v, dout, out, lse, got, again, want, mags, want_lse
+    torch.cuda.empty_cache()
+    return err, ratio, eps, lse_ratio
+
+
+def bwd_ms(out, inputs, dout, iters):
+    """CUDA-event time of autograd's backward alone of a graph built once
+    (``retain_graph``)."""
+    return cuda_ms(lambda: torch.autograd.grad(out, inputs, dout,
+                                               retain_graph=True), iters)
+
+
+def time_k4b(gen, shape=K4B_CELL, dense=True):
+    """K4b at a training cell's attention call: CUDA-event times of the
+    wrapper (3 or 4 launches) back to back and as device time (a CUDA
+    graph), K4's training and serving instances (device time), the plain
+    VJP (one batch row at a time), and the backward alone of the routes it
+    replaced: ``models/flash.py``'s recompute backward (KV repeated, blocks
+    of 1024), autograd of the dense route (``dense``: the qwen2 cell's
+    parent route; at nemotron's shape its saved scores are 34 GB) and
+    SDPA's fp32 backward (GQA, causal) with the backend it took; and the
+    bound from ``fa.work_bwd`` at 67 TFLOP/s."""
+    B, S, H, Hk, D = shape
+    q, k, v, dout = k4b_inputs(B, S, H, Hk, D, gen)
+    out, lse = fa.flash_attention_lse(q, k, v)
+    call = lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout)
+    t = {"ms": cuda_ms(call, 10), "device_ms": graph_ms(call, calls=4,
+                                                        replays=3),
+         "fwd_lse_ms": graph_ms(lambda: fa.flash_attention_lse(q, k, v),
+                                calls=4, replays=3),
+         "fwd_ms": graph_ms(lambda: fa.flash_attention(q, k, v), calls=4,
+                            replays=3),
+         "plain_ms": cuda_ms(lambda: k4b_rows(
+             ref.flash_attention_vjp_ref, q, k, v, out, lse, dout), 1)}
+    del out, lse
+    rep = H // Hk
+    pos = torch.arange(S, device=DEV, dtype=torch.int32)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    o = flash_attention_bshd(leaves[0], *Lyr._repeat_kv(leaves[1], leaves[2],
+                                                         rep),
+                             pos, pos, bq=1024, bk=1024)
+    t["chunked_bwd_ms"] = bwd_ms(o, leaves, dout, 2)
+    del o
+    if dense:
+        o = Lyr._sdpa_dense(leaves[0], *Lyr._repeat_kv(leaves[1], leaves[2],
+                                                       rep), pos, pos, 0, 0.0)
+        t["dense_bwd_ms"] = bwd_ms(o, leaves, dout, 3)
+        del o
+    torch.cuda.empty_cache()
+    qt, kt, vt = (x.transpose(1, 2) for x in leaves)
+    o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                       enable_gqa=True)
+    dt = dout.transpose(1, 2)
+    t["library_ms"] = bwd_ms(o, leaves, dt, 3)
+    t["library_backend"] = sdpa_backend(lambda: torch.autograd.grad(
+        o, leaves, dt, retain_graph=True))
+    del o, qt, kt, vt, leaves, q, k, v, dout
+    torch.cuda.empty_cache()
+    t["flops"], t["bytes"] = fa.work_bwd(B, S, H, Hk, D)
+    t["bound_ms"] = max(t["bytes"] / HBM_BYTES_PER_S,
+                        t["flops"] / FP32_FLOP_PER_S) * 1e3
+    t["fwd_bound_ms"] = fa.work(B, S, H, Hk, D)[0] / FP32_FLOP_PER_S * 1e3
+    return t
+
+
+def phase_k4b(gen):
+    """K4's training instance and K4b against the plain versions at
+    ``K4B_CASES`` and timed at the two cells' calls (``time_k4b``); callable
+    alone: ``import chip_smoke as c; c.build_all(); c.phase_k4b(gen)``.
+    Returns the largest error and error-to-bound ratio and the two shapes'
+    times."""
+    out = {"err": 0.0, "ratio": 0.0, "times": {}}
+    for case in K4B_CASES:
+        err, ratio, eps, lse_ratio = k4b_case(*case, gen)
+        out["err"] = max(out["err"], err)
+        out["ratio"] = max(out["ratio"], ratio)
+        print(f"[chip_smoke] K4b (B, S, H, Hk, D, window, softcap) = {case}: "
+              f"max abs {err:.3e}, worst error at {ratio:.2e} of its bound "
+              f"(bound {eps:.2e} of the plain VJP on magnitudes); K4's "
+              f"training instance gives the serving instance's out bit for "
+              f"bit, lse at {lse_ratio:.2e} of its bound; a second K4b call "
+              f"bitwise the first", flush=True)
+        check(ratio <= 1.0 and lse_ratio <= 1.0,
+              "K4b differs from its plain VJP")
+    for label, key, shape in (("the qwen2 cell's", "qwen2_cell", K4B_CELL),
+                              ("the nemotron cell's", "nemotron_cell",
+                               K4B_NEMO)):
+        t = time_k4b(gen, shape, dense=shape == K4B_CELL)
+        out["times"][key] = t
+        dense = f", dense autograd {t['dense_bwd_ms']:.3f} ms" \
+            if "dense_bwd_ms" in t else ""
+        print(f"[chip_smoke] K4b at {label} training call (B, S, H, Hk, D) "
+              f"= {shape}: {t['ms']:.3f} ms/call back to back, device time "
+              f"(CUDA graph) {t['device_ms']:.3f} ms, bound "
+              f"{t['bound_ms']:.3f} ms (operations: {t['flops'] / 1e9:.2f} "
+              f"GFLOP; bytes {t['bytes'] / 1e6:.1f} MB): "
+              f"{t['bound_ms'] / t['device_ms'] * 100:.1f} % of the bound; "
+              f"backward alone: plain VJP {t['plain_ms']:.3f} ms, chunked "
+              f"models/flash.py {t['chunked_bwd_ms']:.3f} ms{dense}, SDPA "
+              f"fp32 {t['library_ms']:.3f} ms ({t['library_backend']}); "
+              f"K4 forward device time: training instance "
+              f"{t['fwd_lse_ms']:.3f} ms, serving {t['fwd_ms']:.3f} ms, "
+              f"bound {t['fwd_bound_ms']:.3f} ms "
+              f"({t['fwd_bound_ms'] / t['fwd_lse_ms'] * 100:.1f} %)",
+              flush=True)
+    return out
+
+
+# --------------------------------------------------------------------------- #
 # K7 inputs, the kernel-vs-plain comparison and its timing
 # --------------------------------------------------------------------------- #
 
@@ -1995,14 +2187,16 @@ def zamba_train_phase():
     print(f"[chip_smoke] 10d zamba2 training, full width, 12 layers (n = "
           f"{n} in the tree; param_count() {cfg.param_count()}): "
           f"train.main " + " ".join(argv), flush=True)
-    log, k1, _, peak = main_path(argv, 2 * H_LOCAL)
+    log, k1, _, peak = main_path(argv, 2 * H_LOCAL,
+                                 expect_k4b=k4b_calls(ARCH_Z12, 4, 2))
     k7, k7b = ssd.ssd_intra_chunk.launches, ssd.ssd_intra_chunk_bwd.launches
+    k4, k4b = fa.flash_attention.launches, fa.flash_attention_bwd.launches
     check(k7b > 0 and k7 == 2 * k7b, f"10d: K7 {k7}, K7b {k7b} launched")
     check(all(finite(rec["loss"]) for rec in log), "zamba2 loss not finite")
     worst, _, k1_6 = fused_vs_tree(
         "zamba2 savic", cfg=get_config("zamba2-2.7b").replace(n_layers=6))
-    return {"k1": k1, "k7": k7, "k7b": k7b, "n": n, "peak": peak,
-            "walls": [r["wall_s"] for r in log],
+    return {"k1": k1, "k7": k7, "k7b": k7b, "k4": k4, "k4b": k4b, "n": n,
+            "peak": peak, "walls": [r["wall_s"] for r in log],
             "tokens_per_s": [r["tokens_per_s"] for r in log],
             "fused_vs_tree": worst, "k1_6": k1_6}
 
@@ -3165,8 +3359,9 @@ def nbytes(tree):
 def card_rounds(label, argv, flops):
     """``train.main(argv)`` on the card with each round's arguments' bytes
     and CUDA-event time read around the round step; under
-    ``FlopCounterMode`` when ``flops``. Returns the log, K1 launches, peak
-    bytes, per-round argument bytes and device ms, and the FLOPs."""
+    ``FlopCounterMode`` when ``flops`` (K4 and K4b counted by their FLOP
+    formulas). Returns the log, K1 launches, peak bytes, per-round argument
+    bytes and device ms, and the FLOPs."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.launch import steps as steps_mod
@@ -3411,17 +3606,21 @@ def finite(v):
     return v == v and abs(v) != float("inf")
 
 
-def main_path(argv, expect_k1, expect_k3=0):
-    """Drive ``train.main(argv)`` with the kernels' counts (K1, K3, and K7
-    and K7b, which an SSM's differentiated SSD takes on the card) set to 0
-    just before and read just after; returns (log, K1 launches, K3
-    launches, peak GiB); K7's and K7b's counts stay on their wrappers'
-    ``launches`` until the next run. ``expect_k1`` is a count, or a
-    function of the log (the launches the realized H_m need: one a local
-    step in which any client is active, Σ_r max_m H_m,r)."""
+def main_path(argv, expect_k1, expect_k3=0, expect_k4b=None):
+    """Drive ``train.main(argv)`` with the kernels' counts (K1, K3; K7 and
+    K7b, which an SSM's differentiated SSD takes on the card; K4 and K4b,
+    which differentiated attention takes) set to 0 just before and read
+    just after; returns (log, K1 launches, K3 launches, peak GiB); K4's,
+    K4b's, K7's and K7b's counts stay on their wrappers' ``launches`` until
+    the next run. ``expect_k1`` is a count, or a function of the log (the
+    launches the realized H_m need: one a local step in which any client is
+    active, Σ_r max_m H_m,r); ``expect_k4b`` (``k4b_calls``), where given,
+    K4b's calls, and K4 launches twice as many (forward and remat
+    recompute)."""
     su.fused_step_flat.launches = 0
     qu.quantize_update_flat.launches = 0
     ssd.ssd_intra_chunk.launches = ssd.ssd_intra_chunk_bwd.launches = 0
+    fa.flash_attention.launches = fa.flash_attention_bwd.launches = 0
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     log = train.main(argv)
@@ -3446,11 +3645,39 @@ def main_path(argv, expect_k1, expect_k3=0):
         expect_k1 = expect_k1(log)
     check(k1 == expect_k1, f"K1 launched {k1} times, expected {expect_k1}")
     check(k3 == expect_k3, f"K3 launched {k3} times, expected {expect_k3}")
-    print(f"[chip_smoke]   launches K1 {k1}, K3 {k3}, K7 "
-          f"{ssd.ssd_intra_chunk.launches}, K7b "
+    k4, k4b = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+    check(expect_k4b is None or (k4b == expect_k4b and k4 == 2 * k4b),
+          f"K4 launched {k4} times, K4b {k4b}; expected "
+          f"{2 * (expect_k4b or 0)} and {expect_k4b}")
+    print(f"[chip_smoke]   launches K1 {k1}, K3 {k3}, K4 {k4}, K4b {k4b}, "
+          f"K7 {ssd.ssd_intra_chunk.launches}, K7b "
           f"{ssd.ssd_intra_chunk_bwd.launches}; peak memory {peak:.2f} GiB",
           flush=True)
     return log, k1, k3, peak
+
+
+def k4_layers(cfg):
+    """Attention applications of a forward that take K4 + K4b on the card
+    (``layers._takes_k4``: fp32 compute, D <= 128 a multiple of 4): a
+    pattern stack's ``*`` layers, the hybrid's shared-block applications,
+    every layer of the other transformer families; none for an SSM, MLA or
+    gemma3's D 256."""
+    if cfg.family == "ssm" or cfg.mla \
+            or not fa.bwd_takes(cfg.head_dim, torch.float32):
+        return 0
+    if cfg.layer_kinds:
+        return cfg.layer_kinds.count("*")
+    if cfg.family == "hybrid":
+        return sum(transformer._applies_shared(cfg, i)
+                   for i in range(cfg.n_layers))
+    return cfg.n_layers
+
+
+def k4b_calls(arch, M, rounds, H=H_LOCAL):
+    """K4b's calls in a fp32 ``train.main`` run whose M clients all take H
+    local steps a round: one a routed attention application a local step
+    of a client (``k4_layers``)."""
+    return rounds * M * H * k4_layers(get_config(arch))
 
 
 def fused_vs_tree(name, rounds=1, flips=False, H=2, cfg=None, M=4, S=128,
@@ -4032,8 +4259,10 @@ def train_family(label, arch, layers, seq, extra=(), expect_k3=0,
     training route, K7b once a layer a local step of a client and K7 twice
     (forward and remat recompute), over a pattern stack's Mamba-2 layers
     (nemotron_h's 8 groups reach K7 as per-head copies), other families on
-    neither; prints n, M·n, the peak beside the prediction, each round's
-    wall and tokens/s and the K7 and K7b counts of the run."""
+    neither; attention on K4 + K4b alike (``k4b_calls``: none on gemma3's
+    D 256 or an SSM); prints n, M·n, the peak beside the prediction, each
+    round's wall and tokens/s and the K4, K4b, K7 and K7b counts of the
+    run."""
     name = register_cut(arch, layers)
     cfg = get_config(name)
     n = tree_n(cfg)
@@ -4045,8 +4274,10 @@ def train_family(label, arch, layers, seq, extra=(), expect_k3=0,
           f"in the tree; M·n = {P17_M * n}{past}; predicted peak "
           f"{pred:.2f} GiB): train.main " + " ".join(argv), flush=True)
     t0 = time.perf_counter()
-    log, k1, k3, peak = main_path(argv, 2 * H_LOCAL, expect_k3)
+    log, k1, k3, peak = main_path(argv, 2 * H_LOCAL, expect_k3,
+                                  k4b_calls(name, P17_M, 2))
     k7, k7b = ssd.ssd_intra_chunk.launches, ssd.ssd_intra_chunk_bwd.launches
+    k4, k4b = fa.flash_attention.launches, fa.flash_attention_bwd.launches
     mamba = cfg.n_layers if cfg.family == "ssm" \
         else cfg.layer_kinds.count("M")
     calls = P17_M * H_LOCAL * mamba * 2
@@ -4056,8 +4287,8 @@ def train_family(label, arch, layers, seq, extra=(), expect_k3=0,
         check(rec["loss"] > 0 and rec["drift"] > 0, f"{label}: round "
               f"{rec['round']} loss {rec['loss']} drift {rec['drift']}")
     out = {"arch": arch, "layers": cfg.n_layers, "n": n, "mn": P17_M * n,
-           "k1": k1, "k3": k3, "k7": k7, "k7b": k7b, "peak": peak,
-           "pred": pred,
+           "k1": k1, "k3": k3, "k7": k7, "k7b": k7b, "k4": k4, "k4b": k4b,
+           "peak": peak, "pred": pred,
            "walls": [r["wall_s"] for r in log],
            "tokens_per_s": [r["tokens_per_s"] for r in log],
            "losses": [r["loss"] for r in log],
@@ -4067,8 +4298,8 @@ def train_family(label, arch, layers, seq, extra=(), expect_k3=0,
     out["secs"] = time.perf_counter() - t0
     print(f"[chip_smoke]   {label}: peak {peak:.2f} GiB, predicted "
           f"{pred:.2f} GiB (ratio {peak / pred:.3f}); walls {out['walls']} "
-          f"s, tokens/s {out['tokens_per_s']}; K1 {k1}, K3 {k3}, K7 {k7}, "
-          f"K7b {k7b}"
+          f"s, tokens/s {out['tokens_per_s']}; K1 {k1}, K3 {k3}, K4 {k4}, "
+          f"K4b {k4b}, K7 {k7}, K7b {k7b}"
           + (f"; modal draws {out['draw_s']} s a round "
              f"({out['draw_bytes']} B of fp32 embeddings)"
              if "draw_s" in out else "")
@@ -4089,7 +4320,7 @@ def bf16_family(label, arch, layers, seq):
           f"train.main " + " ".join(argv), flush=True)
     tee = Tee(sys.stdout)
     with contextlib.redirect_stdout(tee):
-        log, k1, k3, peak = main_path(argv, 2 * H_LOCAL)
+        log, k1, k3, peak = main_path(argv, 2 * H_LOCAL, expect_k4b=0)
     lines = [ln for ln in "".join(tee.text).splitlines()
              if ln.startswith("[train] tree loop: ")]
     check(not lines, f"{label}: fp32 state took the tree loop: {lines}")
@@ -4167,22 +4398,23 @@ def build_all():
     """One nvcc per kernel source, all started together."""
     t0 = time.perf_counter()
     libs = (su._lib, su._flat_lib, qu._lib, ds._attention_lib,
-            ds._sample_lib, fa._lib, ssd._lib, ssd._lib_bwd)
+            ds._sample_lib, fa._lib, fa._lib_bwd, ssd._lib, ssd._lib_bwd)
     with ThreadPoolExecutor(max_workers=len(libs)) as pool:
         list(pool.map(lambda f: f(), libs))
     for src in ("fused_step.cu", "scaled_update.cu", "quantize_update.cu",
                 "decode_attention.cu", "decode_sample.cu",
-                "flash_attention.cu", "ssd_intra_chunk.cu",
-                "ssd_intra_chunk_bwd.cu"):
+                "flash_attention.cu", "flash_attention_bwd.cu",
+                "ssd_intra_chunk.cu", "ssd_intra_chunk_bwd.cu"):
         info = build.BUILD_LOG.get(src, {"seconds": 0.0, "ptxas": "(cached)"})
         print(f"[chip_smoke] {src}: nvcc {info['seconds']:.2f} s\n"
               f"{info['ptxas']}", flush=True)
     for src in ("decode_attention.cu", "flash_attention.cu",
-                "ssd_intra_chunk.cu", "ssd_intra_chunk_bwd.cu"):
+                "flash_attention_bwd.cu", "ssd_intra_chunk.cu",
+                "ssd_intra_chunk_bwd.cu"):
         for line in ptxas_summary(build.BUILD_LOG.get(src, {}).get("ptxas",
                                                                   "")):
             print(f"[chip_smoke] ptxas {src}: {line}", flush=True)
-    print(f"[chip_smoke] built K1, K2, K3, K4, K5, K6, K7 and K7b in "
+    print(f"[chip_smoke] built K1, K2, K3, K4, K4b, K5, K6, K7 and K7b in "
           f"{time.perf_counter() - t0:.2f} s",
           flush=True)
 
@@ -4287,7 +4519,10 @@ def main():
     # ---- 3. main path: savic, full-width qwen2-0.5b ------------------------
     argv = main_argv("savic", 2)
     print("[chip_smoke] main path: train.main " + " ".join(argv), flush=True)
-    log, launches, _, peak = main_path(argv, 2 * H_LOCAL)
+    log, launches, _, peak = main_path(
+        argv, 2 * H_LOCAL, expect_k4b=k4b_calls("qwen2-0.5b", 4, 2))
+    main_k4 = fa.flash_attention.launches
+    main_k4b = fa.flash_attention_bwd.launches
 
     params = build_model(get_config("qwen2-0.5b")).init(
         torch.Generator(device=DEV).manual_seed(0))
@@ -4322,7 +4557,7 @@ def main():
     # ---- 4. local-adam: update_d + debias ---------------------------------
     argv = main_argv("local-adam", 1)
     print("[chip_smoke] train.main " + " ".join(argv), flush=True)
-    main_path(argv, H_LOCAL)
+    main_path(argv, H_LOCAL, expect_k4b=k4b_calls("qwen2-0.5b", 4, 1))
     la_case = ("adam", "debias", "max", "local", True, 0.0, False, False)
     err, ulps, la_ms, _, la_bytes = k1_main_shape(la_case, 4, n_main, gen,
                                                   plain_timing=False)
@@ -4338,8 +4573,8 @@ def main():
     argv = main_argv("savic", 2, INT8_EF)
     print("[chip_smoke] compressed path: train.main " + " ".join(argv),
           flush=True)
-    clog, _, k3_launches, cpeak = main_path(argv, 2 * H_LOCAL,
-                                            2 * N_LEAVES)
+    clog, _, k3_launches, cpeak = main_path(
+        argv, 2 * H_LOCAL, 2 * N_LEAVES, k4b_calls("qwen2-0.5b", 4, 2))
     for rec in clog:
         check(finite(rec["compression_err"]) and rec["compression_err"] > 0,
               f"compression_err {rec['compression_err']}")
@@ -4547,6 +4782,9 @@ def main():
               f"call bitwise the first", flush=True)
         check(ratio <= 1.0, "K7b differs from its plain VJP")
 
+    # ---- 12c. K4's training instance and K4b: plain VJP, timed -------------
+    k4b = phase_k4b(gen)
+
     # ---- 12b. K6 against its plain version at mamba2's head ----------------
     for B_, greedy in ((MAMBA["batch"], True), (MAMBA["batch"], False),
                        (MTRACE["slots"], True)):
@@ -4734,6 +4972,18 @@ def main():
     mo, mks = p12["moe"], p12["kernels"]
     dv2, mus, ivl, nks = (p13["dsv2"], p13["musicgen"], p13["internvl2"],
                           p13["kernels"])
+    def train_paths(key):
+        """K4's training instance or K4b on the training paths: the qwen2
+        main path, 10d zamba2 (its shared block at D 80) and phase 17's
+        transformer families (gemma3's D 256 takes neither)."""
+        runs = p17["runs"]
+        return {"qwen2-0.5b savic (main path)":
+                    main_k4 if key == "k4" else main_k4b,
+                "zamba2-2.7b 12-layer savic": ztr[key],
+                **{f"{runs[lb]['arch']} {runs[lb]['layers']}-layer savic M 2 "
+                   f"({lb})": runs[lb][key]
+                   for lb in ("17b", "17c", "17d", "17e", "17i")}}
+
     by_path = {
         "k1": {"qwen2-0.5b savic": launches,
                "zamba2-2.7b 12-layer savic": ztr["k1"],
@@ -4766,7 +5016,9 @@ def main():
                "deepseek-v2-236b 4-layer serve": dv2["counts"]["k4"],
                "deepseek-v2-236b 4-layer continuous": dv2["ccounts"]["k4"],
                "musicgen-large serve": mus["counts"]["k4"],
-               "internvl2-1b serve": ivl["counts"]["k4"]},
+               "internvl2-1b serve": ivl["counts"]["k4"],
+               **train_paths("k4")},
+        "k4b": train_paths("k4b"),
         "k5": {"qwen2-0.5b serve": k5_launches,
                "zamba2-2.7b serve": z["counts"]["k5"],
                "zamba2-2.7b continuous": z["ccounts"]["k5"],
@@ -4891,6 +5143,24 @@ def main():
              "gemma3_global": K4_GEMMA, "gemma3_window1024": K4_GEMMA,
              "qwen2-moe": K4_MOE, "mla_dv128": K4_MLA,
              "musicgen": K4_MUSICGEN}),
+    }, {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": None,       # K4's VJP: the TPU kernel has none
+        "launches": sum(by_path["k4b"].values()),
+        "launches_by_path": by_path["k4b"],
+        "launches_count": "calls (3 launches each, 4 where the rep heads "
+                          "split)",
+        "max_abs_err": k4b["err"], "max_err_over_bound": k4b["ratio"],
+        "ms": k4b["times"]["qwen2_cell"]["ms"],
+        "device_ms": k4b["times"]["qwen2_cell"]["device_ms"],
+        "plain_ms": k4b["times"]["qwen2_cell"]["plain_ms"],
+        "bound_ms": k4b["times"]["qwen2_cell"]["bound_ms"],
+        "bound_by": "operations",
+        "library_ms": k4b["times"]["qwen2_cell"]["library_ms"],
+        "at_shapes": shape_times(k4b["times"],
+                                 {"qwen2_cell": K4B_CELL,
+                                  "nemotron_cell": K4B_NEMO}),
     }, {
         "name": "ssd_intra_chunk", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_intra_chunk.cu",

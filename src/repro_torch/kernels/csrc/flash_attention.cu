@@ -64,6 +64,12 @@
 // inputs and views without 16-byte rows take the same
 // pipeline with synchronous loads (converted to fp32 on the way).
 //
+// Two instances of the tilings (template flag LSE). Serving's writes out
+// alone. Training's (fp32, DP <= 128: what K4b takes) also writes each
+// row's log-sum-exp m + log(l), fp32 (B, H, S), the one residual that the
+// backward (K4b, flash_attention_bwd.cu) needs beside q, k, v and out;
+// every other instruction is the same, so both give the same bits of out.
+//
 // The dots are chains of explicit fmaf in d (and in c for p . v), and the
 // row sums are butterfly shuffles, so the kernel sums in another order than
 // PyTorch: it agrees with the plain version to rounding, not bitwise.
@@ -243,6 +249,7 @@ struct Args {
   float qscale, softcap;
   int window;                   // 0 = no window
   int vec;
+  float* lse;                   // (B, H, S) fp32, written where LSE
 };
 
 // floats of one K buffer: a key tile, or the transposed weights after it
@@ -252,7 +259,7 @@ __host__ __device__ constexpr int kbuf_floats() {
          ((DP + 4) > Tile<DP>::PT ? (DP + 4) : Tile<DP>::PT);
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool LSE>
 __global__ void __launch_bounds__(Tile<DP>::THREADS, Tile<DP>::MINB)
     flash_attention_kernel(const Args a) {
   using TL = Tile<DP>;
@@ -440,6 +447,10 @@ __global__ void __launch_bounds__(Tile<DP>::THREADS, Tile<DP>::MINB)
     const int64_t row = q0 + rg + RSTEP * i;
     if (row >= a.S) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if constexpr (LSE)   // the training instance: the row's log-sum-exp
+      if (cg == 0)
+        a.lse[(int64_t)(b * a.H + h) * a.S + row] =
+            __fadd_rn(m[i], logf(l[i]));
     T* orow = ob + ((b * a.S + row) * a.H + h) * (int64_t)a.D;
 #pragma unroll
     for (int j = 0; j < OPT; ++j) {
@@ -457,31 +468,39 @@ constexpr size_t smem_bytes() {
 }
 static_assert(smem_bytes<256>() <= 232448, "a block's shared memory");
 
-template <typename T, int DP>
+template <typename T, int DP, bool LSE>
 int launch(const Args& a, int64_t B, cudaStream_t stream) {
   static std::atomic<int> done[SMEM_MAX_DEVICES];
   const size_t smem = smem_bytes<DP>();
-  cudaError_t err = allow_smem(flash_attention_kernel<T, DP>, done, (int)smem);
+  cudaError_t err =
+      allow_smem(flash_attention_kernel<T, DP, LSE>, done, (int)smem);
   if (err != cudaSuccess) return (int)err;
   constexpr int BQ = Tile<DP>::BQ;
   dim3 grid((unsigned)(B * a.H), (unsigned)((a.S + BQ - 1) / BQ));
-  flash_attention_kernel<T, DP><<<grid, Tile<DP>::THREADS, smem, stream>>>(a);
+  flash_attention_kernel<T, DP, LSE>
+      <<<grid, Tile<DP>::THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool LSE>
 int dispatch(const Args& a, int64_t B, cudaStream_t stream) {
-  if (a.D <= 32) return launch<T, 32>(a, B, stream);
-  if (a.D <= 64) return launch<T, 64>(a, B, stream);
-  if (a.D <= 128) return launch<T, 128>(a, B, stream);
-  return launch<T, 256>(a, B, stream);
+  if (a.D <= 32) return launch<T, 32, LSE>(a, B, stream);
+  if (a.D <= 64) return launch<T, 64, LSE>(a, B, stream);
+  if (a.D <= 128) return launch<T, 128, LSE>(a, B, stream);
+  if constexpr (LSE)   // the training instance takes what K4b takes
+    return (int)cudaErrorInvalidValue;
+  else
+    return launch<T, 256, LSE>(a, B, stream);
 }
 
 }  // namespace
 
 // q, k, v, o: device pointers; *_st: the four element strides (b, s, head,
 // d) of q, k and v; o is (B, S, H, D) contiguous in the inputs' type.
-// bf16 != 0: __nv_bfloat16 inputs and output, else fp32. D <= 256.
+// bf16 != 0: __nv_bfloat16 inputs and output, else fp32. D <= 256. lse:
+// null (the serving instance), or a contiguous fp32 (B, H, S) buffer that
+// the training instance fills with each row's log-sum-exp m + log(l); that
+// instance takes fp32 with D <= 128 (K4b's inputs) and refuses the rest.
 // Returns the CUDA error of the launch (0 = none).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, long long B, long long S, int H,
@@ -489,7 +508,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const long long* k_st,
                                    const long long* v_st, float qscale,
                                    float softcap, int window, int bf16,
-                                   int vec, void* stream) {
+                                   int vec, void* lse, void* stream) {
   Args a;
   a.q = q;
   a.k = k;
@@ -508,6 +527,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   a.softcap = softcap;
   a.window = window;
   a.vec = vec;
+  a.lse = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch<__nv_bfloat16>(a, B, st) : dispatch<float>(a, B, st);
+  if (lse)
+    return bf16 ? (int)cudaErrorInvalidValue : dispatch<float, true>(a, B, st);
+  return bf16 ? dispatch<__nv_bfloat16, false>(a, B, st)
+              : dispatch<float, false>(a, B, st);
 }

@@ -88,27 +88,86 @@ def quantize_update_ref(x, u, scale):
     return qf.to(torch.int8), qf * s
 
 
-def flash_attention_ref(q, k, v, *, window=0, softcap=0.0):
+def _causal_mask(S, window, device):
+    """(S, S) bool: key col <= row, and row - col < ``window`` when
+    ``window`` > 0."""
+    i = torch.arange(S, device=device)
+    mask = i[None, :] <= i[:, None]
+    if window and window > 0:
+        mask &= (i[:, None] - i[None, :]) < window
+    return mask
+
+
+def flash_attention_ref(q, k, v, *, window=0, softcap=0.0, with_lse=False):
     """Causal attention, dense: q (B,S,H,D), k/v (B,S,Hk,D) -> (B,S,H,D) in
     q's dtype. Query head h reads kv head h // (H/Hk). In fp32, in the
     reference's order: q·D^-½ first, then the softcap, then masked scores
     set to -1e30 (causal col <= row, and row - col < ``window`` when
     ``window`` > 0), then the softmax over the keys. The plain version of
-    kernel K4; it holds all (B, H, S, S) scores at once."""
+    kernel K4; it holds all (B, H, S, S) scores at once. ``with_lse``
+    (K4's training instance) returns (out, lse), lse each row's
+    log-sum-exp of the masked scores, fp32 (B, H, S)."""
     B, S, H, D = q.shape
     Hk = k.shape[2]
     qf = (q.float() * (D ** -0.5)).reshape(B, S, Hk, H // Hk, D)
     s = torch.einsum("bqgrd,bkgd->bgrqk", qf, k.float())
     if softcap:
         s = softcap * torch.tanh(s / softcap)
-    i = torch.arange(S, device=q.device)
-    mask = i[None, :] <= i[:, None]
-    if window and window > 0:
-        mask &= (i[:, None] - i[None, :]) < window
-    s = torch.where(mask, s, -1e30)
+    s = torch.where(_causal_mask(S, window, q.device), s, -1e30)
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bgrqk,bkgd->bqgrd", w, v.float())
-    return out.reshape(B, S, H, v.shape[-1]).to(q.dtype)
+    out = out.reshape(B, S, H, v.shape[-1]).to(q.dtype)
+    if not with_lse:
+        return out
+    return out, torch.logsumexp(s, dim=-1).reshape(B, H, S)
+
+
+def flash_attention_vjp_ref(q, k, v, out, lse, dout, *, window=0,
+                            softcap=0.0, magnitudes=False):
+    """The VJP of ``flash_attention_ref`` from its out and lse, in the
+    arithmetic of kernel K4b (``csrc/flash_attention_bwd.cu``), the scores
+    recomputed, all (B, H, S, S) at once. Per head, q' = q·D^-½, s = q'·kᵀ
+    (cap·tanh(s/cap) with softcap):
+
+        p = exp(s − lse) where col <= row (and row − col < window), else 0;
+        delta = rowsum(dout ⊙ out);  ds = p ⊙ (dout·vᵀ − delta)
+        (⊙ (1 − tanh²) with softcap);
+        dq = D^-½·ds·k;  dk = Σ over a kv head's rep query heads of dsᵀ·q';
+        dv = Σ over them of pᵀ·dout.
+
+    q (B,S,H,D), k/v (B,S,Hk,D), out/dout (B,S,H,D), lse (B,H,S). Returns
+    (dq, dk, dv) in the shapes of q, k and v, fp32 (fp64 for an fp64 q).
+    ``magnitudes=True`` takes q (outside the scores), k, v, out and dout by
+    their absolute values and the difference as a sum: each output is then
+    the sum of the magnitudes of the terms it adds, which the card tests
+    scale into rounding bounds."""
+    B, S, H, D = q.shape
+    Hk = k.shape[2]
+    rep = H // Hk
+    f = torch.float64 if q.dtype == torch.float64 else torch.float32
+    scale = D ** -0.5
+    val = (lambda t: t.to(f).abs()) if magnitudes else (lambda t: t.to(f))
+    sub = torch.add if magnitudes else torch.sub
+
+    def heads(t):               # (B,S,H,D) -> (B,Hk,rep,S,D)
+        return t.reshape(B, S, Hk, rep, D).permute(0, 2, 3, 1, 4)
+
+    s = torch.einsum("bgrqd,bkgd->bgrqk", heads(q.to(f)) * scale, k.to(f))
+    if softcap:
+        th = torch.tanh(s / softcap)
+        s = softcap * th
+    mask = _causal_mask(S, window, q.device)
+    p = torch.where(mask, torch.exp(s - lse.to(f).reshape(B, Hk, rep, S, 1)),
+                    0.0)
+    g = heads(val(dout))
+    delta = (g * heads(val(out))).sum(-1, keepdim=True)
+    ds = p * sub(torch.einsum("bgrqd,bkgd->bgrqk", g, val(v)), delta)
+    if softcap:
+        ds = ds * (1.0 - th * th)
+    dq = torch.einsum("bgrqk,bkgd->bgrqd", ds, val(k)) * scale
+    dk = torch.einsum("bgrqk,bgrqd->bkgd", ds, heads(val(q)) * scale)
+    dv = torch.einsum("bgrqk,bgrqd->bkgd", p, g)
+    return dq.permute(0, 3, 1, 2, 4).reshape(B, S, H, D), dk, dv
 
 
 def decode_attention_math(q, k, v, bias, softcap):

@@ -16,10 +16,13 @@ the port runs, op for op; the fake group's collectives return at once.
 Fake tensors are ``cuda`` tensors where this torch is built with CUDA. A
 CPU-only build (this container's) cannot run autograd on a fake ``cuda``
 tensor (the autograd engine asks for the CUDA device guard), so there the
-fake tensors and the mesh are ``cpu``. Nothing the cost model counts
-depends on it: the kernels' wrappers route a ``cpu`` tensor to the same
-operator (K1), the model's kernel flags are off, and FLOPs and bytes come
-from shapes and dtypes.
+fake tensors and the mesh are ``cpu``. One count depends on it: a
+differentiated fp32 attention call on a ``cuda`` tensor takes K4 and K4b
+(``models/layers._takes_k4``), operators counted by their FLOP formulas
+(the causal pairs alone), where a ``cpu`` one takes the dense route's
+einsums (every pair); the rest does not: the kernels' wrappers route a
+``cpu`` tensor to the same operator (K1), the model's kernel flags are
+off, and FLOPs and bytes come from shapes and dtypes.
 
 **Rank 0 stands for every rank.** The step is SPMD: every rank runs the
 same ops on blocks of the same shapes, except where a leaf's split is

@@ -11,8 +11,9 @@ every block's probabilities (45 GB per device on qwen2-0.5b at 4096 tokens,
 as the reference's docstring records).
 
 This is the model's plain route for prompts longer than ``dense_attn_max``
-when kernel K4 (``use_flash_kernel``) is off. It computes every block pair,
-masked ones included, as the reference does.
+when kernel K4 (``use_flash_kernel``) is off and the call is not on the
+card's training route (K4 + K4b, ``layers._takes_k4``). It computes every
+block pair, masked ones included, as the reference does.
 
 Layout: q (B,H,Sq,D), k/v (B,H,Sk,D), KV already repeated to the full head
 count (``flash_attention_bshd`` takes (B,S,H,D)). Each operation follows the

@@ -6,7 +6,9 @@ layouts (head-major QKV weights (d, H, hd), output (H, hd, d)); they are
 stored in fp32 and cast to the compute ``dtype`` at use. Attention takes
 the reference's routes: dense (``_sdpa_dense``), KV-chunked
 (``models/flash.py``) for long sequences, or kernel K4 with
-``use_flash_kernel``; one-token decode runs dense or on kernel K5.
+``use_flash_kernel``; a differentiated call on the card takes K4 and its
+VJP K4b instead (``_takes_k4``); one-token decode runs dense or on kernel
+K5.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.models.flash import HUGE_WINDOW, flash_attention_bshd
 from repro_torch.utils import trace
 
@@ -188,8 +191,12 @@ def attention(p, cfg: ModelConfig, x, positions, call: AttnCall, dtype):
     values, for the decode cache. A config with ``rope`` off (nemotron_h)
     gives the queries and keys no position.
 
-    The reference's three routes, in its order: kernel K4
-    (``kernels.ops.flash_attention``, forward only) when
+    A call that ``_takes_k4`` (a differentiated call on the card) runs K4's
+    training instance and its VJP K4b (``fa.flash_attention_train``;
+    counter ``model.attn_k4``, forward and remat recompute alike), with the
+    layer's window and softcap, at every S. Every other call takes the
+    reference's three routes, in its order: K4's serving instance
+    (``kernels.ops.flash_attention``, no gradient) when
     ``use_flash_kernel`` is set, at every S, with the layer's window
     (gemma3's local layers, qwen3-4b-swa, a ``decode_window``); else the
     KV-chunked online softmax of ``models/flash.py`` when ``chunk`` is set
@@ -216,13 +223,16 @@ def attention(p, cfg: ModelConfig, x, positions, call: AttnCall, dtype):
     rep = h // hk
     with trace.span("model.attention") as sp:
         q, k, v = sp.inputs(q, k, v)
-        if call.use_flash_kernel:
+        win = call.window if _window_on(call.window) else 0
+        if _takes_k4(q, k, v):
+            trace.count("model.attn_k4")
+            out = fa.flash_attention_train(q, k, v, window=win,
+                                           softcap=call.softcap)
+        elif call.use_flash_kernel:
             from repro_torch.kernels import ops as kops
-            win = call.window if _window_on(call.window) else 0
             out = kops.flash_attention(q, k, v, window=win,
                                        softcap=call.softcap)
         elif call.chunk and S > call.chunk:
-            win = call.window if _window_on(call.window) else None
             out = flash_attention_bshd(q, *_repeat_kv(k, v, rep), positions,
                                        positions, window=win,
                                        softcap=call.softcap, bq=call.chunk,
@@ -232,6 +242,27 @@ def attention(p, cfg: ModelConfig, x, positions, call: AttnCall, dtype):
                               positions, call.window, call.softcap)
         out = sp.output(out)
     return _proj_out(p["wo"], out.to(dtype), dtype), cache_kv
+
+
+def _takes_k4(q, k, v):
+    """The card's training route: CUDA tensors, grad enabled and an input
+    that requires it, and a head dim and dtype that K4b takes
+    (``fa.bwd_takes``: fp32, D <= 128 a multiple of 4; every window and
+    softcap). Fake CUDA tensors (the dry run on a CUDA build) take it too:
+    K4 and K4b are operators with fake kernels and FLOP formulas, so the
+    dry run traces and counts the program the card runs. What the inputs
+    show decides, not a model's name or a knob: every transformer family's
+    attention (qwen2, qwen3, qwen2-moe, internvl2, musicgen, zamba2's
+    shared block, nemotron_h's ``*`` layers) takes it alike, and
+    ``dense_attn_max`` and ``attn_chunk`` do not reach it. Today's routes
+    keep the CPU (every CPU test), no-grad calls (serving, on its own
+    ``use_flash_kernel`` choice), bf16 compute, gemma3's D 256 and any D
+    past 128 or not a multiple of 4; MLA (``models/mla.py``) does not call
+    ``attention``. A differentiated backward (the Hessian-vector products)
+    goes through the plain forward's graph (``fa._vjp_graph``)."""
+    return (q.is_cuda and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))
+            and fa.bwd_takes(q.shape[-1], q.dtype))
 
 
 def _repeat_kv(k, v, rep):

@@ -21,8 +21,17 @@ and cum, an fp64 sum rounded once on both sides, differs by one ulp only
 where the fp64 sums straddle an fp32 rounding boundary, which moves an L
 by at most 4u·max|cum| relative. K7b (``ssd_intra_chunk_bwd``, K7's VJP)
 is held the same way to its plain VJP on magnitudes (``k7b_bounds``), and
-bitwise to itself (a second call, strided views).
+bitwise to itself (a second call, strided views). K4b
+(``flash_attention_bwd``, K4's VJP) is held to its plain VJP on the same
+out and lse element by element within u·(2·D·smax + 4·D + 2·rep·S + 32)
+of the plain VJP on magnitudes (``k4b_bounds``), and bitwise to itself;
+K4's training instance gives the serving instance's out bit for bit, and
+the serving instance the bits of the kernel before the training instance
+was added (``K4_SERVE_SHA256``).
 """
+import hashlib
+import math
+
 import pytest
 import torch
 
@@ -461,6 +470,281 @@ def test_k4_rejects_grad_and_mixed_devices(dev):
         ops.flash_attention(q.requires_grad_(), k, v)
     with pytest.raises(ValueError, match="one device"):
         ops.flash_attention(q.detach(), k.cpu(), v)
+
+
+# --------------------------------------------------------------------------- #
+# K4's training instance and K4b, its VJP
+# --------------------------------------------------------------------------- #
+
+
+def _int_inputs(shape, salt, dev):
+    """Exact fp32 values in [-4, 4) from integer arithmetic alone, so that
+    every machine and PyTorch version makes the same bits."""
+    i = torch.arange(math.prod(shape), dtype=torch.int64, device=dev)
+    x = (i * 2654435761 + salt * 40503) % 65521 - 32760
+    return (x.to(torch.float32) / 8192.0).reshape(shape)
+
+
+# (B, S, H, Hk, D, window, softcap, dtype) and the sha256 of the serving
+# instance's out bytes, recorded from the kernel before the training
+# instance was added (H100, nvcc 12.8); the inputs are ``_int_inputs``
+K4_SERVE_SHA256 = {
+    (2, 1024, 14, 2, 64, 0, 0.0, torch.float32):
+        "1dedc0c59939d2371741ad1dcb2e2e2af460d6b5e2b6200b7e7dbbd4ee98cf08",
+    (2, 300, 4, 2, 64, 100, 30.0, torch.float32):
+        "067c6eeb99c81860e03e2e7fdf86e82fc2a66ca9bcf09f14e98b162d868232a6",
+    (1, 512, 8, 4, 256, 64, 0.0, torch.float32):
+        "d765c2a6819710ced9b93c8c253e741217f904303b2816300bf4ec2c0b66d9a6",
+    (1, 256, 14, 2, 64, 0, 0.0, torch.bfloat16):
+        "fd58f6e39fd41da293f20cd6bfe486219cc472a2300c33f6350a2103aea78ede",
+}
+
+
+def k4_serve_digest(B, S, H, Hk, D, window, cap, dtype, dev):
+    q, k, v = (_int_inputs(shape, salt, dev).to(dtype) for salt, shape in
+               enumerate(((B, S, H, D), (B, S, Hk, D), (B, S, Hk, D))))
+    out = fa.flash_attention(q, k, v, window=window, softcap=cap)
+    return hashlib.sha256(out.view(torch.int16 if dtype == torch.bfloat16
+                                   else torch.int32).cpu().numpy()
+                          .tobytes()).hexdigest()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K4_SERVE_SHA256), ids=str)
+def test_k4_serving_bits_unchanged(dev, case):
+    """Serving's K4 gives the bits it gave before K4 had a training
+    instance (a toolchain other than nvcc 12.8 may round elsewhere)."""
+    assert k4_serve_digest(*case, dev) == K4_SERVE_SHA256[case]
+
+
+def _k4b_inputs(B, S, H, Hk, D, dev, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=dev)
+            for shape in ((B, S, H, D), (B, S, Hk, D), (B, S, Hk, D),
+                          (B, S, H, D))]
+
+
+def k4b_bounds(q, k, v, out, lse, dout, window, cap):
+    """K4b's per-element bounds against its plain VJP:
+    u·(2·D·smax + 4·D + 2·rep·S + 32), u = 2^-24, times the plain VJP on
+    magnitudes. smax = D^-½·max‖q_r‖·max‖k_c‖ bounds Σ_d |q'_d k_d| of
+    any pair, so both sides' scores, each a chain of D products, lie
+    within D·u·smax of the exact ones, and p = exp(s − lse) within
+    2·D·u·smax relatively (the same lse on both sides; the softcap's
+    slope is at most 1); dp and delta are sums of D products; dq sums up
+    to S keys, dk and dv up to rep·S rows of a kv head's query heads."""
+    B, S, H, D = q.shape
+    rep = H // k.shape[2]
+    smax = D ** -0.5 * float(q.norm(dim=-1).max() * k.norm(dim=-1).max())
+    eps = 2.0 ** -24 * (2 * D * smax + 4 * D + 2 * rep * S + 32)
+    mags = ref.flash_attention_vjp_ref(q, k, v, out, lse, dout,
+                                       window=window, softcap=cap,
+                                       magnitudes=True)
+    return [eps * m for m in mags]
+
+
+# (B, S, H, Hk, D, window, softcap): the qwen2 cell's heads, nemotron's 32/2
+# at D 128 (rep 16), S not a multiple of 64, MQA, rep 1, a window, a
+# softcap, both, D 80 and 32 (padded to 128 and 64), S = 1; splits of the
+# rep heads: all (small grids), 2 of 4 (8, 2048, 8, 2) and none (rep 1)
+K4B_CASES = [(2, 256, 14, 2, 64, 0, 0.0), (1, 512, 32, 2, 128, 0, 0.0),
+             (1, 200, 4, 2, 128, 0, 0.0), (2, 130, 8, 1, 64, 0, 0.0),
+             (2, 300, 4, 2, 64, 100, 0.0), (1, 256, 4, 2, 64, 0, 30.0),
+             (1, 333, 4, 4, 80, 70, 30.0), (1, 191, 4, 2, 32, 0, 0.0),
+             (2, 1, 14, 2, 64, 0, 0.0), (8, 2048, 8, 2, 64, 0, 0.0),
+             (2, 2048, 4, 4, 64, 0, 0.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Hk,D,window,cap", K4B_CASES)
+def test_k4b_vs_plain(dev, B, S, H, Hk, D, window, cap):
+    q, k, v, dout = _k4b_inputs(B, S, H, Hk, D, dev)
+    out, lse = fa.flash_attention_lse(q, k, v, window=window, softcap=cap)
+    want = ref.flash_attention_vjp_ref(q, k, v, out, lse, dout,
+                                       window=window, softcap=cap)
+    before = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, window=window,
+                                 softcap=cap)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == before + 1
+    bounds = k4b_bounds(q, k, v, out, lse, dout, window, cap)
+    for name, g, w, bd, t in zip(("dq", "dk", "dv"), got, want, bounds,
+                                 (q, k, v)):
+        assert g.shape == t.shape and g.dtype == torch.float32, name
+        assert g.is_contiguous(), name
+        assert bool(((g - w).abs() <= bd).all()), \
+            (name, float(((g - w).abs() / bd.clamp_min(1e-30)).max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Hk,D,window,cap", [
+    (2, 256, 14, 2, 64, 0, 0.0), (1, 200, 4, 2, 128, 40, 30.0),
+    (2, 97, 4, 2, 64, 0, 0.0)])
+def test_k4_lse_instance_matches_serving_and_plain(dev, B, S, H, Hk, D,
+                                                   window, cap):
+    """The training instance's out is the serving instance's bit for bit;
+    its lse is the plain log-sum-exp within u·(2·D·smax + 2·S + 16 +
+    |lse|) (the scores' error, l's sum of up to S terms, m + log l)."""
+    q, k, v, _ = _k4b_inputs(B, S, H, Hk, D, dev)
+    out, lse = fa.flash_attention_lse(q, k, v, window=window, softcap=cap)
+    assert torch.equal(out, fa.flash_attention(q, k, v, window=window,
+                                               softcap=cap))
+    _, want = ref.flash_attention_ref(q, k, v, window=window, softcap=cap,
+                                      with_lse=True)
+    smax = D ** -0.5 * float(q.norm(dim=-1).max() * k.norm(dim=-1).max())
+    tol = 2.0 ** -24 * (2 * D * smax + 2 * S + 16 + float(want.abs().max()))
+    assert lse.shape == (B, H, S) and float((lse - want).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_k4b_is_deterministic(dev):
+    """No atomics; dq's key sums, dk and dv's row and head sums and the
+    splits' sum in a fixed order: two calls give the same bits, and views
+    of other layouts the bits of contiguous copies. K4's training instance
+    too gives the same out and lse twice (remat's recompute rebuilds a
+    layer from them)."""
+    B, S, H, Hk, D = 2, 1024, 32, 2, 128
+    q, k, v, dout = _k4b_inputs(B, S, H, Hk, D, dev)
+    out, lse = fa.flash_attention_lse(q, k, v)
+    out2, lse2 = fa.flash_attention_lse(q, k, v)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    first = fa.flash_attention_bwd(q, k, v, out, lse, dout)
+    second = fa.flash_attention_bwd(q, k, v, out, lse, dout)
+    for u, w in zip(first, second):
+        assert torch.equal(u, w)
+    qt = q.transpose(1, 2).contiguous().transpose(1, 2)
+    kw = torch.cat([k, k], dim=-1)[..., :D]
+    third = fa.flash_attention_bwd(qt, kw, v, out, lse, dout[:, :, :, :])
+    for u, w in zip(first, third):
+        assert torch.equal(u, w)
+
+
+@pytest.mark.cuda
+def test_k4_route_layer_grads_match_dense(dev, monkeypatch):
+    """One full-width qwen2-0.5b attention layer at the cell's call (B 4,
+    S 1024): its parameter gradients through the route (K4 + K4b) against
+    the dense route's, each leaf to 1e-3 of its largest magnitude, the size
+    of K4b's rounding bound at this shape (u·2·rep·S ≈ 8.5e-4 of the
+    magnitudes); one route call, one K4b call, the counter once."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+    from repro_torch.utils import trace
+    from repro_torch.utils.tree import tree_paths, tree_unflatten
+    cfg = get_config("qwen2-0.5b")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    p = layers.init_attention(gen, cfg)
+    for leaf in ("wq", "wk", "wv"):
+        p[leaf]["b"].normal_(generator=gen)
+    x = torch.randn((4, 1024, cfg.d_model), generator=gen, device=dev)
+    w = torch.randn((4, 1024, cfg.d_model), generator=gen, device=dev)
+    pos = torch.arange(1024, dtype=torch.int32, device=dev)
+    real = layers._takes_k4
+
+    def grads(route):
+        monkeypatch.setattr(layers, "_takes_k4",
+                            real if route else (lambda *t: False))
+        before = fa.flash_attention_bwd.launches
+        paths = [(k, t.clone().requires_grad_()) for k, t in tree_paths(p)]
+        with trace.recording() as rec:
+            out, _ = layers.attention(tree_unflatten(p, [t for _, t in paths]),
+                                      cfg, x, pos, layers.AttnCall(),
+                                      torch.float32)
+            g = torch.autograd.grad((out * w).sum(), [t for _, t in paths])
+            torch.cuda.synchronize()
+        n = sum(c.get("model.attn_k4", 0) for c in rec.collect()[1].values())
+        return ({k: gi for (k, _), gi in zip(paths, g)},
+                fa.flash_attention_bwd.launches - before, n)
+
+    got, n_bwd, n_route = grads(True)
+    assert n_bwd == 1 and n_route == 1
+    want, n_plain, n_dense = grads(False)
+    assert n_plain == 0 and n_dense == 0
+    for k in want:
+        tol = 1e-3 * float(want[k].abs().max())
+        assert float((got[k] - want[k]).abs().max()) <= tol, k
+
+
+@pytest.mark.cuda
+def test_k4_route_second_order_matches_dense(dev, monkeypatch):
+    """A Hessian-vector product through one full-width qwen2-0.5b attention
+    layer (B 2, S 256), reverse over reverse as
+    ``preconditioner.hutchinson_diag`` takes it: through the route (K4's
+    forward; the differentiated backward on the plain forward's graph)
+    against the dense route's, each leaf to 1e-3 of its largest magnitude
+    (the first-order test's tolerance; a dropped second-order term moves a
+    leaf by its whole size). K4b runs once, in the second pass: the output
+    projection's weight gradient reads K4's out, and its term is a
+    first-order VJP. The counter reads one routed call, and
+    ``FlopCounterMode`` counts K4's forward by its formula."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+    from repro_torch.utils import trace
+    from repro_torch.utils.tree import tree_paths, tree_unflatten
+    cfg = get_config("qwen2-0.5b")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    p = layers.init_attention(gen, cfg)
+    x = torch.randn((2, 256, cfg.d_model), generator=gen, device=dev)
+    w = torch.randn((2, 256, cfg.d_model), generator=gen, device=dev)
+    pos = torch.arange(256, dtype=torch.int32, device=dev)
+    probe = {k: torch.randn(t.shape, generator=gen, device=dev)
+             for k, t in tree_paths(p)}
+    real = layers._takes_k4
+
+    def hvp(route):
+        monkeypatch.setattr(layers, "_takes_k4",
+                            real if route else (lambda *t: False))
+        before = fa.flash_attention_bwd.launches
+        paths = [(k, t.clone().requires_grad_()) for k, t in tree_paths(p)]
+        xs = [t for _, t in paths]
+        with trace.recording() as rec, FlopCounterMode(display=False) as fc:
+            out, _ = layers.attention(tree_unflatten(p, xs), cfg, x, pos,
+                                      layers.AttnCall(), torch.float32)
+            flops = fc.get_total_flops()
+            g = torch.autograd.grad((out * w).sum(), xs, create_graph=True)
+            hv = torch.autograd.grad(sum((gi * probe[k]).sum() for (k, _), gi
+                                         in zip(paths, g)), xs)
+            torch.cuda.synchronize()
+        n = sum(c.get("model.attn_k4", 0) for c in rec.collect()[1].values())
+        return ({k: h for (k, _), h in zip(paths, hv)},
+                fa.flash_attention_bwd.launches - before, n, flops)
+
+    got, n_bwd, n_route, flops = hvp(True)
+    assert n_bwd == 1 and n_route == 1
+    want, _, n_dense, flops_dense = hvp(False)
+    assert n_dense == 0
+    attn = fa.work(2, 256, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)[0]
+    dense = 4 * 2 * cfg.n_heads * 256 * 256 * cfg.head_dim
+    assert flops - attn == flops_dense - dense
+    for k in want:
+        tol = 1e-3 * float(want[k].abs().max())
+        assert float((got[k] - want[k]).abs().max()) <= tol, k
+
+
+@pytest.mark.cuda
+def test_attn_k4_counts_in_a_training_round(dev):
+    """One round of the qwen2-0.5b training cell's job (24 layers at full
+    width; savic, Adam D at sync, fused K1; M 4, H 2, b 4, S 1024) under
+    the recorder: ``model.attn_k4`` counts 384 routed calls (192 forward,
+    192 remat recompute: M·H·24), K4 launches 384 times and K4b 192."""
+    from repro_torch.launch import train
+    from repro_torch.utils import trace
+    run = train.setup(["--arch", "qwen2-0.5b", "--device", "cuda", "--seed",
+                       "11", "--dtype", "float32", "--method", "savic",
+                       "--preconditioner", "adam", "--scaling", "global",
+                       "--clients", "4", "--h-local", "2", "--batch", "4",
+                       "--seq", "1024", "--use-fused-kernel"])
+    batch = train.round_batch(run.loader, run.args, 0, run.device)
+    k4, k4b = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+    with trace.recording() as rec:
+        state, met = run.round_step(run.state, batch, run.stream(0))
+        torch.cuda.synchronize()
+    _, counters = rec.collect()
+    assert counters[0]["model.attn_k4"] == 384
+    assert fa.flash_attention.launches - k4 == 384
+    assert fa.flash_attention_bwd.launches - k4b == 192
+    assert bool(torch.isfinite(met["loss"]).all())
 
 
 # (B, S, H, P, N, Q, A, shared B/C): the serve prefill's shape with one
