@@ -30,7 +30,7 @@ recurrent state, 63 decode steps on K6, and continuous batching of 16
 requests on 8 slots), holds K6 at heads wider than 2048 (d = 2560, 8192),
 holds the kernel paths against the plain ones teacher-forced (the K4
 prefill against the chunked ``models/flash.py`` one, the K7 prefill against
-``models.ssm.ssd_chunked``), and checks what comes out. Phase 9 holds
+``models.ssm._ssd_chunked``), and checks what comes out. Phase 9 holds
 checkpoint and resume through ``train.main --ckpt``: savic through K1 at
 full width cut to 2 layers, M = 4, 3 rounds against 2 + restore + 1 (9a;
 cut from 24 layers, whose 17.84 GB saves took 125 s on the machine's 9p
@@ -197,14 +197,17 @@ from repro_torch.launch import profile_serve  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch import train_lm  # noqa: E402
+from repro_torch.launch.roofline import (HBM_BYTES_PER_S,  # noqa: E402
+                                         PEAK_FLOPS)
 from repro_torch.models import (ModelCallConfig, sample_batch,  # noqa: E402
                                 sample_ids)
 from repro_torch.models import build as build_model  # noqa: E402
 from repro_torch.models import layers as Lyr  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.flash import flash_attention_bshd  # noqa: E402
-from repro_torch.models.ssm import broadcast_heads, ssd_chunked  # noqa: E402
+from repro_torch.models.ssm import broadcast_heads  # noqa: E402
 from repro_torch.utils import rng  # noqa: E402
 from repro_torch.utils.flatten import FlatLayout  # noqa: E402
 from repro_torch.utils.tree import (tree_leaves, tree_map,  # noqa: E402
@@ -218,8 +221,7 @@ sys.path.insert(0, os.path.join(ROOT, "tests"))
 import _reference_controller as ref_ctrl  # noqa: E402
 from _torch_moe_routing import RouteRecorder, hold_routing  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
-FP32_FLOP_PER_S = 67e12            # fp32 outside the tensor cores
+FP32_FLOP_PER_S = PEAK_FLOPS["float32"]    # outside the tensor cores
 DEV = torch.device("cuda", 0)
 H_LOCAL = 2
 K1_N = 1 << 20                     # row length of the kernel-vs-plain cases
@@ -1532,7 +1534,7 @@ def time_k7(gen, shape=K7_MAIN, shared=True):
     model's): CUDA-event times of the kernel
     wrapper (two launches a call) back to back and as device time (a CUDA
     graph of calls), of its plain version and of the whole plain SSD
-    (``models.ssm.ssd_chunked``), and its bound from ``ssd_scan.work``
+    (``models.ssm._ssd_chunked``), and its bound from ``ssd_scan.work``
     with the plan's groups. No single PyTorch call computes K7's function:
     no library time."""
     B, S, H, P, N, Q = shape
@@ -1540,7 +1542,8 @@ def time_k7(gen, shape=K7_MAIN, shared=True):
     t = {"ms": cuda_ms(lambda: ssd.ssd_intra_chunk(x, dt, A, Bm, Cm, Q), 20),
          "plain_ms": cuda_ms(lambda: ref.ssd_intra_chunk_ref(x, dt, A, Bm,
                                                              Cm, Q), 3),
-         "chunked_ms": cuda_ms(lambda: ssd_chunked(x, dt, A, Bm, Cm, Q), 3),
+         "chunked_ms": cuda_ms(lambda: ssm._ssd_chunked(x, dt, A, Bm, Cm, Q,
+                                                        None), 3),
          "route_ms": cuda_ms(lambda: kops.ssd(x, dt, A, Bm, Cm, chunk=Q), 5),
          "device_ms": graph_ms(lambda: ssd.ssd_intra_chunk(x, dt, A, Bm, Cm,
                                                            Q),
@@ -1868,20 +1871,44 @@ def long_teacher_forced(cfg, params):
 
 
 class CumRecorder:
-    """Wraps ``ops.ssd`` (the K7 route's entry) and records the largest
-    |cum| of every call, for the teacher-forced bound."""
+    """While entered, wraps the K7 route's composition
+    (``ssd_scan.ssd_kernel_forward``, which ``ssm.ssd_chunked`` calls on
+    the card) and records the largest |cum| of every call, for the
+    teacher-forced bound."""
 
     def __init__(self):
-        self.max, self.real = 0.0, kops.ssd
+        self.max = 0.0
 
-    def __call__(self, xh, dt, A, Bm, Cm, *, chunk, h0=None):
+    def __enter__(self):
+        self.real, ssd.ssd_kernel_forward = ssd.ssd_kernel_forward, self
+        return self
+
+    def __exit__(self, *exc):
+        ssd.ssd_kernel_forward = self.real
+
+    def __call__(self, xh, dt, A, Bm, Cm, chunk, h0=None, **kw):
         self.max = max(self.max, cum_max(dt, A, chunk))
-        return self.real(xh, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+        return self.real(xh, dt, A, Bm, Cm, chunk, h0, **kw)
+
+
+@contextlib.contextmanager
+def plain_ssd():
+    """The model's SSD on the plain scan (``ssm._ssd_chunked``) where it
+    takes K7 by default: the oracle of the K7 prefill. Checks that no K7
+    launch ran inside."""
+    real, ssm._takes_k7 = ssm._takes_k7, lambda xh: False
+    before = ssd.ssd_intra_chunk.launches
+    try:
+        yield
+    finally:
+        ssm._takes_k7 = real
+    check(ssd.ssd_intra_chunk.launches == before,
+          "the plain prefill launched K7")
 
 
 def mamba_teacher_forced(cfg, params):
-    """The K7 route (K7 prefill, K6 decode) against the plain route
-    (``ssd_chunked`` prefill, plain decode) at full width on one prompt,
+    """The K7 route (the default K7 prefill, K6 decode) against the plain
+    route (``plain_ssd`` prefill, plain decode) at full width on one prompt,
     teacher-forced on the plain route's greedy tokens. Held, with
     eps = u·(4·max|cum| + N + Q + 2·nc + 8), u = 2^-24, max|cum| recorded
     over the prefill's 48 SSD calls (both routes accumulate cum in fp64 and
@@ -1897,17 +1924,13 @@ def mamba_teacher_forced(cfg, params):
     s = cfg.ssm
     plain = build_model(cfg, ModelCallConfig(dtype=torch.float32))
     kern = build_model(cfg, ModelCallConfig(dtype=torch.float32,
-                                            use_ssd_kernel=True,
                                             use_decode_kernel=True))
-    rec = CumRecorder()
     with torch.inference_mode():
         prompt = sample_batch(cfg, rng.TorchStream(1), B, S, DEV)
-        lg_p, cache_p = plain.prefill_cache(params, prompt, S + G)
-        kops.ssd = rec
-        try:
+        with plain_ssd():
+            lg_p, cache_p = plain.prefill_cache(params, prompt, S + G)
+        with CumRecorder() as rec:
             lg_k, cache_k = kern.prefill_cache(params, prompt, S + G)
-        finally:
-            kops.ssd = rec.real
         eps = U * (4 * rec.max + s.d_state + s.chunk + 2 * (S // s.chunk)
                    + 8)
         lerr = float((lg_k - lg_p).abs().max())
@@ -2018,14 +2041,10 @@ def hold_prefill(cfg, params, kw, kern_flags, cache_tol, what, rec=None):
                                             **kern_flags))
     with torch.inference_mode():
         prompt = sample_batch(cfg, rng.TorchStream(1), B, S, DEV)
-        lg_p, cache_p = plain.prefill_cache(params, prompt, S + G)
-        if rec is not None:
-            kops.ssd = rec
-        try:
+        with plain_ssd():
+            lg_p, cache_p = plain.prefill_cache(params, prompt, S + G)
+        with rec or contextlib.nullcontext():
             lg_k, cache_k = kern.prefill_cache(params, prompt, S + G)
-        finally:
-            if rec is not None:
-                kops.ssd = rec.real
         tol = cache_tol()
         lerr = float((lg_k - lg_p).abs().max())
         lbound = tol * float(lg_p.abs().max())
@@ -2057,12 +2076,11 @@ def hold_prefill(cfg, params, kw, kern_flags, cache_tol, what, rec=None):
 def zamba_phase():
     """10a: zamba2-2.7b served at full width and depth through K7, K4, K5
     and K6; its prefill's device time by kernel; the kernel prefill held
-    against the plain one (``ssd_chunked`` + dense attention) and the K5/K6
+    against the plain one (``plain_ssd`` + dense attention) and the K5/K6
     decode against the plain decode, teacher-forced. 10b: continuous
     batching on 8 slots, three requests held against solo serving."""
     steps = ZAMBA["gen_len"] - 1
-    flags = dict(use_ssd_kernel=True, use_flash_kernel=True,
-                 use_decode_kernel=True)
+    flags = dict(use_flash_kernel=True, use_decode_kernel=True)
     print("[chip_smoke] 10a zamba2 serve path: serve('zamba2-2.7b', "
           f"reduced=False, {flags}, {ZAMBA})", flush=True)
     res, counts, peak = serve_path(
@@ -2071,8 +2089,7 @@ def zamba_phase():
          "k6": steps, "k7": N_ZAMBA_LAYERS}, **flags)
     del res
     cfg, params = full_params("zamba2-2.7b")
-    prof = prefill_profile(cfg, params, ZAMBA, use_ssd_kernel=True,
-                           use_flash_kernel=True)
+    prof = prefill_profile(cfg, params, ZAMBA, use_flash_kernel=True)
     check(prof["prefill_k7_launches"] == 2 * N_ZAMBA_LAYERS
           and prof["prefill_k4_launches"] == N_ZAMBA_APPS,
           f"profiled prefill launches K7 {prof['prefill_k7_launches']}, "
@@ -2086,8 +2103,7 @@ def zamba_phase():
     tol = lambda: U * (4 * rec.max + s.d_state + s.chunk + 2 * (S // s.chunk)
                        + 8) + 1e-4
     lerr, lbound, cratio, ties, cache_p, tok, plain = hold_prefill(
-        cfg, params, ZAMBA, dict(use_ssd_kernel=True, use_flash_kernel=True),
-        tol, "zamba2", rec)
+        cfg, params, ZAMBA, dict(use_flash_kernel=True), tol, "zamba2", rec)
     kern = build_model(cfg, ModelCallConfig(dtype=torch.float32,
                                             use_decode_kernel=True))
     dties, n_ids = decode_same_cache(cfg, params, cache_p, tok, S,
@@ -2095,7 +2111,7 @@ def zamba_phase():
                                      "zamba2")
     del cache_p
     torch.cuda.empty_cache()
-    print(f"[chip_smoke] 10a K7 + K4 prefill vs ssd_chunked + dense prefill, "
+    print(f"[chip_smoke] 10a K7 + K4 prefill vs plain scan + dense prefill, "
           f"full width: last logits max abs {lerr:.3e} (bound {lbound:.3e},"
           f" max|cum| {rec.max:.1f}), cache leaves at {cratio:.3f} of their "
           f"bounds at worst, first ids near-tie exceptions {ties}; K5/K6 "
@@ -2283,7 +2299,7 @@ def new_shape_kernels(gen):
               f"{K7_ZAMBA if key == 'zamba2' else K7_ZAMBA_ONE}: "
               f"{t['ms'] * 1e3:.2f} us/call back to back, device "
               f"{t['device_ms'] * 1e3:.2f} us, plain "
-              f"{t['plain_ms'] * 1e3:.2f} us, whole ssd_chunked "
+              f"{t['plain_ms'] * 1e3:.2f} us, whole _ssd_chunked "
               f"{t['chunked_ms'] * 1e3:.2f} us, K7 route "
               f"{t['route_ms'] * 1e3:.2f} us, bound "
               f"{t['bound_ms'] * 1e3:.3f} us ({t['flops'] / 1e9:.3f} GFLOP), "
@@ -4816,7 +4832,7 @@ def main():
 
     # ---- 13. mamba2-1.3b serve: K7 prefill, K6 decode ----------------------
     steps = MAMBA["gen_len"] - 1
-    flags = dict(use_ssd_kernel=True, use_decode_kernel=True)
+    flags = dict(use_decode_kernel=True)
     print("[chip_smoke] mamba2 serve path: serve('mamba2-1.3b', "
           f"reduced=False, {flags}, {MAMBA})", flush=True)
     _, counts, mpeak = serve_path(
@@ -4826,7 +4842,7 @@ def main():
     mcfg, mparams = full_params("mamba2-1.3b")
     lerr, lbound, cratio, mties, m_ids, cmax = mamba_teacher_forced(mcfg,
                                                                     mparams)
-    print(f"[chip_smoke] K7 route vs ssd_chunked route, teacher-forced, full "
+    print(f"[chip_smoke] K7 route vs plain-scan route, teacher-forced, full "
           f"width, prompt {MAMBA['prompt_len']}: last logits max abs "
           f"{lerr:.3e} (bound {lbound:.3e}, max|cum| {cmax:.1f}), cache "
           f"leaves at {cratio:.3f} of their bounds at worst, {m_ids} ids, "
@@ -4836,7 +4852,7 @@ def main():
     print(f"[chip_smoke] serve_continuous('mamba2-1.3b', reduced=False, "
           f"{flags}, {MTRACE})", flush=True)
     continuous_check("mamba2-1.3b", mparams, MTRACE, flags,
-                     dict(use_ssd_kernel=True), {"k7": N_MAMBA_LAYERS}, 0)
+                     {}, {"k7": N_MAMBA_LAYERS}, 0)
     del mparams
     torch.cuda.empty_cache()
 
@@ -4885,7 +4901,8 @@ def main():
         print(f"[chip_smoke] K7 at {label} shape {shape}: "
               f"{t['ms'] * 1e3:.2f} us/call back to back (2 launches), "
               f"device time (CUDA graph) {t['device_ms'] * 1e3:.2f} us, plain "
-              f"{t['plain_ms'] * 1e3:.2f} us, whole plain SSD (ssd_chunked) "
+              f"{t['plain_ms'] * 1e3:.2f} us, whole plain SSD "
+              f"(_ssd_chunked) "
               f"{t['chunked_ms'] * 1e3:.2f} us, whole K7 route (ops.ssd) "
               f"{t['route_ms'] * 1e3:.2f} us, library none, bound "
               f"{t['bound_ms'] * 1e3:.3f} us (operations: "

@@ -133,7 +133,9 @@ def decode_sample(y, table, noise, *, scale, v_real):
 def ssd(xh, dt, A, Bm, Cm, *, chunk, h0=None):
     """The chunked SSD scan on the intra-chunk kernel (equal to
     ``models.ssm.ssd_chunked``): -> (y (B, S, H, P), h_final (B, H, P, N)),
-    fp32, from the state ``h0`` (zeros when None). Forward only."""
+    fp32, from the state ``h0`` (zeros when None). Forward only: the
+    counterpart of the reference's public ``ops.ssd``, off the model's path
+    (the model calls ``ssd_chunked``, which takes K7 on the card itself)."""
     if xh.device.type == "cuda":
         return _ssd.ssd_kernel_forward(xh, dt, A, Bm, Cm, chunk, h0=h0)
     if xh.device.type != "cpu":

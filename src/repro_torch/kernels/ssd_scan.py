@@ -27,10 +27,11 @@ SSD quantities:
   (B=4, S=2048, H=64, P=64, N=128, Q=256, one group) the inputs need
   17.48 GFLOP, >= 0.261 ms at 67 TFLOP/s; 0.35 GB to move, 0.10 ms.
 * Forward only, as the TPU kernel is: the wrapper raises for an input that
-  requires grad. Training differentiates it through ``intra_chunk``, an
-  ``autograd.Function`` whose backward is K7b (``ssd_intra_chunk_bwd``,
-  ``csrc/ssd_intra_chunk_bwd.cu``): a hand-written VJP that replaces no TPU
-  kernel (the Pallas K7 has none) and, like K7, never writes a (Q, Q)
+  requires grad. The model (``models.ssm.ssd_chunked``) calls it through
+  ``intra_chunk``, an ``autograd.Function`` whose backward is K7b
+  (``ssd_intra_chunk_bwd``, ``csrc/ssd_intra_chunk_bwd.cu``): a
+  hand-written VJP that replaces no TPU kernel (the Pallas K7 has none)
+  and, like K7, never writes a (Q, Q)
   tensor per head. Four launches a call (``plan_bwd``); its plain version
   is ``kernels/ref.py::ssd_intra_chunk_vjp_ref``; bound: operations
   (``work_bwd``), 17.6 GFLOP at mamba2-1.3b's training shape (B=2, S=2048,
@@ -473,7 +474,7 @@ def intra_chunk(xh, dt, A, Bm, Cm, chunk, fwd=ssd_intra_chunk,
 def ssd_kernel_forward(xh, dt, A, Bm, Cm, chunk, h0=None,
                        intra=ssd_intra_chunk):
     """The whole SSD from the intra-chunk term ``intra`` (K7 by default;
-    ``ops.ssd`` passes the plain version for CPU tensors, the training route
+    ``ops.ssd`` passes the plain version for CPU tensors, the model's route
     ``intra_chunk``), the inter-chunk recurrence from ``h0`` (zeros when
     None) and the ``Y_off`` term. B/C are what ``intra`` takes: (B, S, H, N)
     per head, or (B, S, G, N) groups read by H / G heads each. Equal to

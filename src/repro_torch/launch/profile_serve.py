@@ -7,7 +7,7 @@ under ``torch.profiler``, runs ``--untraced`` greedy decode steps (each
 timed between device synchronizations), then ``--traced`` more under the
 profiler, and prints: the prefill time and the traced prefill's device time
 split into K4 (flash attention, with ``--flash-kernel``), K7 (the SSD
-intra-chunk term, with ``--ssd-kernel``: its prep and main kernels, two
+intra-chunk term of an ssm or hybrid model: its prep and main kernels, two
 launches a layer), GEMMs and the rest; the untraced
 steps' wall times and their median, the device-busy time per traced step
 (summed kernel time) as a share of the traced step and of the untraced
@@ -25,11 +25,10 @@ traced steps' wall time.
       --arch qwen2-0.5b --full --flash-kernel --decode-kernel --batch 2 \\
       --prompt-len 8192
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
-      --arch mamba2-1.3b --full --ssd-kernel --decode-kernel --batch 4 \\
-      --prompt-len 2048
+      --arch mamba2-1.3b --full --decode-kernel --batch 4 --prompt-len 2048
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
-      --arch zamba2-2.7b --full --ssd-kernel --flash-kernel \\
-      --decode-kernel --batch 4 --prompt-len 2048
+      --arch zamba2-2.7b --full --flash-kernel --decode-kernel --batch 4 \\
+      --prompt-len 2048
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
       --arch gemma3-4b --full --flash-kernel --decode-kernel --batch 2 \\
       --prompt-len 4096
@@ -140,7 +139,6 @@ def main(argv=None):
     ap.add_argument("--traced", type=int, default=8)
     ap.add_argument("--decode-kernel", action="store_true")
     ap.add_argument("--flash-kernel", action="store_true")
-    ap.add_argument("--ssd-kernel", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the depth to this many layers (0: the "
@@ -152,7 +150,7 @@ def main(argv=None):
         cfg = cfg.replace(n_layers=args.layers)
     model = build(cfg, ModelCallConfig(
         dtype=torch.float32, use_decode_kernel=args.decode_kernel,
-        use_flash_kernel=args.flash_kernel, use_ssd_kernel=args.ssd_kernel))
+        use_flash_kernel=args.flash_kernel))
     params = model.init(torch.Generator(device=device).manual_seed(args.seed))
     B, S = args.batch, args.prompt_len
     steps = args.untraced + args.traced
@@ -210,7 +208,7 @@ def main(argv=None):
         "device": torch.cuda.get_device_name(0), "n_layers": cfg.n_layers,
         "batch": B,
         "prompt_len": S, "decode_kernel": args.decode_kernel,
-        "flash_kernel": args.flash_kernel, "ssd_kernel": args.ssd_kernel,
+        "flash_kernel": args.flash_kernel,
         "prefill_ms": prefill_ms,
         "traced_prefill_ms": traced_prefill_ms, **prefill,
         "untraced_step_ms": untraced_ms,

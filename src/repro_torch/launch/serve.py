@@ -63,11 +63,10 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --device cpu --mode continuous --decode-kernel
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
-      --full --ssd-kernel --decode-kernel --batch 4 --prompt-len 2048 \\
-      --gen-len 64
+      --full --decode-kernel --batch 4 --prompt-len 2048 --gen-len 64
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
-      --full --ssd-kernel --flash-kernel --decode-kernel --batch 4 \\
-      --prompt-len 2048 --gen-len 64
+      --full --flash-kernel --decode-kernel --batch 4 --prompt-len 2048 \\
+      --gen-len 64
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\
       --full --flash-kernel --decode-kernel --batch 8 --prompt-len 512 \\
       --gen-len 64
@@ -75,7 +74,7 @@ Examples:
       --full --flash-kernel --decode-kernel --batch 2 --prompt-len 4096 \\
       --gen-len 64        # K4 with each layer's window; K6 on the tied table
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
-      --device cpu --mode continuous --ssd-kernel --flash-kernel \\
+      --device cpu --mode continuous --flash-kernel \\
       --decode-kernel                                   # reduced zamba2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \\
       --full --flash-kernel --decode-kernel --batch 4 --prompt-len 2048 \\
@@ -128,15 +127,13 @@ def _sync(device):
 
 
 def _setup(arch, *, reduced, dtype, decode_window, use_decode_kernel, seed,
-           device, params, use_flash_kernel=False, use_ssd_kernel=False,
-           exact_moe=False):
+           device, params, use_flash_kernel=False, exact_moe=False):
     device = resolve_device(device)
     cfg = get_config(arch, reduced=reduced)
     model = build(cfg, ModelCallConfig(dtype=dtype,
                                        decode_window=decode_window,
                                        use_decode_kernel=use_decode_kernel,
                                        use_flash_kernel=use_flash_kernel,
-                                       use_ssd_kernel=use_ssd_kernel,
                                        exact_moe=exact_moe))
     if params is None:
         params = model.init(torch.Generator(device=device).manual_seed(seed))
@@ -210,23 +207,23 @@ def _decode_loop(model, params, cache, tok, pos, logits_shape, gen_len,
 def serve(arch: str, *, reduced=True, batch=4, prompt_len=32, gen_len=32,
           decode_window=0, dtype=torch.float32, greedy=True, seed=0,
           use_decode_kernel=False, use_flash_kernel=False,
-          use_ssd_kernel=False, exact_moe=False, cache_len=None, prompt=None,
-          params=None, stream=None, verbose=True, device=None) -> ServeResult:
+          exact_moe=False, cache_len=None, prompt=None, params=None,
+          stream=None, verbose=True, device=None) -> ServeResult:
     """Prefill once, decode from the returned cache: no prompt replay.
 
     The timings include first-call set-up, as a cold server start does.
     ``stream`` is the noise stream (default ``TorchStream(seed + 2)``).
     ``use_flash_kernel`` runs the prefill's attention on kernel K4 (the
-    reference's ``ModelCallConfig`` knob, passed through);
-    ``use_ssd_kernel`` runs the prefill SSD of an ssm or hybrid model
-    (mamba2, zamba2) on kernel K7; ``exact_moe`` gives a MoE model's
-    routing no capacity drops.
+    reference's ``ModelCallConfig`` knob, passed through); ``exact_moe``
+    gives a MoE model's routing no capacity drops. The prefill SSD of an
+    ssm or hybrid model runs on kernel K7 on the card (``ssm.ssd_chunked``
+    decides from its inputs).
     """
     cfg, model, params, device = _setup(
         arch, reduced=reduced, dtype=dtype, decode_window=decode_window,
         use_decode_kernel=use_decode_kernel, seed=seed, device=device,
         params=params, use_flash_kernel=use_flash_kernel,
-        use_ssd_kernel=use_ssd_kernel, exact_moe=exact_moe)
+        exact_moe=exact_moe)
     with torch.inference_mode():
         if prompt is None:
             prompt = sample_batch(cfg, rng.TorchStream(seed + 1), batch,
@@ -258,11 +255,11 @@ def serve(arch: str, *, reduced=True, batch=4, prompt_len=32, gen_len=32,
 def serve_replay(arch: str, *, reduced=True, batch=4, prompt_len=32,
                  gen_len=32, decode_window=0, dtype=torch.float32,
                  greedy=True, seed=0, cache_len=None, prompt=None,
-                 params=None, stream=None, verbose=True, use_ssd_kernel=False,
-                 exact_moe=False, device=None) -> ServeResult:
+                 params=None, stream=None, verbose=True, exact_moe=False,
+                 device=None) -> ServeResult:
     """Differential baseline: build the decode cache by replaying the prompt
-    token by token through ``model.decode`` (no decode kernels; there is no
-    prefill, so ``use_ssd_kernel`` only reaches the model's call config).
+    token by token through ``model.decode`` (no decode kernels, no
+    prefill).
     The replay loop is reported as ``cache_setup_s``, not as prefill. It
     feeds token ids, so the audio and vlm families (whose prompts carry
     embeddings) raise ValueError."""
@@ -272,7 +269,7 @@ def serve_replay(arch: str, *, reduced=True, batch=4, prompt_len=32,
     cfg, model, params, device = _setup(
         arch, reduced=reduced, dtype=dtype, decode_window=decode_window,
         use_decode_kernel=False, seed=seed, device=device, params=params,
-        use_ssd_kernel=use_ssd_kernel, exact_moe=exact_moe)
+        exact_moe=exact_moe)
     with torch.inference_mode():
         if prompt is None:
             prompt = sample_batch(cfg, rng.TorchStream(seed + 1), batch,
@@ -332,14 +329,14 @@ def _trace_metrics(mode, slots, n_requests, gens, requests, per_step_s,
 
 
 def _trace_setup(arch, *, reduced, dtype, decode_window, use_decode_kernel,
-                 use_flash_kernel, use_ssd_kernel, exact_moe, seed, device,
+                 use_flash_kernel, exact_moe, seed, device,
                  params, prompts, n_requests, arrival_rate, prompt_len,
                  gen_len):
     cfg, model, params, device = _setup(
         arch, reduced=reduced, dtype=dtype, decode_window=decode_window,
         use_decode_kernel=use_decode_kernel, seed=seed, device=device,
         params=params, use_flash_kernel=use_flash_kernel,
-        use_ssd_kernel=use_ssd_kernel, exact_moe=exact_moe)
+        exact_moe=exact_moe)
     arrivals, gens = poisson_trace(n_requests, arrival_rate, seed, gen_len)
     if prompts is None:
         prompts = [request_prompt(cfg, seed, r, prompt_len, device)
@@ -351,7 +348,7 @@ def serve_continuous(arch: str, *, reduced=True, slots=4, n_requests=8,
                      prompt_len=8, gen_len=8, arrival_rate=0.5,
                      decode_window=0, dtype=torch.float32, greedy=True,
                      seed=0, use_decode_kernel=False, use_flash_kernel=False,
-                     use_ssd_kernel=False, exact_moe=False, params=None,
+                     exact_moe=False, params=None,
                      prompts=None, stream=None, verbose=True,
                      device=None) -> TraceResult:
     """Continuous batching: per-slot admission and eviction on a fixed
@@ -362,8 +359,8 @@ def serve_continuous(arch: str, *, reduced=True, slots=4, n_requests=8,
     cfg, model, params, device, arrivals, gens, prompts = _trace_setup(
         arch, reduced=reduced, dtype=dtype, decode_window=decode_window,
         use_decode_kernel=use_decode_kernel,
-        use_flash_kernel=use_flash_kernel, use_ssd_kernel=use_ssd_kernel,
-        exact_moe=exact_moe, seed=seed, device=device,
+        use_flash_kernel=use_flash_kernel, exact_moe=exact_moe, seed=seed,
+        device=device,
         params=params, prompts=prompts, n_requests=n_requests,
         arrival_rate=arrival_rate, prompt_len=prompt_len, gen_len=gen_len)
     cache_len = prompt_len + gen_len
@@ -458,7 +455,7 @@ def serve_static(arch: str, *, reduced=True, slots=4, n_requests=8,
                  prompt_len=8, gen_len=8, arrival_rate=0.5, decode_window=0,
                  dtype=torch.float32, greedy=True, seed=0,
                  use_decode_kernel=False, use_flash_kernel=False,
-                 use_ssd_kernel=False, exact_moe=False, params=None,
+                 exact_moe=False, params=None,
                  prompts=None, stream=None, verbose=True,
                  device=None) -> TraceResult:
     """Static-batching baseline on the SAME Poisson trace as
@@ -469,8 +466,8 @@ def serve_static(arch: str, *, reduced=True, slots=4, n_requests=8,
     cfg, model, params, device, arrivals, gens, prompts = _trace_setup(
         arch, reduced=reduced, dtype=dtype, decode_window=decode_window,
         use_decode_kernel=use_decode_kernel,
-        use_flash_kernel=use_flash_kernel, use_ssd_kernel=use_ssd_kernel,
-        exact_moe=exact_moe, seed=seed, device=device,
+        use_flash_kernel=use_flash_kernel, exact_moe=exact_moe, seed=seed,
+        device=device,
         params=params, prompts=prompts, n_requests=n_requests,
         arrival_rate=arrival_rate, prompt_len=prompt_len, gen_len=gen_len)
     cache_len = prompt_len + gen_len
@@ -552,9 +549,6 @@ def main(argv=None):
                     help="decode attention on K5 and sampling on K6")
     ap.add_argument("--flash-kernel", action="store_true",
                     help="prefill attention on K4")
-    ap.add_argument("--ssd-kernel", action="store_true",
-                    help="the prefill SSD of ssm and hybrid models "
-                         "(mamba2, zamba2) on K7")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--arrival-rate", type=float, default=0.5,
                     help="Poisson arrivals per decode step (trace modes)")
@@ -563,7 +557,7 @@ def main(argv=None):
     common = dict(reduced=not args.full, prompt_len=args.prompt_len,
                   gen_len=args.gen_len, decode_window=args.decode_window,
                   seed=args.seed, greedy=not args.no_greedy,
-                  use_ssd_kernel=args.ssd_kernel, device=args.device)
+                  device=args.device)
     if args.mode == "replay":
         return serve_replay(args.arch, batch=args.batch, **common)
     kernels = dict(use_decode_kernel=args.decode_kernel,

@@ -180,7 +180,6 @@ class AttnCall:
     use_flash_kernel: bool = False  # K4 (flash attention), any window
     use_decode_kernel: bool = False  # K5, single-query decode attention
     force_window: int = 0
-    use_ssd_kernel: bool = False    # K7 in the ssm and hybrid mamba blocks
     exact_moe: bool = False         # MoE capacity = tokens·K (no drops)
     moe_shard: object = None        # hook on the MoE buffers (see moe_apply)
 

@@ -47,7 +47,6 @@ class ModelCallConfig:
     decode_window: int = 0          # ring-buffer decode cache of this size
     use_decode_kernel: bool = False  # K5 decode attention + K6 sampling
     softcap: float = 0.0
-    use_ssd_kernel: bool = False    # ssm/hybrid: the SSD on K7 (forward only)
     exact_moe: bool = False         # no MoE capacity drops (C = tokens·K)
     mla_absorbed: bool = True       # MLA decode in the latent space
     # optional hook on the (B,S,d) residual input of ``loss``/``logits``,
@@ -99,7 +98,6 @@ def build(cfg: ModelConfig, call: Optional[ModelCallConfig] = None) -> Model:
         return AttnCall(window=0, softcap=call.softcap, chunk=chunk,
                         use_flash_kernel=call.use_flash_kernel,
                         force_window=call.decode_window,
-                        use_ssd_kernel=call.use_ssd_kernel,
                         exact_moe=call.exact_moe, moe_shard=call.moe_shard)
 
     def _residual_input(params, batch):

@@ -7,12 +7,10 @@ loop over the S/chunk chunks where the reference scans. Decode carries a
 constant-size recurrent state (B, H, P, N) and the depthwise-conv input
 tails, so a decode step costs the same at any context length.
 
-``mamba2_forward(..., use_ssd_kernel=True)`` routes the SSD through
-``kernels.ops.ssd`` (kernel K7 for the intra-chunk term, then the same
-inter-chunk recurrence), which computes the function of ``ssd_chunked``; the
-reference's model always takes ``ssd_chunked``. On the card, a
-differentiated ``ssd_chunked`` call takes K7 as well, with its hand-written
-VJP K7b (``_takes_k7``).
+On the card ``ssd_chunked`` runs the intra-chunk term on kernel K7 and,
+where it is differentiated, its hand-written VJP K7b (``_takes_k7``: the
+inputs decide, as ``layers._takes_k4`` does for attention); the CPU runs
+the plain ``_ssd_chunked``, which is also the card's oracle.
 
 Parameters are stored in fp32 and cast to the compute ``dtype`` at use, as
 in ``models/layers.py``. The single group of B and C (ngroups = 1) reaches
@@ -22,9 +20,9 @@ reference repeats it.
 The nemotron_h family's Mamba-2 layer sets its heads itself
 (``SSMConfig.n_heads``: d_inner = n_heads·head_dim), adds a bias to the
 depthwise conv's x, B and C (``conv_bias``) and takes the gated RMSNorm
-over its ``ngroups`` groups of d_inner; G > 1 groups of B and C reach K7
-as per-head copies (``broadcast_heads``). The defaults are mamba2's and
-zamba2's layer, unchanged; ``mamba2_decode`` takes none of the three (the
+over its ``ngroups`` groups of d_inner; 1 < G < H groups of B and C
+reach K7 as per-head copies (``broadcast_heads``). The defaults are
+mamba2's and zamba2's layer, unchanged; ``mamba2_decode`` takes none of the three (the
 pattern stack has no decode cache).
 """
 from __future__ import annotations
@@ -113,15 +111,15 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk, h0=None):
     any strides). Returns (y (B,S,H,P) fp32, h_final (B,H,P,N) fp32);
     ``h0`` is the state before the first token (zeros when None).
 
-    A call that ``_takes_k7`` (a differentiated call on the card) runs the
-    intra-chunk term on K7 and its VJP K7b (``ssd_scan.intra_chunk``;
-    counter ``model.ssd_k7``), the rest of the scan in torch
-    (``ssd_scan.ssd_kernel_forward``); every other call runs
-    ``_ssd_chunked``."""
+    A call that ``_takes_k7`` (any call on the card, with grad or
+    without) runs the intra-chunk term on K7, and its VJP on K7b
+    (``ssd_scan.intra_chunk``; counter ``model.ssd_k7``), the rest of the
+    scan in torch (``ssd_scan.ssd_kernel_forward``); the CPU and fake
+    tensors run ``_ssd_chunked``."""
     with trace.span("model.ssd") as sp:
         xh, dt, A, Bm, Cm, h0 = sp.inputs(xh, dt, A, Bm, Cm, h0)
         H = xh.shape[2]
-        if _takes_k7(xh, dt, A, Bm, Cm, chunk, h0):
+        if _takes_k7(xh):
             trace.count("model.ssd_k7")
             if Bm.shape[2] not in (1, H):   # K7 takes one group or H
                 Bm, Cm = broadcast_heads(Bm, H), broadcast_heads(Cm, H)
@@ -133,30 +131,13 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk, h0=None):
         return sp.output(y), h
 
 
-def _takes_k7(xh, dt, A, Bm, Cm, chunk, h0):
-    """The card's training route: CUDA tensors, grad enabled and an input
-    that requires it. What the inputs show decides, so every model's SSD
-    (mamba2's and zamba2's blocks) takes it alike; the CPU, no-grad calls
-    (serving's prefill, on its own ``use_ssd_kernel`` choice) and fake
-    tensors (the dry run's: K7 and K7b have no fake kernels) run
-    ``_ssd_chunked``. A routed call past K7's limits (S a multiple of
-    Q <= 256, N <= 128, P <= 128) raises ValueError, and one with an input
-    other than fp32 raises in K7's argument check: the card never falls
-    back to the plain scan quietly."""
-    ts = [t for t in (xh, dt, A, Bm, Cm, h0) if t is not None]
-    if not (xh.is_cuda and torch.is_grad_enabled()
-            and not isinstance(xh, FakeTensor)
-            and any(t.requires_grad for t in ts)):
-        return False
-    S, P, N = xh.shape[1], xh.shape[3], Bm.shape[3]
-    if not (1 <= chunk <= ssd_scan.QMAX and S % chunk == 0
-            and N <= ssd_scan.NMAX and P <= ssd_scan.PMAX):
-        raise ValueError(f"the SSD's training route on the card takes K7, "
-                         f"whose limits are a chunk Q <= {ssd_scan.QMAX} "
-                         f"dividing S, N <= {ssd_scan.NMAX} and P <= "
-                         f"{ssd_scan.PMAX}; got Q={chunk}, S={S}, N={N}, "
-                         f"P={P}")
-    return True
+def _takes_k7(xh):
+    """The card's route: real CUDA tensors, with grad or without. The CPU
+    and fake tensors (the dry run's: K7 and K7b have no fake kernels) run
+    ``_ssd_chunked``. K7 checks its own limits (``ssd_scan.check_args``)
+    and raises ValueError past them: the card never falls back to the plain
+    scan quietly."""
+    return xh.is_cuda and not isinstance(xh, FakeTensor)
 
 
 def _ssd_chunked(xh, dt, A, Bm, Cm, chunk, h0):
@@ -253,13 +234,12 @@ def _gated_norm(p, y, z, cfg: ModelConfig):
 
 
 def mamba2_forward(p, cfg: ModelConfig, u, dtype, h0=None, return_state=False,
-                   return_cache=False, use_ssd_kernel=False):
+                   return_cache=False):
     """u (B,S,d) -> (B,S,d). Full sequence (training / prefill).
 
     ``return_cache=True`` also returns a decode cache (the tree of
     ``mamba2_init_cache``) positioned after the last token: the final SSD
-    state and the depthwise-conv input tails. ``use_ssd_kernel`` runs the
-    SSD through ``kernels.ops.ssd`` (K7 on the card; forward only)."""
+    state and the depthwise-conv input tails."""
     s, d_in, nh = _dims(cfg)
     Bsz, S, _ = u.shape
     x_pre = linear(p["wx"], u, dtype)
@@ -278,13 +258,8 @@ def mamba2_forward(p, cfg: ModelConfig, u, dtype, h0=None, return_state=False,
 
     xh = x.reshape(Bsz, S, nh, s.head_dim)
     chunk = min(s.chunk, S)
-    if use_ssd_kernel:
-        from repro_torch.kernels import ops as kops
-        y, h_fin = kops.ssd(xh.float(), dt, A, _heads(Bm, s, nh),
-                            _heads(Cm, s, nh), chunk=chunk, h0=h0)
-    else:
-        y, h_fin = ssd_chunked(xh.float(), dt, A, _groups(Bm, s),
-                               _groups(Cm, s), chunk, h0=h0)
+    y, h_fin = ssd_chunked(xh.float(), dt, A, _groups(Bm, s), _groups(Cm, s),
+                           chunk, h0=h0)
     y = y + p["Dskip"].float()[None, None, :, None] * xh.float()
     y = y.reshape(Bsz, S, d_in).to(dtype)
     y = _gated_norm(p, y, z, cfg)

@@ -223,8 +223,7 @@ def _block_fwd(bp, cfg, x, positions, window, call: AttnCall, dtype,
     if _is_ssm(cfg):
         h_in = rmsnorm(bp["norm1"], x, cfg.norm_eps)
         out = SSM.mamba2_forward(bp["mamba"], cfg, h_in, dtype,
-                                 return_cache=want_cache,
-                                 use_ssd_kernel=call.use_ssd_kernel)
+                                 return_cache=want_cache)
         h, mc = out if want_cache else (out, None)
         return x + h, mc, 0.0
     return _attn_block(bp, cfg, x, positions, window, call, dtype)
@@ -291,8 +290,7 @@ def _pattern_layer(kind, bp, cfg, x, positions, call: AttnCall, dtype,
     """One layer of a pattern stack: x + mixer(RMSNorm(x))."""
     h = rmsnorm(bp["norm1"], x, cfg.norm_eps)
     if kind == "M":
-        h = SSM.mamba2_forward(bp["mamba"], cfg, h, dtype,
-                               use_ssd_kernel=call.use_ssd_kernel)
+        h = SSM.mamba2_forward(bp["mamba"], cfg, h, dtype)
     elif kind == "E":
         h = MOE.share_apply(bp["moe"], cfg, h, dtype, memo)
     else:

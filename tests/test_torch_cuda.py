@@ -844,19 +844,27 @@ def test_k7_reads_strided_views(dev):
 
 @pytest.mark.cuda
 def test_k7_route_matches_chunked_ssd(dev):
-    """``ops.ssd`` (K7 + the inter-chunk recurrence, from an h0) against
-    ``models.ssm.ssd_chunked`` on the card."""
+    """``ops.ssd`` (K7 + the inter-chunk recurrence, from an h0) and
+    ``models.ssm.ssd_chunked`` without grad (the model's route: one K7
+    call, B/C as one group) against the plain scan ``_ssd_chunked`` on the
+    card."""
     from repro_torch.models import ssm
     x, dt, A, Bm, Cm = _k7_inputs(2, 1024, 8, 64, 128, dev, shared=True)
     h0 = torch.randn((2, 8, 64, 128), device=dev)
     y, h = ops.ssd(x, dt, A, Bm, Cm, chunk=256, h0=h0)
-    yw, hw = ssm.ssd_chunked(x, dt, A, Bm, Cm, 256, h0=h0)
-    my, mh = ssm.ssd_chunked(x.abs(), dt, A, Bm.abs(), Cm.abs(), 256,
-                             h0=h0.abs())
+    before = ssd.ssd_intra_chunk.launches
+    with torch.no_grad():
+        ym, hm = ssm.ssd_chunked(x, dt, A, Bm[:, :, :1], Cm[:, :, :1], 256,
+                                 h0=h0)
+    assert ssd.ssd_intra_chunk.launches == before + 1
+    yw, hw = ssm._ssd_chunked(x, dt, A, Bm, Cm, 256, h0)
+    my, mh = ssm._ssd_chunked(x.abs(), dt, A, Bm.abs(), Cm.abs(), 256,
+                              h0.abs())
     cmax = float((dt * A.abs()).reshape(2, 4, 256, 8).sum(2).max())
     eps = 2.0 ** -24 * (4 * cmax + 2 * (128 + 256) + 32)
-    assert bool(((y - yw).abs() <= eps * my).all())
-    assert bool(((h - hw).abs() <= eps * mh).all())
+    for yk, hk in ((y, h), (ym, hm)):
+        assert bool(((yk - yw).abs() <= eps * my).all())
+        assert bool(((hk - hw).abs() <= eps * mh).all())
 
 
 @pytest.mark.cuda
@@ -876,14 +884,14 @@ def test_k7_rejects_grad_limits_and_mixed_devices(dev):
 
 @pytest.mark.cuda
 def test_k7_launches_through_serve(dev):
-    """``serve(use_ssd_kernel=True)`` on the card prefills through K7, one
-    launch per layer, and decodes on K6."""
+    """``serve`` on the card prefills through K7 by default, one call a
+    layer, and decodes on K6."""
     from repro_torch.launch import serve
     ssd.ssd_intra_chunk.launches = 0
     ds.decode_sample.launches = 0
     res = serve.serve("mamba2-1.3b", reduced=True, batch=2, prompt_len=64,
-                      gen_len=4, use_ssd_kernel=True, use_decode_kernel=True,
-                      verbose=False, device="cuda")
+                      gen_len=4, use_decode_kernel=True, verbose=False,
+                      device="cuda")
     assert ssd.ssd_intra_chunk.launches == 2
     assert ds.decode_sample.launches == 3
     assert res.tokens.shape == (2, 4) and int(res.tokens.max()) < 512

@@ -40,6 +40,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 from _torch_model_parity import (assert_close, bf16_close, ids_held,
                                  teacher_forced, to_jax_cache)
+from _torch_ssd_route import k7_route
 from repro.configs import get_config as jget_config
 from repro.launch import serve as jserve
 from repro.models import ModelCallConfig as JCall
@@ -80,8 +81,7 @@ class CumSpy:
 
     def __init__(self, monkeypatch):
         self.max, self.Q, self.N, self.nc = 0.0, 1, 1, 1
-        for mod, name in ((SSM, "ssd_chunked"), (ops, "ssd")):
-            monkeypatch.setattr(mod, name, self._wrap(getattr(mod, name)))
+        monkeypatch.setattr(SSM, "ssd_chunked", self._wrap(SSM.ssd_chunked))
 
     def _wrap(self, fn):
         def spy(xh, dt, A, Bm, Cm, chunk, **kw):
@@ -279,22 +279,28 @@ def test_logits_and_prefill_cache_match_reference(deep, monkeypatch):
 
 
 def test_kernel_routes_equal_plain_routes_on_cpu(deep, monkeypatch):
-    """``use_ssd_kernel`` and ``use_flash_kernel`` (K7's and K4's plain
-    versions on the CPU) give the plain routes' logits and cache; ``loss``
-    differentiated with either raises (both kernels are forward-only), and
-    equals the plain loss without grad."""
+    """The card's SSD route (forced) and ``use_flash_kernel`` (K7's, K7b's
+    and K4's plain versions on the CPU) give the plain routes' logits and
+    cache, and the plain loss without grad; differentiated, the SSD route
+    gives the plain route's loss and gradient (each leaf to the tolerance
+    of its largest magnitude), and ``use_flash_kernel`` raises (K4's
+    serving instance is forward-only)."""
     _, cfg, jp, toks, labs = deep
     spy = CumSpy(monkeypatch)
     tp = params_from_jax(jp, "cpu")
     _, tb = _batches(toks, labs)
     plain = build(cfg, ModelCallConfig(dtype=torch.float32))
     kern = build(cfg, ModelCallConfig(dtype=torch.float32,
-                                      use_ssd_kernel=True,
                                       use_flash_kernel=True))
     with torch.inference_mode():
         lp, cp = plain.prefill_cache(tp, tb, 80)
+        lossp = plain.loss(tp, tb)
+    gl, gg = value_and_grad(plain.loss)(tp, tb)
+    k7_route(monkeypatch)
+    with torch.inference_mode():
         lk, ck = kern.prefill_cache(tp, tb, 80)
-        lossp, lossk = plain.loss(tp, tb), kern.loss(tp, tb)
+        lossk = kern.loss(tp, tb)
+    kl, kg = value_and_grad(plain.loss)(tp, tb)
     assert_close(lk.numpy(), lp.numpy(), spy.tol, "last logits")
     for key in cp["mamba"]:
         assert_close(ck["mamba"][key].numpy(), cp["mamba"][key].numpy(),
@@ -302,39 +308,39 @@ def test_kernel_routes_equal_plain_routes_on_cpu(deep, monkeypatch):
     for key in ("shared_k", "shared_v"):
         bf16_close(ck[key], cp[key].float().numpy(), spy.tol, key)
     assert abs(float(lossk) - float(lossp)) <= spy.tol * abs(float(lossp))
-    for flag in ("use_ssd_kernel", "use_flash_kernel"):
-        one = build(cfg, ModelCallConfig(dtype=torch.float32, **{flag: True}))
-        with pytest.raises(ValueError, match="forward-only"):
-            value_and_grad(one.loss)(tp, tb)
+    assert abs(float(kl) - float(gl)) <= spy.tol * abs(float(gl))
+    want = dict(tree_paths(gg))
+    for path, g in tree_paths(kg):
+        assert_close(g.numpy(), want[path].numpy(), spy.tol, path)
+    with pytest.raises(ValueError, match="forward-only"):
+        value_and_grad(kern.loss)(tp, tb)
 
 
 def test_kernel_routes_run_per_layer_and_application(deep, monkeypatch):
-    """The K7 route runs one ``ops.ssd`` a mamba layer, the K4 route one
-    ``ops.flash_attention`` an application of the shared block."""
+    """The SSD route (forced) runs one call of its composition a mamba
+    layer, the K4 route one ``ops.flash_attention`` an application of the
+    shared block; the plain routes run neither."""
     _, cfg, jp, toks, labs = deep
-    calls = {"ssd": 0, "flash": 0}
-    real_ssd, real_flash = ops.ssd, ops.flash_attention
-
-    def ssd(*a, **kw):
-        calls["ssd"] += 1
-        return real_ssd(*a, **kw)
+    flash_calls = []
+    real_flash = ops.flash_attention
 
     def flash(*a, **kw):
-        calls["flash"] += 1
+        flash_calls.append(1)
         return real_flash(*a, **kw)
 
-    monkeypatch.setattr(ops, "ssd", ssd)
     monkeypatch.setattr(ops, "flash_attention", flash)
     _, tb = _batches(toks, labs)
-    kern = build(cfg, ModelCallConfig(dtype=torch.float32,
-                                      use_ssd_kernel=True,
-                                      use_flash_kernel=True))
-    with torch.inference_mode():
-        kern.prefill_cache(params_from_jax(jp, "cpu"), tb, 80)
-        build(cfg, ModelCallConfig(dtype=torch.float32)).prefill_cache(
-            params_from_jax(jp, "cpu"), tb, 80)
-    assert calls == {"ssd": cfg.n_layers,
-                     "flash": cfg.n_layers // cfg.hybrid_attn_every}
+    tp = params_from_jax(jp, "cpu")
+    for kernel in (False, True):
+        flash_calls.clear()
+        ssd_calls = k7_route(monkeypatch, force=kernel)
+        model = build(cfg, ModelCallConfig(dtype=torch.float32,
+                                           use_flash_kernel=kernel))
+        with torch.inference_mode():
+            model.prefill_cache(tp, tb, 80)
+        assert len(ssd_calls) == cfg.n_layers * kernel
+        assert len(flash_calls) == cfg.n_layers // cfg.hybrid_attn_every \
+            * kernel
 
 
 # --------------------------------------------------------------------------- #
@@ -477,19 +483,19 @@ def served():
 
 
 @pytest.mark.parametrize("kernel", [False, True], ids=["plain", "kernel"])
-def test_serve_replays_the_reference(served, kernel):
+def test_serve_replays_the_reference(served, monkeypatch, kernel):
     """``serve`` on the reference's weights and prompt gives the
     reference's greedy ids under the near-tie rule; ``kernel`` runs the
-    prefill on K7's and K4's routes and the decode on K5's and K6's (their
-    plain versions on the CPU)."""
+    prefill on the card's SSD route (forced) and K4's and the decode on
+    K5's and K6's (their plain versions on the CPU)."""
     jcfg, cfg, jp, tp = served
+    k7_route(monkeypatch, force=kernel)
     jb, tb = _prompt(cfg, seed=7)
     want = jserve.serve(ARCH, reduced=True, batch=B, prompt_len=S,
                         gen_len=12, seed=0, prompt=jb, verbose=False)
     got = serve.serve(ARCH, batch=B, prompt_len=S, gen_len=12, seed=0,
-                      prompt=tb, params=tp, use_ssd_kernel=kernel,
-                      use_flash_kernel=kernel, use_decode_kernel=kernel,
-                      verbose=False, device="cpu")
+                      prompt=tb, params=tp, use_flash_kernel=kernel,
+                      use_decode_kernel=kernel, verbose=False, device="cpu")
     assert got.tokens.shape == (B, 12)
     tm = build(cfg, ModelCallConfig(dtype=torch.float32))
     assert ids_held(tm, tp, tb, got.tokens, np.asarray(want.tokens),
@@ -509,16 +515,17 @@ def test_continuous_matches_the_reference(served, monkeypatch, kernel):
     reference's seed-0 weights and the same prompts (the reference's
     ``request_prompt`` is salted per process, so both get the port's):
     the schedule exactly, every request's ids under the near-tie rule
-    (teacher-forced solo on the port's plain logits)."""
+    (teacher-forced solo on the port's plain logits); ``kernel`` forces
+    the card's SSD route and runs K4, K5 and K6's plain versions."""
     jcfg, cfg, jp, tp = served
+    k7_route(monkeypatch, force=kernel)
     prompts = [serve.request_prompt(cfg, 0, r, TRACE["prompt_len"], "cpu")
                for r in range(TRACE["n_requests"])]
     monkeypatch.setattr(jserve, "request_prompt", lambda c, s, r, n: {
         k: jnp.asarray(v.numpy()) for k, v in prompts[r].items()})
     want = jserve.serve_continuous(ARCH, **TRACE)
     got = serve.serve_continuous(ARCH, device="cpu", params=tp,
-                                 prompts=prompts, use_ssd_kernel=kernel,
-                                 use_flash_kernel=kernel,
+                                 prompts=prompts, use_flash_kernel=kernel,
                                  use_decode_kernel=kernel, **TRACE)
     assert got.requests == want.requests
     for key in SCHEDULE_METRICS:
@@ -534,13 +541,16 @@ def test_continuous_matches_the_reference(served, monkeypatch, kernel):
 
 
 @pytest.mark.parametrize("kernel", [False, True], ids=["plain", "kernel"])
-def test_continuous_tokens_equal_solo_and_static(served, kernel):
+def test_continuous_tokens_equal_solo_and_static(served, monkeypatch,
+                                                  kernel):
     """Every request through the slot ring (its B=1 cache tree, the shared
     K/V included, inserted into a slot) gets exactly the greedy tokens it
-    gets served alone and in the static batches."""
+    gets served alone and in the static batches; ``kernel`` forces the
+    card's SSD route and runs K4, K5 and K6's plain versions."""
     _, cfg, _, tp = served
-    kw = dict(TRACE, use_decode_kernel=kernel, use_ssd_kernel=kernel,
-              use_flash_kernel=kernel, params=tp, device="cpu")
+    k7_route(monkeypatch, force=kernel)
+    kw = dict(TRACE, use_decode_kernel=kernel, use_flash_kernel=kernel,
+              params=tp, device="cpu")
     rc = serve.serve_continuous(ARCH, **kw)
     rs = serve.serve_static(ARCH, **kw)
     _, gens = serve.poisson_trace(TRACE["n_requests"], TRACE["arrival_rate"],
@@ -553,17 +563,18 @@ def test_continuous_tokens_equal_solo_and_static(served, kernel):
                            prompt=serve.request_prompt(
                                cfg, TRACE["seed"], r, TRACE["prompt_len"],
                                "cpu"),
-                           use_decode_kernel=kernel, use_ssd_kernel=kernel,
+                           use_decode_kernel=kernel,
                            use_flash_kernel=kernel, params=tp,
                            verbose=False, device="cpu")
         assert np.array_equal(solo.tokens[0], rc.tokens[r]), r
 
 
-def test_serve_cli_runs_the_hybrid_with_every_kernel_flag():
+def test_serve_cli_runs_the_hybrid_with_every_kernel_flag(monkeypatch):
+    k7_route(monkeypatch)
     res = serve.main(["--arch", ARCH, "--device", "cpu", "--mode",
-                      "continuous", "--ssd-kernel", "--flash-kernel",
-                      "--decode-kernel", "--requests", "4", "--batch", "2",
-                      "--prompt-len", "8", "--gen-len", "4"])
+                      "continuous", "--flash-kernel", "--decode-kernel",
+                      "--requests", "4", "--batch", "2", "--prompt-len", "8",
+                      "--gen-len", "4"])
     assert all(rq["finish"] is not None for rq in res.requests.values())
     cfg = get_config(ARCH, reduced=True)
     assert all(int(t.max()) < cfg.vocab_size for t in res.tokens.values())

@@ -157,7 +157,7 @@ def test_cpu_call_runs_chunked(monkeypatch):
 
     monkeypatch.setattr(ssm, "_ssd_chunked", spy)
     monkeypatch.setattr(ssd, "ssd_kernel_forward", None)
-    assert not ssm._takes_k7(*ins, Q, None)
+    assert not ssm._takes_k7(ins[0])
     with trace.recording() as rec:
         y, _ = ssm.ssd_chunked(*ins, Q)
         y.sum().backward()
@@ -167,12 +167,13 @@ def test_cpu_call_runs_chunked(monkeypatch):
     assert ins[3].grad.shape == (B, S, 1, N)
 
 
-def test_route_needs_grad_fp32_and_limits():
-    """``_takes_k7`` is False without grad and for fake tensors; it takes
-    a call of any dtype (fp32 is K7's own argument check, which raises),
-    and past K7's limits it raises rather than fall back to the plain
-    scan (the CPU fails the device test first, so each condition is
-    checked on its own through a stand-in device test)."""
+def test_route_needs_grad_fp32_and_limits(monkeypatch):
+    """``_takes_k7`` is True for CUDA tensors with grad or without (a
+    stand-in device test here), False on the CPU and for fake tensors. A
+    routed call is held to K7's own contract (``ssd_scan.check_args``):
+    fp32 inputs, Q <= 256 dividing S, N and P <= 128; past it ``ssd_chunked``
+    raises rather than fall back to the plain scan, and so does a routed
+    call that reaches the kernel on the CPU."""
     B, S, H, P, N, Q = 1, 16, 2, 4, 6, 8
     ins = [t.requires_grad_() for t in _inputs(B, S, H, P, N, 1,
                                                torch.float32)]
@@ -181,30 +182,27 @@ def test_route_needs_grad_fp32_and_limits():
         is_cuda = True
 
     x = ins[0].as_subclass(Cuda)
-    assert ssm._takes_k7(x, *ins[1:], Q, None)
-    assert not ssm._takes_k7(x.detach(), *[t.detach() for t in ins[1:]], Q,
-                             None)
+    assert ssm._takes_k7(x) and ssm._takes_k7(x.detach())
     with torch.no_grad():
-        assert not ssm._takes_k7(x, *ins[1:], Q, None)
-    assert ssm._takes_k7(x.double(), *ins[1:], Q, None)
-    with pytest.raises(ValueError, match="K7, whose limits"):
-        ssm._takes_k7(x, *ins[1:], 6, None)                  # S % Q != 0
-    wide = torch.zeros((B, S, 1, ssd.NMAX + 1), requires_grad=True)
-    with pytest.raises(ValueError, match="N=129"):
-        ssm._takes_k7(x, ins[1], ins[2], wide, wide, Q, None)
-    with pytest.raises(ValueError, match="Q=512"):
-        ssm._takes_k7(x, *ins[1:], 512, None)                # Q > 256
-    with pytest.raises(ValueError, match="P=129"):
-        ssm._takes_k7(torch.zeros((B, S, H, ssd.PMAX + 1)).as_subclass(Cuda),
-                      *ins[1:], Q, None)
-    with torch.no_grad():      # off the route, the limits are not its own
-        assert not ssm._takes_k7(x, *ins[1:], 512, None)
+        assert ssm._takes_k7(x)
+    assert not ssm._takes_k7(ins[0]) and not ssm._takes_k7(ins[0].detach())
     with FakeTensorMode():      # the dry run's fake CUDA tensors
-        f = lambda *s: torch.empty(s, device="cuda", requires_grad=True)
-        fake = (f(B, S, H, P), f(B, S, H), f(H), f(B, S, 1, N),
-                f(B, S, 1, N))
-        assert fake[0].is_cuda
-        assert not ssm._takes_k7(*fake, Q, None)
+        fake = torch.empty((B, S, H, P), device="cuda", requires_grad=True)
+        assert fake.is_cuda
+        assert not ssm._takes_k7(fake)
+
+    monkeypatch.setattr(ssm, "_takes_k7", lambda xh: True)
+    wide = torch.zeros((B, S, 1, ssd.NMAX + 1), requires_grad=True)
+    for args, chunk, msg in (
+            (ins, 6, "dividing S; got Q=6"),                 # S % Q != 0
+            (ins, 512, "dividing S; got Q=512"),             # Q > 256
+            ((*ins[:3], wide, wide), Q, "N=129"),
+            ((torch.zeros((B, S, H, ssd.PMAX + 1)), *ins[1:]), Q, "P=129"),
+            ((ins[0].double(), *ins[1:]), Q, "float32")):
+        with pytest.raises(ValueError, match=msg):
+            ssm.ssd_chunked(*args, chunk)
+    with pytest.raises(ValueError, match="launches on CUDA"):
+        ssm.ssd_chunked(*ins, Q)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -1,9 +1,11 @@
 """The port's SSM family (reduced mamba2-1.3b) and K7's plain version held
 against the reference: ``models/ssm.py`` function by function, the
 intra-chunk term against the reference's Pallas kernel in interpret mode,
-the kernel-route SSD (``ops.ssd``) against ``ssd_chunked``, and the model's
-loss, gradients, logits and prefill cache. Inputs come from numpy seeds;
-the reference's weights are carried across by ``repro_torch.bridge``.
+the kernel-route SSD (``ops.ssd``) against ``ssd_chunked``, the model's
+loss, gradients, logits and prefill cache, and the card's SSD route forced
+on the CPU (``_torch_ssd_route``) against the plain one. Inputs come from
+numpy seeds; the reference's weights are carried across by
+``repro_torch.bridge``.
 
 Tolerances, and why. Let u = 2^-24 (half an fp32 ulp, relative). The SSD's
 most order-sensitive step is cum = cumsum(dt·A) within a chunk: its terms
@@ -36,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_ssd_route import k7_route
 from repro.configs import get_config as jget_config
 from repro.kernels import ssd_scan as jssd
 from repro.models import ModelCallConfig as JCall
@@ -247,19 +250,21 @@ def _block_eps(cfg, jp, u):
 
 
 @pytest.mark.parametrize("kernel", [False, True], ids=["plain", "ssd_kernel"])
-def test_mamba2_forward_and_cache_match_reference(block, kernel):
+def test_mamba2_forward_and_cache_match_reference(block, kernel,
+                                                  monkeypatch):
     """``mamba2_forward(return_cache=True)``: the output and h to eps of
     their largest values, the conv tails (fp32 projections) to 1e-5.
-    ``ssd_kernel`` routes the SSD through ``ops.ssd`` (K7's plain version on
-    the CPU)."""
+    ``ssd_kernel`` forces the card's SSD route (K7's plain version on the
+    CPU)."""
     jcfg, cfg, jp, tp, u = block
+    calls = k7_route(monkeypatch, force=kernel)
     wo, wc = JS.mamba2_forward(jax.tree.map(jnp.asarray, jp), jcfg,
                                jnp.asarray(u), jnp.float32,
                                return_cache=True)
     with torch.no_grad():
         go, gc = S.mamba2_forward(tp, cfg, torch.from_numpy(u),
-                                  torch.float32, return_cache=True,
-                                  use_ssd_kernel=kernel)
+                                  torch.float32, return_cache=True)
+    assert len(calls) == int(kernel)
     e = _block_eps(cfg, jp, u)
     wo = np.asarray(wo)
     assert_within(go.numpy(), wo, e * np.abs(wo).max(), "out")
@@ -465,8 +470,7 @@ class CumSpy:
 
     def __init__(self, monkeypatch):
         self.max, self.Q, self.N, self.nc = 0.0, 1, 1, 1
-        for mod, name in ((S, "ssd_chunked"), (ops, "ssd")):
-            monkeypatch.setattr(mod, name, self._wrap(getattr(mod, name)))
+        monkeypatch.setattr(S, "ssd_chunked", self._wrap(S.ssd_chunked))
 
     def _wrap(self, fn):
         def spy(xh, dt, A, Bm, Cm, chunk, **kw):
@@ -550,21 +554,25 @@ def test_logits_and_prefill_cache_match_reference(model_setup, monkeypatch):
 
 def test_ssd_kernel_route_equals_plain_route_on_cpu(model_setup,
                                                     monkeypatch):
-    """``use_ssd_kernel=True`` on the CPU (K7's plain version through
-    ``ops.ssd``) gives the plain route's logits and cache to eps; ``loss``
-    with it raises when differentiated (K7 is forward-only), and equals the
-    plain loss without grad."""
+    """The card's SSD route forced on the CPU (K7's and K7b's plain
+    versions) gives the plain route's logits, cache and loss, and the
+    loss's gradient, each to eps of its largest magnitude (per leaf for
+    the gradient)."""
     jcfg, cfg, jp, toks, labs = model_setup
     spy = CumSpy(monkeypatch)
     tp = params_from_jax(jp, "cpu")
-    plain = build(cfg, ModelCallConfig(dtype=torch.float32))
-    kern = build(cfg, ModelCallConfig(dtype=torch.float32,
-                                      use_ssd_kernel=True))
+    model = build(cfg, ModelCallConfig(dtype=torch.float32))
     _, tb = _batches(toks, labs)
-    with torch.inference_mode():
-        lp, cp = plain.prefill_cache(tp, tb, 80)
-        lk, ck = kern.prefill_cache(tp, tb, 80)
-        lossp, lossk = plain.loss(tp, tb), kern.loss(tp, tb)
+
+    def run():
+        with torch.inference_mode():
+            lg, cache = model.prefill_cache(tp, tb, 80)
+        return lg, cache, value_and_grad(model.loss)(tp, tb)
+
+    lp, cp, (lossp, gp) = run()
+    calls = k7_route(monkeypatch)
+    lk, ck, (lossk, gk) = run()
+    assert len(calls) == 3 * cfg.n_layers     # prefill, forward, recompute
     e = spy.eps
     assert_within(lk.numpy(), lp.numpy(), e * float(lp.abs().max()),
                   "last logits")
@@ -572,25 +580,21 @@ def test_ssd_kernel_route_equals_plain_route_on_cpu(model_setup,
         a, b = ck["mamba"][key], cp["mamba"][key]
         assert_within(a.numpy(), b.numpy(), e * float(b.abs().max()), key)
     assert abs(float(lossk) - float(lossp)) <= e * abs(float(lossp))
-    with pytest.raises(ValueError, match="forward-only"):
-        value_and_grad(kern.loss)(tp, tb)
+    want = dict(tree_paths(gp))
+    for path, g in tree_paths(gk):
+        w = want[path]
+        assert_within(g.numpy(), w.numpy(), e * float(w.abs().max()), path)
 
 
 def test_ssd_kernel_route_calls_ops_ssd_per_layer(model_setup, monkeypatch):
+    """A prefill runs one call of the route's composition a layer where the
+    route is forced, and none on the CPU's own (plain) route."""
     jcfg, cfg, jp, toks, labs = model_setup
-    calls = []
-    real = ops.ssd
-
-    def spy(*a, **kw):
-        calls.append(kw["chunk"])
-        return real(*a, **kw)
-
-    monkeypatch.setattr(ops, "ssd", spy)
-    kern = build(cfg, ModelCallConfig(dtype=torch.float32,
-                                      use_ssd_kernel=True))
+    model = build(cfg, ModelCallConfig(dtype=torch.float32))
+    tp = params_from_jax(jp, "cpu")
     _, tb = _batches(toks, labs)
-    with torch.inference_mode():
-        kern.prefill_cache(params_from_jax(jp, "cpu"), tb, 80)
-        build(cfg, ModelCallConfig(dtype=torch.float32)).prefill_cache(
-            params_from_jax(jp, "cpu"), tb, 80)
-    assert calls == [cfg.ssm.chunk] * cfg.n_layers
+    for force, want in ((False, []), (True, [cfg.ssm.chunk] * cfg.n_layers)):
+        calls = k7_route(monkeypatch, force=force)
+        with torch.inference_mode():
+            model.prefill_cache(tp, tb, 80)
+        assert calls == want

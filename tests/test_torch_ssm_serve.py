@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_ssd_route import k7_route
 from repro.configs import get_config as jget_config
 from repro.launch import serve as jserve
 from repro.models import ModelCallConfig as JCall
@@ -205,18 +206,20 @@ def test_insert_slot_walks_the_cache_tree():
 
 
 @pytest.mark.parametrize("kernel", [False, True], ids=["plain", "kernel"])
-def test_serve_replays_the_reference(weights, kernel):
+def test_serve_replays_the_reference(weights, monkeypatch, kernel):
     """``serve`` on the reference's weights and prompt gives the
     reference's greedy ids under the near-tie rule; ``kernel`` runs the
-    prefill's SSD on K7's route and the sampling on K6's (their plain
-    versions on the CPU)."""
+    prefill's SSD on the card's route (forced) and the sampling on K6's
+    (their plain versions on the CPU)."""
     jcfg, cfg, jp, tp = weights
+    calls = k7_route(monkeypatch, force=kernel)
     jb, tb = _prompt(cfg, seed=7)
     want = jserve.serve(ARCH, reduced=True, batch=B, prompt_len=S,
                         gen_len=G, seed=0, prompt=jb, verbose=False)
     got = serve.serve(ARCH, batch=B, prompt_len=S, gen_len=G, seed=0,
-                      prompt=tb, params=tp, use_ssd_kernel=kernel,
-                      use_decode_kernel=kernel, verbose=False, device="cpu")
+                      prompt=tb, params=tp, use_decode_kernel=kernel,
+                      verbose=False, device="cpu")
+    assert len(calls) == cfg.n_layers * kernel
     assert got.tokens.shape == (B, G)
     tm = build(cfg, ModelCallConfig(dtype=torch.float32))
     assert _ids_held(tm, tp, tb, got.tokens, np.asarray(want.tokens)) <= 1
@@ -258,14 +261,16 @@ def test_trace_schedules_match_reference(mode):
 
 
 @pytest.mark.parametrize("kernel", [False, True], ids=["plain", "kernel"])
-def test_continuous_tokens_equal_solo_and_static(weights, kernel):
+def test_continuous_tokens_equal_solo_and_static(weights, monkeypatch,
+                                                  kernel):
     """Every request served through the slot ring (its B=1 prefill cache
     tree inserted into a slot) gets exactly the greedy tokens it gets
     served alone and in the static batches: admission, eviction and
-    neighbours do not leak across slots."""
+    neighbours do not leak across slots. ``kernel`` forces the card's SSD
+    route and samples on K6's."""
     _, cfg, _, tp = weights
-    kw = dict(TRACE, use_decode_kernel=kernel, use_ssd_kernel=kernel,
-              params=tp, device="cpu")
+    k7_route(monkeypatch, force=kernel)
+    kw = dict(TRACE, use_decode_kernel=kernel, params=tp, device="cpu")
     rc = serve.serve_continuous(ARCH, **kw)
     rs = serve.serve_static(ARCH, **kw)
     _, gens = serve.poisson_trace(TRACE["n_requests"], TRACE["arrival_rate"],
@@ -277,35 +282,46 @@ def test_continuous_tokens_equal_solo_and_static(weights, kernel):
                            prompt=serve.request_prompt(
                                cfg, TRACE["seed"], r, TRACE["prompt_len"],
                                "cpu"),
-                           use_decode_kernel=kernel, use_ssd_kernel=kernel,
-                           params=tp, verbose=False, device="cpu")
+                           use_decode_kernel=kernel, params=tp,
+                           verbose=False, device="cpu")
         assert np.array_equal(solo.tokens[0], rc.tokens[r]), r
 
 
 def test_ssd_kernel_flag_reaches_the_model(monkeypatch):
-    """``--ssd-kernel`` reaches ``ModelCallConfig.use_ssd_kernel`` in every
-    mode, and the K7 route runs one ``ops.ssd`` per layer and prefill."""
-    seen = []
+    """Every serve mode prefills through one call of the SSD route's
+    composition a layer where the route is forced (as on the card), and
+    through none on the CPU's own route; replay has no prefill."""
+    cfg = get_config(ARCH, reduced=True)
+    prefills = []
     real = serve.build
 
     def spy(cfg, call):
-        seen.append(call.use_ssd_kernel)
-        return real(cfg, call)
+        model = real(cfg, call)
+        fn = model.prefill_cache
+
+        def prefill_cache(*a, **kw):
+            prefills.append(1)
+            return fn(*a, **kw)
+        model.prefill_cache = prefill_cache
+        return model
 
     monkeypatch.setattr(serve, "build", spy)
     for mode in ("reuse", "replay", "continuous", "static"):
-        for flag in ([], ["--ssd-kernel"]):
+        for force in (False, True):
+            prefills.clear()
+            calls = k7_route(monkeypatch, force=force)
             serve.main(["--arch", ARCH, "--device", "cpu", "--mode", mode,
                         "--requests", "2", "--batch", "2", "--prompt-len",
-                        "4", "--gen-len", "4", *flag])
-    assert seen == [False, True] * 4
+                        "4", "--gen-len", "4"])
+            assert bool(prefills) == (mode != "replay"), mode
+            assert len(calls) == cfg.n_layers * len(prefills) * force, mode
 
 
-def test_serve_cli_runs_continuous_with_kernels_on_cpu():
+def test_serve_cli_runs_continuous_with_kernels_on_cpu(monkeypatch):
+    k7_route(monkeypatch)
     res = serve.main(["--arch", ARCH, "--device", "cpu", "--mode",
-                      "continuous", "--ssd-kernel", "--decode-kernel",
-                      "--requests", "4", "--batch", "2", "--prompt-len", "8",
-                      "--gen-len", "4"])
+                      "continuous", "--decode-kernel", "--requests", "4",
+                      "--batch", "2", "--prompt-len", "8", "--gen-len", "4"])
     assert all(rq["finish"] is not None for rq in res.requests.values())
     assert res.metrics["total_tokens"] == sum(len(t)
                                               for t in res.tokens.values())
